@@ -84,8 +84,7 @@ def phase_build():
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
     t0 = time.perf_counter()
-    _build.build("ragged_paged_attention")
-    info = _build.build_info["ragged_paged_attention"]
+    info = _build.build("ragged_paged_attention")
     smem = rpa._library().ragged_paged_attention_smem_bytes(128)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": round(info["seconds"], 3),
@@ -162,9 +161,11 @@ def phase_kernel(dev):
     max_abs_err = float(err.max())
     # tolerance: the kernel accumulates in f32 like the plain version
     # (only the summation order differs, ~1e-6) and rounds its output to
-    # bf16, a relative step of 2^-8; the reference stays in f32
+    # bf16, at most half a relative step of 2^-8, which rtol covers; the
+    # reference stays in f32. atol stays well under |out| (~0.05 on the
+    # long-context rows), so a dropped chunk of keys there cannot pass
     torch.testing.assert_close(out[:n_live].float(), ref[:n_live],
-                               rtol=1e-2, atol=1e-2)
+                               rtol=1e-2, atol=1e-3)
 
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
     args = (q, kc, vc, b["block_tables"], b["cu_seqlens"],
@@ -190,7 +191,7 @@ def phase_kernel(dev):
     t_flops = flops / H100_BF16_FLOP_PER_S * 1e3
     res = {"phase": "kernel", "rows_live": n_live, "rows": t_total,
            "slots_live": len(live), "max_abs_err": max_abs_err,
-           "tolerance": "rtol=atol=1e-2 vs f32 plain (bf16 output)",
+           "tolerance": "rtol=1e-2, atol=1e-3 vs f32 plain (bf16 output)",
            "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
            "bound_ms": max(t_bytes, t_flops),
            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
@@ -199,37 +200,16 @@ def phase_kernel(dev):
 
 
 def phase_serve(dev):
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
-    from paddle_tpu_torch.serving import (EngineConfig, LLMEngine,
-                                          SamplingParams)
+    from paddle_tpu_torch.tools import llama3_8b_serve
 
     t0 = time.perf_counter()
-    cfg = LlamaConfig.llama3_8b(dtype="bfloat16")
-    model = LlamaForCausalLM(cfg, device=dev)
-    model.init_weights(torch.Generator(device=dev).manual_seed(0))
-    n_params = sum(p.numel() for p in model.parameters())
-    eng = LLMEngine(model, EngineConfig(block_size=16, max_num_seqs=8,
-                                        max_model_len=2048,
-                                        max_batched_tokens=2048))
+    eng = llama3_8b_serve.build_engine(dev)   # model, engine, warm-up
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    # warm-up request (cuBLAS heuristics, allocator), then a fresh window
-    eng.add_request("warmup", list(range(1, 65)),
-                    SamplingParams(max_new_tokens=2))
-    eng.run()
-    eng.release_request("warmup")
-    eng.reset_metrics()
-
-    rng = np.random.default_rng(0)
-    lens = rng.integers(128, 1025, size=8)
-    rids = []
-    for i, n in enumerate(lens):
-        sp = (SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50)
-              if i == 7 else SamplingParams(max_new_tokens=32))
-        rids.append(eng.add_request(
-            f"r{i}", list(map(int, rng.integers(0, cfg.vocab_size,
-                                                size=int(n)))), sp))
+    setup_s = time.perf_counter() - t0
+    cfg = eng.model.config
+    n_params = sum(p.numel() for p in eng.model.parameters())
+    rids, lens = llama3_8b_serve.add_requests(eng)
     torch.cuda.reset_peak_memory_stats()
     rpa.launches = 0                  # main path starts here
     t1 = time.perf_counter()
@@ -248,7 +228,7 @@ def phase_serve(dev):
     for rid in rids:
         r = eng.get_request(rid)
         assert r.finish_reason == "length", (rid, r.finish_reason)
-        assert len(r.generated) == 32
+        assert len(r.generated) == llama3_8b_serve.MAX_NEW_TOKENS
         assert all(0 <= t < cfg.vocab_size for t in r.generated)
         gen_tokens += len(r.generated)
     assert eng.block_manager.num_free_blocks == eng.cfg.num_blocks
@@ -263,10 +243,10 @@ def phase_serve(dev):
            "steps": model_steps, "prefill_chunks":
                int(eng.scheduler.num_prefill_chunks),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "setup_s": build_s, "kernel_launches": launches,
+           "setup_s": setup_s, "kernel_launches": launches,
            "sampled": eng.get_request("r7").generated[:8]}
     emit(res)
-    del eng, model
+    del eng
     torch.cuda.empty_cache()
     return res
 

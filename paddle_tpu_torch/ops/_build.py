@@ -6,8 +6,7 @@ loaded with ``ctypes``; nothing includes PyTorch's headers, so a build
 takes seconds. Libraries go into ``paddle_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name carrying a hash of the source and the
 flags, so an edited source is never served by a stale library. A build
-happens at first use, from the checkout's sources only; :func:`build`
-starts one ``nvcc`` per source, all at once, and waits for them all.
+happens at first use, from the checkout's sources only.
 """
 from __future__ import annotations
 
@@ -19,10 +18,9 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List
+from typing import Dict
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load",
-           "build_info"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -32,9 +30,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# name -> {"path", "built", "seconds", "ptxas"}: what the last build of
-# each library did (``built`` is False when a library on disk was reused)
-build_info: Dict[str, dict] = {}
 
 
 def _nvcc() -> str:
@@ -69,39 +64,27 @@ def _ptxas_summary(log: str) -> str:
     return "\n".join(keep)
 
 
-def build(*names: str) -> List[str]:
-    """Compile every named source that has no current library, one
-    ``nvcc`` per source, started together. Returns the library paths.
-    Raises with the compiler's output when any build fails."""
+def build(name: str) -> dict:
+    """Compile ``csrc/<name>.cu`` unless a current library is on disk.
+    Returns ``{"path", "built", "seconds", "ptxas"}`` (``built`` is False
+    when the library on disk was reused). Raises with the compiler's
+    output when the build fails."""
+    out = library_path(name)
+    if os.path.exists(out):
+        return {"path": out, "built": False, "seconds": 0.0, "ptxas": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = []
-    paths = []
-    for name in names:
-        out = library_path(name)
-        paths.append(out)
-        if os.path.exists(out):
-            build_info[name] = {"path": out, "built": False,
-                                "seconds": 0.0, "ptxas": ""}
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _source(name)]
-        procs.append((name, out, tmp, time.perf_counter(),
-                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT,
-                                       text=True)))
-    failed = []
-    for name, out, tmp, t0, proc in procs:
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
-        build_info[name] = {"path": out, "built": True, "seconds": seconds,
-                            "ptxas": _ptxas_summary(log)}
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return paths
+    tmp = f"{out}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _source(name)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} (exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return {"path": out, "built": True, "seconds": seconds,
+            "ptxas": _ptxas_summary(proc.stdout)}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -109,7 +92,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            path, = build(name)
-            lib = ctypes.CDLL(path)
+            lib = ctypes.CDLL(build(name)["path"])
             _libs[name] = lib
         return lib

@@ -220,8 +220,7 @@ class LLMEngine:
         self.scheduler = Scheduler(
             self.block_manager,
             SchedulerConfig(max_num_seqs=self.cfg.max_num_seqs,
-                            max_batched_tokens=self._token_budget,
-                            chunked_prefill=True))
+                            max_batched_tokens=self._token_budget))
         self.admission = AdmissionController(
             max_queue_depth=self.cfg.max_queue_depth,
             ttft_slo_ms=self.cfg.ttft_slo_ms)
@@ -278,14 +277,12 @@ class LLMEngine:
                 f"request {request_id!r}: prompt ({len(prompt_ids)}) + "
                 f"max_new_tokens ({sampling.max_new_tokens}) = {total} "
                 f"exceeds max_model_len {self.cfg.max_model_len}")
-        if cdiv(total, self.cfg.block_size) > \
-                self.block_manager.reachable_blocks:
+        if cdiv(total, self.cfg.block_size) > self.cfg.num_blocks:
             raise ValueError(
                 f"request {request_id!r} needs "
                 f"{cdiv(total, self.cfg.block_size)} KV blocks at full "
-                f"length but the cache holds "
-                f"{self.block_manager.reachable_blocks} — it could never "
-                f"be served even alone")
+                f"length but the cache holds {self.cfg.num_blocks} — it "
+                f"could never be served even alone")
         req = Request(request_id=request_id, prompt_ids=prompt_ids,
                       sampling=sampling, callback=callback)
         if rng_state is not None and rng_state.get("device_key") is not None:

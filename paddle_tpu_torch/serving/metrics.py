@@ -9,7 +9,7 @@ Exposed two ways:
 
 Copied from the JAX package's ``serving/metrics.py``; the gauges of
 paths not yet ported (swap, drain, speculative decoding, fleet, tiers)
-are left out.
+are left out, and so are those paths' finish reasons.
 
 TTFT (time-to-first-token) and TPOT (time-per-output-token, a.k.a.
 inter-token latency) follow the standard serving definitions: TTFT is

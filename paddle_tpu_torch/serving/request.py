@@ -33,9 +33,8 @@ class SamplingParams:
     preemption: LOWER values are MORE important (scheduled first,
     evicted last); default 0, ties broken FCFS by arrival.
 
-    ``tenant_id`` names the traffic source for fleet-level fairness
-    (the multi-replica router, not yet ported). A single engine ignores
-    it."""
+    ``seed`` fixes the request's sampling stream; without it the stream
+    derives from the request id."""
 
     max_new_tokens: int = 32
     temperature: float = 0.0
@@ -45,7 +44,6 @@ class SamplingParams:
     seed: Optional[int] = None
     deadline_ms: Optional[float] = None
     priority: int = 0
-    tenant_id: str = "default"
 
     def __post_init__(self):
         if self.max_new_tokens < 1:
@@ -61,7 +59,6 @@ class SamplingParams:
 class RequestStatus(Enum):
     WAITING = "waiting"      # queued (new, or preempted for recompute)
     RUNNING = "running"      # KV cached; decoding one token per step
-    SWAPPED = "swapped"      # preempted with KV spilled to the host pool
     FINISHED = "finished"    # done — see Request.finish_reason for how
 
 
@@ -71,14 +68,12 @@ class RequestStatus(Enum):
 #   "expired"           deadline_ms TTL passed before completion
 #   "rejected"          admission controller refused it (never scheduled)
 #   "aborted:user"      abort_request() cancellation
-#   "aborted:drain"     engine drained (SIGTERM/preemption) before it ran
 #   "aborted:nonfinite" its logits went NaN/Inf (batch peers continue)
 #   "aborted:error"     engine step failed past the retry budget
-#   "fenced"            lease lost to another router; the local copy is
-#                       dropped without emitting (the adopter finishes it)
+# (the JAX package's drain and fleet-lease reasons come with the slices
+# that port those paths)
 FINISH_REASONS = ("stop", "length", "expired", "rejected", "aborted:user",
-                  "aborted:drain", "aborted:nonfinite", "aborted:error",
-                  "fenced")
+                  "aborted:nonfinite", "aborted:error")
 
 
 @dataclass
@@ -100,15 +95,10 @@ class Request:
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     num_preemptions: int = 0
-    num_swaps: int = 0
     finish_reason: Optional[str] = None
     # True once the scheduler ever split this request's prefill into
     # budget-sized chunks (sticky; drives the prefill_chunks metric)
     was_chunked: bool = False
-    # Speculative-decode proposals pending verification this step. NOT
-    # part of ``tokens`` — they become real tokens only if the target
-    # accepts them; any interruption (preempt/swap/abort) drops them.
-    draft_tokens: List[int] = field(default_factory=list)
 
     def __post_init__(self):
         if not self.prompt_ids:
@@ -125,13 +115,11 @@ class Request:
                 b"paddle_tpu.serving:" +
                 self.request_id.encode()).digest()
             seed = int.from_bytes(digest[:8], "little")
-        self._rng = np.random.default_rng(seed)
-        # The DEVICE half of the request's RNG: a uint32[2] key for the
-        # counter-based generator in ``ops/sampling.py``, advanced by a
-        # fixed amount per emitting step and written back after each
-        # fetch. Derived from the same seed as ``_rng`` (and with the
-        # same salt as the JAX package), so it shares the cross-process
-        # determinism.
+        # The request's RNG: a uint32[2] key for the counter-based
+        # generator in ``ops/sampling.py``, advanced by a fixed amount
+        # per emitting step and written back after each fetch. Derived
+        # with the same salt as the JAX package, so it is deterministic
+        # across processes.
         self.device_key = np.array(
             [(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
 
@@ -189,25 +177,10 @@ class Request:
         self.status = RequestStatus.WAITING
         self.num_cached = 0
         self.num_preemptions += 1
-        self.draft_tokens = []
-
-    def swap_out(self):
-        """Preemption by host spill: device blocks freed, their contents
-        parked in the BlockManager's host pool. ``num_cached`` is KEPT —
-        for a SWAPPED request it counts tokens whose K/V live in host
-        slots; swap-in restores them and the request resumes decoding
-        with no recompute."""
-        self.status = RequestStatus.SWAPPED
-        self.num_preemptions += 1
-        self.num_swaps += 1  # tpulint: disable=counter-snapshot-drift (per-request diagnostic, asserted directly by the resilience tests; the fleet-visible aggregate is the scheduler's swapped_out gauge)
-        self.draft_tokens = []
-
-    def swap_in(self):
-        self.status = RequestStatus.RUNNING
 
     def abort(self, reason: str):
-        """Terminal, without a sampled token: drain, expiry, rejection,
-        user cancel, poisoned logits, step failure."""
+        """Terminal, without a sampled token: expiry, rejection, user
+        cancel, poisoned logits, step failure."""
         self.status = RequestStatus.FINISHED
         self.finish_reason = reason
         if self.finish_time is None:
@@ -234,7 +207,7 @@ class Request:
 class RequestOutput:
     """One step's emission for a request (streamed via ``callback`` and
     returned from ``LLMEngine.step``). ``token`` is None on tokenless
-    terminal emissions — expiry, rejection, drain/nonfinite/error aborts
+    terminal emissions — expiry, rejection, user/nonfinite/error aborts
     — whose ``finish_reason`` says why; ``generated`` still carries
     whatever the request produced before the abort."""
 

@@ -1,33 +1,31 @@
-"""Iteration-level (continuous-batching) scheduler, copied from the JAX
-package's ``serving/scheduler.py``.
+"""Iteration-level (continuous-batching) scheduler, adapted from the JAX
+package's ``serving/scheduler.py``: its mixed, chunked-prefill policy
+(``_schedule_mixed``), which is the one the ragged engine step runs.
 
 Orca's insight, as shipped by vLLM: scheduling decisions happen every
-model iteration, not per request. Each call to :meth:`schedule` emits
-either a PREFILL batch (admitting waiting requests under a token budget
-and the free-block supply) or a DECODE batch (one token for every
-running request), so late-arriving requests join the running batch at
-the next iteration boundary instead of waiting for a full drain.
+model iteration, not per request. Each call to :meth:`schedule` packs
+one MIXED batch under a raw token budget — decode rows first, then
+in-flight prefill chunks, then new admissions whose prompts are chunked
+to the budget — so late-arriving requests join the running batch at the
+next iteration boundary instead of waiting for a full drain.
 
-Preemption: when a decode step needs a block and none are free, the
+Preemption: when a row needs a block and none are free, the
 lowest-priority running request (largest ``(priority, arrival)`` key)
 is evicted — never a higher-priority one — until the victim set frees
-enough. Priority-then-FCFS admission plus eviction-from-the-back gives
-the most important request a monotonically growing claim on the cache,
-so every admitted request eventually finishes (the starvation guard
-pinned by tests/test_serving.py).
-
-Eviction has two modes (``swap_mode``): ``recompute`` resets the victim
-to WAITING and recomputes its whole prefix on re-admission (vLLM's
-default); ``host`` spills the victim's KV blocks to the
-:class:`BlockManager` host pool through the engine's KV swapper and
-restores them on re-admission — no recompute, token-identical by
-construction (parity pinned by tests/test_serving_resilience.py).
+enough. The victim is reset to WAITING and recomputes its whole prefix
+on re-admission (vLLM's default). Priority-then-FCFS admission plus
+eviction-from-the-back gives the most important request a monotonically
+growing claim on the cache, so every admitted request eventually
+finishes.
 
 Deadlines: every :meth:`schedule` call first expires requests whose
-``deadline_ms`` TTL has passed — wherever they are (waiting, running,
-swapped) — freeing their blocks and reporting them in
-``ScheduledBatch.expired`` so the engine can emit structured
-``finish_reason='expired'`` outputs."""
+``deadline_ms`` TTL has passed — waiting or running — freeing their
+blocks and reporting them in ``ScheduledBatch.expired`` so the engine
+can emit structured ``finish_reason='expired'`` outputs.
+
+The JAX package's classic prefill-xor-decode policy, host swap, tier
+relief, speculative verify rows and KV-ship continuations are left out:
+the engine refuses the configurations that would need them."""
 from __future__ import annotations
 
 import time
@@ -35,7 +33,8 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, List, Optional
 
-from paddle_tpu_torch.serving.block_manager import BlockManager, NoFreeBlocksError
+from paddle_tpu_torch.serving.block_manager import (BlockManager,
+                                                    NoFreeBlocksError)
 from paddle_tpu_torch.serving.request import Request, RequestStatus
 
 __all__ = ["SchedulerConfig", "ScheduledBatch", "Scheduler"]
@@ -45,53 +44,38 @@ __all__ = ["SchedulerConfig", "ScheduledBatch", "Scheduler"]
 class SchedulerConfig:
     """Admission/batching knobs.
 
-    ``max_num_seqs``   — max concurrently RUNNING requests (decode batch
-                         width; also caps a prefill batch).
-    ``max_batched_tokens`` — per-iteration PADDED-token budget for
-                         prefill batches: rows × longest row admitted,
-                         since the engine pads every row to the batch's
-                         longest request. (Bucket rounding can still
-                         exceed this by up to 2× — pow2 seq buckets.)
+    ``max_num_seqs``   — max concurrently RUNNING requests (rows of a
+                         batch).
+    ``max_batched_tokens`` — per-iteration RAW token budget (the ragged
+                         step pads nothing, so the raw token count is
+                         the work).
     """
 
     max_num_seqs: int = 8
     max_batched_tokens: int = 2048
-    # chunked prefill (the ragged engine path): schedule MIXED batches —
-    # decode rows first, then long prompts as budget-sized chunks — under
-    # a RAW token budget (the ragged step pads nothing, so raw token
-    # count is the compiled work). Off: the classic padded-budget
-    # prefill-xor-decode policy above.
-    chunked_prefill: bool = False
 
     def __post_init__(self):
         if self.max_num_seqs < 1:
             raise ValueError("max_num_seqs must be >= 1")
-        if self.max_batched_tokens < 1:
-            raise ValueError("max_batched_tokens must be >= 1")
-        if self.chunked_prefill and \
-                self.max_batched_tokens < self.max_num_seqs:
+        if self.max_batched_tokens < self.max_num_seqs:
             raise ValueError(
-                "chunked_prefill needs max_batched_tokens >= max_num_seqs "
-                "(every running row must afford its decode token)")
+                "max_batched_tokens must be >= max_num_seqs (every "
+                "running row must afford its decode token)")
 
 
 @dataclass
 class ScheduledBatch:
-    """One iteration's work: requests + phase. ``preempted`` lists
+    """One iteration's work: rows, the tokens scheduled for each
+    (parallel to ``requests``), and the batch kind. ``preempted`` lists
     requests evicted while forming this batch (reset to WAITING for
-    recompute, or SWAPPED to the host pool); ``swapped_in`` lists
-    requests restored from the host pool into ``running`` this
-    iteration; ``expired`` lists requests whose deadline passed (already
-    terminal, blocks freed — the engine emits their outputs)."""
+    recompute); ``expired`` lists requests whose deadline passed
+    (already terminal, blocks freed — the engine emits their
+    outputs)."""
 
     kind: str                       # "prefill" | "decode" | "mixed" | "idle"
     requests: List[Request] = field(default_factory=list)
     preempted: List[Request] = field(default_factory=list)
-    swapped_in: List[Request] = field(default_factory=list)
     expired: List[Request] = field(default_factory=list)
-    # chunked-prefill mode: tokens scheduled per row (parallel to
-    # ``requests``); empty for the classic path (each row runs its whole
-    # ``tokens_to_run()``)
     num_scheduled: List[int] = field(default_factory=list)
 
     @property
@@ -101,68 +85,23 @@ class ScheduledBatch:
 
 class Scheduler:
     def __init__(self, block_manager: BlockManager,
-                 config: Optional[SchedulerConfig] = None,
-                 swap_mode: str = "recompute", kv_swapper=None):
-        """``swap_mode='host'`` needs a ``kv_swapper`` — the engine-side
-        mover with ``copy_out(request, dev_table, host_table)`` /
-        ``copy_in(request, host_table, dev_table)`` — plus a
-        BlockManager built with ``num_host_blocks > 0``. When the host
-        pool is full (or absent) eviction falls back to recompute, so
-        ``host`` mode degrades gracefully rather than deadlocking."""
-        if swap_mode not in ("recompute", "host"):
-            raise ValueError(f"unknown swap_mode {swap_mode!r} "
-                             f"(want 'recompute' or 'host')")
-        if swap_mode == "host" and kv_swapper is None:
-            raise ValueError("swap_mode='host' needs a kv_swapper")
+                 config: Optional[SchedulerConfig] = None):
         self.block_manager = block_manager
         self.config = config or SchedulerConfig()
-        self.swap_mode = swap_mode
-        self.kv_swapper = kv_swapper
         self.waiting: Deque[Request] = deque()
         self.running: List[Request] = []
-        self.swapped: List[Request] = []
         self.num_preemptions = 0
-        self.num_swap_outs = 0
-        self.num_swap_ins = 0
-        # pieces scheduled for prompts the budget ever split (chunked
-        # prefill; every piece of a split prompt counts, including the
-        # final one)
+        # pieces scheduled for prompts the budget ever split (every
+        # piece of a split prompt counts, including the final one)
         self.num_prefill_chunks = 0
-        # KV-ship continuations admitted with a pre-filled table (the
-        # imported blocks may hold bytes that landed through a
-        # cross-TP-degree reshard — scheduling is layout-agnostic, so
-        # this counter is the only place the scheduler sees them)
-        self.num_continuation_resumes = 0
-        # tiered-KV relief hook (engine-installed): called with the
-        # OOM'ing request before any preemption; True means >= 1 device
-        # block was freed by demoting cold content to the host tier, so
-        # the claim retries instead of evicting a batch peer. Each True
-        # strictly grows the free list, so every retry loop below stays
-        # bounded.
-        self.tier_relief = None
 
     # -- queue ops -------------------------------------------------------
     def add(self, request: Request):
         request.status = RequestStatus.WAITING
         self.waiting.append(request)
 
-    def add_continuation(self, request: Request):
-        """Admit a request that ALREADY holds a device table covering
-        ``request.num_cached`` tokens (fleet KV-ship import: the engine
-        claimed the blocks and scattered peer-computed bytes into
-        them). It queues WAITING like any arrival — seats are enforced
-        at admission, and ``abort``/``expire_deadlines`` free blocks on
-        every queue so the held table can't leak — but the mixed
-        scheduler's admission pass recognizes the existing table and
-        skips the fresh ``allocate``, continuing the row mid-context
-        like a chunked-prefill resume. If it is later evicted,
-        ``_evict`` resets ``num_cached`` and frees the imported blocks,
-        so recompute-from-scratch remains the universal fallback."""
-        request.status = RequestStatus.WAITING
-        self.waiting.append(request)
-
     def has_unfinished(self) -> bool:
-        return bool(self.waiting or self.running or self.swapped)
+        return bool(self.waiting or self.running)
 
     @property
     def num_waiting(self) -> int:
@@ -179,10 +118,6 @@ class Scheduler:
     def num_running(self) -> int:
         return len(self.running)
 
-    @property
-    def num_swapped(self) -> int:
-        return len(self.swapped)
-
     def finish(self, request: Request):
         """Completion: reclaim blocks, drop from the running set."""
         self.block_manager.free(request.request_id)
@@ -190,9 +125,9 @@ class Scheduler:
             self.running.remove(request)
 
     def abort(self, request_id: str, reason: str = "aborted:user") -> bool:
-        """Cancel a request wherever it is — waiting, running, or
-        swapped (device blocks AND host slots freed); True when found."""
-        for q in (self.running, self.waiting, self.swapped):
+        """Cancel a request wherever it is — waiting or running (its
+        blocks freed); True when found."""
+        for q in (self.running, self.waiting):
             for r in list(q):
                 if r.request_id == request_id:
                     self.block_manager.free(r.request_id)
@@ -204,11 +139,11 @@ class Scheduler:
     def expire_deadlines(self, now: Optional[float] = None
                          ) -> List[Request]:
         """TTL sweep: terminate every request whose deadline passed,
-        on every lifecycle queue, freeing its blocks/slots. Returns the
+        on every lifecycle queue, freeing its blocks. Returns the
         expired requests (engine emits their structured outputs)."""
         now = time.monotonic() if now is None else now
         out: List[Request] = []
-        for q in (self.running, self.waiting, self.swapped):
+        for q in (self.running, self.waiting):
             for r in list(q):
                 if r.expired(now):
                     self.block_manager.free(r.request_id)
@@ -219,47 +154,22 @@ class Scheduler:
 
     # -- preemption ------------------------------------------------------
     def _evict(self, victim: Request):
-        """Evict ``victim`` from the running set: spill its KV to the
-        host pool when swap is enabled and slots are available (the
-        cached prefix survives, restore is a pure copy), else reset to
-        WAITING for recompute. Either way every device block returns to
-        the free list before this returns."""
+        """Evict ``victim`` from the running set: every block returns to
+        the free list and the victim goes to the FRONT of the waiting
+        queue for recompute, so it is not starved behind newer
+        arrivals."""
         self.running.remove(victim)
         self.num_preemptions += 1
-        if (self.swap_mode == "host" and victim.num_cached > 0
-                and self.block_manager.can_swap_out(victim.request_id,
-                                                    victim.num_cached)):
-            dev, host = self.block_manager.swap_out(victim.request_id,
-                                                    victim.num_cached)
-            # copy NOW: the freed device blocks' bytes are intact until
-            # the next compiled step writes them, and nothing dispatches
-            # before schedule() returns
-            try:
-                self.kv_swapper.copy_out(victim, dev, host)
-                victim.swap_out()
-            except Exception:
-                # a torn spill copy must not strand the host slots:
-                # drop them and demote to the recompute path (nothing
-                # was emitted, so the prompt replays exactly)
-                self.block_manager.free_host(victim.request_id)
-                victim.preempt()
-                self.waiting.appendleft(victim)
-                return
-            self.swapped.append(victim)
-            self.num_swap_outs += 1
-        else:
-            self.block_manager.free(victim.request_id)
-            victim.preempt()
-            self.waiting.appendleft(victim)
+        self.block_manager.free(victim.request_id)
+        victim.preempt()
+        self.waiting.appendleft(victim)
 
     def _preempt_one(self, for_request: Request) -> Optional[Request]:
         """Evict the lowest-priority running request — largest
         ``(priority, arrival)`` key — to free blocks for
         ``for_request``, but never a HIGHER-priority one: when
         ``for_request`` is itself the lowest priority, returns None and
-        the caller self-preempts. A recompute victim goes to the FRONT
-        of the waiting queue so it is not starved behind newer
-        arrivals; a swapped victim waits in the swap queue."""
+        the caller self-preempts."""
         candidates = [r for r in self.running
                       if r is not for_request
                       and r.sort_key >= for_request.sort_key]
@@ -269,161 +179,16 @@ class Scheduler:
         self._evict(victim)
         return victim
 
-    def _swap_in_ready(self) -> List[Request]:
-        """Restore swapped requests (most important first) while device
-        blocks allow; they rejoin ``running`` and decode this very
-        iteration if no prefill batch forms."""
-        restored: List[Request] = []
-        for r in sorted(self.swapped, key=lambda r: r.sort_key):
-            if len(self.running) + len(restored) >= self.config.max_num_seqs:
-                break
-            if not self.block_manager.can_swap_in(r.request_id):
-                break  # device blocks free up as others finish
-            host, dev = self.block_manager.swap_in(r.request_id)
-            self.kv_swapper.copy_in(r, host, dev)
-            self.swapped.remove(r)
-            r.swap_in()
-            restored.append(r)
-            self.num_swap_ins += 1
-        self.running.extend(restored)
-        return restored
-
     # -- the per-iteration decision --------------------------------------
     def schedule(self) -> ScheduledBatch:
-        # Phase 0 — TTL sweep, then restore swapped requests while
-        # blocks allow (they already consumed compute; finishing them
-        # frees host AND device memory fastest, and their sort keys
-        # predate anything still waiting).
-        expired = self.expire_deadlines()
-        swapped_in = self._swap_in_ready()
-
-        if self.config.chunked_prefill:
-            return self._schedule_mixed(expired, swapped_in)
-
-        # Phase 1 — admit waiting requests (priority, then FCFS) when
-        # capacity allows. A request is admitted only when its FULL
-        # uncached prefix fits the token budget and the free-block
-        # supply; admission claims the blocks immediately so the batch
-        # can't oversubscribe. Head-of-line: the first blocked
-        # candidate ends admission, so a starved high-priority request
-        # is never overtaken.
-        prefills: List[Request] = []
-        batch_max = 0  # longest row admitted -> the padded row width
-        # one sort per iteration (timsort is O(n) on the common case —
-        # all-default priorities arrive already FCFS-ordered), and ONE
-        # deque rebuild below instead of an O(n) remove per admit
-        for req in sorted(self.waiting, key=lambda r: r.sort_key):
-            need = len(req.tokens_to_run())
-            if len(self.running) + len(prefills) >= self.config.max_num_seqs:
-                break
-            # budget the PADDED batch (rows x longest row): the engine
-            # pads every row to the longest, so raw token counts would
-            # under-bound the compiled work by the padding factor
-            padded = (len(prefills) + 1) * max(batch_max, need)
-            if prefills and padded > self.config.max_batched_tokens:
-                break  # batch full; this request leads the next one
-            # (a lone over-budget prompt is still admitted, alone —
-            # rejecting it forever would starve it)
-            if not self.block_manager.can_allocate(need):
-                break  # blocks free up as running requests finish
-            self.block_manager.allocate(req.request_id, need)
-            req.status = RequestStatus.RUNNING
-            prefills.append(req)
-            batch_max = max(batch_max, need)
-        if prefills:
-            admitted = set(id(r) for r in prefills)
-            self.waiting = deque(r for r in self.waiting
-                                 if id(r) not in admitted)
-            self.running.extend(prefills)
-            return ScheduledBatch(kind="prefill", requests=prefills,
-                                  swapped_in=swapped_in, expired=expired)
-
-        # Phase 2 — decode: one token for every running request. Each
-        # needs a slot for its new K/V; an OOM on slot growth evicts
-        # the least-important running request (possibly the request
-        # itself, when it IS the least important) — to the host swap
-        # pool when enabled, else back to WAITING for recompute.
-        preempted: List[Request] = []
-        decodes: List[Request] = []
-        for req in sorted(self.running, key=lambda r: r.sort_key):
-            if req not in self.running:
-                continue  # evicted while a less important one ran
-            # this step computes K/V for tokens[-1] at position
-            # len(tokens)-1, so coverage of len(tokens) slots is exact —
-            # +1 would claim each next block one step early (and a
-            # never-written block on the final decode step)
-            got_slot = False
-            while True:
-                try:
-                    self.block_manager.append_slot(req.request_id,
-                                                   len(req.tokens))
-                    got_slot = True
-                    break
-                except NoFreeBlocksError:
-                    if self.tier_relief is not None \
-                            and self.tier_relief(req):
-                        continue  # demoted cold content freed room
-                    victim = self._preempt_one(req)
-                    if victim is None:
-                        break  # nothing left to evict but req itself
-                    preempted.append(victim)
-                    if victim in decodes:
-                        # a more important request lost its slot too
-                        decodes.remove(victim)
-            if got_slot:
-                decodes.append(req)
-            else:
-                # req could not be saved even after evicting every other
-                # candidate: evict req itself
-                self._evict(req)
-                preempted.append(req)
-        if decodes:
-            return ScheduledBatch(kind="decode", requests=decodes,
-                                  preempted=preempted,
-                                  swapped_in=swapped_in, expired=expired)
-        return ScheduledBatch(kind="idle", preempted=preempted,
-                              swapped_in=swapped_in, expired=expired)
-
-    def _claim_with_relief(self, req: Request, claim):
-        """Run a block claim, retrying after each successful tier-relief
-        demotion (tiered engines only; the claim raises BEFORE taking
-        anything, so a retry never double-claims). Re-raises the final
-        NoFreeBlocksError when relief is absent or dry."""
-        while True:
-            try:
-                return claim()
-            except NoFreeBlocksError:
-                if self.tier_relief is None or not self.tier_relief(req):
-                    raise
-
-    def _admit_with_relief(self, req: Request, n: int,
-                           claim) -> Optional[int]:
-        """Admission-time claim for an n-token chunk: ``claim(n)`` must
-        raise NoFreeBlocksError without taking anything. Tiered engines
-        additionally SHRINK the chunk when even relief cannot make the
-        whole thing fit the device pool — a request whose full context
-        exceeds device HBM admits with whatever fits and grows through
-        the mid-prefill pass, demoting its own cold prefix as it goes.
-        Returns the chunk size that fit, or None."""
-        while True:
-            try:
-                self._claim_with_relief(req, lambda: claim(n))
-                return n
-            except NoFreeBlocksError:
-                if self.tier_relief is None or n <= 1:
-                    return None
-                n = max(1, n // 2)
-
-    # -- chunked-prefill mixed scheduling ---------------------------------
-    def _schedule_mixed(self, expired: List[Request],
-                        swapped_in: List[Request]) -> ScheduledBatch:
         """One MIXED batch under a raw token budget: (A) decode rows
         first — one token each, bounding TPOT; (B) mid-prefill rows
         continue with whatever budget remains, chunked; (C) new
         admissions fill the rest, their prompts chunked too (and served
         from the prefix cache where full prompt blocks match). Each pass
-        runs the same evict-lowest-priority OOM loop as classic decode,
-        so the starvation guard carries over unchanged."""
+        runs the same evict-lowest-priority OOM loop, so the starvation
+        guard holds throughout."""
+        expired = self.expire_deadlines()
         bm = self.block_manager
         budget = self.config.max_batched_tokens
         rows: List[Request] = []
@@ -442,17 +207,14 @@ class Scheduler:
 
         def claim_slots(req: Request, new_len: int,
                         write_from: int) -> bool:
-            """append_slot with the classic preempt-or-self-evict loop;
-            False means req itself was evicted."""
+            """append_slot with the preempt-or-self-evict loop; False
+            means req itself was evicted."""
             while True:
                 try:
                     bm.append_slot(req.request_id, new_len,
                                    write_from=write_from)
                     return True
                 except NoFreeBlocksError:
-                    if self.tier_relief is not None \
-                            and self.tier_relief(req):
-                        continue  # demoted cold content freed room
                     victim = self._preempt_one(req)
                     if victim is None:
                         self._evict(req)
@@ -461,11 +223,7 @@ class Scheduler:
                     preempted.append(victim)
                     drop_row(victim)
 
-        # pass A — decode rows (fully caught-up requests; cost 1 each,
-        # or 1+d for a speculative verify row carrying d draft tokens —
-        # all-or-nothing: a verify that doesn't fit the budget sheds its
-        # drafts and decodes plainly rather than verifying a partial
-        # draft)
+        # pass A — decode rows (fully caught-up requests, cost 1 each)
         running = sorted(self.running, key=lambda r: r.sort_key)
         decode_rows = [r for r in running
                        if len(r.tokens) - r.num_cached == 1
@@ -476,15 +234,10 @@ class Scheduler:
                 continue  # evicted saving a more important row
             if used >= budget:
                 break
-            d = len(req.draft_tokens)
-            if d and used + 1 + d > budget:
-                req.draft_tokens = []
-                d = 0
-            if claim_slots(req, len(req.tokens) + d,
-                           len(req.tokens) - 1):
+            if claim_slots(req, len(req.tokens), len(req.tokens) - 1):
                 rows.append(req)
-                nsched.append(1 + d)
-                used += 1 + d
+                nsched.append(1)
+                used += 1
                 any_decode = True
 
         # pass B — continue mid-prefill rows (chunk = remaining budget);
@@ -496,8 +249,7 @@ class Scheduler:
             left = budget - used
             if left <= 0:
                 break
-            total = len(req.tokens)
-            remaining = total - req.num_cached
+            remaining = len(req.tokens) - req.num_cached
             n = min(remaining, left)
             if claim_slots(req, req.num_cached + n, req.num_cached):
                 rows.append(req)
@@ -521,37 +273,11 @@ class Scheduler:
             if left <= 0:
                 break
             total = len(req.tokens)
-            if bm.has_table(req.request_id):
-                # fleet KV-ship continuation: its blocks were claimed
-                # and filled at import, so admission is purely a seat +
-                # budget decision; growth past the imported coverage
-                # goes through the ordinary slot claim
-                n = self._admit_with_relief(
-                    req, min(total - req.num_cached, left),
-                    lambda k: bm.append_slot(
-                        req.request_id, req.num_cached + k,
-                        write_from=req.num_cached))
-                if n is None:
-                    break  # blocks free up as running requests finish
-                req.status = RequestStatus.RUNNING
-                self.num_continuation_resumes += 1
-                admitted.append(req)
-                rows.append(req)
-                nsched.append(n)
-                used += n
-                any_prefill = True
-                if n < total - req.num_cached:
-                    req.was_chunked = True
-                if req.was_chunked:
-                    self.num_prefill_chunks += 1
-                continue
-            hit = bm.match_prefix(req.tokens)
-            eff = min(hit, total - 1)
-            n = self._admit_with_relief(
-                req, min(total - eff, left),
-                lambda k: bm.allocate(req.request_id, eff + k,
-                                      tokens=req.tokens))
-            if n is None:
+            eff = min(bm.match_prefix(req.tokens), total - 1)
+            n = min(total - eff, left)
+            try:
+                bm.allocate(req.request_id, eff + n, tokens=req.tokens)
+            except NoFreeBlocksError:
                 break  # blocks free up as running requests finish
             req.num_cached = bm.last_hit_tokens
             req.status = RequestStatus.RUNNING
@@ -572,9 +298,9 @@ class Scheduler:
 
         if not rows:
             return ScheduledBatch(kind="idle", preempted=preempted,
-                                  swapped_in=swapped_in, expired=expired)
+                                  expired=expired)
         kind = ("mixed" if (any_prefill and any_decode)
                 else "prefill" if any_prefill else "decode")
         return ScheduledBatch(kind=kind, requests=rows,
-                              preempted=preempted, swapped_in=swapped_in,
-                              expired=expired, num_scheduled=nsched)
+                              preempted=preempted, expired=expired,
+                              num_scheduled=nsched)

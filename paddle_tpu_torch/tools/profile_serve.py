@@ -1,14 +1,12 @@
 """Where a serving step's time goes on the card.
 
-    python -m paddle_tpu_torch.tools.profile_serve [--layers 32]
-        [--decode-steps 4] [--out DIR]
+    python -m paddle_tpu_torch.tools.profile_serve [--out DIR]
 
-Serves Llama-3-8B (full width, bf16, random weights from a seeded
-generator; ``--layers`` cuts depth) through the port's ``LLMEngine`` with
-the workload of ``chip_smoke.py`` phase 4 (8 requests, prompts of
-128-1024 tokens from seed 0, 32 new tokens), and profiles two windows
-with ``torch.profiler``: the first step (a 2048-token prefill) and
-``--decode-steps`` steps once every request decodes. For each window it
+Serves the configuration of ``chip_smoke.py`` phase 4
+(:mod:`paddle_tpu_torch.tools.llama3_8b_serve`: Llama-3-8B at full width
+and depth, 8 requests, 32 new tokens each) and profiles two windows with
+``torch.profiler``: the first step (a 2048-token prefill) and 4 steps
+once every request decodes. For each window it
 prints one JSON line: host wall time per step, device kernels launched
 per step, device busy time (the sum of kernel times; overlapping kernels
 would be counted twice, and this path runs one stream), the busy share
@@ -20,13 +18,13 @@ unprofiled step times. With ``--out DIR`` the full profiler tables go to
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import time
 
-import numpy as np
 import torch
+
+DECODE_STEPS = 4
 
 
 def _is_kernel(evt) -> bool:
@@ -83,46 +81,23 @@ def _window(eng, n_steps, label, out_dir):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=32)
-    ap.add_argument("--decode-steps", type=int, default=4)
     ap.add_argument("--out", default=None,
                     help="directory for the full profiler tables")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: no CUDA device")
 
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.serving import (EngineConfig, LLMEngine,
-                                          SamplingParams)
+    from paddle_tpu_torch.tools import llama3_8b_serve
 
-    dev = torch.device("cuda", 0)
-    cfg = dataclasses.replace(LlamaConfig.llama3_8b(dtype="bfloat16"),
-                              num_hidden_layers=args.layers)
-    model = LlamaForCausalLM(cfg, device=dev)
-    model.init_weights(torch.Generator(device=dev).manual_seed(0))
-    eng = LLMEngine(model, EngineConfig(block_size=16, max_num_seqs=8,
-                                        max_model_len=2048,
-                                        max_batched_tokens=2048))
-    eng.add_request("warmup", list(range(1, 65)),
-                    SamplingParams(max_new_tokens=2))
-    eng.run()
-    eng.release_request("warmup")
-
-    rng = np.random.default_rng(0)
-    lens = rng.integers(128, 1025, size=8)
-    for i, n in enumerate(lens):
-        sp = (SamplingParams(max_new_tokens=32, temperature=0.8, top_k=50)
-              if i == 7 else SamplingParams(max_new_tokens=32))
-        eng.add_request(f"r{i}", list(map(int, rng.integers(
-            0, cfg.vocab_size, size=int(n)))), sp)
+    eng = llama3_8b_serve.build_engine(torch.device("cuda", 0))
+    _, lens = llama3_8b_serve.add_requests(eng)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "layers": args.layers,
                       "prompt_lens": [int(x) for x in lens]}), flush=True)
     _window(eng, 1, "prefill", args.out)
     while any(r.num_generated == 0 for r in eng.scheduler.running) \
             or eng.scheduler.waiting:
         eng.step()
-    _window(eng, args.decode_steps, "decode", args.out)
+    _window(eng, DECODE_STEPS, "decode", args.out)
     eng.run()
 
 

@@ -53,13 +53,14 @@ def _batch(dev, dtype, h, kh, d, bs, seed=0, nb=64, s_slots=6, mb=16):
 
 
 # f32: summation order only; bf16: the kernel's output is rounded to
-# bf16 (relative step 2^-8) while the reference stays in f32
+# bf16 (at most half a relative step of 2^-8, covered by rtol) while the
+# reference stays in f32
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-4, 1e-4),
+                                             (torch.bfloat16, 1e-2, 1e-3)])
 @pytest.mark.parametrize("h,kh,d,bs", [(4, 2, 16, 4), (32, 8, 128, 16),
                                        (8, 8, 64, 8), (32, 4, 64, 32)])
-def test_kernel_matches_plain(card, dtype, tol, h, kh, d, bs):
+def test_kernel_matches_plain(card, dtype, rtol, atol, h, kh, d, bs):
     b = _batch(card, dtype, h, kh, d, bs)
     kc_ref = b["key_cache"].clone()
     vc_ref = b["value_cache"].clone()
@@ -78,8 +79,8 @@ def test_kernel_matches_plain(card, dtype, tol, h, kh, d, bs):
     live = int(b["cu_seqlens"][5])
     assert torch.equal(kc, kc_ref) and torch.equal(vc, vc_ref)
     assert torch.all(out[live:] == 0)
-    torch.testing.assert_close(out[:live].float(), ref[:live], rtol=tol,
-                               atol=tol)
+    torch.testing.assert_close(out[:live].float(), ref[:live], rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.gpu

@@ -253,13 +253,15 @@ def test_scheduler_storm_identical(seed):
     must match."""
     rng = np.random.default_rng(seed)
     sides = []
-    for bm_cls, sched_cls, cfg_cls, req_cls in (
-            (JBlockManager, JScheduler, JSchedulerConfig, JRequest),
-            (BlockManager, Scheduler, SchedulerConfig, Request)):
+    for bm_cls, sched_cls, cfg, req_cls in (
+            (JBlockManager, JScheduler,
+             JSchedulerConfig(max_num_seqs=4, max_batched_tokens=12,
+                              chunked_prefill=True), JRequest),
+            (BlockManager, Scheduler,
+             SchedulerConfig(max_num_seqs=4, max_batched_tokens=12),
+             Request)):
         bm = bm_cls(20, 4, enable_prefix_cache=True)
-        sides.append((bm, sched_cls(bm, cfg_cls(
-            max_num_seqs=4, max_batched_tokens=12, chunked_prefill=True)),
-            req_cls, {}))
+        sides.append((bm, sched_cls(bm, cfg), req_cls, {}))
     arrival = 0.0
     for step in range(120):
         if rng.random() < 0.35:
