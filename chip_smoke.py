@@ -8,9 +8,11 @@ non-zero (nothing is caught and passed over):
 
 1. device    — the card's name, the device count, and nvidia-smi's name
                and power limit. No CUDA device: fail.
-2. build     — build the ragged paged attention kernel from
-               ``paddle_tpu_torch/csrc/`` with nvcc for sm_90a; seconds
-               taken and ptxas's registers / shared memory.
+2. build     — build both kernel sources of ``paddle_tpu_torch/csrc/``
+               (ragged paged attention; flash attention fwd, dQ, dK/dV)
+               with nvcc for sm_90a, one nvcc per source, all at once;
+               seconds taken and ptxas's registers / spills / shared
+               memory per kernel.
 3. kernel    — the kernel against its plain PyTorch version on the card
                at Llama-3-8B head shapes (H=32, KH=8, D=128, block 16,
                bf16) on one mixed batch: decode rows, a prefill chunk
@@ -25,10 +27,25 @@ non-zero (nothing is caught and passed over):
 5. parity    — LlamaConfig.tiny in f32 (TF32 off) served on the card
                (kernel) and on the CPU (plain version) from the same
                weights: the greedy tokens must be identical.
+6. flash     — the flash attention kernels (forward, dQ, dK/dV) against
+               their plain versions on the card: at the training shapes
+               (B 4, S 2048, H 16, D 128, bf16, causal), in f32 at a
+               smaller size, and with Sq != Sk and ragged tail tiles.
+               At the training shapes: times (CUDA events, L2 flushed
+               before each launch), bounds, the plain versions' times
+               and F.scaled_dot_product_attention's forward and backward.
+7. train     — bench.py's bench_gpt_1b configuration (0.95B Llama, 16
+               layers, hidden 2048, bf16, batch 4 x 2048, AdamW) through
+               the port's TrainStep: one warm-up and five timed steps on
+               the same batch; losses finite and falling; each flash
+               kernel launched 16 x the timed steps.
+8. train_parity — LlamaConfig.tiny in f32 (TF32 off): three AdamW + clip
+               TrainStep steps on the card (kernels) and on the CPU
+               (plain versions) from the same weights agree.
 
 Then one line with the kernel table (name, route, source, launches on
-the main path, error, times, bound), nvidia-smi's line, and last
-``{"ok": true, "device": {...}}``.
+the main path, error, times, bound, library time), nvidia-smi's line,
+and last ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -67,6 +84,16 @@ def cuda_ms(fn, iters, flush=None):
     return total / iters
 
 
+def _bound(nbytes, flops):
+    """The least time for the work: bytes over the memory rate or flops
+    over the bf16 peak, whichever is larger."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_flops = flops / H100_BF16_FLOP_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
 # ---------------------------------------------------------------------------
 def phase_device():
     smi = subprocess.run(
@@ -81,14 +108,19 @@ def phase_device():
 
 def phase_build():
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
     t0 = time.perf_counter()
-    info = _build.build("ragged_paged_attention")
-    smem = rpa._library().ragged_paged_attention_smem_bytes(128)
+    infos = _build.build_all(["ragged_paged_attention", "flash_attention"])
+    smem = {"ragged_paged_attention":
+            rpa._library().ragged_paged_attention_smem_bytes(128)}
+    smem.update({k: fa.smem_bytes(k, 128) for k in fa.launches})
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "nvcc_seconds": round(info["seconds"], 3),
-          "built": info["built"], "ptxas": info["ptxas"].splitlines(),
+          "sources": {name: {"nvcc_seconds": round(info["seconds"], 3),
+                             "built": info["built"],
+                             "ptxas": info["ptxas"].splitlines()}
+                      for name, info in infos.items()},
           "dynamic_smem_bytes_per_cta_d128": smem})
 
 
@@ -187,14 +219,10 @@ def phase_kernel(dev):
     for n, c in live:
         pos_plus_1 = np.arange(c - n + 1, c + 1, dtype=np.int64)
         flops += 4 * h * d * int(pos_plus_1.sum())
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_flops = flops / H100_BF16_FLOP_PER_S * 1e3
     res = {"phase": "kernel", "rows_live": n_live, "rows": t_total,
            "slots_live": len(live), "max_abs_err": max_abs_err,
            "tolerance": "rtol=1e-2, atol=1e-3 vs f32 plain (bf16 output)",
-           "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
-           "bound_ms": max(t_bytes, t_flops),
-           "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+           "ms": ms, "plain_ms": plain_ms, **_bound(nbytes, flops)}
     emit(res)
     return res
 
@@ -282,6 +310,156 @@ def phase_parity(dev):
           "kernel_launches": card_launches, "tokens": on_card})
 
 
+# ---------------------------------------------------------------------------
+# flash attention (K2-K4) and training
+# ---------------------------------------------------------------------------
+# kernel vs plain: the kernels compute in f32 from the same inputs as the
+# f32 plain version (only the summation order differs); in bf16 they
+# round their outputs to bf16 once (half a relative step of 2^-8, which
+# rtol covers) and atol stays under the outputs' typical size (~0.1-1)
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+             torch.bfloat16: dict(rtol=1e-2, atol=2e-3)}
+FLASH_CASES = [  # name, dtype, B, Sq, Sk, H, D, causal
+    ("train_shapes", torch.bfloat16, 4, 2048, 2048, 16, 128, True),
+    ("f32", torch.float32, 2, 512, 512, 4, 64, True),
+    ("sq_ne_sk_ragged_tail", torch.bfloat16, 2, 300, 500, 4, 128, True),
+]
+
+
+def _visible_pairs(sq, sk, causal):
+    """(query row, key column) pairs the mask lets through, per b*h."""
+    if not causal:
+        return sq * sk
+    rows = np.arange(sq, dtype=np.int64)
+    return int(np.clip(rows + (sk - sq) + 1, 0, sk).sum())
+
+
+def phase_flash(dev):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(2)
+    res = {"phase": "flash", "cases": {}}
+    for name, dtype, b, sq, sk, h, d, causal in FLASH_CASES:
+        def randn(s):
+            return torch.randn((b, s, h, d), generator=gen, device=dev,
+                               dtype=torch.float32).to(dtype)
+
+        q, k, v, do = randn(sq), randn(sk), randn(sk), randn(sq)
+        scale = d ** -0.5
+        o, lse = fa._flash_fwd_cuda(q, k, v, scale, causal)
+        delta = fa._delta(o, do)
+        dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
+        dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale,
+                                        causal)
+        f = [x.float() for x in (q, k, v, do)]
+        o_ref, lse_ref = fa._flash_fwd_ref(f[0], f[1], f[2], scale, causal)
+        # the backward's reference takes the kernel's own O and lse
+        g_ref = fa._flash_bwd_ref(f[0], f[1], f[2], o.float(), lse, f[3],
+                                  scale, causal)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        errs = {}
+        for key, got, want in (("o", o, o_ref), ("dq", dq, g_ref[0]),
+                               ("dk", dk, g_ref[1]), ("dv", dv, g_ref[2])):
+            torch.testing.assert_close(got.float(), want, **tol)
+            errs[key] = float((got.float() - want).abs().max())
+        torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+        res["cases"][name] = {"dtype": str(dtype).split(".")[-1],
+                              "shape": [b, sq, sk, h, d], "causal": causal,
+                              "max_abs_err": errs,
+                              "tolerance": str(tol)}
+        if name != "train_shapes":
+            continue
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.int32,
+                            device=dev).zero_
+        args = (q, k, v, scale, causal)
+        bargs = (q, k, v, do, lse, delta, scale, causal)
+        ms = {"fwd": cuda_ms(lambda: fa._flash_fwd_cuda(*args), 10, flush),
+              "dq": cuda_ms(lambda: fa._flash_bwd_dq_cuda(*bargs), 10,
+                            flush),
+              "dkv": cuda_ms(lambda: fa._flash_bwd_dkv_cuda(*bargs), 10,
+                             flush),
+              "plain_fwd": cuda_ms(lambda: fa._flash_fwd_ref(*args), 3,
+                                   flush),
+              "plain_bwd": cuda_ms(lambda: fa._flash_bwd_ref(
+                  q, k, v, o, lse, do, scale, causal), 3, flush)}
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        with torch.no_grad():
+            ms["sdpa_fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 10, flush)
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        ms["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 10, flush)
+        pairs = _visible_pairs(sq, sk, causal) * b * h
+        esz, n_q, n_k = q.element_size(), q.numel(), k.numel()
+        stats = 4 * b * h * sq                  # lse or delta, f32
+        res["ms"] = ms
+        res["bounds"] = {
+            "fwd": _bound(esz * (2 * n_q + 2 * n_k) + stats, 4 * d * pairs),
+            "dq": _bound(esz * (3 * n_q + 2 * n_k) + 2 * stats,
+                         6 * d * pairs),
+            "dkv": _bound(esz * (2 * n_q + 4 * n_k) + 2 * stats,
+                          8 * d * pairs)}
+    emit(res)
+    return res
+
+
+def phase_train(dev):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.tools import gpt_1b_train
+
+    t0 = time.perf_counter()
+    model, step, x, y = gpt_1b_train.build(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = model.config
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(x, y))]          # warm-up step
+    for name in fa.launches:              # main path starts here
+        fa.launches[name] = 0
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss))
+    launches = dict(fa.launches)          # main path ends here
+    want = cfg.num_hidden_layers * len(times)
+    assert all(n == want for n in launches.values()), (launches, want)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    p50 = float(np.percentile(times, 50))
+    tokens = gpt_1b_train.BATCH * gpt_1b_train.SEQ
+    fpt = gpt_1b_train.flops_per_token(model)
+    res = {"phase": "train", "model": "gpt_1b (bench.py bench_gpt_1b)",
+           "params": sum(p.numel() for p in model.parameters()),
+           "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+           "dtype": "bfloat16", "batch": [gpt_1b_train.BATCH,
+                                          gpt_1b_train.SEQ],
+           "losses": losses, "step_ms": times, "step_ms_p50": p50,
+           "tokens_per_s": tokens / (p50 / 1e3),
+           "flops_per_token": fpt,
+           "mfu": fpt * tokens / (p50 / 1e3) / H100_BF16_FLOP_PER_S,
+           "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "setup_s": setup_s, "kernel_launches": launches}
+    emit(res)
+    del model, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_parity(dev):
+    from paddle_tpu_torch.tools import tiny_train_parity
+
+    emit({"phase": "train_parity", **tiny_train_parity.run(dev)})
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -294,13 +472,33 @@ def main():
     k = phase_kernel(dev)
     s = phase_serve(dev)
     phase_parity(dev)
+    fl = phase_flash(dev)
+    tr = phase_train(dev)
+    phase_train_parity(dev)
+    errs = fl["cases"]["train_shapes"]["max_abs_err"]
+    src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    ref = "paddle_tpu/ops/pallas/flash_attention.py"
+    flash_rows = [
+        ("flash_attention_fwd", f"{ref}:61", "fwd", errs["o"],
+         fl["ms"]["plain_fwd"], fl["ms"]["sdpa_fwd"]),
+        ("flash_attention_bwd_dq", f"{ref}:154", "dq", errs["dq"],
+         fl["ms"]["plain_bwd"], fl["ms"]["sdpa_bwd"]),
+        ("flash_attention_bwd_dkv", f"{ref}:198", "dkv",
+         max(errs["dk"], errs["dv"]), fl["ms"]["plain_bwd"],
+         fl["ms"]["sdpa_bwd"])]
     emit({"kernels": [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/ragged_paged_attention.py:146",
         "launches": s["kernel_launches"], "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]})
+        "bound_by": k["bound_by"], "library_ms": None}] + [{
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": tr["kernel_launches"][name], "max_abs_err": err,
+            "ms": fl["ms"][key], "plain_ms": plain,
+            "bound_ms": fl["bounds"][key]["bound_ms"],
+            "bound_by": fl["bounds"][key]["bound_by"], "library_ms": lib}
+        for name, rep, key, err, plain, lib in flash_rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Weights across frameworks: the JAX Llama's state dict -> the port's."""
+"""Weights and optimizer state across frameworks: the JAX Llama's state
+dict and AdamW slots -> the port's."""
 from __future__ import annotations
 
 from typing import Dict, Mapping
@@ -6,7 +7,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["llama_state_from_jax"]
+__all__ = ["llama_state_from_jax", "optimizer_slots_from_jax"]
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -25,14 +26,40 @@ def llama_state_from_jax(np_state: Mapping[str, np.ndarray]
     transposed to torch's ``[out, in]``. Embedding and norm weights copy
     as they are. The rope tables are not in either state dict: each side
     rebuilds them from the config."""
-    out: Dict[str, torch.Tensor] = {}
-    for name, value in np_state.items():
-        arr = np.asarray(value)
-        linear = name.endswith("_proj.weight") or name == "lm_head.weight"
-        if linear:
-            if arr.ndim != 2:
-                raise ValueError(f"{name}: expected a 2-D [in, out] weight, "
-                                 f"got shape {arr.shape}")
-            arr = arr.T
-        out[name] = _to_tensor(arr)
-    return out
+    return {name: _to_tensor(_torch_layout(name, value))
+            for name, value in np_state.items()}
+
+
+def _torch_layout(name: str, value) -> np.ndarray:
+    """A JAX Llama tensor named ``name`` in the port's layout: Linear
+    weights (and their optimizer slots) [in, out] -> [out, in]."""
+    arr = np.asarray(value)
+    if name.endswith("_proj.weight") or name == "lm_head.weight":
+        if arr.ndim != 2:
+            raise ValueError(f"{name}: expected a 2-D [in, out] weight, "
+                             f"got shape {arr.shape}")
+        arr = arr.T
+    return arr
+
+
+def optimizer_slots_from_jax(np_slots: Mapping[str, Mapping[str, np.ndarray]],
+                             model: torch.nn.Module, optimizer,
+                             step: int) -> None:
+    """Carry the JAX optimizer's slots into the port's ``optimizer`` for
+    ``model``. ``np_slots`` maps each parameter name of the JAX
+    ``LlamaForCausalLM`` (``named_parameters()``; the port uses the same
+    names) to its slots as numpy arrays -- for AdamW ``moment1``,
+    ``moment2`` and, under ``multi_precision``, ``master_weight``. Linear
+    slots are transposed like the weights; each slot keeps the dtype the
+    JAX one had and lands on the parameter's device. ``step`` is the JAX
+    optimizer's applied step count: the port's bias correction goes on
+    from it (``TrainStep`` picks it up at its next call)."""
+    params = dict(model.named_parameters())
+    for name, slots in np_slots.items():
+        if name not in params:
+            raise KeyError(f"{name}: no such parameter in the port's model")
+        p = params[name]
+        optimizer._slots[id(p)] = {
+            k: _to_tensor(_torch_layout(name, v)).to(p.device)
+            for k, v in slots.items()}
+    optimizer._step_count = int(step)

@@ -1,12 +1,16 @@
-"""Llama decoder for serving (port of ``paddle_tpu/models/llama.py``, the
-ragged serving path).
+"""Llama decoder (port of ``paddle_tpu/models/llama.py``): the training
+forward and the ragged serving path.
 
 Plain ``nn.Linear(bias=False)`` and ``nn.Embedding`` under the JAX
 model's attribute names (``q_proj``, ``gate_proj``, ``embed_tokens``,
 ``lm_head``, ...), so state dicts line up name for name
 (:func:`paddle_tpu_torch.models.convert.llama_state_from_jax` carries the
-JAX weights across). Tensor parallelism, ``forward`` and the flash path
-are not ported yet.
+JAX weights across). ``forward`` is the training path: causal flash
+attention (the hand-written kernels on the card), or plain attention
+under an ``attn_mask``; :meth:`LlamaForCausalLM.criterion` is the LM
+loss. Recompute, sequence/context parallelism and tensor parallelism
+are refused at construction; ``forward_paged`` and
+``forward_ragged_multi`` are not ported yet.
 
 The ragged forward updates the stacked KV caches IN PLACE (the JAX
 version returned new caches) and returns the same tensors.
@@ -22,10 +26,13 @@ from torch import nn
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.dtype import to_torch
 from paddle_tpu_torch.incubate.nn import functional as F
+from paddle_tpu_torch.nn import functional as NF
 from paddle_tpu_torch.nn.norm import RMSNorm
+from paddle_tpu_torch.ops.nn_ops import softmax_with_cross_entropy
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
-           "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP"]
+           "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP",
+           "LlamaPretrainingCriterion"]
 
 
 @dataclass
@@ -39,8 +46,13 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
+    sequence_parallel: bool = False
+    use_flash_attention: bool = True
+    context_parallel: bool = False
+    recompute: bool = False
     tie_word_embeddings: bool = False
     dtype: str = "float32"
+    tp_degree: int = 1
 
     @staticmethod
     def llama3_8b(**kw):
@@ -66,6 +78,41 @@ def _rope_tables(seq_len, head_dim, theta, device=None):
     freqs = torch.outer(t, inv)  # [s, d/2]
     emb = torch.cat([freqs, freqs], dim=-1)
     return emb.cos(), emb.sin()
+
+
+# what this slice refuses, and the slice of the port that brings it
+_NOT_YET = (
+    ("recompute", "slice D (distributed/fleet/recompute.py)"),
+    ("sequence_parallel", "slice D (fleet/utils/sequence_parallel_utils.py)"),
+    ("context_parallel", "slice D (ops/ring_attention.py)"),
+)
+
+
+def _check_config(config: LlamaConfig):
+    for field, later in _NOT_YET:
+        if getattr(config, field):
+            raise NotImplementedError(
+                f"LlamaConfig.{field}=True is not ported yet; it comes with "
+                f"{later}")
+    if config.tp_degree != 1:
+        raise NotImplementedError(
+            f"LlamaConfig.tp_degree={config.tp_degree} is not ported yet; "
+            f"tensor parallelism comes with C3 (serving) and slice D "
+            f"(training)")
+
+
+def rope_apply(q, k, cos, sin):
+    """Rotary embedding on [b, s, h, d] q/k given the contiguous cos/sin
+    tables [s, d] (f32): computed in f32 and cast back."""
+
+    def rot(x):
+        x1, x2 = x.chunk(2, dim=-1)
+        return torch.cat([-x2, x1], dim=-1)
+
+    c = cos[None, :, None, :]
+    s = sin[None, :, None, :]
+    return ((q * c + rot(q) * s).to(q.dtype),
+            (k * c + rot(k) * s).to(k.dtype))
 
 
 def _rope_apply_at(q, k, cos, sin):
@@ -96,6 +143,26 @@ class LlamaAttention(nn.Module):
         self.k_proj = nn.Linear(h, self.n_kv * self.head_dim, **kw)
         self.v_proj = nn.Linear(h, self.n_kv * self.head_dim, **kw)
         self.o_proj = nn.Linear(h, h, **kw)
+
+    def forward(self, x, cos, sin, attn_mask=None):
+        """Training attention over (b, s, h) activations; ``cos``/``sin``
+        the (s, D) rope tables. KV heads are repeated up to the query
+        heads before attention."""
+        b, s, _ = x.shape
+        q = self.q_proj(x).view(b, s, self.n_heads, self.head_dim)
+        k = self.k_proj(x).view(b, s, self.n_kv, self.head_dim)
+        v = self.v_proj(x).view(b, s, self.n_kv, self.head_dim)
+        q, k = rope_apply(q, k, cos, sin)
+        if self.n_kv != self.n_heads:
+            rep = self.n_heads // self.n_kv
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        if self.config.use_flash_attention and attn_mask is None:
+            out, _ = NF.flash_attention(q, k, v, causal=True)
+        else:
+            out = NF.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None)
+        return self.o_proj(out.reshape(b, s, self.n_heads * self.head_dim))
 
     def forward_ragged(self, x, cos, sin, key_cache, value_cache,
                        block_tables, cu_seqlens, context_lens, num_seqs):
@@ -142,6 +209,12 @@ class LlamaDecoderLayer(nn.Module):
                                                 config.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(config, **kw)
 
+    def forward(self, x, cos, sin, attn_mask=None):
+        """One decoder block; ``cos``/``sin`` the (s, D) rope tables (the
+        JAX layer slices its own; here :class:`LlamaModel` holds them)."""
+        h = x + self.self_attn(self.input_layernorm(x), cos, sin, attn_mask)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
     def forward_ragged(self, x, cos, sin, key_cache, value_cache,
                        block_tables, cu_seqlens, context_lens, num_seqs):
         """One decoder block over the ragged stream. ``cos``/``sin``
@@ -158,6 +231,7 @@ class LlamaDecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
         super().__init__()
+        _check_config(config)
         self.config = config
         kw = dict(device=device, dtype=dtype)
         self.embed_tokens = nn.Embedding(config.vocab_size,
@@ -172,6 +246,18 @@ class LlamaModel(nn.Module):
         # pure functions of the config: not part of the state dict
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
+
+    def forward(self, input_ids, attn_mask=None):
+        """(b, s) token ids -> (b, s, hidden) final-norm activations."""
+        s = input_ids.shape[1]
+        if s > self.rope_cos.shape[0]:
+            raise ValueError(f"sequence length {s} > max_position_embeddings "
+                             f"{self.rope_cos.shape[0]}")
+        cos, sin = self.rope_cos[:s], self.rope_sin[:s]
+        x = self.embed_tokens(input_ids.long())
+        for layer in self.layers:
+            x = layer(x, cos, sin, attn_mask)
+        return self.norm(x)
 
     @torch.no_grad()
     def forward_ragged(self, input_ids, key_caches, value_caches,
@@ -206,6 +292,20 @@ class LlamaModel(nn.Module):
         return self.norm(x), key_caches, value_caches
 
 
+class LlamaPretrainingCriterion(nn.Module):
+    """LM loss: cross entropy (f32 for bf16 logits, 0 at label -100), then
+    the mean over ALL positions, ignored ones included, as the JAX
+    criterion takes it. Labels are not shifted here: the caller does."""
+
+    def __init__(self, config: LlamaConfig = None):
+        super().__init__()
+        self.ignore_index = -100
+
+    def forward(self, logits, labels):
+        return softmax_with_cross_entropy(
+            logits, labels, ignore_index=self.ignore_index).mean()
+
+
 class LlamaForCausalLM(nn.Module):
     """Llama decoder + LM head. Built on the CUDA device unless
     ``device="cpu"`` is passed; with no GPU and no explicit device it
@@ -231,6 +331,14 @@ class LlamaForCausalLM(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.lm_head.weight.dtype
+
+    def forward(self, input_ids, attn_mask=None):
+        """(b, s) token ids -> (b, s, vocab) logits."""
+        return self.lm_head(self.llama(input_ids, attn_mask))
+
+    @staticmethod
+    def criterion(config=None):
+        return LlamaPretrainingCriterion(config)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, std: float = 0.02):

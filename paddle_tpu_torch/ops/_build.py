@@ -20,7 +20,8 @@ import threading
 import time
 from typing import Dict
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "build_all",
+           "load"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -64,27 +65,47 @@ def _ptxas_summary(log: str) -> str:
     return "\n".join(keep)
 
 
-def build(name: str) -> dict:
-    """Compile ``csrc/<name>.cu`` unless a current library is on disk.
-    Returns ``{"path", "built", "seconds", "ptxas"}`` (``built`` is False
+def build_all(names) -> Dict[str, dict]:
+    """Compile ``csrc/<name>.cu`` for every name whose current library is
+    not on disk, one ``nvcc`` per source, all started together. Returns
+    ``{name: {"path", "built", "seconds", "ptxas"}}`` (``built`` is False
     when the library on disk was reused). Raises with the compiler's
-    output when the build fails."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return {"path": out, "built": False, "seconds": 0.0, "ptxas": ""}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _source(name)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} (exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    return {"path": out, "built": True, "seconds": seconds,
-            "ptxas": _ptxas_summary(proc.stdout)}
+    output when a build fails, after stopping the other builds."""
+    results: Dict[str, dict] = {}
+    running = {}
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            results[name] = {"path": out, "built": False, "seconds": 0.0,
+                             "ptxas": ""}
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, _source(name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out, time.perf_counter())
+    try:
+        for name, (proc, tmp, out, t0) in running.items():
+            log, _ = proc.communicate()
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name} (exit "
+                                   f"{proc.returncode}):\n{log}")
+            os.replace(tmp, out)
+            results[name] = {"path": out, "built": True, "seconds": seconds,
+                             "ptxas": _ptxas_summary(log)}
+    finally:
+        for proc, _, _, _ in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
+
+
+def build(name: str) -> dict:
+    """:func:`build_all` for one source."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -6,11 +6,15 @@ CUDA device; on the card run them with
 (``--noconftest``: the suite's conftest configures JAX, which the card's
 machine does not have and this file does not use). The ragged attention
 kernel is held against its plain version on small mixed batches, and
-the tiny engine's greedy tokens on the card against the CPU's."""
+the tiny engine's greedy tokens on the card against the CPU's; the flash
+attention kernels (forward, dQ, dK/dV) against their plain versions over
+head dims, dtypes, Sq != Sk and ragged tails, and three tiny training
+steps on the card against the CPU."""
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
 
@@ -109,3 +113,93 @@ def test_tiny_engine_card_matches_cpu(card):
     a = LLMEngine(card_model, EngineConfig(**ecfg)).generate(prompts, sp)
     b = LLMEngine(cpu_model, EngineConfig(**ecfg)).generate(prompts, sp)
     assert a == b
+
+
+# --------------------------------------------------------------------------
+# flash attention kernels
+# --------------------------------------------------------------------------
+def _flash_inputs(dev, dtype, b, sq, sk, h, d, seed):
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    return (randn(b, sq, h, d), randn(b, sk, h, d), randn(b, sk, h, d),
+            randn(b, sq, h, d))
+
+
+# f32: the kernels and the plain version differ in summation order only
+# (TF32 off); bf16: the kernels compute in f32 from the same bf16 inputs
+# as the f32 plain version and round their outputs to bf16 once (half a
+# relative step of 2^-8, which rtol covers)
+_FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+              torch.bfloat16: dict(rtol=1e-2, atol=2e-3)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("b,sq,sk,h,causal", [
+    (2, 128, 128, 2, True),      # whole tiles
+    (1, 100, 100, 3, True),      # ragged tail tile
+    (2, 70, 150, 2, True),       # Sq < Sk, bottom-right causal
+    (1, 150, 70, 2, True),       # Sq > Sk: rows that see no key
+    (2, 90, 130, 2, False),      # not causal, ragged both ways
+])
+def test_flash_kernels_match_plain(card, dtype, d, b, sq, sk, h, causal):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _flash_inputs(card, dtype, b, sq, sk, h, d, seed=d + sq)
+    scale = d ** -0.5
+    before = dict(fa.launches)
+    o, lse = fa._flash_fwd_cuda(q, k, v, scale, causal)
+    delta = fa._delta(o, do)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert all(fa.launches[n] == before[n] + 1 for n in before)
+    f = [x.float() for x in (q, k, v, do)]
+    o_ref, lse_ref = fa._flash_fwd_ref(f[0], f[1], f[2], scale, causal)
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref, **tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    # the backward's reference takes the kernel's own O and lse
+    grads = fa._flash_bwd_ref(f[0], f[1], f[2], o.float(), lse, f[3], scale,
+                              causal)
+    for got, want in zip((dq, dk, dv), grads):
+        torch.testing.assert_close(got.float(), want, **tol)
+    if causal and sq > sk:
+        blind = sq - sk             # rows 0 .. blind-1 see no key
+        assert torch.all(o[:, :blind] == 0) and torch.all(dq[:, :blind] == 0)
+        assert torch.all(lse.view(b, h, sq)[:, :, :blind] == float("-inf"))
+
+
+@pytest.mark.gpu
+def test_flash_autograd_on_card_matches_cpu(card):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _flash_inputs("cpu", torch.float32, 2, 96, 96, 2, 32, 5)
+    outs = []
+    for dev in ("cpu", card):
+        xs = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        o = fa.flash_attention_data(*xs, causal=True)
+        o.backward(do.to(dev))
+        outs.append([o.detach().cpu()] + [x.grad.cpu() for x in xs])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [48, 256])
+def test_flash_kernel_refuses_head_dim(card, d):
+    q, k, v, _ = _flash_inputs(card, torch.bfloat16, 1, 16, 16, 2, d, 0)
+    before = dict(fa.launches)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_data(q, k, v, causal=True)
+    assert fa.launches == before
+
+
+@pytest.mark.gpu
+def test_tiny_train_card_matches_cpu(card):
+    from paddle_tpu_torch.tools import tiny_train_parity
+
+    # asserts the losses, the parameters and the kernel launches itself
+    tiny_train_parity.run(card)

@@ -17,7 +17,12 @@ _MODULES = [
     "paddle_tpu_torch.ops.ragged_paged_attention",
     "paddle_tpu_torch.incubate.nn.functional",
     "paddle_tpu_torch.models.llama", "paddle_tpu_torch.models.convert",
-    "paddle_tpu_torch.serving",
+    "paddle_tpu_torch.serving", "paddle_tpu_torch.ops.flash_attention",
+    "paddle_tpu_torch.ops.nn_ops", "paddle_tpu_torch.nn.functional",
+    "paddle_tpu_torch.nn.clip", "paddle_tpu_torch.optimizer",
+    "paddle_tpu_torch.jit", "paddle_tpu_torch.tools.gpt_1b_train",
+    "paddle_tpu_torch.tools.profile_train",
+    "paddle_tpu_torch.tools.tiny_train_parity",
 ]
 
 
