@@ -11,8 +11,12 @@ non-zero (nothing is caught and passed over):
 2. build     — build both kernel sources of ``paddle_tpu_torch/csrc/``
                (ragged paged attention; flash attention fwd, dQ, dK/dV)
                with nvcc for sm_90a, one nvcc per source, all at once;
-               seconds taken and ptxas's registers / spills / shared
-               memory per kernel.
+               seconds taken, ptxas's registers / spills / shared memory
+               per kernel instance, each kernel's dynamic shared memory
+               per CTA at head_dim 128 in bf16 and f32, and the wgmma
+               (SASS HGMMA) instructions per flash kernel instance: the
+               bf16 forward and dK/dV must have them, the FMA kernels
+               none.
 3. kernel    — the kernel against its plain PyTorch version on the card
                at Llama-3-8B head shapes (H=32, KH=8, D=128, block 16,
                bf16) on one mixed batch: decode rows, a prefill chunk
@@ -29,11 +33,13 @@ non-zero (nothing is caught and passed over):
                weights: the greedy tokens must be identical.
 6. flash     — the flash attention kernels (forward, dQ, dK/dV) against
                their plain versions on the card: at the training shapes
-               (B 4, S 2048, H 16, D 128, bf16, causal), in f32 at a
-               smaller size, and with Sq != Sk and ragged tail tiles.
+               (B 4, S 2048, H 16, D 128, bf16, causal: forward and dK/dV
+               on the tensor cores), in f32 at a smaller size (the f32
+               FMA kernels), and with Sq != Sk and ragged tail tiles.
                At the training shapes: times (CUDA events, L2 flushed
-               before each launch), bounds, the plain versions' times
-               and F.scaled_dot_product_attention's forward and backward.
+               before each launch), bounds, TFLOP/s and the share of the
+               bound reached, the plain versions' times and
+               F.scaled_dot_product_attention's forward and backward.
 7. train     — bench.py's bench_gpt_1b configuration (0.95B Llama, 16
                layers, hidden 2048, bf16, batch 4 x 2048, AdamW) through
                the port's TrainStep: one warm-up and five timed steps on
@@ -49,6 +55,7 @@ and last ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -106,6 +113,28 @@ def phase_device():
     return smi
 
 
+def _hgmma_counts(lib_path, nvcc):
+    """wgmma (SASS ``HGMMA``) instructions per flash kernel instance of
+    the built library, from ``cuobjdump -sass``."""
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+         lib_path], capture_output=True, text=True, timeout=300,
+        check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel"
+                      r"(?:_tc)?)I(f?)\S*?Li(\d+)E", line)
+        if m:
+            dtype = "f32" if m.group(2) else "bf16"
+            cur = f"{m.group(1)}<{dtype}, {m.group(3)}>"
+            counts[cur] = 0
+        elif "Function :" in line:
+            cur = None
+        elif cur is not None and "HGMMA" in line:
+            counts[cur] += 1
+    return counts
+
+
 def phase_build():
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -115,13 +144,21 @@ def phase_build():
     infos = _build.build_all(["ragged_paged_attention", "flash_attention"])
     smem = {"ragged_paged_attention":
             rpa._library().ragged_paged_attention_smem_bytes(128)}
-    smem.update({k: fa.smem_bytes(k, 128) for k in fa.launches})
+    smem.update({f"{k}_{dt}": fa.smem_bytes(k, 128, getattr(torch, dt))
+                 for k in fa.launches for dt in ("bfloat16", "float32")})
+    # the bf16 forward and dK/dV run on the tensor cores: every instance
+    # of them holds wgmma instructions, and no FMA kernel does
+    hgmma = _hgmma_counts(infos["flash_attention"]["path"], _build._nvcc())
+    tc = {k: n for k, n in hgmma.items() if "_tc<" in k}
+    assert len(tc) == 8 and all(n > 0 for n in tc.values()), hgmma
+    assert all(n == 0 for k, n in hgmma.items() if k not in tc), hgmma
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "sources": {name: {"nvcc_seconds": round(info["seconds"], 3),
                              "built": info["built"],
                              "ptxas": info["ptxas"].splitlines()}
                       for name, info in infos.items()},
-          "dynamic_smem_bytes_per_cta_d128": smem})
+          "dynamic_smem_bytes_per_cta_d128": smem,
+          "hgmma_per_kernel": hgmma})
 
 
 def _mixed_batch(dev, gen):
@@ -313,10 +350,15 @@ def phase_parity(dev):
 # ---------------------------------------------------------------------------
 # flash attention (K2-K4) and training
 # ---------------------------------------------------------------------------
-# kernel vs plain: the kernels compute in f32 from the same inputs as the
-# f32 plain version (only the summation order differs); in bf16 they
-# round their outputs to bf16 once (half a relative step of 2^-8, which
-# rtol covers) and atol stays under the outputs' typical size (~0.1-1)
+# kernel vs plain: in f32 the FMA kernels compute from the same inputs as
+# the f32 plain version (only the summation order differs); in bf16 every
+# kernel rounds its output to bf16 once (half a relative step of 2^-8,
+# which rtol covers) and atol stays under the outputs' typical size
+# (~0.1-1). The tensor-core forward and dK/dV also round P and dS to bf16
+# before their P V-type products, as the TPU kernels do, and so do the
+# plain versions they are held against (`round_to`); without it that
+# rounding alone exceeds this atol near zero (2.4e-3 in O on an H100,
+# about 5e-3 in dK and dV as estimated on the CPU from the same inputs)
 FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
              torch.bfloat16: dict(rtol=1e-2, atol=2e-3)}
 FLASH_CASES = [  # name, dtype, B, Sq, Sk, H, D, causal
@@ -355,10 +397,11 @@ def phase_flash(dev):
         dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale,
                                         causal)
         f = [x.float() for x in (q, k, v, do)]
-        o_ref, lse_ref = fa._flash_fwd_ref(f[0], f[1], f[2], scale, causal)
+        o_ref, lse_ref = fa._flash_fwd_ref(f[0], f[1], f[2], scale, causal,
+                                           round_to=dtype)
         # the backward's reference takes the kernel's own O and lse
         g_ref = fa._flash_bwd_ref(f[0], f[1], f[2], o.float(), lse, f[3],
-                                  scale, causal)
+                                  scale, causal, round_to=dtype)
         torch.cuda.synchronize()
         tol = FLASH_TOL[dtype]
         errs = {}
@@ -382,10 +425,11 @@ def phase_flash(dev):
                             flush),
               "dkv": cuda_ms(lambda: fa._flash_bwd_dkv_cuda(*bargs), 10,
                              flush),
-              "plain_fwd": cuda_ms(lambda: fa._flash_fwd_ref(*args), 3,
-                                   flush),
+              "plain_fwd": cuda_ms(lambda: fa._flash_fwd_ref(
+                  *args, round_to=dtype), 3, flush),
               "plain_bwd": cuda_ms(lambda: fa._flash_bwd_ref(
-                  q, k, v, o, lse, do, scale, causal), 3, flush)}
+                  q, k, v, o, lse, do, scale, causal, round_to=dtype), 3,
+                  flush)}
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                       for x in (q, k, v))
         dot = do.transpose(1, 2).contiguous()
@@ -405,6 +449,10 @@ def phase_flash(dev):
                          6 * d * pairs),
             "dkv": _bound(esz * (2 * n_q + 4 * n_k) + 2 * stats,
                           8 * d * pairs)}
+        res["tflops"] = {key: bd["flops"] / (ms[key] * 1e-3) / 1e12
+                         for key, bd in res["bounds"].items()}
+        res["bound_share"] = {key: bd["bound_ms"] / ms[key]
+                              for key, bd in res["bounds"].items()}
     emit(res)
     return res
 

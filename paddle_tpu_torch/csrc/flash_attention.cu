@@ -16,39 +16,65 @@
 //   * any Sq and Sk: the tail tiles are masked, nothing has to divide.
 //
 // Layouts (contiguous, row-major): q, o, dout, dq (B, Sq, H, D); k, v, dk,
-// dv (B, Sk, H, D); lse, delta (B, H, Sq) f32. bf16 or f32 in and out; all
-// arithmetic in f32.
+// dv (B, Sk, H, D); lse, delta (B, H, Sq) f32. bf16 or f32 in and out.
 //
-// Design. A TPU grid runs in order and carries the softmax state in VMEM
-// scratch between grid steps; Hopper CTAs run in no order, so each CTA owns
-// one output tile and loops over the other sequence inside the kernel:
-//   * fwd and dq: one CTA per (q tile of 64 rows, b*h), looping over the k
-//     tiles of 64 that the causal bound lets through; the q tiles are
-//     handed out longest-first so the causal triangle's long rows start
-//     early;
-//   * dkv: one CTA per (k tile of 64 rows, b*h), looping over the q tiles
-//     that can see it.
-// Tiles are staged into shared memory as f32 with 16-byte global loads
-// (rows past the sequence end are zero-filled and masked). A thread owns a
-// 4 x 8 (fwd, dq; 128 threads) or 2 x 8 (dkv; 256 threads) block of the
-// 64 x 64 score tile -- rows rg + R*i, columns cg + 8*j -- and reads its
-// operands as float4 along D, so each shared-memory load feeds 4-8 FMAs
-// (the padded row stride D + 4 keeps those loads free of bank conflicts).
-// Probabilities go through shared memory for the P.V-type products, whose
-// outputs (O, dQ, dK, dV) stay in registers: the thread's rows times D/8
-// columns.
+// What bounds them on the H100: at the training shapes (S = 2048, D = 128)
+// each K/V tile is reused by many query rows, so the work is operations,
+// not bytes (4 * D flops per visible (row, column) pair in the forward,
+// 1.5x that in dq and 2x in dkv), and the bound is the bf16 tensor-core
+// rate. Two designs, chosen by dtype (a stated route, not a fallback):
 //
-// What bounds it on the H100: at the training shapes (S = 2048, D = 128)
-// each K/V tile is reused by 64 query rows, so the work is operations, not
-// bytes (about 4 * D flops per visible (row, column) pair in the forward,
-// 1.5x that in dq and 2x in dkv). This first version runs them as plain
-// f32 FMAs, far below the bf16 tensor-core rate the bound assumes; mma /
-// wgmma tiles with a TMA pipeline are the planned redesign.
+// bf16 forward and dK/dV: tensor cores (`flash_fwd_kernel_tc`,
+// `flash_bwd_dkv_kernel_tc`). A CTA is two consumer warpgroups and one
+// producer warp. The producer's lane 0 brings tiles into shared memory
+// with TMA (4-D tensor maps over (D, H, S, B), zero-filled past the
+// sequence end) through a two-stage ring of mbarriers, so the next tile's
+// copy overlaps this tile's math. The consumers multiply with wgmma
+// (bf16 in, f32 accumulators in registers; hopper.cuh):
+//   * forward: a CTA owns 128 query rows (64 per warpgroup), handed out
+//     longest-first, and loops over key tiles of 128 up to the causal
+//     bound. S = Q K^T from shared memory (both K-major); the online
+//     softmax runs on the accumulator fragment (a row lives in one quad
+//     of lanes); P is rounded to bf16 in registers and is the register A
+//     operand of O += P V, V read MN-major (transposed) from shared memory.
+//   * dK/dV: a CTA owns 128 keys (64 per warpgroup) whose K and V tiles
+//     stay resident, and loops over q tiles of 64 rows that can see them;
+//     Q, dO (TMA) and their lse, delta slices (loaded by the producer
+//     warp: an lse row is not 16-byte aligned for TMA) arrive through the
+//     ring. S^T = K Q^T and dP^T = V dO^T from shared memory; P^T =
+//     exp(scale S^T - lse), masked by position on diagonal and tail tiles;
+//     dS^T = P^T o (dP^T - delta); dV += P^T dO and dK += dS^T Q with P^T
+//     and dS^T rounded to bf16 register A operands, as the TPU kernel
+//     rounds them before its products. scale * dK and dV are written once.
+// Each warpgroup waits for its own products before the softmax step, and
+// the two warpgroups of a CTA fill each other's gaps. ptxas holds both
+// kernels to 168 registers a thread; at D = 128 the dK/dV consumer (dK,
+// dV, S^T, dP^T: 64 + 64 + 32 + 32 f32) spills a few hundred bytes.
+// Measured and left out, since none changed the time (PERF.md): a
+// producer warpgroup handing registers over with setmaxnreg (ptxas kept
+// 168), 32-row q tiles (92 bytes of spill), and issuing the forward's
+// next S product before waiting for this tile's P V product.
+//
+// f32 (all three kernels) and bf16 dQ: plain f32 FMAs on the CUDA cores
+// (`flash_fwd_kernel`, `flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`);
+// f32 on the tensor cores would go through TF32 and lose the 1e-4 parity
+// with the CPU. One CTA per (q or k tile of 64 rows, b*h); tiles are staged
+// into shared memory as f32 with 16-byte global loads (rows past the
+// sequence end zero-filled and masked). A thread owns a 4 x 8 (fwd, dq;
+// 128 threads) or 2 x 8 (dkv; 256 threads) block of the 64 x 64 score
+// tile -- rows rg + R*i, columns cg + 8*j -- and reads its operands as
+// float4 along D (the padded row stride D + 4 keeps those loads free of
+// bank conflicts). Probabilities go through shared memory for the P.V-type
+// products, whose outputs stay in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -484,11 +510,397 @@ __global__ void __launch_bounds__(kDkvThreads) flash_bwd_dkv_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// K2 and K4 in bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kConsumers = 2;                       // warpgroups doing math
+constexpr int kTcThreads = 128 * kConsumers + 32;   // + one producer warp
+constexpr int kStages = 2;                          // TMA ring depth
+constexpr int kFwdBM = 128;   // fwd: query rows per CTA
+constexpr int kFwdBN = 128;   // fwd: keys per k tile
+constexpr int kDkvBN = 128;   // dkv: keys per CTA
+constexpr int kDkvBM = 64;    // dkv: query rows per q tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// bytes of dynamic shared memory: 1 KB of alignment slack, the tiles, the
+// lse / delta slices (dkv) and the mbarriers
+template <int D>
+constexpr size_t tc_fwd_smem() {
+  using T = hopper::Tile<D>;
+  return 1024 + T::bytes(kFwdBM) + 2 * kStages * T::bytes(kFwdBN) + 64;
+}
+template <int D>
+constexpr size_t tc_dkv_smem() {
+  using T = hopper::Tile<D>;
+  return 1024 + 2 * T::bytes(kDkvBN) + 2 * kStages * T::bytes(kDkvBM) +
+         2 * kStages * kDkvBM * sizeof(float) + 64;
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// pairs of an f32 accumulator fragment [64 x 16 J] -> J bf16 A operands
+template <int J>
+__device__ __forceinline__ void to_a_operand(const float (&d)[8 * J],
+                                             uint32_t (&a)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[j][r] = hopper::pack_bf16(d[8 * j + 2 * r], d[8 * j + 2 * r + 1]);
+}
+
+// the thread's rows of a [64 x D] f32 accumulator (rows row0, row0 + 8),
+// times mul0 / mul1, -> bf16 rows of a (.., S, H, D) tensor at `base`
+template <int D>
+__device__ __forceinline__ void store_acc_rows(__nv_bfloat16* base,
+                                               const float (&acc)[D / 2],
+                                               int row0, float mul0,
+                                               float mul1, int S, int H,
+                                               int t) {
+  const size_t rs = (size_t)H * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= S) continue;
+    const float mul = half ? mul1 : mul0;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(base + (size_t)row * rs);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      dst[(8 * i + 2 * t) / 2] = hopper::pack_bf16(
+          acc[4 * i + 2 * half] * mul, acc[4 * i + 2 * half + 1] * mul);
+  }
+}
+
+// K2, bf16: grid (B * H, q tiles of 128, longest first)
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, Params p) {
+  using T = hopper::Tile<D>;
+  using namespace hopper;
+  constexpr int BM = kFwdBM, BN = kFwdBN;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  const uint32_t sQ = smem_u32(sm);
+  const uint32_t sK = sQ + T::bytes(BM);              // kStages tiles
+  const uint32_t sV = sK + kStages * T::bytes(BN);    // kStages tiles
+  const uint32_t bar = sV + kStages * T::bytes(BN);   // q, full[2], empty[2]
+  const uint32_t q_full = bar;
+  auto full = [&](int st) { return bar + 8 + 8 * st; };
+  auto empty = [&](int st) { return bar + 8 + 8 * kStages + 8 * st; };
+
+  const int nqt = (p.Sq + BM - 1) / BM;
+  const int q0 = (nqt - 1 - (int)blockIdx.y) * BM;   // longest rows first
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int off = p.Sk - p.Sq;
+  const int kend = p.causal ? min(p.Sk, q0 + BM + off) : p.Sk;
+  const int nkt = kend > 0 ? (kend + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {   // producer warp: lane 0 issues every copy
+    if (threadIdx.x % 32 == 0 && nkt > 0) {
+      mbar_expect_tx(q_full, T::bytes(BM));
+      for (int x = 0; x < T::NBOX; ++x)
+        tma_load_4d(sQ + x * BM * T::RB, &tq, x * T::C, h, q0, b, q_full);
+      for (int it = 0; it < nkt; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(empty(st), ((it / kStages) - 1) & 1);
+        mbar_expect_tx(full(st), 2 * T::bytes(BN));
+        for (int x = 0; x < T::NBOX; ++x) {
+          const uint32_t o = st * T::bytes(BN) + x * BN * T::RB;
+          tma_load_4d(sK + o, &tk, x * T::C, h, it * BN, b, full(st));
+          tma_load_4d(sV + o, &tv, x * T::C, h, it * BN, b, full(st));
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows wq0 .. wq0 + 63; this thread's rows
+  // r0 and r0 + 8, columns 8 i + 2 t (+1) of each accumulator
+  const int tid = threadIdx.x % 128, w = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wq0 = q0 + 64 * wg;
+  const int r0 = wq0 + 16 * w + g;
+  const float sl2 = p.scale * kLog2e;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // log2 domain
+
+  if (nkt > 0) mbar_wait(q_full, 0);
+  for (int it = 0; it < nkt; ++it) {
+    const int st = it % kStages, k0 = it * BN;
+    mbar_wait(full(st), (it / kStages) & 1);
+    // a key tile wholly above this warpgroup's diagonal is skipped
+    if (!(p.causal && k0 > wq0 + 63 + off)) {
+      const uint32_t kt = sK + st * T::bytes(BN), vt = sV + st * T::bytes(BN);
+      float s[BN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BN>(s, desc_kmajor<D>(sQ, BM, 64 * wg, kk),
+                     desc_kmajor<D>(kt, BN, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      if (k0 + BN > p.Sk || (p.causal && k0 + BN - 1 > wq0 + off)) {
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * i + 2 * t + (e & 1);
+            const int row = r0 + 8 * (e >> 1);
+            if (col >= p.Sk || (p.causal && col > row + off))
+              s[4 * i + e] = -INFINITY;
+          }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * i + e]);
+      float alpha[2], base[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]) * sl2);
+        alpha[r] = m_new == -INFINITY ? 1.f : exp2f(m[r] - m_new);
+        base[r] = m_new == -INFINITY ? 0.f : m_new;
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pr = exp2f(fmaf(s[4 * i + e], sl2, -base[e >> 1]));
+          s[4 * i + e] = pr;
+          sum[e >> 1] += pr;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * i + e] *= alpha[e >> 1];
+
+      uint32_t pa[BN / 16][4];
+      to_a_operand<BN / 16>(s, pa);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j)
+        wgmma_rs<D>(o, pa[j], desc_mnmajor<D>(vt, BN, j));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(pa);
+    }
+    if (tid == 0) mbar_arrive(empty(st));
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    const int row = r0 + 8 * r;
+    if (t == 0 && row < p.Sq)
+      p.lse_out[(size_t)bh * p.Sq + row] =
+          l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : -INFINITY;
+  }
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out0) +
+                       ((size_t)b * p.Sq * p.H + h) * D;
+  store_acc_rows<D>(out, o, r0, inv[0], inv[1], p.Sq, p.H, t);
+}
+
+// K4, bf16: grid (B * H, key tiles of 128; tile 0, which the most q rows
+// see, first)
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dkv_kernel_tc(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            Params p) {
+  using T = hopper::Tile<D>;
+  using namespace hopper;
+  constexpr int BN = kDkvBN, BM = kDkvBM;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  const uint32_t sK = smem_u32(sm);
+  const uint32_t sV = sK + T::bytes(BN);
+  const uint32_t sQ = sV + T::bytes(BN);               // kStages tiles
+  const uint32_t sdO = sQ + kStages * T::bytes(BM);    // kStages tiles
+  const int stat_off = 2 * T::bytes(BN) + 2 * kStages * T::bytes(BM);
+  float* lse_s = reinterpret_cast<float*>(sm + stat_off);   // [kStages][BM]
+  float* dlt_s = lse_s + kStages * BM;                      // [kStages][BM]
+  const uint32_t bar = smem_u32(dlt_s + kStages * BM);
+  const uint32_t kv_full = bar;
+  auto full = [&](int st) { return bar + 8 + 8 * st; };
+  auto empty = [&](int st) { return bar + 8 + 8 * kStages + 8 * st; };
+
+  const int k0 = (int)blockIdx.y * BN;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int off = p.Sk - p.Sq;
+  // first q row that sees key k0 is k0 - off (causal)
+  const int qbeg = p.causal ? (max(0, k0 - off) / BM) * BM : 0;
+  const int nqt = qbeg < p.Sq ? (p.Sq - qbeg + BM - 1) / BM : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 32);   // the producer warp's lanes
+      mbar_init(empty(st), kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {   // producer warp
+    const int lane = threadIdx.x % 32;
+    if (nqt == 0) return;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * T::bytes(BN));
+      for (int x = 0; x < T::NBOX; ++x) {
+        tma_load_4d(sK + x * BN * T::RB, &tk, x * T::C, h, k0, b, kv_full);
+        tma_load_4d(sV + x * BN * T::RB, &tv, x * T::C, h, k0, b, kv_full);
+      }
+    }
+    for (int it = 0; it < nqt; ++it) {
+      const int st = it % kStages, q0 = qbeg + it * BM;
+      if (it >= kStages) mbar_wait(empty(st), ((it / kStages) - 1) & 1);
+      for (int r = lane; r < BM; r += 32) {
+        const int row = q0 + r;
+        const bool in = row < p.Sq;
+        lse_s[st * BM + r] =
+            in ? p.lse_in[(size_t)bh * p.Sq + row] * kLog2e : 0.f;
+        dlt_s[st * BM + r] = in ? p.delta[(size_t)bh * p.Sq + row] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(full(st), 2 * T::bytes(BM));
+        for (int x = 0; x < T::NBOX; ++x) {
+          const uint32_t o = st * T::bytes(BM) + x * BM * T::RB;
+          tma_load_4d(sQ + o, &tq, x * T::C, h, q0, b, full(st));
+          tma_load_4d(sdO + o, &tdo, x * T::C, h, q0, b, full(st));
+        }
+      } else {
+        mbar_arrive(full(st));
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: keys kw0 .. kw0 + 63; this thread's keys kr0
+  // and kr0 + 8, q columns 8 i + 2 t (+1) of the score fragments
+  const int tid = threadIdx.x % 128, w = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kw0 = k0 + 64 * wg;
+  const int kr0 = kw0 + 16 * w + g;
+  const float sl2 = p.scale * kLog2e;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  if (nqt > 0) mbar_wait(kv_full, 0);
+  for (int it = 0; it < nqt; ++it) {
+    const int st = it % kStages, q0 = qbeg + it * BM;
+    mbar_wait(full(st), (it / kStages) & 1);
+    // a q tile wholly below this warpgroup's diagonal is skipped
+    if (!(p.causal && q0 + BM - 1 + off < kw0)) {
+      const uint32_t qt = sQ + st * T::bytes(BM);
+      const uint32_t dot = sdO + st * T::bytes(BM);
+      const float* lse_t = lse_s + st * BM;
+      const float* dlt_t = dlt_s + st * BM;
+      float s[BM / 2], dp[BM / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BM>(s, desc_kmajor<D>(sK, BN, 64 * wg, kk),
+                     desc_kmajor<D>(qt, BM, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BM>(dp, desc_kmajor<D>(sV, BN, 64 * wg, kk),
+                     desc_kmajor<D>(dot, BM, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      const bool mask =
+          q0 + BM > p.Sq || (p.causal && kw0 + 63 > q0 + off);
+#pragma unroll
+      for (int i = 0; i < BM / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * i + 2 * t + (e & 1);
+          float pr = exp2f(fmaf(s[4 * i + e], sl2, -lse_t[c]));
+          if (mask) {
+            const int row = q0 + c, key = kr0 + 8 * (e >> 1);
+            if (row >= p.Sq || (p.causal && key > row + off)) pr = 0.f;
+          }
+          s[4 * i + e] = pr;                                // P^T
+          dp[4 * i + e] = pr * (dp[4 * i + e] - dlt_t[c]);  // dS^T
+        }
+      uint32_t pa[BM / 16][4], da[BM / 16][4];
+      to_a_operand<BM / 16>(s, pa);
+      to_a_operand<BM / 16>(dp, da);
+      fence_regs(dv);
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BM / 16; ++j)
+        wgmma_rs<D>(dv, pa[j], desc_mnmajor<D>(dot, BM, j));
+#pragma unroll
+      for (int j = 0; j < BM / 16; ++j)
+        wgmma_rs<D>(dk, da[j], desc_mnmajor<D>(qt, BM, j));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(da);
+    }
+    if (tid == 0) mbar_arrive(empty(st));
+  }
+
+  const size_t koff = ((size_t)b * p.Sk * p.H + h) * D;
+  store_acc_rows<D>(static_cast<__nv_bfloat16*>(p.out0) + koff, dk, kr0,
+                    p.scale, p.scale, p.Sk, p.H, t);
+  store_acc_rows<D>(static_cast<__nv_bfloat16*>(p.out1) + koff, dv, kr0, 1.f,
+                    1.f, p.Sk, p.H, t);
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
 
-size_t smem_bytes(int kernel, int D) {
+// dynamic shared memory of the f32-FMA kernels
+size_t fma_smem_bytes(int kernel, int D) {
   const size_t ld = D + 4, tile = (size_t)kBR * ld, ptile = (size_t)kBR * kLDP;
   switch (kernel) {
     case kFwd: return sizeof(float) * (3 * tile + ptile);
@@ -498,10 +910,21 @@ size_t smem_bytes(int kernel, int D) {
   return 0;
 }
 
+template <int D>
+size_t tc_smem_bytes(int kernel) {
+  return kernel == kFwd ? tc_fwd_smem<D>() : tc_dkv_smem<D>();
+}
+
+// the kernel that runs `kernel` for `dtype` (0 f32, 1 bf16): bf16 forward
+// and dK/dV on the tensor cores, everything else on the f32-FMA kernels
+bool on_tensor_cores(int kernel, int dtype) {
+  return dtype == 1 && (kernel == kFwd || kernel == kDkv);
+}
+
 template <typename KernelFn>
 int launch(KernelFn fn, int kernel, int D, int threads, const Params& p,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(kernel, D);
+  const size_t smem = fma_smem_bytes(kernel, D);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -511,15 +934,58 @@ int launch(KernelFn fn, int kernel, int D, int threads, const Params& p,
   return (int)cudaGetLastError();
 }
 
+// K2 (kernel kFwd) or K4 (kDkv) in bf16 on the tensor cores: one tensor
+// map per operand, encoded on the host for this launch
+template <int D>
+int launch_tc(int kernel, const Params& p, cudaStream_t stream) {
+  using hopper::encode_bshd;
+  const bool fwd = kernel == kFwd;
+  const int q_rows = fwd ? kFwdBM : kDkvBM, k_rows = fwd ? kFwdBN : kDkvBN;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = encode_bshd(&tq, p.q, p.B, p.Sq, p.H, D, q_rows);
+  if (!err) err = encode_bshd(&tk, p.k, p.B, p.Sk, p.H, D, k_rows);
+  if (!err) err = encode_bshd(&tv, p.v, p.B, p.Sk, p.H, D, k_rows);
+  if (!err && !fwd) err = encode_bshd(&tdo, p.dout, p.B, p.Sq, p.H, D, q_rows);
+  if (err) return err;
+  const size_t smem = tc_smem_bytes<D>(kernel);
+  const int tiles = fwd ? (p.Sq + kFwdBM - 1) / kFwdBM
+                        : (p.Sk + kDkvBN - 1) / kDkvBN;
+  const dim3 grid(p.B * p.H, tiles);
+  cudaError_t e;
+  if (fwd) {
+    e = cudaFuncSetAttribute(flash_fwd_kernel_tc<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    flash_fwd_kernel_tc<D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, p);
+  } else {
+    e = cudaFuncSetAttribute(flash_bwd_dkv_kernel_tc<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    flash_bwd_dkv_kernel_tc<D><<<grid, kTcThreads, smem, stream>>>(
+        tq, tk, tv, tdo, p);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int dispatch_kernel(int kernel, const Params& p, cudaStream_t s) {
-  switch (kernel) {
-    case kFwd:
-      return launch(flash_fwd_kernel<T, D>, kernel, D, kFwdThreads, p, s);
-    case kDq:
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (on_tensor_cores(kernel, 1)) return launch_tc<D>(kernel, p, s);
+    if (kernel == kDq)
       return launch(flash_bwd_dq_kernel<T, D>, kernel, D, kFwdThreads, p, s);
-    case kDkv:
-      return launch(flash_bwd_dkv_kernel<T, D>, kernel, D, kDkvThreads, p, s);
+  } else {
+    switch (kernel) {
+      case kFwd:
+        return launch(flash_fwd_kernel<T, D>, kernel, D, kFwdThreads, p, s);
+      case kDq:
+        return launch(flash_bwd_dq_kernel<T, D>, kernel, D, kFwdThreads, p,
+                      s);
+      case kDkv:
+        return launch(flash_bwd_dkv_kernel<T, D>, kernel, D, kDkvThreads, p,
+                      s);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -533,6 +999,17 @@ int dispatch_d(int kernel, int D, const Params& p, cudaStream_t s) {
     case 128: return dispatch_kernel<T, 128>(kernel, p, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+size_t smem_bytes(int kernel, int D, int dtype) {
+  if (!on_tensor_cores(kernel, dtype)) return fma_smem_bytes(kernel, D);
+  switch (D) {
+    case 16: return tc_smem_bytes<16>(kernel);
+    case 32: return tc_smem_bytes<32>(kernel);
+    case 64: return tc_smem_bytes<64>(kernel);
+    case 128: return tc_smem_bytes<128>(kernel);
+  }
+  return 0;
 }
 
 int run(int kernel, const Params& p, int D, int dtype, void* stream) {
@@ -605,9 +1082,9 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
 }
 
 // Dynamic shared memory one CTA of `kernel` (0 fwd, 1 dq, 2 dkv) takes at
-// head dim D (ptxas reports only static shared memory).
-extern "C" size_t flash_attention_smem_bytes(int kernel, int D) {
-  return smem_bytes(kernel, D);
+// head dim D for `dtype` (ptxas reports only static shared memory).
+extern "C" size_t flash_attention_smem_bytes(int kernel, int D, int dtype) {
+  return smem_bytes(kernel, D, dtype);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

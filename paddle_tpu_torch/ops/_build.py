@@ -4,9 +4,10 @@ Each source ``csrc/<name>.cu`` exposes a plain C interface. It is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library and
 loaded with ``ctypes``; nothing includes PyTorch's headers, so a build
 takes seconds. Libraries go into ``paddle_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name carrying a hash of the source and the
-flags, so an edited source is never served by a stale library. A build
-happens at first use, from the checkout's sources only.
+``.gitignore``) under a name carrying a hash of the source, of every
+header under ``csrc/`` and of the flags, so an edited source or header
+is never served by a stale library. A build happens at first use, from
+the checkout's sources only.
 """
 from __future__ import annotations
 
@@ -51,17 +52,20 @@ def _source(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    with open(_source(name), "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [_source(name)] + [os.path.join(CSRC_DIR, f)
+                                   for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _ptxas_summary(log: str) -> str:
     """The ``-Xptxas -v`` lines that give registers, shared memory and
-    spills per kernel."""
+    spills per kernel, and any warning ptxas gives."""
     keep = [ln.strip() for ln in log.splitlines()
-            if re.search(r"registers|spill|Compiling entry", ln)]
+            if re.search(r"registers|spill|Compiling entry|warning", ln)]
     return "\n".join(keep)
 
 

@@ -16,7 +16,11 @@ Two implementations of each pass:
 * ``_flash_fwd_cuda``, ``_flash_bwd_dq_cuda``, ``_flash_bwd_dkv_cuda`` --
   the hand-written Hopper kernels (``csrc/flash_attention.cu``), bound
   with ``ctypes``. They take any Sq and Sk and head_dim 16, 32, 64 or
-  128, in float32 or bfloat16.
+  128, in float32 or bfloat16. In bfloat16 the forward and dK/dV run on
+  the tensor cores (wgmma, TMA) and round P and dS to bfloat16 before
+  the products that take them, as the TPU kernels do; dQ and every
+  float32 kernel compute in f32 FMAs (the tensor cores would take
+  float32 as TF32).
 
 Selection is by device and nothing else: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises (an unsupported
@@ -40,6 +44,7 @@ launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
 
 _KERNEL = "flash_attention"
 HEAD_DIMS = (16, 32, 64, 128)
+KEY_BLOCK = 128     # keys per online-softmax step of the bf16 K2 kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_KERNELS = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 1,
                  "flash_attention_bwd_dkv": 2}
@@ -71,18 +76,42 @@ def _probs(q, k, lse, scale, causal):
     return p if vis is None else torch.where(vis, p, 0.0)
 
 
-def _flash_fwd_ref(q, k, v, scale, causal):
-    """Plain forward: (o [B, Sq, H, D] in q's dtype, lse [B*H, Sq] f32)."""
+def _flash_fwd_ref(q, k, v, scale, causal, round_to=None):
+    """Plain forward: (o [B, Sq, H, D] in q's dtype, lse [B*H, Sq] f32).
+
+    With ``round_to`` (a dtype) it takes the blockwise form of the bf16
+    K2 kernel and of the TPU kernel ``_fwd_kernel``: an online softmax
+    over key blocks of :data:`KEY_BLOCK`, whose P = exp(S - running max)
+    is rounded to ``round_to`` before each P V product."""
     b, sq, h, _ = q.shape
     s = _scores(q, k, scale)
     vis = _visible(sq, k.shape[1], causal, q.device)
     if vis is not None:
         s = s.masked_fill(~vis, float("-inf"))
-    lse = torch.logsumexp(s, dim=-1)                     # -inf: no key
-    p = torch.exp(s - lse[..., None])
-    p = torch.where(torch.isfinite(lse)[..., None], p, 0.0)
-    o = torch.matmul(p, v.float().transpose(1, 2)).transpose(1, 2)
-    return o.to(q.dtype), lse.reshape(b * h, sq)
+    vf = v.float().transpose(1, 2)
+    if round_to is None:
+        lse = torch.logsumexp(s, dim=-1)                 # -inf: no key
+        p = torch.exp(s - lse[..., None])
+        p = torch.where(torch.isfinite(lse)[..., None], p, 0.0)
+        o = torch.matmul(p, vf)
+    else:
+        m = torch.full(s.shape[:-1], float("-inf"), device=s.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros(s.shape[:-1] + vf.shape[-1:], device=s.device)
+        for k0 in range(0, s.shape[-1], KEY_BLOCK):
+            sb = s[..., k0:k0 + KEY_BLOCK]
+            m_new = torch.maximum(m, sb.amax(-1))
+            seen = torch.isfinite(m_new)             # some key so far
+            base = torch.where(seen, m_new, 0.0)
+            alpha = torch.where(seen, torch.exp(m - base), 1.0)
+            p = torch.exp(sb - base[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + torch.matmul(
+                p.to(round_to).float(), vf[..., k0:k0 + KEY_BLOCK, :])
+            m = m_new
+        lse = torch.where(l > 0, m + torch.log(l), float("-inf"))
+        o = torch.where(l[..., None] > 0, o / l[..., None], 0.0)
+    return o.transpose(1, 2).to(q.dtype), lse.reshape(b * h, sq)
 
 
 def _delta(o, do):
@@ -93,14 +122,20 @@ def _delta(o, do):
     return d.transpose(1, 2).reshape(b * h, sq).contiguous()
 
 
-def _flash_bwd_ref(q, k, v, o, lse, do, scale, causal):
-    """Plain backward: (dq, dk, dv) in the inputs' dtypes."""
+def _flash_bwd_ref(q, k, v, o, lse, do, scale, causal, round_to=None):
+    """Plain backward: (dq, dk, dv) in the inputs' dtypes. With
+    ``round_to`` (a dtype), P and dS are rounded to it before the
+    dV = P^T dO and dK = dS^T Q products, as the bf16 K4 kernel and the
+    TPU kernel ``_bwd_dkv_kernel`` round them; dQ keeps dS in f32, as
+    K3 does."""
     p = _probs(q, k, lse, scale, causal)                 # [B, H, Sq, Sk]
     b, sq, h, _ = q.shape
     dof = do.float().transpose(1, 2)
     dp = torch.matmul(dof, v.float().transpose(1, 2).transpose(-1, -2))
     ds = p * (dp - _delta(o, do).reshape(b, h, sq, 1))
     dq = torch.matmul(ds, k.float().transpose(1, 2)) * scale
+    if round_to is not None:
+        p, ds = p.to(round_to).float(), ds.to(round_to).float()
     dk = torch.matmul(ds.transpose(-1, -2), q.float().transpose(1, 2)) * scale
     dv = torch.matmul(p.transpose(-1, -2), dof)
     return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
@@ -129,18 +164,18 @@ def _library():
             fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
-        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int,
-                                                   ctypes.c_int]
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
 
-def smem_bytes(kernel: str, head_dim: int) -> int:
+def smem_bytes(kernel: str, head_dim: int,
+               dtype: torch.dtype = torch.bfloat16) -> int:
     """Dynamic shared memory of one CTA of ``kernel`` (a key of
-    :data:`launches`) at ``head_dim``."""
+    :data:`launches`) at ``head_dim`` for inputs of ``dtype``."""
     return int(_library().flash_attention_smem_bytes(
-        _SMEM_KERNELS[kernel], head_dim))
+        _SMEM_KERNELS[kernel], head_dim, _DTYPES[dtype]))
 
 
 def _check(cond, msg):

@@ -25,7 +25,9 @@ import torch
 from paddle_tpu_torch.tools.profile_serve import _device_us, _is_kernel
 
 STEPS = 2
-# device-time groups, by kernel name (first match wins)
+# device-time groups, by kernel name (first match wins; the bf16
+# tensor-core kernels flash_fwd_kernel_tc and flash_bwd_dkv_kernel_tc
+# match the same substrings as the f32-FMA ones)
 GROUPS = (("flash_fwd (K2)", ("flash_fwd_kernel",)),
           ("flash_bwd_dq (K3)", ("flash_bwd_dq_kernel",)),
           ("flash_bwd_dkv (K4)", ("flash_bwd_dkv_kernel",)),

@@ -7,7 +7,10 @@ the JAX side really went through Pallas) and the port's CPU path (the
 plain PyTorch versions that the CUDA kernels are held against on the
 card). Tolerances are those of the JAX tests: forward rtol 2e-4 /
 atol 2e-5, gradients rtol 2e-3 / atol 2e-4 (f32 on both sides; the
-conftest sets XLA's matmul precision to highest)."""
+conftest sets XLA's matmul precision to highest). In bf16 the plain
+versions' ``round_to`` forms, which round P and dS where the TPU kernels
+do, are held against the Pallas kernels after rounding both outputs to
+bf16 (rtol 1e-2: one bf16 step; atol 1e-4)."""
 import numpy as np
 import pytest
 import torch
@@ -68,6 +71,11 @@ def _to_bh(x):
     return jnp.transpose(jnp.asarray(x), (0, 2, 1, 3)).reshape(b * h, s, d)
 
 
+def _bf16(x):
+    """A torch tensor rounded to bf16, as f32 numpy."""
+    return x.to(torch.bfloat16).float().numpy()
+
+
 def _jax_grads(q, k, v, do, causal):
     def f(q, k, v):
         o = jfa.flash_attention_data(q, k, v, causal=causal, block_q=64,
@@ -110,6 +118,70 @@ def test_backward_matches_pallas(causal, pallas_calls):
     _, g_t = _port_grads(q, k, v, do, causal)
     for gt, gj in zip(g_t, g_j):
         np.testing.assert_allclose(gt, gj, **BWD)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_forward_rounding_matches_pallas(causal, pallas_calls):
+    """In bf16 the TPU kernel rounds P = exp(S - running max) to bf16
+    before each P V product of its online softmax; the port's plain
+    forward does the same over key blocks of ``KEY_BLOCK`` with
+    ``round_to``, the version the card holds the bf16 K2 kernel against.
+    Same bf16 inputs on both sides, the TPU kernel's key blocks set to
+    ``KEY_BLOCK``; both outputs rounded to bf16, as the kernels store
+    them: O agrees within rtol, and closer than the plain forward without
+    the rounding; lse agrees as in f32."""
+    b, s, h, d = 1, 2 * tfa.KEY_BLOCK, 2, 32
+    scale = d ** -0.5
+    xs = [jnp.asarray(x, jnp.bfloat16) for x in _inputs(b, s, s, h, d, 4)]
+    o_j, lse_j = jfa._flash_fwd(*(_to_bh(x) for x in xs[:3]), scale, causal,
+                                64, tfa.KEY_BLOCK, True)
+    assert pallas_calls["fwd"] == 1
+    q, k, v = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+               for x in xs[:3])
+    want = np.array(o_j.astype(jnp.float32)).reshape(b, h, s, d).transpose(
+        0, 2, 1, 3)
+    o_r, lse_r = tfa._flash_fwd_ref(q, k, v, scale, causal,
+                                    round_to=torch.bfloat16)
+    o_p, _ = tfa._flash_fwd_ref(q, k, v, scale, causal)
+    o_r, o_p = (_bf16(x) for x in (o_r, o_p))    # as the kernels store O
+    np.testing.assert_allclose(o_r, want, rtol=1e-2, atol=1e-4)
+    assert np.abs(o_r - want).max() < np.abs(o_p - want).max()
+    np.testing.assert_allclose(lse_r.numpy(), np.asarray(lse_j)[:, 0], **FWD)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_dkv_rounding_matches_pallas(causal, pallas_calls):
+    """In bf16 the TPU kernel rounds P and dS to bf16 before its dV and
+    dK products; the port's plain backward does the same with
+    ``round_to``, the version the card holds the bf16 K4 kernel against.
+    Same bf16 inputs, O and lse on both sides; both outputs rounded to
+    bf16, as the kernels store them: dK and dV agree within rtol, and
+    closer than the plain backward that keeps P and dS in f32."""
+    b, s, h, d = 1, 128, 2, 32
+    scale = d ** -0.5
+    xs = [jnp.asarray(x, jnp.bfloat16) for x in _inputs(b, s, s, h, d, 3)]
+    o_j, lse_j = jfa._flash_fwd(*(_to_bh(x) for x in xs[:3]), scale, causal,
+                                64, 64, True)
+    _, dk_j, dv_j = jfa._flash_bwd(*(_to_bh(x) for x in xs[:3]), o_j, lse_j,
+                                   _to_bh(xs[3]), scale, causal, 64, 64,
+                                   True)
+    assert pallas_calls == {"fwd": 1, "bwd": 1}
+
+    def port(x):                      # [BH, S, D] or [B, S, H, D] -> f32
+        x = torch.from_numpy(np.array(x.astype(jnp.float32)))
+        return x if x.shape[0] == b else (
+            x.reshape(b, h, s, d).transpose(1, 2).contiguous())
+
+    q, k, v, do, o = (port(x) for x in xs + [o_j])
+    lse = torch.from_numpy(np.asarray(lse_j)[:, 0])
+    want = [port(x).numpy() for x in (dk_j, dv_j)]
+    rounded = tfa._flash_bwd_ref(q, k, v, o, lse, do, scale, causal,
+                                 round_to=torch.bfloat16)[1:]
+    plain = tfa._flash_bwd_ref(q, k, v, o, lse, do, scale, causal)[1:]
+    for r, p, w in zip(rounded, plain, want):
+        r, p = _bf16(r), _bf16(p)                 # as the kernels store them
+        np.testing.assert_allclose(r, w, rtol=1e-2, atol=1e-4)
+        assert np.abs(r - w).max() < np.abs(p - w).max()
 
 
 @pytest.mark.parametrize("sq,sk", [(64, 128), (128, 256), (64, 256)])
