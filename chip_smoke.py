@@ -14,28 +14,33 @@ non-zero (nothing is caught and passed over):
                seconds taken, ptxas's registers / spills / shared memory
                per kernel instance, each kernel's dynamic shared memory
                per CTA at head_dim 128 in bf16 and f32, and the wgmma
-               (SASS HGMMA) instructions per flash kernel instance: the
-               bf16 forward and dK/dV must have them, the FMA kernels
-               none.
-3. kernel    — the kernel against its plain PyTorch version on the card
-               at Llama-3-8B head shapes (H=32, KH=8, D=128, block 16,
-               bf16) on one mixed batch: decode rows, a prefill chunk
-               starting mid-context, padding slots, -1 table entries,
-               padding rows past cu[num_seqs]. Times (CUDA events, L2
-               flushed before each launch) and the bound.
+               (SASS HGMMA) instructions per kernel instance of both
+               libraries: every bf16 tensor-core instance (``_tc``: the
+               flash forward, dQ and dK/dV, the ragged kernel) must have
+               them, the FMA kernels and the split combine none.
+3. kernel    — the ragged kernel against its plain PyTorch version on
+               the card at Llama-3-8B head shapes (H=32, KH=8, D=128,
+               block 16, bf16) on one mixed batch: decode rows, a
+               prefill chunk starting mid-context, padding slots, -1
+               table entries, padding rows past cu[num_seqs]; and on a
+               decode-only batch (8 slots x 1 row, contexts 512-4096),
+               which splits each slot's cache range and merges the
+               splits. Times (CUDA events, L2 flushed before each
+               launch) and the bounds of both.
 4. serve     — Llama-3-8B at full width and depth (32 layers, bf16,
                random weights from a seeded generator on the card)
                through the port's LLMEngine: 8 requests, prompts of
                128-1024 tokens, 32 new tokens each (7 greedy, 1 sampled).
-               The kernel's launch count must be 32 x the model steps.
+               The kernel's launch count must be 32 x the model steps,
+               all of them on the tensor-core route.
 5. parity    — LlamaConfig.tiny in f32 (TF32 off) served on the card
                (kernel) and on the CPU (plain version) from the same
                weights: the greedy tokens must be identical.
 6. flash     — the flash attention kernels (forward, dQ, dK/dV) against
                their plain versions on the card: at the training shapes
-               (B 4, S 2048, H 16, D 128, bf16, causal: forward and dK/dV
-               on the tensor cores), in f32 at a smaller size (the f32
-               FMA kernels), and with Sq != Sk and ragged tail tiles.
+               (B 4, S 2048, H 16, D 128, bf16, causal: all three on the
+               tensor cores), in f32 at a smaller size (the f32 FMA
+               kernels), and with Sq != Sk and ragged tail tiles.
                At the training shapes: times (CUDA events, L2 flushed
                before each launch), bounds, TFLOP/s and the share of the
                bound reached, the plain versions' times and
@@ -44,7 +49,7 @@ non-zero (nothing is caught and passed over):
                layers, hidden 2048, bf16, batch 4 x 2048, AdamW) through
                the port's TrainStep: one warm-up and five timed steps on
                the same batch; losses finite and falling; each flash
-               kernel launched 16 x the timed steps.
+               kernel launched 16 x the timed steps, on the tensor cores.
 8. train_parity — LlamaConfig.tiny in f32 (TF32 off): three AdamW + clip
                TrainStep steps on the card (kernels) and on the CPU
                (plain versions) from the same weights agree.
@@ -114,19 +119,21 @@ def phase_device():
 
 
 def _hgmma_counts(lib_path, nvcc):
-    """wgmma (SASS ``HGMMA``) instructions per flash kernel instance of
-    the built library, from ``cuobjdump -sass``."""
+    """wgmma (SASS ``HGMMA``) instructions per kernel instance of a built
+    library, from ``cuobjdump -sass``; an instance is named by its kernel
+    and template arguments (f32 or bf16, head dim)."""
     sass = subprocess.run(
         [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
          lib_path], capture_output=True, text=True, timeout=300,
         check=True).stdout
     counts, cur = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel"
-                      r"(?:_tc)?)I(f?)\S*?Li(\d+)E", line)
+        m = re.search(r"Function : \S*?\d((?:flash|ragged)_\w+?kernel"
+                      r"(?:_tc)?)(?:I(f?)\S*?Li(\d+)E)?", line)
         if m:
-            dtype = "f32" if m.group(2) else "bf16"
-            cur = f"{m.group(1)}<{dtype}, {m.group(3)}>"
+            args = ([] if m.group(3) is None else
+                    ["f32" if m.group(2) else "bf16", m.group(3)])
+            cur = f"{m.group(1)}<{', '.join(args)}>"
             counts[cur] = 0
         elif "Function :" in line:
             cur = None
@@ -142,16 +149,23 @@ def phase_build():
 
     t0 = time.perf_counter()
     infos = _build.build_all(["ragged_paged_attention", "flash_attention"])
-    smem = {"ragged_paged_attention":
-            rpa._library().ragged_paged_attention_smem_bytes(128)}
+    dts = ("bfloat16", "float32")
+    smem = {f"ragged_paged_attention_{dt}":
+            rpa.smem_bytes(128, getattr(torch, dt)) for dt in dts}
     smem.update({f"{k}_{dt}": fa.smem_bytes(k, 128, getattr(torch, dt))
-                 for k in fa.launches for dt in ("bfloat16", "float32")})
-    # the bf16 forward and dK/dV run on the tensor cores: every instance
-    # of them holds wgmma instructions, and no FMA kernel does
-    hgmma = _hgmma_counts(infos["flash_attention"]["path"], _build._nvcc())
-    tc = {k: n for k, n in hgmma.items() if "_tc<" in k}
-    assert len(tc) == 8 and all(n > 0 for n in tc.values()), hgmma
+                 for k in fa.launches for dt in dts})
+    # every bf16 kernel runs on the tensor cores: each instance of the
+    # `_tc` kernels (flash forward, dQ, dK/dV and ragged, at 4 head dims)
+    # holds wgmma instructions; the f32 FMA kernels and the split combine
+    # hold none
+    hgmma = {}
+    for name in infos:
+        hgmma.update(_hgmma_counts(infos[name]["path"], _build._nvcc()))
+    tc = {k: n for k, n in hgmma.items() if "_tc" in k.split("<")[0]}
+    assert len(tc) == 16 and all(n > 0 for n in tc.values()), hgmma
     assert all(n == 0 for k, n in hgmma.items() if k not in tc), hgmma
+    assert sum(k.startswith("ragged_combine_kernel<") for k in hgmma) == 4, \
+        hgmma
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "sources": {name: {"nvcc_seconds": round(info["seconds"], 3),
                              "built": info["built"],
@@ -161,12 +175,19 @@ def phase_build():
           "hgmma_per_kernel": hgmma})
 
 
-def _mixed_batch(dev, gen):
-    """Llama-3-8B head shapes, one mixed batch (see phase 3)."""
-    h, kh, d, bs, nb, s_slots, mb = 32, 8, 128, 16, 1024, 8, 128
-    # (rows this step, context after the step) per live slot
-    live = [(1, 17), (1, 300), (512, 1536), (1, 1000), (100, 100),
-            (1, 2048)]
+# Llama-3-8B head shapes: H=32, KH=8, D=128, block 16, bf16.
+# (rows this step, context after the step) per live slot
+MIXED_LIVE = [(1, 17), (1, 300), (512, 1536), (1, 1000), (100, 100),
+              (1, 2048)]
+DECODE_LIVE = [(1, c) for c in (512, 1024, 1536, 2048, 2560, 3072, 3584,
+                                4096)]
+
+
+def _ragged_batch(dev, gen, live, s_slots, mb, nb, pad_rows):
+    """A ragged batch: ``live`` slots of (rows, context) out of
+    ``s_slots``, distinct random pages, -1 table entries past each
+    context, ``pad_rows`` padding rows past cu[num_seqs]."""
+    h, kh, d, bs = 32, 8, 128, 16
     ns = len(live)
     cu = np.zeros((s_slots + 1,), np.int32)
     cu[1:ns + 1] = np.cumsum([n for n, _ in live])
@@ -180,27 +201,27 @@ def _mixed_batch(dev, gen):
         need = -(-c // bs)
         bt[i, :need] = perm[k:k + need]
         k += need
-    t_total = int(cu[ns]) + 37          # padding rows past cu[num_seqs]
+    t_total = int(cu[ns]) + pad_rows
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).to(torch.bfloat16)
 
-    b = dict(q=randn(t_total, h, d), k_new=randn(t_total, kh, d),
-             v_new=randn(t_total, kh, d), key_cache=randn(nb, bs, kh, d),
-             value_cache=randn(nb, bs, kh, d),
-             block_tables=torch.from_numpy(bt).to(dev),
-             cu_seqlens=torch.from_numpy(cu).to(dev),
-             context_lens=torch.from_numpy(ctx).to(dev),
-             num_seqs=torch.tensor([ns], dtype=torch.int32, device=dev))
-    return b, live
+    return dict(q=randn(t_total, h, d), k_new=randn(t_total, kh, d),
+                v_new=randn(t_total, kh, d), key_cache=randn(nb, bs, kh, d),
+                value_cache=randn(nb, bs, kh, d),
+                block_tables=torch.from_numpy(bt).to(dev),
+                cu_seqlens=torch.from_numpy(cu).to(dev),
+                context_lens=torch.from_numpy(ctx).to(dev),
+                num_seqs=torch.tensor([ns], dtype=torch.int32, device=dev))
 
 
-def phase_kernel(dev):
+def _ragged_case(b, live, flush):
+    """One batch through the kernels (the entry point: cache write, then
+    attention) against the plain version on the same inputs; times and
+    the bound of the attention call."""
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
-    gen = torch.Generator(device=dev).manual_seed(1)
-    b, live = _mixed_batch(dev, gen)
     q = b["q"]
     t_total, h, d = q.shape
     kh = b["key_cache"].shape[2]
@@ -209,41 +230,45 @@ def phase_kernel(dev):
 
     kc_ref = b["key_cache"].clone()
     vc_ref = b["value_cache"].clone()
+    routes = rpa.route_launches()
     out, kc, vc = rpa.ragged_paged_attention(
         q, b["k_new"], b["v_new"], b["key_cache"], b["value_cache"],
         b["block_tables"], b["cu_seqlens"], b["context_lens"],
         b["num_seqs"], scale=scale)
+    routes = {k: n - routes[k] for k, n in rpa.route_launches().items()}
+    split, nsplit = rpa.kernel_split(q, kc, b["block_tables"])
     seg, pos, _ = rpa._token_layout(t_total, b["block_tables"].shape[0],
                                     b["cu_seqlens"], b["context_lens"],
                                     b["num_seqs"])
     rpa._write_kv(kc_ref, b["k_new"], b["block_tables"], seg, pos)
     rpa._write_kv(vc_ref, b["v_new"], b["block_tables"], seg, pos)
-    ref = rpa._ragged_attend_ref(q, kc_ref, vc_ref, b["block_tables"],
-                                 b["cu_seqlens"], b["context_lens"],
-                                 b["num_seqs"], scale,
-                                 out_dtype=torch.float32)
+    plain_args = (q, kc_ref, vc_ref, b["block_tables"], b["cu_seqlens"],
+                  b["context_lens"], b["num_seqs"], scale)
+    ref = rpa._ragged_attend_ref(*plain_args, out_dtype=torch.float32,
+                                 round_to=torch.bfloat16, split=split)
     torch.cuda.synchronize()
+    assert routes == {"fma": 0, "tensor_cores": 1,
+                      "combine": int(nsplit > 1)}, routes
     assert torch.equal(kc, kc_ref) and torch.equal(vc, vc_ref), \
         "kernel path and plain path left different caches"
     assert torch.all(out[n_live:] == 0), "padding rows are not exact zeros"
-    err = (out[:n_live].float() - ref[:n_live]).abs()
-    max_abs_err = float(err.max())
-    # tolerance: the kernel accumulates in f32 like the plain version
-    # (only the summation order differs, ~1e-6) and rounds its output to
-    # bf16, at most half a relative step of 2^-8, which rtol covers; the
-    # reference stays in f32. atol stays well under |out| (~0.05 on the
-    # long-context rows), so a dropped chunk of keys there cannot pass
+    max_abs_err = float((out[:n_live].float() - ref[:n_live]).abs().max())
+    # tolerance: the kernel accumulates in f32 like the plain version; it
+    # rounds P to bf16 per chunk of 64 positions (as the TPU kernel rounds
+    # it per page) and so does the plain version it is held against
+    # (`round_to`, in the kernel's splits), so only the summation order
+    # and the output's rounding to bf16 differ (at most half a relative
+    # step of 2^-8, which rtol covers). atol stays well under |out|
+    # (~0.05 on the long-context rows), so a dropped chunk cannot pass
     torch.testing.assert_close(out[:n_live].float(), ref[:n_live],
                                rtol=1e-2, atol=1e-3)
 
-    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
     args = (q, kc, vc, b["block_tables"], b["cu_seqlens"],
             b["context_lens"], b["num_seqs"], scale)
     launches_before = rpa.launches
-    ms = cuda_ms(lambda: rpa._ragged_attend_cuda(*args), 20,
-                 flush=flush_buf.zero_)
-    plain_ms = cuda_ms(lambda: rpa._ragged_attend_ref(*args), 3,
-                       flush=flush_buf.zero_)
+    ms = cuda_ms(lambda: rpa._ragged_attend_cuda(*args), 20, flush=flush)
+    plain_ms = cuda_ms(lambda: rpa._ragged_attend_ref(
+        *args, round_to=torch.bfloat16, split=split), 3, flush=flush)
     assert rpa.launches > launches_before
 
     # least work: Q read, O written (all T rows), each slot's K and V
@@ -256,12 +281,26 @@ def phase_kernel(dev):
     for n, c in live:
         pos_plus_1 = np.arange(c - n + 1, c + 1, dtype=np.int64)
         flops += 4 * h * d * int(pos_plus_1.sum())
-    res = {"phase": "kernel", "rows_live": n_live, "rows": t_total,
-           "slots_live": len(live), "max_abs_err": max_abs_err,
-           "tolerance": "rtol=1e-2, atol=1e-3 vs f32 plain (bf16 output)",
+    res = {"rows_live": n_live, "rows": t_total, "slots_live": len(live),
+           "contexts": [c for _, c in live], "split": split,
+           "nsplit": nsplit, "routes": routes, "max_abs_err": max_abs_err,
+           "tolerance": "rtol=1e-2, atol=1e-3 vs the f32 plain version's "
+                        "round_to=bfloat16 form (bf16 output)",
            "ms": ms, "plain_ms": plain_ms, **_bound(nbytes, flops)}
-    emit(res)
+    res["bound_share"] = res["bound_ms"] / ms
     return res
+
+
+def phase_kernel(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev).zero_
+    mixed = _ragged_case(_ragged_batch(dev, gen, MIXED_LIVE, 8, 128, 1024,
+                                       37), MIXED_LIVE, flush)
+    decode = _ragged_case(_ragged_batch(dev, gen, DECODE_LIVE, 8, 256, 1152,
+                                        0), DECODE_LIVE, flush)
+    assert decode["nsplit"] > 1, decode
+    emit({"phase": "kernel", "mixed": mixed, "decode": decode})
+    return mixed
 
 
 def phase_serve(dev):
@@ -276,6 +315,7 @@ def phase_serve(dev):
     n_params = sum(p.numel() for p in eng.model.parameters())
     rids, lens = llama3_8b_serve.add_requests(eng)
     torch.cuda.reset_peak_memory_stats()
+    routes = rpa.route_launches()
     rpa.launches = 0                  # main path starts here
     t1 = time.perf_counter()
     steps = 0
@@ -286,9 +326,14 @@ def phase_serve(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = rpa.launches           # main path ends here
+    routes = {k: n - routes[k] for k, n in rpa.route_launches().items()}
     model_steps = eng.metrics.engine_steps
     assert launches == cfg.num_hidden_layers * model_steps, \
         (launches, model_steps)
+    # bf16: every launch on the tensor cores (the combine runs on the
+    # steps whose batch is split)
+    assert routes["fma"] == 0 and routes["tensor_cores"] == launches, \
+        routes
     gen_tokens = 0
     for rid in rids:
         r = eng.get_request(rid)
@@ -309,6 +354,7 @@ def phase_serve(dev):
                int(eng.scheduler.num_prefill_chunks),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "setup_s": setup_s, "kernel_launches": launches,
+           "route_launches": routes,
            "sampled": eng.get_request("r7").generated[:8]}
     emit(res)
     del eng
@@ -468,6 +514,7 @@ def phase_train(dev):
     cfg = model.config
     torch.cuda.reset_peak_memory_stats()
     losses = [float(step(x, y))]          # warm-up step
+    routes = fa.route_launches()
     for name in fa.launches:              # main path starts here
         fa.launches[name] = 0
     times = []
@@ -478,8 +525,12 @@ def phase_train(dev):
         times.append((time.perf_counter() - t1) * 1e3)
         losses.append(float(loss))
     launches = dict(fa.launches)          # main path ends here
+    routes = {k: {r: n - routes[k][r] for r, n in v.items()}
+              for k, v in fa.route_launches().items()}
     want = cfg.num_hidden_layers * len(times)
     assert all(n == want for n in launches.values()), (launches, want)
+    assert all(r == {"fma": 0, "tensor_cores": want}
+               for r in routes.values()), routes
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     p50 = float(np.percentile(times, 50))
     tokens = gpt_1b_train.BATCH * gpt_1b_train.SEQ
@@ -495,7 +546,8 @@ def phase_train(dev):
            "mfu": fpt * tokens / (p50 / 1e3) / H100_BF16_FLOP_PER_S,
            "mfu_peak": "989 TFLOP/s dense bf16 (H100 SXM data sheet)",
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "setup_s": setup_s, "kernel_launches": launches}
+           "setup_s": setup_s, "kernel_launches": launches,
+           "route_launches": routes}
     emit(res)
     del model, step
     torch.cuda.empty_cache()

@@ -17,6 +17,8 @@
 //
 // Layouts (contiguous, row-major): q, o, dout, dq (B, Sq, H, D); k, v, dk,
 // dv (B, Sk, H, D); lse, delta (B, H, Sq) f32. bf16 or f32 in and out.
+// In bf16 every product rounds its probability-like operand (P, dS) to
+// bf16 first, as the TPU kernels do.
 //
 // What bounds them on the H100: at the training shapes (S = 2048, D = 128)
 // each K/V tile is reused by many query rows, so the work is operations,
@@ -24,7 +26,7 @@
 // 1.5x that in dq and 2x in dkv), and the bound is the bf16 tensor-core
 // rate. Two designs, chosen by dtype (a stated route, not a fallback):
 //
-// bf16 forward and dK/dV: tensor cores (`flash_fwd_kernel_tc`,
+// bf16: tensor cores (`flash_fwd_kernel_tc`, `flash_bwd_dq_kernel_tc`,
 // `flash_bwd_dkv_kernel_tc`). A CTA is two consumer warpgroups and one
 // producer warp. The producer's lane 0 brings tiles into shared memory
 // with TMA (4-D tensor maps over (D, H, S, B), zero-filled past the
@@ -37,6 +39,17 @@
 //     softmax runs on the accumulator fragment (a row lives in one quad
 //     of lanes); P is rounded to bf16 in registers and is the register A
 //     operand of O += P V, V read MN-major (transposed) from shared memory.
+//   * dQ: the forward's shape. A CTA owns 128 query rows (64 per
+//     warpgroup), longest first; Q and dO stay resident (TMA), each
+//     thread keeps the lse and delta of its two rows in registers, and K
+//     and V tiles of 64 keys stream through the ring up to the causal
+//     bound. S = Q K^T and dP = dO V^T from shared memory (K-major);
+//     dS = P o (dP - delta), masked by position on diagonal and tail
+//     tiles, is rounded to bf16 in registers, as `_bwd_dq_kernel` rounds
+//     it, and is the A operand of dQ += dS K, K read MN-major. scale * dQ
+//     is written once. 64-key tiles keep dQ, S and dP (64 + 32 + 32 f32
+//     at D = 128) in registers; dQ is not fused into dK/dV with atomics,
+//     so it stays deterministic.
 //   * dK/dV: a CTA owns 128 keys (64 per warpgroup) whose K and V tiles
 //     stay resident, and loops over q tiles of 64 rows that can see them;
 //     Q, dO (TMA) and their lse, delta slices (loaded by the producer
@@ -47,7 +60,7 @@
 //     and dS^T rounded to bf16 register A operands, as the TPU kernel
 //     rounds them before its products. scale * dK and dV are written once.
 // Each warpgroup waits for its own products before the softmax step, and
-// the two warpgroups of a CTA fill each other's gaps. ptxas holds both
+// the two warpgroups of a CTA fill each other's gaps. ptxas holds these
 // kernels to 168 registers a thread; at D = 128 the dK/dV consumer (dK,
 // dV, S^T, dP^T: 64 + 64 + 32 + 32 f32) spills a few hundred bytes.
 // Measured and left out, since none changed the time (PERF.md): a
@@ -55,12 +68,12 @@
 // 168), 32-row q tiles (92 bytes of spill), and issuing the forward's
 // next S product before waiting for this tile's P V product.
 //
-// f32 (all three kernels) and bf16 dQ: plain f32 FMAs on the CUDA cores
-// (`flash_fwd_kernel`, `flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`);
-// f32 on the tensor cores would go through TF32 and lose the 1e-4 parity
-// with the CPU. One CTA per (q or k tile of 64 rows, b*h); tiles are staged
-// into shared memory as f32 with 16-byte global loads (rows past the
-// sequence end zero-filled and masked). A thread owns a 4 x 8 (fwd, dq;
+// f32: plain f32 FMAs on the CUDA cores (`flash_fwd_kernel`,
+// `flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`); f32 on the tensor cores
+// would go through TF32 and lose the 1e-4 parity with the CPU. One CTA
+// per (q or k tile of 64 rows, b*h); tiles are staged into shared memory
+// as f32 with 16-byte global loads (rows past the sequence end
+// zero-filled and masked). A thread owns a 4 x 8 (fwd, dq;
 // 128 threads) or 2 x 8 (dkv; 256 threads) block of the 64 x 64 score
 // tile -- rows rg + R*i, columns cg + 8*j -- and reads its operands as
 // float4 along D (the padded row stride D + 4 keeps those loads free of
@@ -103,10 +116,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // 16 bytes of T -> floats
 __device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
@@ -114,15 +123,6 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
   f[1] = __uint_as_float(u.y);
   f[2] = __uint_as_float(u.z);
   f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* f,
-                                       __nv_bfloat16) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
 }
 
 // Rows [row0, row0 + kBR) of a (.., S, H, D) tensor at (b, h) -> dst
@@ -519,6 +519,8 @@ constexpr int kFwdBM = 128;   // fwd: query rows per CTA
 constexpr int kFwdBN = 128;   // fwd: keys per k tile
 constexpr int kDkvBN = 128;   // dkv: keys per CTA
 constexpr int kDkvBM = 64;    // dkv: query rows per q tile
+constexpr int kDqBM = 128;    // dq: query rows per CTA
+constexpr int kDqBN = 64;     // dq: keys per k tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -530,34 +532,15 @@ constexpr size_t tc_fwd_smem() {
   return 1024 + T::bytes(kFwdBM) + 2 * kStages * T::bytes(kFwdBN) + 64;
 }
 template <int D>
+constexpr size_t tc_dq_smem() {
+  using T = hopper::Tile<D>;
+  return 1024 + 2 * T::bytes(kDqBM) + 2 * kStages * T::bytes(kDqBN) + 64;
+}
+template <int D>
 constexpr size_t tc_dkv_smem() {
   using T = hopper::Tile<D>;
   return 1024 + 2 * T::bytes(kDkvBN) + 2 * kStages * T::bytes(kDkvBM) +
          2 * kStages * kDkvBM * sizeof(float) + 64;
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// pairs of an f32 accumulator fragment [64 x 16 J] -> J bf16 A operands
-template <int J>
-__device__ __forceinline__ void to_a_operand(const float (&d)[8 * J],
-                                             uint32_t (&a)[J][4]) {
-#pragma unroll
-  for (int j = 0; j < J; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[j][r] = hopper::pack_bf16(d[8 * j + 2 * r], d[8 * j + 2 * r + 1]);
 }
 
 // the thread's rows of a [64 x D] f32 accumulator (rows row0, row0 + 8),
@@ -736,6 +719,148 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   store_acc_rows<D>(out, o, r0, inv[0], inv[1], p.Sq, p.H, t);
 }
 
+// K3, bf16: grid (B * H, q tiles of 128, longest first). Q and dO stay
+// resident; K and V tiles of 64 keys stream through the ring up to the
+// causal bound. Per tile: S = Q K^T and dP = dO V^T (both K-major from
+// shared memory), dS = P o (dP - delta) rounded to bf16 in registers (as
+// `_bwd_dq_kernel` rounds it), then dQ += dS K with K read MN-major.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           Params p) {
+  using T = hopper::Tile<D>;
+  using namespace hopper;
+  constexpr int BM = kDqBM, BN = kDqBN;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  const uint32_t sQ = smem_u32(sm);
+  const uint32_t sdO = sQ + T::bytes(BM);
+  const uint32_t sK = sdO + T::bytes(BM);             // kStages tiles
+  const uint32_t sV = sK + kStages * T::bytes(BN);    // kStages tiles
+  const uint32_t bar = sV + kStages * T::bytes(BN);   // q, full[2], empty[2]
+  const uint32_t q_full = bar;
+  auto full = [&](int st) { return bar + 8 + 8 * st; };
+  auto empty = [&](int st) { return bar + 8 + 8 * kStages + 8 * st; };
+
+  const int nqt = (p.Sq + BM - 1) / BM;
+  const int q0 = (nqt - 1 - (int)blockIdx.y) * BM;   // longest rows first
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int off = p.Sk - p.Sq;
+  const int kend = p.causal ? min(p.Sk, q0 + BM + off) : p.Sk;
+  const int nkt = kend > 0 ? (kend + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {   // producer warp: lane 0 issues every copy
+    if (threadIdx.x % 32 == 0 && nkt > 0) {
+      mbar_expect_tx(q_full, 2 * T::bytes(BM));
+      for (int x = 0; x < T::NBOX; ++x) {
+        tma_load_4d(sQ + x * BM * T::RB, &tq, x * T::C, h, q0, b, q_full);
+        tma_load_4d(sdO + x * BM * T::RB, &tdo, x * T::C, h, q0, b, q_full);
+      }
+      for (int it = 0; it < nkt; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(empty(st), ((it / kStages) - 1) & 1);
+        mbar_expect_tx(full(st), 2 * T::bytes(BN));
+        for (int x = 0; x < T::NBOX; ++x) {
+          const uint32_t o = st * T::bytes(BN) + x * BN * T::RB;
+          tma_load_4d(sK + o, &tk, x * T::C, h, it * BN, b, full(st));
+          tma_load_4d(sV + o, &tv, x * T::C, h, it * BN, b, full(st));
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows wq0 .. wq0 + 63; this thread's rows
+  // r0 and r0 + 8 (their lse, in the log2 domain, and delta sit in
+  // registers), key columns 8 i + 2 t (+1) of the score fragments
+  const int tid = threadIdx.x % 128, w = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wq0 = q0 + 64 * wg;
+  const int r0 = wq0 + 16 * w + g;
+  const float sl2 = p.scale * kLog2e;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    const bool in = row < p.Sq;
+    lse2[r] = in ? p.lse_in[(size_t)bh * p.Sq + row] * kLog2e : 0.f;
+    dlt[r] = in ? p.delta[(size_t)bh * p.Sq + row] : 0.f;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  if (nkt > 0) mbar_wait(q_full, 0);
+  for (int it = 0; it < nkt; ++it) {
+    const int st = it % kStages, k0 = it * BN;
+    mbar_wait(full(st), (it / kStages) & 1);
+    // a key tile wholly above this warpgroup's diagonal is skipped
+    if (!(p.causal && k0 > wq0 + 63 + off)) {
+      const uint32_t kt = sK + st * T::bytes(BN), vt = sV + st * T::bytes(BN);
+      float s[BN / 2], dp[BN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BN>(s, desc_kmajor<D>(sQ, BM, 64 * wg, kk),
+                     desc_kmajor<D>(kt, BN, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BN>(dp, desc_kmajor<D>(sdO, BM, 64 * wg, kk),
+                     desc_kmajor<D>(vt, BN, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // rows past Sq read zeros and lse = delta = 0, so their dS is 0; a
+      // row that sees no key (lse = -inf) lies in a masked tile
+      const bool mask = k0 + BN > p.Sk || (p.causal && k0 + BN - 1 > wq0 + off);
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pr = exp2f(fmaf(s[4 * i + e], sl2, -lse2[e >> 1]));
+          if (mask) {
+            const int col = k0 + 8 * i + 2 * t + (e & 1);
+            const int row = r0 + 8 * (e >> 1);
+            if (col >= p.Sk || (p.causal && col > row + off)) pr = 0.f;
+          }
+          s[4 * i + e] = pr * (dp[4 * i + e] - dlt[e >> 1]);   // dS
+        }
+      uint32_t da[BN / 16][4];
+      to_a_operand<BN / 16>(s, da);
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j)
+        wgmma_rs<D>(dq, da[j], desc_mnmajor<D>(kt, BN, j));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq);
+      fence_regs(da);
+    }
+    if (tid == 0) mbar_arrive(empty(st));
+  }
+
+  const size_t qoff = ((size_t)b * p.Sq * p.H + h) * D;
+  store_acc_rows<D>(static_cast<__nv_bfloat16*>(p.out0) + qoff, dq, r0,
+                    p.scale, p.scale, p.Sq, p.H, t);
+}
+
 // K4, bf16: grid (B * H, key tiles of 128; tile 0, which the most q rows
 // see, first)
 template <int D>
@@ -912,14 +1037,14 @@ size_t fma_smem_bytes(int kernel, int D) {
 
 template <int D>
 size_t tc_smem_bytes(int kernel) {
-  return kernel == kFwd ? tc_fwd_smem<D>() : tc_dkv_smem<D>();
+  return kernel == kFwd  ? tc_fwd_smem<D>()
+         : kernel == kDq ? tc_dq_smem<D>()
+                         : tc_dkv_smem<D>();
 }
 
-// the kernel that runs `kernel` for `dtype` (0 f32, 1 bf16): bf16 forward
-// and dK/dV on the tensor cores, everything else on the f32-FMA kernels
-bool on_tensor_cores(int kernel, int dtype) {
-  return dtype == 1 && (kernel == kFwd || kernel == kDkv);
-}
+// successful launches by route (0 FMA, 1 tensor cores) and kernel, so a
+// caller can show which route a call took
+long long route_launches[2][3] = {};
 
 template <typename KernelFn>
 int launch(KernelFn fn, int kernel, int D, int threads, const Params& p,
@@ -931,33 +1056,43 @@ int launch(KernelFn fn, int kernel, int D, int threads, const Params& p,
   const int rows = kernel == kDkv ? p.Sk : p.Sq;
   const dim3 grid((rows + kBR - 1) / kBR, p.B * p.H);
   fn<<<grid, threads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++route_launches[0][kernel];
+  return (int)err;
 }
 
-// K2 (kernel kFwd) or K4 (kDkv) in bf16 on the tensor cores: one tensor
-// map per operand, encoded on the host for this launch
+// K2 (kernel kFwd), K3 (kDq) or K4 (kDkv) in bf16 on the tensor cores:
+// one tensor map per operand, encoded on the host for this launch
 template <int D>
 int launch_tc(int kernel, const Params& p, cudaStream_t stream) {
   using hopper::encode_bshd;
-  const bool fwd = kernel == kFwd;
-  const int q_rows = fwd ? kFwdBM : kDkvBM, k_rows = fwd ? kFwdBN : kDkvBN;
+  const int q_rows = kernel == kFwd ? kFwdBM : kernel == kDq ? kDqBM : kDkvBM;
+  const int k_rows = kernel == kFwd ? kFwdBN : kernel == kDq ? kDqBN : kDkvBN;
   CUtensorMap tq, tk, tv, tdo;
   int err = encode_bshd(&tq, p.q, p.B, p.Sq, p.H, D, q_rows);
   if (!err) err = encode_bshd(&tk, p.k, p.B, p.Sk, p.H, D, k_rows);
   if (!err) err = encode_bshd(&tv, p.v, p.B, p.Sk, p.H, D, k_rows);
-  if (!err && !fwd) err = encode_bshd(&tdo, p.dout, p.B, p.Sq, p.H, D, q_rows);
+  if (!err && kernel != kFwd)
+    err = encode_bshd(&tdo, p.dout, p.B, p.Sq, p.H, D, q_rows);
   if (err) return err;
   const size_t smem = tc_smem_bytes<D>(kernel);
-  const int tiles = fwd ? (p.Sq + kFwdBM - 1) / kFwdBM
-                        : (p.Sk + kDkvBN - 1) / kDkvBN;
+  const int tiles = kernel == kDkv ? (p.Sk + k_rows - 1) / k_rows
+                                   : (p.Sq + q_rows - 1) / q_rows;
   const dim3 grid(p.B * p.H, tiles);
   cudaError_t e;
-  if (fwd) {
+  if (kernel == kFwd) {
     e = cudaFuncSetAttribute(flash_fwd_kernel_tc<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
     flash_fwd_kernel_tc<D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, p);
+  } else if (kernel == kDq) {
+    e = cudaFuncSetAttribute(flash_bwd_dq_kernel_tc<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    flash_bwd_dq_kernel_tc<D><<<grid, kTcThreads, smem, stream>>>(
+        tq, tk, tv, tdo, p);
   } else {
     e = cudaFuncSetAttribute(flash_bwd_dkv_kernel_tc<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -966,15 +1101,15 @@ int launch_tc(int kernel, const Params& p, cudaStream_t stream) {
     flash_bwd_dkv_kernel_tc<D><<<grid, kTcThreads, smem, stream>>>(
         tq, tk, tv, tdo, p);
   }
-  return (int)cudaGetLastError();
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++route_launches[1][kernel];
+  return (int)e;
 }
 
 template <typename T, int D>
 int dispatch_kernel(int kernel, const Params& p, cudaStream_t s) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (on_tensor_cores(kernel, 1)) return launch_tc<D>(kernel, p, s);
-    if (kernel == kDq)
-      return launch(flash_bwd_dq_kernel<T, D>, kernel, D, kFwdThreads, p, s);
+    return launch_tc<D>(kernel, p, s);
   } else {
     switch (kernel) {
       case kFwd:
@@ -1001,8 +1136,10 @@ int dispatch_d(int kernel, int D, const Params& p, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
+// the route is chosen by dtype (0 f32, 1 bf16): every bf16 kernel on the
+// tensor cores, every f32 kernel on the f32-FMA kernels
 size_t smem_bytes(int kernel, int D, int dtype) {
-  if (!on_tensor_cores(kernel, dtype)) return fma_smem_bytes(kernel, D);
+  if (dtype != 1) return fma_smem_bytes(kernel, D);
   switch (D) {
     case 16: return tc_smem_bytes<16>(kernel);
     case 32: return tc_smem_bytes<32>(kernel);
@@ -1085,6 +1222,15 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
 // head dim D for `dtype` (ptxas reports only static shared memory).
 extern "C" size_t flash_attention_smem_bytes(int kernel, int D, int dtype) {
   return smem_bytes(kernel, D, dtype);
+}
+
+// Successful launches so far of `kernel` (0 fwd, 1 dq, 2 dkv) by route:
+// tensor_cores 1 for the wgmma kernels, 0 for the f32-FMA kernels.
+extern "C" long long flash_attention_route_launches(int kernel,
+                                                    int tensor_cores) {
+  if (kernel < 0 || kernel > 2 || tensor_cores < 0 || tensor_cores > 1)
+    return -1;
+  return route_launches[tensor_cores][kernel];
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, TMA
-// tile loads, wgmma shared-memory descriptors and the wgmma instructions
-// themselves, and the host-side encoding of a TMA tensor map for a
-// [B, S, H, D] bf16 tensor. Plain inline PTX; no library.
+// tile loads, 16-byte cp.async copies into the same swizzled tile layout
+// (for gathers TMA cannot express, such as paged caches), wgmma
+// shared-memory descriptors and the wgmma instructions themselves, and the
+// host-side encoding of a TMA tensor map for a [B, S, H, D] bf16 tensor.
+// Plain inline PTX; no library.
 //
 // Shared-memory tiles. A tile of R rows of a [.., S, H, D] tensor is
 // loaded by TMA as D / C boxes of R x C elements, C = min(D, 64), each box
@@ -30,6 +32,12 @@ namespace hopper {
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the first 1024-byte boundary of shared memory at or after p (tiles
+// start there, so the swizzle phase of row r is r % 8)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -92,6 +100,32 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// 16 bytes from global memory to shared memory at `dst`; when `valid` is
+// false nothing is read and the 16 bytes are zeroed
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// make this thread's shared-memory writes (st.shared, cp.async) visible to
+// the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// barrier `id` (1..15) over `threads` threads (a warpgroup: 128)
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // tiles and wgmma descriptors
 // ---------------------------------------------------------------------------
@@ -102,8 +136,18 @@ struct Tile {
   static constexpr int RB = 2 * C;              // bytes per box row (bf16)
   static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
   static constexpr int SBO = 8 * RB;
+  static constexpr int CHUNKS = D / 8;          // 16-byte pieces per row
   __host__ __device__ static constexpr int bytes(int rows) {
     return rows * D * 2;
+  }
+  // byte offset of 16-byte piece c (columns 8 c .. 8 c + 7) of `row` in a
+  // tile of `rows` rows (a multiple of 8) at a 1024-byte boundary, where a
+  // TMA load with the matching swizzle would put it: the RB-byte swizzle
+  // XORs the 16-byte index inside a row with the low bits of the row
+  __device__ static __forceinline__ uint32_t offset(int rows, int row, int c) {
+    const int col = 8 * c;
+    const uint32_t o = (col / C) * rows * RB + row * RB + (col % C) * 2;
+    return o ^ ((o >> 3) & ((RB / 16 - 1) << 4));
   }
 };
 
@@ -171,6 +215,27 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// pairs of an f32 accumulator fragment [64 x 16 J] -> J bf16 A operands
+template <int J>
+__device__ __forceinline__ void to_a_operand(const float (&d)[8 * J],
+                                             uint32_t (&a)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[j][r] = pack_bf16(d[8 * j + 2 * r], d[8 * j + 2 * r + 1]);
+}
+
+// max / sum over the 4 lanes of a quad: one row of an accumulator
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // both operands from shared memory, K-major (no transpose)

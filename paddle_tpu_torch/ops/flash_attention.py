@@ -16,11 +16,11 @@ Two implementations of each pass:
 * ``_flash_fwd_cuda``, ``_flash_bwd_dq_cuda``, ``_flash_bwd_dkv_cuda`` --
   the hand-written Hopper kernels (``csrc/flash_attention.cu``), bound
   with ``ctypes``. They take any Sq and Sk and head_dim 16, 32, 64 or
-  128, in float32 or bfloat16. In bfloat16 the forward and dK/dV run on
-  the tensor cores (wgmma, TMA) and round P and dS to bfloat16 before
-  the products that take them, as the TPU kernels do; dQ and every
-  float32 kernel compute in f32 FMAs (the tensor cores would take
-  float32 as TF32).
+  128, in float32 or bfloat16. In bfloat16 all three run on the tensor
+  cores (wgmma, TMA) and round P and dS to bfloat16 before the products
+  that take them, as the TPU kernels do; in float32 they compute in f32
+  FMAs (the tensor cores would take float32 as TF32).
+  :func:`route_launches` reads the launches by route.
 
 Selection is by device and nothing else: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises (an unsupported
@@ -46,7 +46,7 @@ _KERNEL = "flash_attention"
 HEAD_DIMS = (16, 32, 64, 128)
 KEY_BLOCK = 128     # keys per online-softmax step of the bf16 K2 kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_KERNELS = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 1,
+_KERNEL_IDS = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 1,
                  "flash_attention_bwd_dkv": 2}
 
 
@@ -125,17 +125,17 @@ def _delta(o, do):
 def _flash_bwd_ref(q, k, v, o, lse, do, scale, causal, round_to=None):
     """Plain backward: (dq, dk, dv) in the inputs' dtypes. With
     ``round_to`` (a dtype), P and dS are rounded to it before the
-    dV = P^T dO and dK = dS^T Q products, as the bf16 K4 kernel and the
-    TPU kernel ``_bwd_dkv_kernel`` round them; dQ keeps dS in f32, as
-    K3 does."""
+    dQ = dS K, dV = P^T dO and dK = dS^T Q products, as the bf16 K3 and
+    K4 kernels and the TPU kernels ``_bwd_dq_kernel`` and
+    ``_bwd_dkv_kernel`` round them."""
     p = _probs(q, k, lse, scale, causal)                 # [B, H, Sq, Sk]
     b, sq, h, _ = q.shape
     dof = do.float().transpose(1, 2)
     dp = torch.matmul(dof, v.float().transpose(1, 2).transpose(-1, -2))
     ds = p * (dp - _delta(o, do).reshape(b, h, sq, 1))
-    dq = torch.matmul(ds, k.float().transpose(1, 2)) * scale
     if round_to is not None:
         p, ds = p.to(round_to).float(), ds.to(round_to).float()
+    dq = torch.matmul(ds, k.float().transpose(1, 2)) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.float().transpose(1, 2)) * scale
     dv = torch.matmul(p.transpose(-1, -2), dof)
     return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
@@ -166,6 +166,8 @@ def _library():
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.flash_attention_route_launches.argtypes = [ctypes.c_int] * 2
+        lib.flash_attention_route_launches.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -175,7 +177,18 @@ def smem_bytes(kernel: str, head_dim: int,
     """Dynamic shared memory of one CTA of ``kernel`` (a key of
     :data:`launches`) at ``head_dim`` for inputs of ``dtype``."""
     return int(_library().flash_attention_smem_bytes(
-        _SMEM_KERNELS[kernel], head_dim, _DTYPES[dtype]))
+        _KERNEL_IDS[kernel], head_dim, _DTYPES[dtype]))
+
+
+def route_launches() -> dict:
+    """Successful kernel launches so far, by kernel (a key of
+    :data:`launches`) and route: ``"tensor_cores"`` (the bf16 wgmma
+    kernels) or ``"fma"`` (the f32 kernels), as the library counts them
+    where it launches."""
+    lib = _library()
+    return {name: {route: int(lib.flash_attention_route_launches(i, tc))
+                   for route, tc in (("fma", 0), ("tensor_cores", 1))}
+            for name, i in _KERNEL_IDS.items()}
 
 
 def _check(cond, msg):

@@ -32,8 +32,13 @@ Two implementations:
 
 * ``_ragged_attend_ref`` — plain PyTorch, per slot, in f32. The CPU path
   and the reference the kernel is held against on the card.
-* ``_ragged_attend_cuda`` — the hand-written Hopper kernel
-  (``csrc/ragged_paged_attention.cu``), bound with ``ctypes``.
+* ``_ragged_attend_cuda`` — the hand-written Hopper kernels
+  (``csrc/ragged_paged_attention.cu``), bound with ``ctypes``: in
+  bfloat16 on the tensor cores (wgmma; head_dim 16, 32, 64 or 128), with
+  each slot's cache range cut into splits when the batch alone would not
+  fill the card (:func:`_splits`; a second kernel merges them); in
+  float32 on f32 FMAs (the tensor cores would take float32 as TF32).
+  :func:`route_launches` reads the launches by route.
 
 Selection is by device and nothing else: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises.
@@ -41,6 +46,7 @@ version, a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -54,6 +60,9 @@ _KERNEL = "ragged_paged_attention"
 _MAX_QV = 64     # query vectors per CTA (csrc kMaxQV)
 _MAX_D = 128
 _KV_CHUNK = 64   # cache positions per loop iteration (csrc kKC)
+_TC_HEAD_DIMS = (16, 32, 64, 128)   # head dims of the bf16 kernel
+_CTAS_PER_SM = 2  # bf16 CTAs an SM holds at once (shared memory, D = 128)
+_ROUTES = ("fma", "tensor_cores", "combine")
 
 
 # ---------------------------------------------------------------------------
@@ -108,12 +117,53 @@ def _write_kv(cache, new, block_tables, seg, pos):
 # ---------------------------------------------------------------------------
 # plain version (the CPU path; the kernel's reference on the card)
 # ---------------------------------------------------------------------------
+def _chunked_attend(logits, vals, round_to, split):
+    """The bfloat16 kernel's arithmetic on one slot: logits (t, kh, rep, L)
+    with -inf where masked, vals (L, kh, d), both f32. Per split of
+    ``split`` positions, an online softmax over chunks of ``_KV_CHUNK``
+    positions whose P = exp(S - running max) is rounded to ``round_to``
+    before each P V product; then the splits merged as the combine kernel
+    merges them. A row that sees no position is 0."""
+    parts, m_all, num, den = [], None, None, None
+    for s0 in range(0, logits.shape[-1], split):
+        m = torch.full(logits.shape[:-1], float("-inf"), device=logits.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros(logits.shape[:-1] + vals.shape[-1:],
+                        device=logits.device)
+        for c0 in range(s0, min(s0 + split, logits.shape[-1]), _KV_CHUNK):
+            sb = logits[..., c0:c0 + _KV_CHUNK]
+            m_new = torch.maximum(m, sb.amax(-1))
+            seen = torch.isfinite(m_new)             # some position so far
+            base = torch.where(seen, m_new, 0.0)
+            alpha = torch.where(seen, torch.exp(m - base), 1.0)
+            pr = torch.exp(sb - base[..., None])
+            l = l * alpha + pr.sum(-1)
+            o = o * alpha[..., None] + torch.einsum(
+                "tgrl,lgd->tgrd", pr.to(round_to).float(),
+                vals[c0:c0 + _KV_CHUNK])
+            m = m_new
+        parts.append((m, l, o))
+        m_all = m if m_all is None else torch.maximum(m_all, m)
+    for m, l, o in parts:
+        w = torch.where(torch.isfinite(m), torch.exp(m - torch.where(
+            torch.isfinite(m_all), m_all, 0.0)), 0.0)
+        num = w[..., None] * o if num is None else num + w[..., None] * o
+        den = w * l if den is None else den + w * l
+    return torch.where(den[..., None] > 0, num / den[..., None], 0.0)
+
+
 def _ragged_attend_ref(q, kc, vc, bt, cu, ctx, num_seqs, scale,
-                       out_dtype=None):
+                       out_dtype=None, round_to=None, split=None):
     """Plain PyTorch: for each live slot, gather its pages, take causal
     softmax attention in f32, write its rows. Reads the index arrays on
     the host (this version is for the CPU and for checking the kernel).
-    ``out_dtype`` defaults to q's dtype."""
+    ``out_dtype`` defaults to q's dtype.
+
+    With ``round_to`` (a dtype) it takes the bfloat16 kernel's form
+    (:func:`_chunked_attend`): P rounded to ``round_to`` per chunk of
+    ``_KV_CHUNK`` positions, in splits of ``split`` positions (default:
+    one split; the kernel's is :func:`kernel_split`), as the kernel and
+    the TPU kernel round P before their P V products."""
     t_total, h, d = q.shape
     _, bs, kh, _ = kc.shape
     s_slots, mb = bt.shape
@@ -142,11 +192,16 @@ def _ragged_attend_ref(q, kc, vc, bt, cu, ctx, num_seqs, scale,
         qs = q[lo:hi].float().reshape(hi - lo, kh, rep, d)
         logits = torch.einsum("tgrd,lgd->tgrl", qs, keys) * scale
         logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
-        probs = torch.softmax(logits, dim=-1)
-        # a row with no visible position (malformed ctx < nq) is 0, as in
-        # the kernel, not NaN
-        probs = torch.where(mask.any(-1)[:, None, None, None], probs, 0.0)
-        o = torch.einsum("tgrl,lgd->tgrd", probs, vals)
+        if round_to is not None:
+            o = _chunked_attend(logits, vals, round_to,
+                                split or logits.shape[-1])
+        else:
+            probs = torch.softmax(logits, dim=-1)
+            # a row with no visible position (malformed ctx < nq) is 0, as
+            # in the kernel, not NaN
+            probs = torch.where(mask.any(-1)[:, None, None, None], probs,
+                                0.0)
+            o = torch.einsum("tgrl,lgd->tgrd", probs, vals)
         out[lo:hi] = o.reshape(hi - lo, h, d).to(out.dtype)
     return out
 
@@ -164,15 +219,64 @@ def _library():
 
         lib = _build.load(_KERNEL)
         fn = lib.ragged_paged_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ragged_paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.ragged_paged_attention_error_string.restype = ctypes.c_char_p
-        lib.ragged_paged_attention_smem_bytes.argtypes = [ctypes.c_int]
+        lib.ragged_paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.ragged_paged_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.ragged_paged_attention_route_launches.argtypes = [ctypes.c_int]
+        lib.ragged_paged_attention_route_launches.restype = ctypes.c_longlong
         _lib = lib
     return _lib
+
+
+def smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one CTA at ``head_dim`` for ``dtype``."""
+    return int(_library().ragged_paged_attention_smem_bytes(
+        head_dim, 0 if dtype == torch.float32 else 1))
+
+
+def route_launches() -> dict:
+    """Successful launches so far by route, as the library counts them
+    where it launches: ``"fma"`` (the float32 kernel), ``"tensor_cores"``
+    (the bfloat16 kernel) and ``"combine"`` (the kernel that merges
+    splits)."""
+    lib = _library()
+    return {name: int(lib.ragged_paged_attention_route_launches(i))
+            for i, name in enumerate(_ROUTES)}
+
+
+def _splits(t_total, s_slots, kv_heads, rep, max_blocks, block_size, sms):
+    """``(split, nsplit)`` for the bfloat16 kernel: each slot's cache range
+    ``[0, max_blocks * block_size)`` is cut into ``nsplit`` splits of
+    ``split`` positions (whole chunks), from shapes the host knows -- no
+    index array is read. One split while the grid's (q tile, kv-head)
+    CTAs fill ``_CTAS_PER_SM`` per SM; else as many as bring it there (a
+    decode batch: one q tile per slot)."""
+    span = max_blocks * block_size
+    ctas = (-(-t_total // (_MAX_QV // rep)) + s_slots) * kv_heads
+    want = max(1, min(-(-_CTAS_PER_SM * sms // ctas),
+                      -(-span // _KV_CHUNK)))
+    split = -(-span // want)
+    split = -(-split // _KV_CHUNK) * _KV_CHUNK
+    return split, -(-span // split)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kernel_split(q, key_cache, block_tables):
+    """``(split, nsplit)`` the bfloat16 kernel takes for these shapes on
+    q's card (:func:`_splits`)."""
+    dev = q.device
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    kh = key_cache.shape[2]
+    return _splits(q.shape[0], block_tables.shape[0], kh, q.shape[1] // kh,
+                   block_tables.shape[1], key_cache.shape[1], _sm_count(idx))
 
 
 def _check(cond, msg):
@@ -181,9 +285,11 @@ def _check(cond, msg):
 
 
 def _ragged_attend_cuda(q, kc, vc, bt, cu, ctx, num_seqs, scale):
-    """Launch the Hopper kernel on PyTorch's current stream. Checks
-    device, dtype, shape and contiguity and raises on anything the
-    kernel does not take; raises on a refused launch."""
+    """Launch the Hopper kernel on PyTorch's current stream (bfloat16:
+    the tensor-core kernel, and the combine kernel when it splits; float32:
+    the FMA kernel). Checks device, dtype, shape, contiguity and alignment
+    and raises on anything the kernels do not take; raises on a refused
+    launch."""
     global launches
     t_total, h, d = q.shape
     nb, bs, kh, d2 = kc.shape
@@ -202,6 +308,9 @@ def _ragged_attend_cuda(q, kc, vc, bt, cu, ctx, num_seqs, scale):
                                  f"key_cache {tuple(kc.shape)}")
     _check(d2 == d and 0 < d <= _MAX_D, f"head_dim {d} (cache {d2}); "
                                         f"want equal and <= {_MAX_D}")
+    tc = q.dtype == torch.bfloat16
+    _check(not tc or d in _TC_HEAD_DIMS,
+           f"head_dim {d} in bfloat16 (want one of {_TC_HEAD_DIMS})")
     _check(kh > 0 and h % kh == 0 and h // kh <= _MAX_QV,
            f"heads {h} / kv-heads {kh}")
     _check(bs > 0 and _KV_CHUNK % bs == 0,
@@ -214,16 +323,28 @@ def _ragged_attend_cuda(q, kc, vc, bt, cu, ctx, num_seqs, scale):
            f"cu_seqlens {tuple(cu.shape)}, context_lens "
            f"{tuple(ctx.shape)}, num_seqs {tuple(num_seqs.shape)} for "
            f"{s_slots} slots")
+    for name, x in (("q", q), ("key_cache", kc), ("value_cache", vc)):
+        _check(x.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
     out = torch.empty_like(q)
     if t_total == 0:
         return out
+    split, nsplit = 0, 1
+    o_part = ml_part = None
+    if tc:
+        split, nsplit = kernel_split(q, kc, bt)
+        if nsplit > 1:
+            o_part = torch.empty((nsplit, t_total, h, d), dtype=torch.float32,
+                                 device=dev)
+            ml_part = torch.empty((nsplit, t_total, h, 2),
+                                  dtype=torch.float32, device=dev)
     lib = _library()
     err = lib.ragged_paged_attention_fwd(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), bt.data_ptr(),
         cu.data_ptr(), ctx.data_ptr(), num_seqs.data_ptr(), out.data_ptr(),
-        t_total, h, kh, d, nb, bs, s_slots, mb, float(scale),
-        0 if q.dtype == torch.float32 else 1,
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if o_part is None else o_part.data_ptr(),
+        None if ml_part is None else ml_part.data_ptr(),
+        t_total, h, kh, d, nb, bs, s_slots, mb, split, nsplit, float(scale),
+        1 if tc else 0, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.ragged_paged_attention_error_string(err).decode()
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: "

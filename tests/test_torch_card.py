@@ -5,11 +5,13 @@ CUDA device; on the card run them with
 
 (``--noconftest``: the suite's conftest configures JAX, which the card's
 machine does not have and this file does not use). The ragged attention
-kernel is held against its plain version on small mixed batches, and
-the tiny engine's greedy tokens on the card against the CPU's; the flash
+kernels are held against their plain version on small mixed batches and
+on decode batches that split each slot's cache range (bf16), and the
+tiny engine's greedy tokens on the card against the CPU's; the flash
 attention kernels (forward, dQ, dK/dV) against their plain versions over
 head dims, dtypes, Sq != Sk and ragged tails, and three tiny training
-steps on the card against the CPU."""
+steps on the card against the CPU. A bf16 call launches the tensor-core
+kernels only (the libraries count launches by route)."""
 import numpy as np
 import pytest
 import torch
@@ -56,35 +58,111 @@ def _batch(dev, dtype, h, kh, d, bs, seed=0, nb=64, s_slots=6, mb=16):
                 num_seqs=torch.tensor([ns], dtype=torch.int32, device=dev))
 
 
-# f32: summation order only; bf16: the kernel's output is rounded to
-# bf16 (at most half a relative step of 2^-8, covered by rtol) while the
-# reference stays in f32
+def _route_delta(before):
+    now = rpa.route_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _check_ragged(b, rtol, atol, nsplit=None):
+    """One call of the kernels on batch ``b`` against the plain version
+    (bf16: its ``round_to`` form in the kernel's splits): caches, padding
+    rows, values, and the routes the call took."""
+    q, dtype = b["q"], b["q"].dtype
+    s_slots = b["block_tables"].shape[0]
+    kc_ref = b["key_cache"].clone()
+    vc_ref = b["value_cache"].clone()
+    before, routes = rpa.launches, rpa.route_launches()
+    out, kc, vc = rpa.ragged_paged_attention(**b)
+    assert rpa.launches == before + 1
+    seg, pos, _ = rpa._token_layout(out.shape[0], s_slots, b["cu_seqlens"],
+                                    b["context_lens"], b["num_seqs"])
+    rpa._write_kv(kc_ref, b["k_new"], b["block_tables"], seg, pos)
+    rpa._write_kv(vc_ref, b["v_new"], b["block_tables"], seg, pos)
+    split, n = rpa.kernel_split(q, kc, b["block_tables"])
+    ref = rpa._ragged_attend_ref(
+        q, kc_ref, vc_ref, b["block_tables"], b["cu_seqlens"],
+        b["context_lens"], b["num_seqs"], q.shape[-1] ** -0.5,
+        out_dtype=torch.float32,
+        round_to=dtype if dtype == torch.bfloat16 else None, split=split)
+    torch.cuda.synchronize()
+    live = int(b["cu_seqlens"][int(b["num_seqs"][0])])
+    assert torch.equal(kc, kc_ref) and torch.equal(vc, vc_ref)
+    assert torch.all(out[live:] == 0)
+    torch.testing.assert_close(out[:live].float(), ref[:live], rtol=rtol,
+                               atol=atol)
+    tc = dtype == torch.bfloat16
+    assert _route_delta(routes) == {"fma": int(not tc),
+                                    "tensor_cores": int(tc),
+                                    "combine": int(tc and n > 1)}
+    if nsplit is not None:
+        assert n == nsplit
+    return n
+
+
+# f32: summation order only. bf16: the kernel rounds P to bf16 before its
+# P V products, per chunk of 64 positions and per split (as the TPU kernel
+# rounds it per page), and rounds its output to bf16 (at most half a
+# relative step of 2^-8, covered by rtol); against a plain version that
+# keeps P in f32 the P rounding alone exceeds atol at short contexts (up
+# to 2x the limit in a CPU emulation of the kernel), so the plain version
+# rounds at the same places (`round_to`; held against the Pallas kernel in
+# bf16 by tests/test_torch_ragged_attention.py) and the tolerance stays
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-4, 1e-4),
                                              (torch.bfloat16, 1e-2, 1e-3)])
 @pytest.mark.parametrize("h,kh,d,bs", [(4, 2, 16, 4), (32, 8, 128, 16),
                                        (8, 8, 64, 8), (32, 4, 64, 32)])
 def test_kernel_matches_plain(card, dtype, rtol, atol, h, kh, d, bs):
-    b = _batch(card, dtype, h, kh, d, bs)
-    kc_ref = b["key_cache"].clone()
-    vc_ref = b["value_cache"].clone()
-    before = rpa.launches
-    out, kc, vc = rpa.ragged_paged_attention(**b)
-    assert rpa.launches == before + 1
-    seg, pos, _ = rpa._token_layout(out.shape[0], 6, b["cu_seqlens"],
-                                    b["context_lens"], b["num_seqs"])
-    rpa._write_kv(kc_ref, b["k_new"], b["block_tables"], seg, pos)
-    rpa._write_kv(vc_ref, b["v_new"], b["block_tables"], seg, pos)
-    ref = rpa._ragged_attend_ref(b["q"], kc_ref, vc_ref, b["block_tables"],
-                                 b["cu_seqlens"], b["context_lens"],
-                                 b["num_seqs"], d ** -0.5,
-                                 out_dtype=torch.float32)
-    torch.cuda.synchronize()
-    live = int(b["cu_seqlens"][5])
-    assert torch.equal(kc, kc_ref) and torch.equal(vc, vc_ref)
-    assert torch.all(out[live:] == 0)
-    torch.testing.assert_close(out[:live].float(), ref[:live], rtol=rtol,
-                               atol=atol)
+    _check_ragged(_batch(card, dtype, h, kh, d, bs), rtol, atol)
+
+
+def _decode_batch(dev, h, kh, d, bs, s_slots, seed=0):
+    """One decode row per live slot, contexts of 1 to 4600 positions
+    (several past 4096), -1 table entries past each context, two padding
+    slots and padding rows past cu[num_seqs]."""
+    rng = np.random.default_rng(seed)
+    ns = s_slots - 2
+    ctx_cycle = [4100, 1, 4096, 700, 4600, 64, 129, 2048, 17]
+    ctx = np.zeros((s_slots,), np.int32)
+    ctx[:ns] = [ctx_cycle[i % len(ctx_cycle)] for i in range(ns)]
+    cu = np.zeros((s_slots + 1,), np.int32)
+    cu[1:ns + 1] = np.arange(1, ns + 1)
+    cu[ns + 1:] = ns
+    mb = -(-4608 // bs)
+    need = [-(-int(c) // bs) for c in ctx[:ns]]
+    nb = sum(need) + 4
+    bt = np.full((s_slots, mb), -1, np.int32)
+    perm = rng.permutation(nb)
+    k = 0
+    for i, n in enumerate(need):
+        bt[i, :n] = perm[k:k + n]
+        k += n
+    t_total = ns + 3
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    return dict(q=randn(t_total, h, d), k_new=randn(t_total, kh, d),
+                v_new=randn(t_total, kh, d), key_cache=randn(nb, bs, kh, d),
+                value_cache=randn(nb, bs, kh, d),
+                block_tables=torch.from_numpy(bt).to(dev),
+                cu_seqlens=torch.from_numpy(cu).to(dev),
+                context_lens=torch.from_numpy(ctx).to(dev),
+                num_seqs=torch.tensor([ns], dtype=torch.int32, device=dev))
+
+
+# decode batches with more slots than SMs / KH (the grid still has too few
+# CTAs to fill the card, so each slot's cache range is split and the
+# combine kernel merges the splits), GQA groups 1, 4 and 8
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kh,d,bs,s_slots", [(8, 8, 128, 16, 24),
+                                               (32, 8, 128, 16, 24),
+                                               (32, 4, 64, 32, 40)])
+def test_kernel_splits_decode_batch(card, h, kh, d, bs, s_slots):
+    n = _check_ragged(_decode_batch(card, h, kh, d, bs, s_slots), 1e-2, 1e-3)
+    assert n > 1
 
 
 @pytest.mark.gpu
@@ -92,6 +170,12 @@ def test_kernel_rejects_what_it_does_not_take(card):
     b = _batch(card, torch.float16, 4, 2, 16, 4)
     with pytest.raises(ValueError, match="dtype"):
         rpa.ragged_paged_attention(**b)
+    # bf16 runs only on the tensor cores, which take these head dims
+    before = rpa.route_launches()
+    b = _batch(card, torch.bfloat16, 4, 2, 48, 4)
+    with pytest.raises(ValueError, match="head_dim"):
+        rpa.ragged_paged_attention(**b)
+    assert rpa.route_launches() == before
 
 
 @pytest.mark.gpu
@@ -136,10 +220,9 @@ def _flash_inputs(dev, dtype, b, sq, sk, h, d, seed):
 # keeps them in f32 that rounding alone exceeds atol near zero: 2.4e-3 in O
 # on an H100, about 5e-3 in dK and dV as estimated on the CPU from the
 # same inputs. So the plain versions round at the same places (`round_to`:
-# the forward's online softmax over KEY_BLOCK keys, P and dS for dK and dV;
-# held against the Pallas kernels in bf16 by
+# the forward's online softmax over KEY_BLOCK keys, dS for dQ, P and dS for
+# dK and dV; held against the Pallas kernels in bf16 by
 # tests/test_torch_flash_attention.py) and the tolerance stays as it was.
-# dQ keeps dS in f32, as does its plain version.
 _FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
               torch.bfloat16: dict(rtol=1e-2, atol=2e-3)}
 
@@ -160,13 +243,19 @@ def test_flash_kernels_match_plain(card, dtype, d, b, sq, sk, h, causal):
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _flash_inputs(card, dtype, b, sq, sk, h, d, seed=d + sq)
     scale = d ** -0.5
-    before = dict(fa.launches)
+    before, routes = dict(fa.launches), fa.route_launches()
     o, lse = fa._flash_fwd_cuda(q, k, v, scale, causal)
     delta = fa._delta(o, do)
     dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
     dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal)
     torch.cuda.synchronize()
     assert all(fa.launches[n] == before[n] + 1 for n in before)
+    # bf16: every kernel on the tensor cores; f32: every one on FMAs
+    tc = dtype == torch.bfloat16
+    now = fa.route_launches()
+    for n in before:
+        assert now[n]["tensor_cores"] - routes[n]["tensor_cores"] == int(tc)
+        assert now[n]["fma"] - routes[n]["fma"] == int(not tc)
     f = [x.float() for x in (q, k, v, do)]
     o_ref, lse_ref = fa._flash_fwd_ref(f[0], f[1], f[2], scale, causal,
                                        round_to=dtype)
@@ -206,6 +295,24 @@ def test_flash_kernel_refuses_head_dim(card, d):
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_data(q, k, v, causal=True)
     assert fa.launches == before
+
+
+@pytest.mark.gpu
+def test_bf16_calls_never_take_the_fma_route(card):
+    """A bf16 call through the entry points (autograd flash attention,
+    the ragged op) launches tensor-core kernels only."""
+    flash0, ragged0 = fa.route_launches(), rpa.route_launches()
+    q, k, v, do = _flash_inputs(card, torch.bfloat16, 1, 256, 256, 2, 128, 9)
+    xs = [x.requires_grad_() for x in (q, k, v)]
+    fa.flash_attention_data(*xs, causal=True).backward(do)
+    rpa.ragged_paged_attention(**_batch(card, torch.bfloat16, 32, 8, 128, 16))
+    torch.cuda.synchronize()
+    flash1, ragged1 = fa.route_launches(), rpa.route_launches()
+    for n in flash0:
+        assert flash1[n]["fma"] == flash0[n]["fma"]
+        assert flash1[n]["tensor_cores"] == flash0[n]["tensor_cores"] + 1
+    assert ragged1["fma"] == ragged0["fma"]
+    assert ragged1["tensor_cores"] == ragged0["tensor_cores"] + 1
 
 
 @pytest.mark.gpu

@@ -184,6 +184,38 @@ def test_bf16_dkv_rounding_matches_pallas(causal, pallas_calls):
         assert np.abs(r - w).max() < np.abs(p - w).max()
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_dq_rounding_matches_pallas(causal, pallas_calls):
+    """In bf16 the TPU kernel ``_bwd_dq_kernel`` rounds dS to bf16 before
+    its dS K product; the port's plain backward does the same with
+    ``round_to``, the version the card holds the bf16 K3 kernel against.
+    Same bf16 inputs, O and lse on both sides; both outputs rounded to
+    bf16, as the kernels store them: dQ agrees within rtol, and closer
+    than the plain backward that keeps dS in f32."""
+    b, s, h, d = 1, 128, 2, 32
+    scale = d ** -0.5
+    xs = [jnp.asarray(x, jnp.bfloat16) for x in _inputs(b, s, s, h, d, 7)]
+    o_j, lse_j = jfa._flash_fwd(*(_to_bh(x) for x in xs[:3]), scale, causal,
+                                64, 64, True)
+    dq_j, _, _ = jfa._flash_bwd(*(_to_bh(x) for x in xs[:3]), o_j, lse_j,
+                                _to_bh(xs[3]), scale, causal, 64, 64, True)
+    assert pallas_calls == {"fwd": 1, "bwd": 1}
+
+    def port(x):                      # [BH, S, D] or [B, S, H, D] -> f32
+        x = torch.from_numpy(np.array(x.astype(jnp.float32)))
+        return x if x.shape[0] == b else (
+            x.reshape(b, h, s, d).transpose(1, 2).contiguous())
+
+    q, k, v, do, o = (port(x) for x in xs + [o_j])
+    lse = torch.from_numpy(np.asarray(lse_j)[:, 0])
+    want = port(dq_j).numpy()
+    rounded = _bf16(tfa._flash_bwd_ref(q, k, v, o, lse, do, scale, causal,
+                                       round_to=torch.bfloat16)[0])
+    plain = _bf16(tfa._flash_bwd_ref(q, k, v, o, lse, do, scale, causal)[0])
+    np.testing.assert_allclose(rounded, want, rtol=1e-2, atol=1e-4)
+    assert np.abs(rounded - want).max() < np.abs(plain - want).max()
+
+
 @pytest.mark.parametrize("sq,sk", [(64, 128), (128, 256), (64, 256)])
 def test_causal_cross_length_bottom_right(sq, sk, pallas_calls):
     """Sq != Sk: the mask is bottom-right aligned in both packages."""
