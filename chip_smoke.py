@@ -22,11 +22,13 @@ non-zero (nothing is caught and passed over):
                the card at Llama-3-8B head shapes (H=32, KH=8, D=128,
                block 16, bf16) on one mixed batch: decode rows, a
                prefill chunk starting mid-context, padding slots, -1
-               table entries, padding rows past cu[num_seqs]; and on a
+               table entries, padding rows past cu[num_seqs]; on a
                decode-only batch (8 slots x 1 row, contexts 512-4096),
                which splits each slot's cache range and merges the
-               splits. Times (CUDA events, L2 flushed before each
-               launch) and the bounds of both.
+               splits; and on a speculative verify batch (8 slots x 5
+               rows mid-context, contexts 300-1100, as phase 9 gives
+               it). Times (CUDA events, L2 flushed before each launch)
+               and the bounds of all three.
 4. serve     — Llama-3-8B at full width and depth (32 layers, bf16,
                random weights from a seeded generator on the card)
                through the port's LLMEngine: 8 requests, prompts of
@@ -39,12 +41,16 @@ non-zero (nothing is caught and passed over):
 6. flash     — the flash attention kernels (forward, dQ, dK/dV) against
                their plain versions on the card: at the training shapes
                (B 4, S 2048, H 16, D 128, bf16, causal: all three on the
-               tensor cores), in f32 at a smaller size (the f32 FMA
-               kernels), and with Sq != Sk and ragged tail tiles.
-               At the training shapes: times (CUDA events, L2 flushed
-               before each launch), bounds, TFLOP/s and the share of the
-               bound reached, the plain versions' times and
-               F.scaled_dot_product_attention's forward and backward.
+               tensor cores), at the widest draft forward of phase 9
+               (batch and width bucket from phase 4's prompts:
+               B 8, S 1024, H 32, D 64, bf16, causal) and at the widest
+               width bucket the engine allows (S 2048), in f32 at a
+               smaller size (the f32 FMA kernels), and with Sq != Sk and
+               ragged tail tiles. At the training shapes: times (CUDA
+               events, L2 flushed before each launch), bounds, TFLOP/s
+               and the share of the bound reached, the plain versions'
+               times and F.scaled_dot_product_attention's forward and
+               backward; at the draft shapes the same for the forward.
 7. train     — bench.py's bench_gpt_1b configuration (0.95B Llama, 16
                layers, hidden 2048, bf16, batch 4 x 2048, AdamW) through
                the port's TrainStep: one warm-up and five timed steps on
@@ -53,10 +59,34 @@ non-zero (nothing is caught and passed over):
 8. train_parity — LlamaConfig.tiny in f32 (TF32 off): three AdamW + clip
                TrainStep steps on the card (kernels) and on the CPU
                (plain versions) from the same weights agree.
+9. spec      — speculative decoding: phase 4's Llama-3-8B and workload
+               with a Llama-3.2-1B-width draft proposing 4 tokens per
+               decode row (``tools/llama3_8b_spec_serve.py``). Every
+               request finishes with 32 tokens and the pool comes back
+               whole; the ragged kernel launches 32 x the model steps,
+               the flash forward 16 x 4 x the draft proposals, all on
+               the tensor cores, and no plain version runs. Tok/s, TTFT
+               and TPOT, acceptance, draft ms per step (synchronized
+               wall time around each proposal), the draft forwards'
+               (batch, width) buckets (the widest must be phase 6's
+               draft case), peak memory, and how many greedy tokens
+               equal phase 4's (bf16: reported). Where a greedy stream
+               first leaves phase 4's, the target's two logit rows for
+               that position (phase 4's decode row, phase 9's verify
+               row, same prefix) are compared: each one's margin
+               between the two tokens chosen and their largest
+               difference, also over the equal prefix before it.
+10. spec_parity — LlamaConfig.tiny in f32 (TF32 off), draft = target,
+               k = 3, served on the card (kernels) and on the CPU (plain
+               versions): greedy and sampled tokens and final keys
+               identical, greedy equal to a non-speculative engine on
+               the card, greedy acceptance above 0.9.
 
 Then one line with the kernel table (name, route, source, launches on
-the main path, error, times, bound, library time), nvidia-smi's line,
-and last ``{"ok": true, "device": {...}}``.
+the main paths — ``launches_by_path`` splits them: serve and spec for
+the ragged kernel, train and spec for the flash forward — error, times,
+bound, library time), nvidia-smi's line, and last
+``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -181,6 +211,7 @@ MIXED_LIVE = [(1, 17), (1, 300), (512, 1536), (1, 1000), (100, 100),
               (1, 2048)]
 DECODE_LIVE = [(1, c) for c in (512, 1024, 1536, 2048, 2560, 3072, 3584,
                                 4096)]
+VERIFY_LIVE = [(5, c) for c in (300, 450, 600, 700, 800, 900, 1000, 1100)]
 
 
 def _ragged_batch(dev, gen, live, s_slots, mb, nb, pad_rows):
@@ -299,8 +330,110 @@ def phase_kernel(dev):
     decode = _ragged_case(_ragged_batch(dev, gen, DECODE_LIVE, 8, 256, 1152,
                                         0), DECODE_LIVE, flush)
     assert decode["nsplit"] > 1, decode
-    emit({"phase": "kernel", "mixed": mixed, "decode": decode})
-    return mixed
+    verify = _ragged_case(_ragged_batch(dev, gen, VERIFY_LIVE, 8, 128, 640,
+                                        0), VERIFY_LIVE, flush)
+    emit({"phase": "kernel", "mixed": mixed, "decode": decode,
+          "verify": verify})
+    return mixed, verify
+
+
+class _GreedyRows:
+    """While active, keep the target's logit row behind each token that
+    the greedy requests ``rids`` emit, in the order of their positions,
+    on the card: the row the sampler took its argmax from (a slot with d
+    drafts finds its j-th emitted token's row at R-1-d+j of the R
+    gathered rows). ``stop`` (request id -> phase 4's tokens) ends a
+    request's record at the first position where it differs. Reads the
+    sampler's input; launches no kernel, only one row gather per step."""
+
+    def __init__(self, eng, rids, stop=None):
+        self.eng, self.stop = eng, stop or {}
+        self.rows = {rid: [] for rid in rids}
+        self.done = set()
+        self.logits = self.pending = None
+
+    def __enter__(self):
+        from paddle_tpu_torch.serving import engine as engine_mod
+
+        self.mod = engine_mod
+        self.sample = sample = engine_mod.sample_or_verify
+        dispatch = self.eng._dispatch
+
+        def sampling(logits, *a, **kw):
+            self.logits = logits
+            return sample(logits, *a, **kw)
+
+        def dispatching(reqs, *a, **kw):
+            out = dispatch(reqs, *a, **kw)
+            self.pending = [(i, r, len(r.generated), len(r.draft_tokens))
+                            for i, r in enumerate(reqs)
+                            if r.request_id in self.rows]
+            return out
+
+        engine_mod.sample_or_verify = sampling
+        self.eng._dispatch = dispatching
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sample_or_verify = self.sample
+        del self.eng._dispatch
+
+    def after_step(self):
+        """File the rows of the tokens this step emitted."""
+        slots, picks, owners = [], [], []
+        for i, r, g0, d in self.pending or ():
+            rid = r.request_id
+            for p in range(g0, len(r.generated)):
+                if rid in self.done:
+                    break
+                slots.append(i)
+                picks.append(self.logits.shape[1] - 1 - d + p - g0)
+                owners.append(rid)
+                ref = self.stop.get(rid)
+                if ref is not None and r.generated[p] != ref[p]:
+                    self.done.add(rid)
+        self.pending = None
+        if slots:
+            for rid, row in zip(owners, self.logits[slots, picks]):
+                self.rows[rid].append(row)
+
+
+def _margin(row, a, b):
+    """row[a] - row[b] in f32."""
+    return float(row[a].float() - row[b].float())
+
+
+def _divergences(serve_rows, serve_tokens, spec_rows, spec_tokens):
+    """Per greedy request: the first position where phase 9's stream
+    leaves phase 4's, phase 4's margin of its token over phase 9's in its
+    decode row and phase 9's margin of its token over phase 4's in its
+    verify row (both >= 0: each row's argmax), the two rows' largest
+    difference there, and the largest over the equal prefix before."""
+    for rows, tokens in ((serve_rows, serve_tokens),
+                         (spec_rows, spec_tokens)):
+        for rid, kept in rows.items():   # each row is its token's argmax
+            got = torch.stack(kept).float().argmax(dim=-1).tolist()
+            assert got == tokens[rid][:len(kept)], (rid, got, tokens[rid])
+    out = {}
+    for rid, rows9 in spec_rows.items():
+        t4, t9 = serve_tokens[rid], spec_tokens[rid]
+        p = next((q for q, (a, b) in enumerate(zip(t4, t9)) if a != b),
+                 None)
+        diffs = [float((rows9[q].float() - serve_rows[rid][q].float())
+                       .abs().max()) for q in range(len(rows9))]
+        res = {"first_divergence": p,
+               "max_abs_diff_equal_prefix": max(diffs[:p or len(diffs)],
+                                                default=None)}
+        if p is not None:
+            r4, r9 = serve_rows[rid][p], rows9[p]
+            res.update({
+                "tokens": [int(t4[p]), int(t9[p])],
+                "serve_margin": _margin(r4, t4[p], t9[p]),
+                "spec_margin": _margin(r9, t9[p], t4[p]),
+                "serve_top": float(r4.float().max()),
+                "max_abs_diff": diffs[p]})
+        out[rid] = res
+    return out
 
 
 def phase_serve(dev):
@@ -316,16 +449,18 @@ def phase_serve(dev):
     rids, lens = llama3_8b_serve.add_requests(eng)
     torch.cuda.reset_peak_memory_stats()
     routes = rpa.route_launches()
-    rpa.launches = 0                  # main path starts here
-    t1 = time.perf_counter()
-    steps = 0
-    while eng.has_unfinished():
-        eng.step()
-        steps += 1
-        assert steps < 1000, "engine failed to converge"
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    launches = rpa.launches           # main path ends here
+    with _GreedyRows(eng, rids[:-1]) as rows:   # for phase 9's comparison
+        rpa.launches = 0                  # main path starts here
+        t1 = time.perf_counter()
+        steps = 0
+        while eng.has_unfinished():
+            eng.step()
+            rows.after_step()
+            steps += 1
+            assert steps < 1000, "engine failed to converge"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = rpa.launches           # main path ends here
     routes = {k: n - routes[k] for k, n in rpa.route_launches().items()}
     model_steps = eng.metrics.engine_steps
     assert launches == cfg.num_hidden_layers * model_steps, \
@@ -357,6 +492,10 @@ def phase_serve(dev):
            "route_launches": routes,
            "sampled": eng.get_request("r7").generated[:8]}
     emit(res)
+    res["tokens"] = {rid: eng.get_request(rid).generated for rid in rids}
+    res["rows"] = rows.rows
+    assert all(len(v) == llama3_8b_serve.MAX_NEW_TOKENS
+               for v in rows.rows.values())
     del eng
     torch.cuda.empty_cache()
     return res
@@ -409,6 +548,7 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
              torch.bfloat16: dict(rtol=1e-2, atol=2e-3)}
 FLASH_CASES = [  # name, dtype, B, Sq, Sk, H, D, causal
     ("train_shapes", torch.bfloat16, 4, 2048, 2048, 16, 128, True),
+    ("draft_max_len", torch.bfloat16, 8, 2048, 2048, 32, 64, True),
     ("f32", torch.float32, 2, 512, 512, 4, 64, True),
     ("sq_ne_sk_ragged_tail", torch.bfloat16, 2, 300, 500, 4, 128, True),
 ]
@@ -422,15 +562,22 @@ def _visible_pairs(sq, sk, causal):
     return int(np.clip(rows + (sk - sq) + 1, 0, sk).sum())
 
 
-def phase_flash(dev):
+def phase_flash(dev, draft_shape):
+    """``draft_shape``: (batch, width) of phase 9's widest draft forward,
+    checked and timed as the ``draft_shapes`` case."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.tools.llama3_8b_spec_serve import DRAFT
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(2)
     res = {"phase": "flash", "cases": {}}
-    for name, dtype, b, sq, sk, h, d, causal in FLASH_CASES:
+    db, dw = draft_shape
+    dh = DRAFT["num_attention_heads"]
+    draft_case = ("draft_shapes", torch.bfloat16, db, dw, dw, dh,
+                  DRAFT["hidden_size"] // dh, True)
+    for name, dtype, b, sq, sk, h, d, causal in [draft_case] + FLASH_CASES:
         def randn(s):
             return torch.randn((b, s, h, d), generator=gen, device=dev,
                                dtype=torch.float32).to(dtype)
@@ -460,11 +607,30 @@ def phase_flash(dev):
                               "shape": [b, sq, sk, h, d], "causal": causal,
                               "max_abs_err": errs,
                               "tolerance": str(tol)}
-        if name != "train_shapes":
-            continue
         flush = torch.empty(64 * 2 ** 20, dtype=torch.int32,
                             device=dev).zero_
         args = (q, k, v, scale, causal)
+        pairs = _visible_pairs(sq, sk, causal) * b * h
+        esz, n_q, n_k = q.element_size(), q.numel(), k.numel()
+        stats = 4 * b * h * sq                  # lse or delta, f32
+        if name == "draft_shapes":   # the draft forward: no backward
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            ms = {"fwd": cuda_ms(lambda: fa._flash_fwd_cuda(*args), 10,
+                                 flush),
+                  "plain_fwd": cuda_ms(lambda: fa._flash_fwd_ref(
+                      *args, round_to=dtype), 3, flush)}
+            with torch.no_grad():
+                ms["sdpa_fwd"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True), 10, flush)
+            bound = _bound(esz * (2 * n_q + 2 * n_k) + stats, 4 * d * pairs)
+            res["draft"] = {"ms": ms, "bound": bound,
+                            "tflops": bound["flops"] / (ms["fwd"] * 1e-3)
+                            / 1e12,
+                            "bound_share": bound["bound_ms"] / ms["fwd"]}
+            continue
+        if name != "train_shapes":
+            continue
         bargs = (q, k, v, do, lse, delta, scale, causal)
         ms = {"fwd": cuda_ms(lambda: fa._flash_fwd_cuda(*args), 10, flush),
               "dq": cuda_ms(lambda: fa._flash_bwd_dq_cuda(*bargs), 10,
@@ -485,9 +651,6 @@ def phase_flash(dev):
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         ms["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True), 10, flush)
-        pairs = _visible_pairs(sq, sk, causal) * b * h
-        esz, n_q, n_k = q.element_size(), q.numel(), k.numel()
-        stats = 4 * b * h * sq                  # lse or delta, f32
         res["ms"] = ms
         res["bounds"] = {
             "fwd": _bound(esz * (2 * n_q + 2 * n_k) + stats, 4 * d * pairs),
@@ -560,22 +723,217 @@ def phase_train_parity(dev):
     emit({"phase": "train_parity", **tiny_train_parity.run(dev)})
 
 
+# ---------------------------------------------------------------------------
+# speculative decoding (K1 verify rows, K2 draft forwards)
+# ---------------------------------------------------------------------------
+class _PlainCalls:
+    """Count calls of the kernels' plain versions while active: the card's
+    main path must reach none of them."""
+
+    NAMES = (("rpa", "_ragged_attend_ref"), ("fa", "_flash_fwd_ref"),
+             ("fa", "_flash_bwd_ref"))
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import flash_attention as fa
+        from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+
+        self.mods = {"rpa": rpa, "fa": fa}
+        self.calls = {name: 0 for _, name in self.NAMES}
+        self.saved = []
+        for mod, name in self.NAMES:
+            fn = getattr(self.mods[mod], name)
+            self.saved.append((mod, name, fn))
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                self.calls[_name] += 1
+                return _fn(*a, **kw)
+
+            setattr(self.mods[mod], name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(self.mods[mod], name, fn)
+
+
+def phase_spec(dev, serve_res, draft_shape):
+    """``draft_shape``: phase 6's draft case, (batch, width); the widest
+    draft forward of this run must have had it."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.tools import llama3_8b_serve, llama3_8b_spec_serve
+
+    t0 = time.perf_counter()
+    eng = llama3_8b_spec_serve.build_engine(dev)  # models, engine, warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = eng.model.config
+    dcfg = eng.cfg.draft_model.config
+    k = eng.cfg.num_spec_tokens
+    rids, lens = llama3_8b_serve.add_requests(eng)
+    # draft time per proposal: synchronized wall time around each call;
+    # and the (batch, width) bucket of its forwards
+    spec = eng._spec
+    propose, draft_ms, buckets = spec.propose, [], {}
+
+    def timed_propose(lists):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = propose(lists)
+        torch.cuda.synchronize()
+        draft_ms.append((time.perf_counter() - t) * 1e3)
+        bw = (spec._bucket(len(lists)),
+              spec._bucket(max(len(x) for x in lists) + k, 8))
+        buckets[bw] = buckets.get(bw, 0) + 1
+        return out
+
+    eng._spec.propose = timed_propose
+    torch.cuda.reset_peak_memory_stats()
+    rroutes, froutes = rpa.route_launches(), fa.route_launches()
+    greedy = rids[:-1]
+    with _PlainCalls() as plain, _GreedyRows(
+            eng, greedy, stop=serve_res["tokens"]) as rows:
+        rpa.launches = 0                  # main path starts here
+        for name in fa.launches:
+            fa.launches[name] = 0
+        t1 = time.perf_counter()
+        steps = 0
+        while eng.has_unfinished():
+            eng.step()
+            rows.after_step()
+            steps += 1
+            assert steps < 1000, "engine failed to converge"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        k1, k2 = rpa.launches, dict(fa.launches)  # main path ends here
+    rroutes = {r: n - rroutes[r] for r, n in rpa.route_launches().items()}
+    froutes = {name: {r: n - froutes[name][r] for r, n in v.items()}
+               for name, v in fa.route_launches().items()}
+    model_steps = eng.metrics.engine_steps
+    assert k1 == cfg.num_hidden_layers * model_steps, (k1, model_steps)
+    assert rroutes["fma"] == 0 and rroutes["tensor_cores"] == k1, rroutes
+    want_k2 = dcfg.num_hidden_layers * k * len(draft_ms)
+    assert len(draft_ms) > 0 and k2["flash_attention_fwd"] == want_k2, \
+        (k2, want_k2)
+    assert k2["flash_attention_bwd_dq"] == k2["flash_attention_bwd_dkv"] \
+        == 0, k2
+    assert froutes["flash_attention_fwd"] == {"fma": 0,
+                                              "tensor_cores": want_k2}, \
+        froutes
+    assert not any(plain.calls.values()), plain.calls
+    widest = max(buckets, key=lambda bw: bw[0] * bw[1])
+    assert widest == tuple(draft_shape), (buckets, draft_shape)
+    gen_tokens, equal, first_diff = 0, 0, []
+    for i, rid in enumerate(rids):
+        r = eng.get_request(rid)
+        assert r.finish_reason == "length", (rid, r.finish_reason)
+        assert len(r.generated) == llama3_8b_serve.MAX_NEW_TOKENS
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+        gen_tokens += len(r.generated)
+        if i < llama3_8b_serve.NUM_REQUESTS - 1:   # the greedy ones
+            same = [a == b for a, b in zip(r.generated,
+                                           serve_res["tokens"][rid])]
+            equal += sum(same)
+            # where the stream first leaves phase 4's (32: never)
+            first_diff.append(same.index(False) if False in same
+                              else len(same))
+    assert eng.block_manager.num_free_blocks == eng.cfg.num_blocks
+    m = eng.metrics
+    res = {"phase": "spec", "model": "llama3_8b",
+           "draft": "llama3.2-1b widths (random weights)",
+           "draft_params": sum(p.numel() for p in
+                               eng.cfg.draft_model.parameters()),
+           "num_spec_tokens": k, "dtype": "bfloat16",
+           "generated_tokens": gen_tokens, "wall_s": wall,
+           "tokens_per_s": gen_tokens / wall,
+           "ttft_ms_p50": float(np.percentile(m.ttfts_s, 50) * 1e3),
+           "tpot_ms_p50": float(np.percentile(m.tpots_s, 50) * 1e3),
+           "steps": model_steps, "spec_proposed": eng.num_spec_proposed,
+           "spec_accepted": eng.num_spec_accepted,
+           "spec_acceptance_rate": eng.spec_acceptance_rate,
+           "proposals": len(draft_ms),
+           "draft_ms_mean": float(np.mean(draft_ms)),
+           "draft_ms_p50": float(np.percentile(draft_ms, 50)),
+           "draft_share_of_wall": sum(draft_ms) / 1e3 / wall,
+           "draft_buckets": {f"{b}x{w}": n for (b, w), n
+                             in sorted(buckets.items())},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "setup_s": setup_s,
+           "kernel_launches": {"ragged_paged_attention": k1, **k2},
+           "route_launches": {"ragged_paged_attention": rroutes,
+                              "flash_attention_fwd":
+                                  froutes["flash_attention_fwd"]},
+           "plain_calls": plain.calls,
+           "greedy_tokens_equal_serve": equal,
+           "greedy_first_divergence": first_diff,
+           "greedy_tokens": (llama3_8b_serve.NUM_REQUESTS - 1)
+           * llama3_8b_serve.MAX_NEW_TOKENS,
+           # the target's logit rows where a greedy stream leaves phase
+           # 4's (bf16 logits, compared in f32)
+           "greedy_divergence_rows": _divergences(
+               serve_res["rows"], serve_res["tokens"], rows.rows,
+               {rid: eng.get_request(rid).generated for rid in greedy})}
+    emit(res)
+    eng.cfg.draft_model = eng._spec = None
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_spec_parity(dev):
+    from paddle_tpu_torch.tools import tiny_spec_parity
+
+    emit({"phase": "spec_parity", **tiny_spec_parity.run(dev)})
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False)")
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from paddle_tpu_torch.tools import llama3_8b_spec_serve
 
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    k = phase_kernel(dev)
+    k, kv = phase_kernel(dev)
     s = phase_serve(dev)
     phase_parity(dev)
-    fl = phase_flash(dev)
+    draft_shape = llama3_8b_spec_serve.draft_shape(s["prompt_lens"])
+    fl = phase_flash(dev, draft_shape)
     tr = phase_train(dev)
     phase_train_parity(dev)
+    sp = phase_spec(dev, s, draft_shape)
+    del s["rows"]
+    phase_spec_parity(dev)
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
+    derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
+    dr = fl["draft"]
+    # per path: the main paths' launches (each counted from 0 over its
+    # own run) and, for the spec path's shapes, the kernel's numbers
+    by_path = {
+        "ragged_paged_attention": {
+            "serve": s["kernel_launches"],
+            "spec": sp["kernel_launches"]["ragged_paged_attention"]},
+        "flash_attention_fwd": {
+            "train": tr["kernel_launches"]["flash_attention_fwd"],
+            "spec": sp["kernel_launches"]["flash_attention_fwd"]},
+        "flash_attention_bwd_dq": {
+            "train": tr["kernel_launches"]["flash_attention_bwd_dq"]},
+        "flash_attention_bwd_dkv": {
+            "train": tr["kernel_launches"]["flash_attention_bwd_dkv"]}}
+    spec_shapes = {
+        "ragged_paged_attention": {
+            "max_abs_err": kv["max_abs_err"], "ms": kv["ms"],
+            "plain_ms": kv["plain_ms"], "bound_ms": kv["bound_ms"],
+            "bound_by": kv["bound_by"], "library_ms": None},
+        "flash_attention_fwd": {
+            "shape": fl["cases"]["draft_shapes"]["shape"],
+            "max_abs_err": derr, "ms": dr["ms"]["fwd"],
+            "plain_ms": dr["ms"]["plain_fwd"],
+            "bound_ms": dr["bound"]["bound_ms"],
+            "bound_by": dr["bound"]["bound_by"],
+            "library_ms": dr["ms"]["sdpa_fwd"]}}
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
     ref = "paddle_tpu/ops/pallas/flash_attention.py"
     flash_rows = [
@@ -586,19 +944,25 @@ def main():
         ("flash_attention_bwd_dkv", f"{ref}:198", "dkv",
          max(errs["dk"], errs["dv"]), fl["ms"]["plain_bwd"],
          fl["ms"]["sdpa_bwd"])]
-    emit({"kernels": [{
+    rows = [{
         "name": "ragged_paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/ragged_paged_attention.py:146",
-        "launches": s["kernel_launches"], "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None}] + [{
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": tr["kernel_launches"][name], "max_abs_err": err,
-            "ms": fl["ms"][key], "plain_ms": plain,
+            "max_abs_err": err, "ms": fl["ms"][key], "plain_ms": plain,
             "bound_ms": fl["bounds"][key]["bound_ms"],
             "bound_by": fl["bounds"][key]["bound_by"], "library_ms": lib}
-        for name, rep, key, err, plain, lib in flash_rows]})
+        for name, rep, key, err, plain, lib in flash_rows]
+    for row in rows:
+        paths = by_path[row["name"]]
+        row["launches"] = sum(paths.values())
+        row["launches_by_path"] = paths
+        if row["name"] in spec_shapes:
+            row["spec_shapes"] = spec_shapes[row["name"]]
+    emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,9 @@ JAX weights across). ``forward`` is the training path: causal flash
 attention (the hand-written kernels on the card), or plain attention
 under an ``attn_mask``; :meth:`LlamaForCausalLM.criterion` is the LM
 loss. Recompute, sequence/context parallelism and tensor parallelism
-are refused at construction; ``forward_paged`` and
-``forward_ragged_multi`` are not ported yet.
+are refused at construction; ``forward_paged`` is not ported yet.
+``forward_ragged_multi`` is the speculative-verify step: the ragged
+forward with ``lm_head`` on each slot's last R packed positions.
 
 The ragged forward updates the stacked KV caches IN PLACE (the JAX
 version returned new caches) and returns the same tensors.
@@ -369,3 +370,26 @@ class LlamaForCausalLM(nn.Module):
         last = (cu[1:] - 1).clamp(0, t - 1).long()
         return self.lm_head(h[0, last]), kcs, vcs
 
+
+    @torch.no_grad()
+    def forward_ragged_multi(self, input_ids, key_caches, value_caches,
+                             block_tables, cu_seqlens, context_lens,
+                             num_seqs, num_rows: int):
+        """Ragged serving step with a PER-ROW MULTI-LOGIT gather: lm_head
+        on each slot's last ``R = num_rows`` packed tokens (the
+        speculative-verify positions). Returns (logits (S, R, vocab),
+        key_caches, value_caches). ``R == 1`` reduces to
+        :meth:`forward_ragged`; rows shorter than R clamp to their own
+        first position (the sampler masks them by ``n_draft``, so the
+        duplicated logits are never consumed)."""
+        h, kcs, vcs = self.llama.forward_ragged(
+            input_ids, key_caches, value_caches, block_tables,
+            cu_seqlens, context_lens, num_seqs)
+        cu = cu_seqlens.to(torch.int64)
+        r = int(num_rows)
+        t = h.shape[1]
+        off = torch.arange(r, device=h.device)
+        idx = cu[1:, None] - r + off[None, :]              # (S, R)
+        idx = torch.maximum(idx, cu[:-1, None]).clamp(0, t - 1)
+        logits = self.lm_head(h[0, idx.reshape(-1)])
+        return logits.reshape(idx.shape[0], r, -1), kcs, vcs

@@ -1,35 +1,41 @@
-"""Token sampling on the device (port of ``paddle_tpu/ops/sampling.py``,
-the one-logit-row case).
+"""Token sampling and speculative verify on the device (port of
+``paddle_tpu/ops/sampling.py``).
 
-Everything here runs on the logits' device, so a step ships S int32
-tokens (plus the per-slot generator keys) to the host, never the
-S x vocab logits.
+Everything here runs on the logits' device, so a step ships S x (R+3)
+int32 values (tokens, emit count, the per-slot generator keys) to the
+host, never the S x vocab logits.
 
 * :func:`filtered_probs` — fused temperature / top-k / top-p transform
   of a batch of logit rows into sampling distributions. Greedy rows
   (``temperature <= 0``) become an EXACT one-hot at ``argmax(logits)``
   (first-occurrence tie-breaking, matching ``np.argmax``).
-* :func:`sample_tokens` — one categorical draw per slot from its own
-  counter-based generator, keyed by the request's uint32[2] key,
-  returning the advanced keys alongside the tokens.
+* :func:`sample_or_verify` — rejection-sample each slot's ``n_draft``
+  greedy draft proposals against the target's gathered logit rows and
+  draw the corrected or bonus token. Draft token i is accepted with
+  probability ``p(t_i)`` (a greedy draft is a point mass), a rejection
+  emits a draw from ``p`` with ``t_i`` masked out, and a fully accepted
+  draft earns one bonus draw from the last row: the emitted tokens are
+  distributed exactly as the target alone would emit them.
+* :func:`sample_tokens` — the ``n_draft == 0``, one-row case.
 
-Generator contract: every call advances each slot's key by a FIXED map
-(a bijective mix of the 64-bit key), independent of the slot's data, so
-a request's stream position is a pure function of how many engine steps
-emitted for it (preemption and chunking do not shift it). The draw is a
-second mix of the same key. The bits differ from ``jax.random``'s
-threefry: the two packages agree on greedy tokens, and on sampled ones
-only in distribution.
+The draws come from threefry (:mod:`paddle_tpu_torch.ops.threefry`),
+keyed by each request's uint32[2] key, with the JAX package's split
+schedule: the same key, logits and knobs give the same tokens and the
+same advanced keys in both packages. Generator contract: every call
+advances each slot's key by exactly ``2*(R-1) + 1`` splits, whatever
+its data or ``n_draft``, so a request's stream position is a pure
+function of how many engine steps emitted for it.
 
 Keys travel as int64 tensors holding uint32 values (torch has no full
-uint32 arithmetic); every product is split in 16-bit halves so no
-intermediate leaves int64's range.
+uint32 arithmetic).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["filtered_probs", "sample_tokens"]
+from paddle_tpu_torch.ops import threefry
+
+__all__ = ["filtered_probs", "sample_tokens", "sample_or_verify"]
 
 _M32 = 0xFFFFFFFF
 
@@ -71,51 +77,98 @@ def filtered_probs(logits, temperature, top_k, top_p):
     return torch.where(greedy[:, None], onehot, p)
 
 
-def _mul32(x, c: int):
-    """(x * c) mod 2**32 for int64 tensors holding uint32 values."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
 
 
-def _fmix32(x):
-    """murmur3's 32-bit finaliser: a bijection with full avalanche."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
+def _split_rows(keys):
+    """Advance an (S, 2) key batch one split: returns
+    ``(chain_keys, draw_keys)``, each (S, 2)."""
+    ks = threefry.split(keys, 2)
+    return ks[:, 0], ks[:, 1]
 
 
-def _feistel(hi, lo, salt: int):
-    """Four Feistel rounds over the 64-bit key (hi, lo): a bijection of
-    the key space, so the advance map has no short cycles to fall into."""
-    for r in range(4):
-        rk = (salt * 0x9E3779B9 + r * 0x7F4A7C15) & _M32
-        hi, lo = lo, hi ^ _fmix32((lo + rk) & _M32)
-    return hi, lo
+def sample_or_verify(logits, draft_tokens, n_draft, keys, temperature,
+                     top_k, top_p):
+    """Rejection-sample ``n_draft`` proposed tokens per slot and draw the
+    corrected or bonus token.
 
+    ``logits`` (S, R, V): the slot's last R packed positions, so a slot
+    with ``d < R-1`` drafts finds its verify rows right-aligned, starting
+    at index ``R-1-d``. ``draft_tokens`` (S, R-1) int (garbage past
+    ``n_draft``); ``n_draft`` (S,) int in [0, R-1]; ``keys`` (S, 2)
+    uint32 values in int64; sampling knobs (S,) as in
+    :func:`filtered_probs`.
 
-def _advance(keys):
-    hi, lo = _feistel(keys[:, 0], keys[:, 1], 1)
-    return torch.stack([hi, lo], dim=1)
+    Returns ``(tokens (S, R) int32, n_emit (S,) int32, new_keys (S, 2)
+    int64)``: ``tokens[:, :n_emit]`` are the accepted draft prefix plus
+    one corrected-or-bonus token.
 
-
-def _uniform(keys):
-    """One f32 uniform in [0, 1) per key, 24 random bits."""
-    _, lo = _feistel(keys[:, 0], keys[:, 1], 2)
-    return (lo >> 8).float() * (1.0 / (1 << 24))
+    Every corrected draw and the bonus draw is computed for every row, as
+    the JAX package computes them; the R categoricals share one batched
+    threefry pass (each keeps its own key, so the draws are the JAX
+    package's)."""
+    s, r, v = logits.shape
+    dev = logits.device
+    keys = keys.long() & _M32
+    n_draft = n_draft.long()
+    j = torch.arange(r - 1, device=dev)
+    # row j of the gather: the target distribution for draft token j;
+    # the last row is the bonus (or plain sampling) position
+    idx = ((r - 1) - n_draft[:, None] + j[None, :]).clamp(0, r - 1)
+    idx = torch.cat([idx, torch.full((s, 1), r - 1, device=dev,
+                                     dtype=torch.long)], dim=1)
+    lg = logits.gather(1, idx[:, :, None].expand(s, r, v))
+    p = filtered_probs(lg.reshape(s * r, v),
+                       temperature.repeat_interleave(r),
+                       top_k.repeat_interleave(r),
+                       top_p.repeat_interleave(r)).reshape(s, r, v)
+    t = draft_tokens.long().clamp(0, v - 1)                    # (S, R-1)
+    p_t = p[:, :r - 1].gather(-1, t[:, :, None])[..., 0]
+    # the key schedule: per draft row a split for the accept uniform and
+    # one for the corrected draw, then one for the bonus
+    u, draw_keys = [], []
+    for _ in range(r - 1):
+        keys, sub = _split_rows(keys)
+        u.append(threefry.uniform(sub))
+        keys, sub2 = _split_rows(keys)
+        draw_keys.append(sub2)
+    keys, sub = _split_rows(keys)
+    draw_keys.append(sub)
+    # corrected draws: p with the rejected proposal masked out
+    # (norm(max(0, p - q)) for the greedy draft's point mass q; the
+    # categorical takes unnormalised log-mass); the bonus draws from p
+    vocab = torch.arange(v, device=dev)
+    masked = torch.cat([
+        torch.where(vocab[None, None, :] == t[:, :, None], 0.0,
+                    p[:, :r - 1]), p[:, r - 1:]], dim=1)
+    draws = threefry.categorical(torch.stack(draw_keys, dim=1),
+                                 torch.log(masked))            # (S, R)
+    out = torch.zeros((s, r), dtype=torch.long, device=dev)
+    n_emit = torch.zeros((s,), dtype=torch.long, device=dev)
+    done = torch.zeros((s,), dtype=torch.bool, device=dev)
+    for jj in range(r - 1):
+        active = (~done) & (jj < n_draft)
+        acc = u[jj] < p_t[:, jj]
+        emit = torch.where(acc, t[:, jj], draws[:, jj])
+        out[:, jj] = torch.where(active, emit, out[:, jj])
+        n_emit = torch.where(active, n_emit + 1, n_emit)
+        done = done | (active & ~acc)
+    active = ~done
+    slot = n_emit.clamp(0, r - 1)
+    rows = torch.arange(s, device=dev)
+    out[rows, slot] = torch.where(active, draws[:, r - 1], out[rows, slot])
+    n_emit = torch.where(active, n_emit + 1, n_emit)
+    return out.to(torch.int32), n_emit.to(torch.int32), keys
 
 
 def sample_tokens(logits, keys, temperature, top_k, top_p):
     """One sampled token per row: ``logits`` (S, V), ``keys`` (S, 2)
-    uint32 values in an int64 tensor. Returns ``(tokens (S,) int32,
-    new_keys (S, 2) int64)``. Greedy rows take the argmax; sampled rows
-    invert the CDF of :func:`filtered_probs` at the key's uniform."""
-    keys = keys.long() & _M32
-    p = filtered_probs(logits, temperature, top_k, top_p)
-    cdf = p.cumsum(dim=-1)
-    u = _uniform(keys)[:, None] * cdf[:, -1:]
-    tok = torch.searchsorted(cdf, u, right=True)[:, 0]
-    tok = tok.clamp(max=p.shape[-1] - 1).to(torch.int32)
-    return tok, _advance(keys)
+    uint32 values in int64. Returns ``(tokens (S,) int32, new_keys (S, 2)
+    int64)`` — the ``n_draft == 0`` case of :func:`sample_or_verify`."""
+    s = logits.shape[0]
+    dev = logits.device
+    out, _, keys2 = sample_or_verify(
+        logits[:, None, :], torch.zeros((s, 0), dtype=torch.long,
+                                        device=dev),
+        torch.zeros((s,), dtype=torch.long, device=dev), keys,
+        temperature, top_k, top_p)
+    return out[:, 0], keys2

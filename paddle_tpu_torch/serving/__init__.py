@@ -7,8 +7,10 @@ card (port of ``paddle_tpu.serving``, the ragged engine step).
 :class:`Scheduler`     iteration-level admission, chunked prefill mixed
                        with decode rows, preemption-on-OOM
 :class:`LLMEngine`     the ragged step (hand-written attention kernel on
-                       the card), on-device sampling, one host fetch per
-                       step, nonfinite-row isolation
+                       the card), on-device threefry sampling, one host
+                       fetch per step, nonfinite-row isolation;
+                       speculative verify rows with a draft model
+``spec.SpecDecoder``   the greedy draft proposer (no KV cache)
 :class:`ServingMetrics` queue/KV/latency gauges through
                        ``profiler.register_counter_provider``
 =================  ====================================================

@@ -26,8 +26,9 @@ JAX package):
   * ``free``/preemption returns every exclusively-owned block.
 
 The JAX package's host swap pool, KV tiers and fleet KV-ship paths are
-left out: this slice serves recompute preemption only, and the engine
-refuses the configurations that would need them."""
+left out: the port serves recompute preemption only, and the engine
+refuses the configurations that would need them. :meth:`trim` is the
+speculative-decode rollback."""
 from __future__ import annotations
 
 from collections import deque
@@ -289,6 +290,24 @@ class BlockManager:
         for _ in range(max(need, 0)):
             table.append(self._claim())
         return list(table)
+
+    def trim(self, request_id: str, num_tokens: int) -> int:
+        """Shrink the table to cover exactly ``num_tokens`` tokens,
+        releasing trailing blocks back to the free list — the
+        speculative-decode rollback: slots claimed for draft tokens the
+        target rejected return immediately. Trailing blocks were claimed
+        via :meth:`append_slot` this step (never prefix-registered, which
+        only ever covers the prompt), so ``_release`` just frees them.
+        No-op when the table already fits. Returns blocks released."""
+        table = self._tables.get(request_id)
+        if table is None:
+            return 0
+        keep = max(self.blocks_needed(max(num_tokens, 1)), 1)
+        released = 0
+        while len(table) > keep:
+            self._release(table.pop())
+            released += 1
+        return released
 
     def free(self, request_id: str) -> int:
         """Release every block the request owns (completion, preemption,

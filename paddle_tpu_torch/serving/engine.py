@@ -16,14 +16,22 @@ of ``paddle_tpu/serving/engine.py``, the ragged path).
   BlockManager's trie after the step that writes them, later requests
   share them by refcount, and the first divergent write copies on write
   (``_apply_cow`` lands the block copies before the step);
-* sampling runs on the device (:mod:`paddle_tpu_torch.ops.sampling`):
-  the step ends in ONE host fetch of a packed (S, 5) int32 tensor —
-  ``[token, n_emit, key_hi, key_lo, finite]`` per slot — never the
-  S x vocab logits.
+* sampling runs on the device (:mod:`paddle_tpu_torch.ops.sampling`,
+  threefry streams identical to the JAX package's): the step ends in
+  ONE host fetch of a packed (S, R+4) int32 tensor —
+  ``[tokens(R), n_emit, key_hi, key_lo, finite]`` per slot — never the
+  S x vocab logits;
+* ``EngineConfig(draft_model=, num_spec_tokens=k)`` proposes k greedy
+  draft tokens per decode row (:class:`~paddle_tpu_torch.serving.spec.
+  SpecDecoder`, on the draft's flash-attention forward) at the top of
+  each step; the target verifies them as one 1+k-token mid-context row
+  of the same ragged step (``forward_ragged_multi`` gathers R = k+1
+  logit rows per slot) and the sampler rejection-samples them.
+  Rejected drafts' KV slots roll back through ``BlockManager.trim``.
 
 Not ported yet, refused at construction with the slice that brings
 them: the bucketed path (``ragged=False``), tensor parallelism, tiered
-KV, speculative decoding, host swap and the step watchdog.
+KV, host swap and the step watchdog.
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from paddle_tpu_torch.ops.sampling import sample_tokens
+from paddle_tpu_torch.ops.sampling import sample_or_verify
 from paddle_tpu_torch.serving.block_manager import BlockManager, cdiv
 from paddle_tpu_torch.serving.metrics import ServingMetrics
 from paddle_tpu_torch.serving.request import (
@@ -104,6 +112,12 @@ class EngineConfig:
             raise ValueError("ttft_slo_ms must be > 0")
         if self.max_step_retries < 0:
             raise ValueError("max_step_retries must be >= 0")
+        if self.num_spec_tokens < 0:
+            raise ValueError("num_spec_tokens must be >= 0")
+        if (self.draft_model is None) != (self.num_spec_tokens == 0):
+            raise ValueError(
+                "speculative decoding takes BOTH draft_model and "
+                "num_spec_tokens >= 1, or neither")
         # what the port does not serve yet, named with the slice that
         # brings it (ROADMAP.md, queue 2)
         later = []
@@ -114,9 +128,6 @@ class EngineConfig:
                          f"parallelism)")
         if self.kv_tiers is not None:
             later.append("kv_tiers (the swap-and-tiers slice)")
-        if self.draft_model is not None or self.num_spec_tokens:
-            later.append("draft_model/num_spec_tokens (the speculative "
-                         "decoding slice)")
         if self.swap_mode != "recompute":
             later.append(f"swap_mode={self.swap_mode!r} (the "
                          f"swap-and-tiers slice)")
@@ -234,10 +245,43 @@ class LLMEngine:
         self._kcs = torch.zeros(shape, dtype=model.dtype, device=self.device)
         self._vcs = torch.zeros(shape, dtype=model.dtype, device=self.device)
 
+        # -- speculative-decoding resolution ----------------------------
+        if self.cfg.draft_model is not None:
+            draft = self.cfg.draft_model
+            dcfg = getattr(draft, "config", None)
+            dv = getattr(dcfg, "vocab_size", None)
+            if dv != mcfg.vocab_size:
+                raise ValueError(
+                    f"draft/target tokenizer-width mismatch: draft "
+                    f"vocab_size {dv} != target vocab_size "
+                    f"{mcfg.vocab_size} — the models must share one "
+                    f"tokenizer")
+            if not hasattr(model, "forward_ragged_multi"):
+                raise ValueError(
+                    "speculative decoding needs the target model to "
+                    "expose forward_ragged_multi (the per-row "
+                    "multi-logit gather)")
+            if getattr(draft, "device", None) != self.device:
+                raise ValueError(
+                    f"the draft model is on {getattr(draft, 'device', None)}"
+                    f", the target on {self.device}: build both on one "
+                    f"device")
+            from paddle_tpu_torch.serving.spec import SpecDecoder
+
+            self._spec = SpecDecoder(draft, self.cfg.num_spec_tokens)
+        else:
+            self._spec = None
+        # R = verify width: logit rows gathered (and token slots packed)
+        # per slot in the step — 1 without speculation
+        self._spec_R = self.cfg.num_spec_tokens + 1
+
         self._requests: Dict[str, Request] = {}
         self._auto_id = itertools.count()
         # steps whose batch held >= 1 sampled (temperature > 0) request
         self.num_sampled_steps = 0
+        # speculative-decode lifetime counters (serving/spec_* gauges)
+        self.num_spec_proposed = 0
+        self.num_spec_accepted = 0
         # lifetime counters (survive reset_metrics; serving/* gauges)
         self.num_expired = 0
         self.num_rejected = 0
@@ -258,7 +302,9 @@ class LLMEngine:
         omitted by passing the prompt first — ``add_request(prompt_ids)``
         or ``add_request(prompt_ids, SamplingParams(...))``. Returns the
         request id. ``rng_state`` (``{"device_key": [hi, lo]}``) resumes
-        the request's sampling stream mid-way."""
+        the request's sampling stream mid-way, also one that the JAX
+        package's engine started: both draw from the same threefry
+        keys."""
         if isinstance(prompt_ids, SamplingParams):
             if sampling is not None:
                 raise TypeError("sampling passed twice")
@@ -363,12 +409,15 @@ class LLMEngine:
 
     # -- one engine iteration -------------------------------------------
     def step(self) -> List[RequestOutput]:
-        """Schedule + run ONE ragged iteration (decode rows, prefill
-        chunks and new admissions packed together), sample one token per
-        row that finished its prompt, retire finished requests. Returns
-        this step's per-request outputs — sampled tokens plus any
-        structured terminal emissions (expired, rejected, poisoned)."""
+        """Schedule + run ONE ragged iteration (decode and verify rows,
+        prefill chunks and new admissions packed together), sample the
+        tokens of every row that finished its prompt, retire finished
+        requests. Returns this step's per-request outputs — sampled
+        tokens plus any structured terminal emissions (expired,
+        rejected, poisoned)."""
         outputs: List[RequestOutput] = self._flush_pending()
+        if self._spec is not None:
+            self._propose_drafts()
         t0 = time.perf_counter()
         batch = self.scheduler.schedule()
         outputs.extend(self._terminal_output(r) for r in batch.expired)
@@ -393,7 +442,12 @@ class LLMEngine:
         off = 0
         for i, r in enumerate(reqs):
             n = n_run[i]
-            ids[off:off + n] = r.tokens[r.num_cached:r.num_cached + n]
+            # a verify row's stream is its newest committed token
+            # followed by the draft proposals (scheduled as one 1+d
+            # mid-context row)
+            src = (r.tokens + r.draft_tokens if r.draft_tokens
+                   else r.tokens)
+            ids[off:off + n] = src[r.num_cached:r.num_cached + n]
             off += n
             cu[i + 1] = off
             ctx[i] = r.num_cached + n
@@ -405,21 +459,29 @@ class LLMEngine:
         # copy-on-write block copies land before the step writes the
         # destination blocks
         self._apply_cow()
-        # per-slot sampling state for the on-device sampler
+        # per-slot sampling state for the on-device sampler: keys,
+        # knobs, and the draft rows under verification
+        R = self._spec_R
         skeys = np.zeros((S, 2), np.int64)
         stemp = np.zeros((S,), np.float32)
         stopk = np.zeros((S,), np.int32)
         stopp = np.ones((S,), np.float32)
+        sdraft = np.zeros((S, R - 1), np.int32)
+        sndraft = np.zeros((S,), np.int32)
         for i, r in enumerate(reqs):
             skeys[i] = r.device_key
             stemp[i] = r.sampling.temperature
             stopk[i] = r.sampling.top_k
             stopp[i] = r.sampling.top_p
+            d = len(r.draft_tokens)
+            if d:
+                sdraft[i, :d] = r.draft_tokens
+                sndraft[i] = d
         if any(r.sampling.temperature > 0.0 for r in reqs):
             self.num_sampled_steps += 1
         try:
-            out_np = self._dispatch(reqs, arrays,
-                                    (skeys, stemp, stopk, stopp))
+            out_np = self._dispatch(
+                reqs, arrays, (skeys, stemp, stopk, stopp, sdraft, sndraft))
         except EngineStepError as e:
             # this step's already-produced structured outputs must not
             # vanish with the failure — they ride the exception ahead of
@@ -429,26 +491,35 @@ class LLMEngine:
 
         # non-finite-logits guard: abort ONLY the poisoned row(s); the
         # rest of the batch continues untouched
-        poisoned = self._poisoned_rows(reqs, out_np[:, 4])
+        poisoned = self._poisoned_rows(reqs, out_np[:, R + 3])
+        # a verify row costs 1 + its draft count but is one decode row
         prompt_toks = sum(
             min(n, max(len(r.prompt_ids) - r.num_cached, 0))
             for r, n in zip(reqs, n_run))
-        decode_rows = sum(1 for r, n in zip(reqs, n_run)
-                          if n == 1 and r.num_generated > 0)
+        decode_rows = sum(
+            1 for r, n in zip(reqs, n_run)
+            if n - len(r.draft_tokens) == 1 and r.num_generated > 0)
         self.metrics.record_step(
             batch.kind, len(reqs), T, self.cfg.max_num_seqs,
             time.perf_counter() - t0, padded_tokens=0,
             prompt_tokens=prompt_toks, decode_rows=decode_rows)
-        # unpack the step's single host fetch: per row [token, n_emit,
-        # key_hi, key_lo, finite]
-        keys_np = np.ascontiguousarray(out_np[:, 2:4]).view(np.uint32)
+        # unpack the step's single host fetch: per row [tokens(R),
+        # n_emit, key_hi, key_lo, finite]
+        tokens_mat = out_np[:, :R]
+        n_emit_np = out_np[:, R]
+        keys_np = np.ascontiguousarray(out_np[:, R + 1:R + 3]).view(
+            np.uint32)
         for i, r in enumerate(reqs):
             if i in poisoned:
                 self.scheduler.abort(r.request_id, "aborted:nonfinite")
                 self.num_poisoned_aborts += 1
                 outputs.append(self._terminal_output(r))
                 continue
-            r.num_cached += n_run[i]
+            d = len(r.draft_tokens)
+            r.draft_tokens = []
+            # committed cache coverage: drafts are NOT tokens until
+            # accepted below
+            r.num_cached += n_run[i] - d
             if self.cfg.prefix_cache:
                 # register fully-written prompt blocks AFTER the step
                 # that wrote them (never discoverable before their K/V
@@ -458,25 +529,77 @@ class LLMEngine:
             if r.num_cached < len(r.tokens):
                 continue  # mid-prefill chunk: its row logit is a prompt
                 # position — never sampled, no output this step
-            token = int(out_np[i, 0])
-            finished = r.append_token(token)
-            self.metrics.record_token()
-            out = RequestOutput(request_id=r.request_id, token=token,
-                                finished=finished,
-                                generated=list(r.generated),
-                                finish_reason=r.finish_reason)
-            outputs.append(out)
-            if r.callback is not None:
-                r.callback(r.request_id, token, finished)
-            # the sampler advanced this row's key by its fixed map;
-            # persist it only for emitting rows, so a request's key
-            # position is a pure function of its emitted-step count
+            pre_len = len(r.tokens)
+            emit = [int(t) for t in tokens_mat[i, :int(n_emit_np[i])]]
+            accepted = max(int(n_emit_np[i]) - 1, 0)
+            if d:
+                self.num_spec_proposed += d
+                self.num_spec_accepted += accepted
+            finished = False
+            appended = 0
+            for token in emit:
+                finished = r.append_token(token)
+                self.metrics.record_token()
+                appended += 1
+                out = RequestOutput(request_id=r.request_id, token=token,
+                                    finished=finished,
+                                    generated=list(r.generated),
+                                    finish_reason=r.finish_reason)
+                outputs.append(out)
+                if r.callback is not None:
+                    r.callback(r.request_id, token, finished)
+                if finished:
+                    break  # EOS inside an accepted draft prefix: the
+                    # tokens behind it are never emitted
+            # the accepted prefix's K/V (written this step at draft
+            # positions) is valid and stays committed; the corrected/
+            # bonus token recomputes next step
+            r.num_cached = pre_len + min(appended, accepted)
+            # the sampler advanced this row's key by a fixed split
+            # count; persist it only for emitting rows, so a request's
+            # key position is a pure function of its emitted-step count
             r.device_key = keys_np[i].copy()
             if finished:
                 self.scheduler.finish(r)
                 self.metrics.record_finish(r)
                 self._count_finish(r.finish_reason)
+            elif d:
+                # speculative rollback: free the slots claimed for
+                # rejected (or post-EOS) draft tokens
+                self.block_manager.trim(r.request_id, len(r.tokens))
         return outputs
+
+    def _propose_drafts(self):
+        """One draft-model pass proposing ``num_spec_tokens`` greedy
+        continuations for every decode-eligible running request (fully
+        caught-up, past its first sampled token, with headroom under
+        both max_new_tokens and max_model_len). Proposals park on
+        ``Request.draft_tokens`` for the scheduler to claim as one
+        1+d verify row; a preemption drops them."""
+        k = self.cfg.num_spec_tokens
+        cand = []
+        for r in self.scheduler.running:
+            if r.draft_tokens or r.num_generated < 1:
+                continue  # pending verify, or still prefilling
+            if len(r.tokens) - r.num_cached != 1:
+                continue
+            d = min(k, r.sampling.max_new_tokens - r.num_generated - 1,
+                    self.cfg.max_model_len - len(r.tokens) - 1)
+            if d > 0:
+                cand.append((r, d))
+        if not cand:
+            return
+        rows = self._spec.propose([r.tokens for r, _ in cand])
+        for (r, d), row in zip(cand, rows):
+            r.draft_tokens = [int(t) for t in row[:d]]
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens the target accepted (0.0
+        before any proposal)."""
+        if self.num_spec_proposed == 0:
+            return 0.0
+        return self.num_spec_accepted / self.num_spec_proposed
 
     def _apply_cow(self):
         """Apply pending copy-on-write block copies (prefix-cache
@@ -491,25 +614,33 @@ class LLMEngine:
         self._vcs[:, dst] = self._vcs[:, src]
 
     def _device_step(self, arrays, sampling_arrays) -> torch.Tensor:
-        """The model forward + on-device sampling. Returns the packed
-        (S, 5) int32 tensor, still on the device."""
+        """The model forward + on-device sampling (rejection-sampling
+        verify where draft rows ride along). Returns the packed
+        (S, R+4) int32 tensor, still on the device."""
         dev = self.device
         ids, bt, cu, ctx, nseq = (torch.as_tensor(a, device=dev)
                                   for a in arrays)
-        skeys, stemp, stopk, stopp = (torch.as_tensor(a, device=dev)
-                                      for a in sampling_arrays)
-        logits, _, _ = self.model.forward_ragged(
-            ids, self._kcs, self._vcs, bt, cu, ctx, nseq)
-        finite = torch.isfinite(logits).all(dim=-1)
-        tok, nkeys = sample_tokens(logits, skeys, stemp, stopk, stopp)
-        return torch.stack([
-            tok, torch.ones_like(tok), _to_int32(nkeys[:, 0]),
-            _to_int32(nkeys[:, 1]), finite.to(torch.int32)], dim=1)
+        skeys, stemp, stopk, stopp, sdraft, sndraft = (
+            torch.as_tensor(a, device=dev) for a in sampling_arrays)
+        if self._spec_R > 1:
+            lg3, _, _ = self.model.forward_ragged_multi(
+                ids, self._kcs, self._vcs, bt, cu, ctx, nseq,
+                self._spec_R)
+        else:
+            logits, _, _ = self.model.forward_ragged(
+                ids, self._kcs, self._vcs, bt, cu, ctx, nseq)
+            lg3 = logits[:, None, :]
+        finite = torch.isfinite(lg3).all(dim=-1).all(dim=-1)
+        toks, n_emit, nkeys = sample_or_verify(
+            lg3, sdraft, sndraft, skeys, stemp, stopk, stopp)
+        return torch.cat([
+            toks, n_emit[:, None], _to_int32(nkeys),
+            finite.to(torch.int32)[:, None]], dim=1)
 
     def _dispatch(self, reqs, arrays, sampling_arrays) -> np.ndarray:
         """Run the step with bounded retry-with-backoff on failures, and
-        fetch its one packed host view: ``(len(reqs), 5)`` int32 rows of
-        ``[token, n_emit, key_hi, key_lo, finite]``.
+        fetch its one packed host view: ``(len(reqs), R+4)`` int32 rows
+        of ``[tokens(R), n_emit, key_hi, key_lo, finite]``.
 
         The KV writes of a step are idempotent (the same rows land in
         the same slots), so a retry after a partial step is exact. A

@@ -8,8 +8,8 @@ Exposed two ways:
 * snapshot — :meth:`ServingMetrics.snapshot` returns one dict.
 
 Copied from the JAX package's ``serving/metrics.py``; the gauges of
-paths not yet ported (swap, drain, speculative decoding, fleet, tiers)
-are left out, and so are those paths' finish reasons.
+paths not yet ported (swap, drain, fleet, tiers) are left out, and so
+are those paths' finish reasons.
 
 TTFT (time-to-first-token) and TPOT (time-per-output-token, a.k.a.
 inter-token latency) follow the standard serving definitions: TTFT is
@@ -51,7 +51,9 @@ class ServingMetrics:
               # prefix-cache, copy-on-write, and chunked-prefill traffic
               "padded_token_frac", "prefix_cache_hits",
               "prefix_cache_hit_tokens", "cow_copies", "prefill_chunks",
-              # in-graph sampling: steps whose batch held a sampled row
+              # on-device sampling + speculative decoding: draft
+              # proposal/acceptance traffic and sampled-step count
+              "spec_proposed", "spec_accepted", "spec_acceptance_rate",
               "sampled_steps")
 
     # per-terminal-reason histogram: every request's end state lands in
@@ -71,6 +73,8 @@ class ServingMetrics:
             lambda eng: eng.block_manager.num_prefix_hit_tokens,
         "cow_copies": lambda eng: eng.block_manager.num_cow_copies,
         "prefill_chunks": lambda eng: eng.scheduler.num_prefill_chunks,
+        "spec_proposed": lambda eng: eng.num_spec_proposed,
+        "spec_accepted": lambda eng: eng.num_spec_accepted,
         "sampled_steps": lambda eng: eng.num_sampled_steps,
     }
 
@@ -219,6 +223,9 @@ class ServingMetrics:
             # rejects, step retries, poisoned-row aborts, prefix cache
             out.update({f"serving_{name}": int(get(eng))
                         for name, get in self._ENGINE_GAUGES.items()})
+            # the one float engine gauge (kept out of the int() wrap)
+            out["serving_spec_acceptance_rate"] = round(
+                eng.spec_acceptance_rate, 4)
             out.update({f"serving_finish/{r}":
                         int(eng.finish_counts.get(r, 0))
                         for r in FINISH_REASONS})
@@ -238,6 +245,8 @@ class ServingMetrics:
                     return None  # counters() drops dead providers
                 if name in ServingMetrics._ENGINE_GAUGES:
                     return ServingMetrics._ENGINE_GAUGES[name](eng)
+                if name == "spec_acceptance_rate":
+                    return eng.spec_acceptance_rate
                 if name.startswith("finish/"):
                     return eng.finish_counts.get(name[len("finish/"):], 0)
                 if name == "queue_depth":

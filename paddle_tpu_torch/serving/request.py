@@ -99,6 +99,10 @@ class Request:
     # True once the scheduler ever split this request's prefill into
     # budget-sized chunks (sticky; drives the prefill_chunks metric)
     was_chunked: bool = False
+    # Speculative-decode proposals pending verification this step. NOT
+    # part of ``tokens`` — they become real tokens only if the target
+    # accepts them; any interruption (preempt/abort) drops them.
+    draft_tokens: List[int] = field(default_factory=list)
 
     def __post_init__(self):
         if not self.prompt_ids:
@@ -115,11 +119,13 @@ class Request:
                 b"paddle_tpu.serving:" +
                 self.request_id.encode()).digest()
             seed = int.from_bytes(digest[:8], "little")
-        # The request's RNG: a uint32[2] key for the counter-based
-        # generator in ``ops/sampling.py``, advanced by a fixed amount
-        # per emitting step and written back after each fetch. Derived
-        # with the same salt as the JAX package, so it is deterministic
-        # across processes.
+        # The request's RNG: a threefry key in the same uint32[2] layout
+        # as jax.random.PRNGKey(seed), advanced on the device by the
+        # engine's sampler (a fixed number of splits per emitting step)
+        # and written back after each fetch. Derived with the same salt
+        # as the JAX package, so it is deterministic across processes
+        # and a key carried between the two packages resumes the
+        # identical stream.
         self.device_key = np.array(
             [(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
 
@@ -177,6 +183,7 @@ class Request:
         self.status = RequestStatus.WAITING
         self.num_cached = 0
         self.num_preemptions += 1
+        self.draft_tokens = []
 
     def abort(self, reason: str):
         """Terminal, without a sampled token: expiry, rejection, user

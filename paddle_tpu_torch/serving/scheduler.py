@@ -23,9 +23,13 @@ Deadlines: every :meth:`schedule` call first expires requests whose
 blocks and reporting them in ``ScheduledBatch.expired`` so the engine
 can emit structured ``finish_reason='expired'`` outputs.
 
+Speculative verify rows ride pass A: a decode row carrying ``d`` draft
+tokens costs ``1 + d`` and claims their slots, or sheds its drafts when
+the budget cannot take them all.
+
 The JAX package's classic prefill-xor-decode policy, host swap, tier
-relief, speculative verify rows and KV-ship continuations are left out:
-the engine refuses the configurations that would need them."""
+relief and KV-ship continuations are left out: the engine refuses the
+configurations that would need them."""
 from __future__ import annotations
 
 import time
@@ -223,7 +227,11 @@ class Scheduler:
                     preempted.append(victim)
                     drop_row(victim)
 
-        # pass A — decode rows (fully caught-up requests, cost 1 each)
+        # pass A — decode rows (fully caught-up requests; cost 1 each,
+        # or 1+d for a speculative verify row carrying d draft tokens —
+        # all-or-nothing: a verify that doesn't fit the budget sheds its
+        # drafts and decodes plainly rather than verifying a partial
+        # draft)
         running = sorted(self.running, key=lambda r: r.sort_key)
         decode_rows = [r for r in running
                        if len(r.tokens) - r.num_cached == 1
@@ -234,10 +242,15 @@ class Scheduler:
                 continue  # evicted saving a more important row
             if used >= budget:
                 break
-            if claim_slots(req, len(req.tokens), len(req.tokens) - 1):
+            d = len(req.draft_tokens)
+            if d and used + 1 + d > budget:
+                req.draft_tokens = []
+                d = 0
+            if claim_slots(req, len(req.tokens) + d,
+                           len(req.tokens) - 1):
                 rows.append(req)
-                nsched.append(1)
-                used += 1
+                nsched.append(1 + d)
+                used += 1 + d
                 any_decode = True
 
         # pass B — continue mid-prefill rows (chunk = remaining budget);

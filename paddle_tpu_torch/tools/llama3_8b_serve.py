@@ -19,28 +19,38 @@ import torch
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
 
-__all__ = ["NUM_REQUESTS", "MAX_NEW_TOKENS", "build_engine", "add_requests"]
+__all__ = ["NUM_REQUESTS", "MAX_NEW_TOKENS", "ENGINE", "target_model",
+           "warm_up", "build_engine", "add_requests"]
 
 NUM_REQUESTS = 8
 MAX_NEW_TOKENS = 32
+# the engine settings, shared with the speculative configuration
+# (:mod:`paddle_tpu_torch.tools.llama3_8b_spec_serve`)
+ENGINE = dict(block_size=16, max_num_seqs=8, max_model_len=2048,
+              max_batched_tokens=2048)
 
 
-def build_engine(device) -> LLMEngine:
-    """The model and engine on ``device``, warmed up by one short request
-    (cuBLAS heuristics, the allocator), which is released before the
-    metrics window is reset."""
-    cfg = LlamaConfig.llama3_8b(dtype="bfloat16")
-    model = LlamaForCausalLM(cfg, device=device)
-    model.init_weights(torch.Generator(device=device).manual_seed(0))
-    eng = LLMEngine(model, EngineConfig(block_size=16, max_num_seqs=8,
-                                        max_model_len=2048,
-                                        max_batched_tokens=2048))
+def target_model(device) -> LlamaForCausalLM:
+    """Llama-3-8B in bf16 on ``device``, random weights from seed 0."""
+    model = LlamaForCausalLM(LlamaConfig.llama3_8b(dtype="bfloat16"),
+                             device=device)
+    return model.init_weights(torch.Generator(device=device).manual_seed(0))
+
+
+def warm_up(eng: LLMEngine, max_new_tokens: int = 2) -> LLMEngine:
+    """Serve one short request (cuBLAS heuristics, the allocator), release
+    it and reset the metrics window."""
     eng.add_request("warmup", list(range(1, 65)),
-                    SamplingParams(max_new_tokens=2))
+                    SamplingParams(max_new_tokens=max_new_tokens))
     eng.run()
     eng.release_request("warmup")
     eng.reset_metrics()
     return eng
+
+
+def build_engine(device) -> LLMEngine:
+    """The model and engine on ``device``, warmed up."""
+    return warm_up(LLMEngine(target_model(device), EngineConfig(**ENGINE)))
 
 
 def add_requests(eng: LLMEngine) -> Tuple[List[str], np.ndarray]:

@@ -1,10 +1,13 @@
 """Where a serving step's time goes on the card.
 
-    python -m paddle_tpu_torch.tools.profile_serve [--out DIR]
+    python -m paddle_tpu_torch.tools.profile_serve [--spec] [--out DIR]
 
 Serves the configuration of ``chip_smoke.py`` phase 4
 (:mod:`paddle_tpu_torch.tools.llama3_8b_serve`: Llama-3-8B at full width
-and depth, 8 requests, 32 new tokens each) and profiles two windows with
+and depth, 8 requests, 32 new tokens each), or with ``--spec`` that of
+phase 9 (:mod:`paddle_tpu_torch.tools.llama3_8b_spec_serve`: the same
+with a Llama-3.2-1B-width draft proposing 4 tokens per decode row, whose
+proposals fall inside each decode step), and profiles two windows with
 ``torch.profiler``: the first step (a 2048-token prefill) and 4 steps
 once every request decodes. For each window it
 prints one JSON line: host wall time per step, device kernels launched
@@ -83,15 +86,19 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="directory for the full profiler tables")
+    ap.add_argument("--spec", action="store_true",
+                    help="profile the speculative configuration")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: no CUDA device")
 
-    from paddle_tpu_torch.tools import llama3_8b_serve
+    from paddle_tpu_torch.tools import llama3_8b_serve, llama3_8b_spec_serve
 
-    eng = llama3_8b_serve.build_engine(torch.device("cuda", 0))
+    cfg = llama3_8b_spec_serve if args.spec else llama3_8b_serve
+    eng = cfg.build_engine(torch.device("cuda", 0))
     _, lens = llama3_8b_serve.add_requests(eng)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "spec": args.spec,
                       "prompt_lens": [int(x) for x in lens]}), flush=True)
     _window(eng, 1, "prefill", args.out)
     while any(r.num_generated == 0 for r in eng.scheduler.running) \

@@ -11,7 +11,9 @@ tiny engine's greedy tokens on the card against the CPU's; the flash
 attention kernels (forward, dQ, dK/dV) against their plain versions over
 head dims, dtypes, Sq != Sk and ragged tails, and three tiny training
 steps on the card against the CPU. A bf16 call launches the tensor-core
-kernels only (the libraries count launches by route)."""
+kernels only (the libraries count launches by route). The threefry
+stream and the speculative sampler give the CPU's bits and tokens on the
+card, and the tiny speculative engine serves the CPU's tokens and keys."""
 import numpy as np
 import pytest
 import torch
@@ -321,3 +323,58 @@ def test_tiny_train_card_matches_cpu(card):
 
     # asserts the losses, the parameters and the kernel launches itself
     tiny_train_parity.run(card)
+
+
+# --------------------------------------------------------------------------
+# threefry, the speculative sampler and the speculative engine
+# --------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_threefry_card_matches_cpu(card):
+    from paddle_tpu_torch.ops import threefry
+
+    keys = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 2 ** 32, (16, 2), dtype=np.int64))
+    for fn in (lambda k: threefry.split(k, 3),
+               lambda k: threefry.random_bits(k, (5, 77)),
+               lambda k: threefry.uniform(k, (300,)).view(torch.int32)):
+        assert torch.equal(fn(keys.to(card)).cpu(), fn(keys))
+
+
+@pytest.mark.gpu
+def test_sample_or_verify_card_matches_cpu(card):
+    """S = 6, R = 5, V = 128256 (Llama-3's vocabulary), n_draft 0-4,
+    greedy, sampled, top-k and top-p rows: emit counts and keys are
+    bit-identical, tokens identical (f32 probabilities differ by ulps,
+    which moves a token only at an exact near-tie)."""
+    from paddle_tpu_torch.ops.sampling import sample_or_verify
+
+    rng = np.random.default_rng(3)
+    s, r, v = 6, 5, 128256
+    logits = (3.0 * rng.standard_normal((s, r, v))).astype(np.float32)
+    am = logits.argmax(-1)
+    nd = np.array([0, 1, 2, 3, 4, 4], np.int32)
+    draft = np.zeros((s, r - 1), np.int32)
+    for i in range(s):
+        for j in range(r - 1):
+            draft[i, j] = am[i, min(r - 1 - nd[i] + j, r - 1)] \
+                if j % 2 == 0 else rng.integers(0, v)
+    keys = rng.integers(0, 2 ** 32, (s, 2), dtype=np.int64)
+    temp = np.array([0.0, 0.8, 1.0, 0.0, 1.2, 0.6], np.float32)
+    top_k = np.array([0, 50, 0, 0, 5, 0], np.int32)
+    top_p = np.array([1.0, 0.9, 0.95, 1.0, 1.0, 0.8], np.float32)
+    args = [torch.from_numpy(x) for x in (logits, draft, nd, keys, temp,
+                                          top_k, top_p)]
+    cpu = sample_or_verify(*args)
+    gpu = [x.cpu() for x in sample_or_verify(*(a.to(card) for a in args))]
+    assert torch.equal(gpu[1], cpu[1]) and torch.equal(gpu[2], cpu[2])
+    for i in range(s):
+        assert torch.equal(gpu[0][i, :int(cpu[1][i])],
+                           cpu[0][i, :int(cpu[1][i])])
+
+
+@pytest.mark.gpu
+def test_tiny_spec_engine_card_matches_cpu(card):
+    from paddle_tpu_torch.tools import tiny_spec_parity
+
+    res = tiny_spec_parity.run(card)
+    assert res["cpu_identical"]

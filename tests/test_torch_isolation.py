@@ -23,6 +23,10 @@ _MODULES = [
     "paddle_tpu_torch.jit", "paddle_tpu_torch.tools.gpt_1b_train",
     "paddle_tpu_torch.tools.profile_train",
     "paddle_tpu_torch.tools.tiny_train_parity",
+    "paddle_tpu_torch.ops.threefry", "paddle_tpu_torch.serving.spec",
+    "paddle_tpu_torch.tools.llama3_8b_serve",
+    "paddle_tpu_torch.tools.llama3_8b_spec_serve",
+    "paddle_tpu_torch.tools.tiny_spec_parity",
 ]
 
 

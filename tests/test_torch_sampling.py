@@ -1,18 +1,23 @@
-"""The port's on-device sampler against the JAX package's.
+"""The port's on-device sampler and its threefry generator against the
+JAX package's.
 
 ``filtered_probs`` takes the same logits and knobs (numpy, from a seed)
 through both packages. Greedy rows must be an exact one-hot at the
-first-occurrence argmax. The port's counter-based generator is not
-threefry, so sampled draws are held to the distribution, not to JAX's
-bits."""
+first-occurrence argmax. The port's threefry (``ops/threefry.py``) must
+give ``jax.random``'s bits: split keys, random bits and uniforms are
+bit-identical, Gumbel noise agrees to an ulp of ``log``, and categorical
+draws, ``sample_tokens`` and ``sample_or_verify`` give the same tokens,
+emit counts and advanced keys."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops import sampling as jsampling
 from paddle_tpu_torch.ops import sampling as tsampling
+from paddle_tpu_torch.ops import threefry
 
 # f32 softmax/sort/cumsum on both sides: a few ulps of values <= 1
 ATOL = 1e-6
@@ -94,3 +99,153 @@ def test_sampled_draws_follow_filtered_probs(temp, top_k, top_p):
     se = (p.double() * (1 - p.double()) / n).sqrt()
     assert torch.all((freq - p.double()).abs() <= 5 * se + 1e-12)
     assert torch.all(freq[p == 0] == 0)
+
+
+# ---------------------------------------------------------------------------
+# threefry against jax.random (64 keys drawn from numpy seed 0)
+# ---------------------------------------------------------------------------
+def _keys(n=64, seed=0):
+    keys = np.random.default_rng(seed).integers(0, 2 ** 32, size=(n, 2),
+                                                dtype=np.uint32)
+    return keys, torch.from_numpy(keys.astype(np.int64))
+
+
+def test_threefry_split_is_bit_identical():
+    keys, tk = _keys()
+    want = np.asarray(jax.vmap(lambda k: jax.random.split(k, 3))(
+        jnp.asarray(keys)))
+    got = threefry.split(tk, 3).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+@pytest.mark.parametrize("shape", [(), (7,), (3, 128256)])
+def test_threefry_random_bits_are_bit_identical(shape):
+    keys, tk = _keys(8 if shape == (3, 128256) else 64)
+    want = np.asarray(jax.vmap(lambda k: jax.random.bits(k, shape))(
+        jnp.asarray(keys)))
+    got = threefry.random_bits(tk, shape).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+@pytest.mark.parametrize("minval,maxval", [(0.0, 1.0), (-2.0, 3.5)])
+def test_threefry_uniform_is_bit_identical(minval, maxval):
+    keys, tk = _keys()
+    want = np.asarray(jax.vmap(lambda k: jax.random.uniform(
+        k, (33,), minval=minval, maxval=maxval))(jnp.asarray(keys)))
+    got = threefry.uniform(tk, (33,), minval, maxval).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  want.view(np.uint32))
+
+
+def test_threefry_gumbel_matches():
+    """Same uniforms; ``torch.log`` and XLA's ``log`` may differ by an
+    ulp, so the noise is held to rtol 1e-6 (and atol 1e-6 where it
+    crosses zero, at ``-log(u)`` near 1)."""
+    keys, tk = _keys()
+    want = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (500,)))(
+        jnp.asarray(keys)))
+    got = threefry.gumbel(tk, (500,)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_threefry_categorical_tokens_are_identical():
+    keys, tk = _keys()
+    logits = (2.0 * np.random.default_rng(1).standard_normal(
+        (64, 300))).astype(np.float32)
+    logits[::5, 40:] = -np.inf                  # truncated support
+    want = np.asarray(jax.vmap(jax.random.categorical)(
+        jnp.asarray(keys), jnp.asarray(logits)))
+    got = threefry.categorical(tk, torch.from_numpy(logits)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[::5] < 40).all()
+
+
+# ---------------------------------------------------------------------------
+# the samplers against the JAX package's, token for token
+# ---------------------------------------------------------------------------
+# S = 6 slots, R = 4 gathered rows, V = 256: greedy, sampled, top-k and
+# top-p rows mixed
+_TEMP = np.array([0.0, 0.8, 1.0, 0.0, 1.2, 0.5], np.float32)
+_TOPK = np.array([0, 0, 50, 0, 5, 0], np.int32)
+_TOPP = np.array([1.0, 0.9, 1.0, 1.0, 0.8, 1.0], np.float32)
+
+
+def _verify_inputs(seed, n_draft):
+    """Logits (6, 4, 256) from ``seed``; drafts that copy the row's
+    argmax with probability 0.6 (so rows both accept and reject)."""
+    rng = np.random.default_rng(seed)
+    s, r, v = 6, 4, 256
+    logits = (2.0 * rng.standard_normal((s, r, v))).astype(np.float32)
+    am = logits.argmax(-1)
+    draft = rng.integers(0, v, (s, r - 1)).astype(np.int32)
+    for i in range(s):
+        for j in range(r - 1):
+            if rng.random() < 0.6:
+                draft[i, j] = am[i, min(max(r - 1 - n_draft[i] + j, 0),
+                                        r - 1)]
+    keys = rng.integers(0, 2 ** 32, (s, 2), dtype=np.uint32)
+    return logits, draft, keys
+
+
+def _both_verify(logits, draft, n_draft, keys):
+    j = jsampling.sample_or_verify(
+        jnp.asarray(logits), jnp.asarray(draft), jnp.asarray(n_draft),
+        jnp.asarray(keys), jnp.asarray(_TEMP), jnp.asarray(_TOPK),
+        jnp.asarray(_TOPP))
+    t = tsampling.sample_or_verify(
+        torch.from_numpy(logits), torch.from_numpy(draft),
+        torch.from_numpy(n_draft), torch.from_numpy(keys.astype(np.int64)),
+        torch.from_numpy(_TEMP), torch.from_numpy(_TOPK),
+        torch.from_numpy(_TOPP))
+    return [np.asarray(x) for x in j], [x.numpy() for x in t]
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("n_draft", [0, 1, 2, 3, "mixed"])
+def test_sample_or_verify_is_identical_to_jax(seed, n_draft):
+    """Tokens, emit counts and advanced keys equal the JAX package's
+    exactly (numpy seeds 0-5; n_draft 0..3 on every row, or mixed)."""
+    nd = (np.array([0, 1, 2, 3, 3, 1], np.int32) if n_draft == "mixed"
+          else np.full((6,), n_draft, np.int32))
+    logits, draft, keys = _verify_inputs(seed, nd)
+    (jt, jn, jk), (tt, tn, tk) = _both_verify(logits, draft, nd, keys)
+    np.testing.assert_array_equal(tn, jn)
+    np.testing.assert_array_equal(tk, jk.astype(np.int64))
+    for i in range(6):  # tokens past n_emit are unspecified padding
+        np.testing.assert_array_equal(tt[i, :tn[i]], jt[i, :jn[i]])
+    assert (tn >= 1).all() and (tn <= nd + 1).all()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_sample_tokens_is_identical_to_jax(seed):
+    rng = np.random.default_rng(100 + seed)
+    logits = (2.0 * rng.standard_normal((6, 256))).astype(np.float32)
+    keys = rng.integers(0, 2 ** 32, (6, 2), dtype=np.uint32)
+    jt, jk = jsampling.sample_tokens(
+        jnp.asarray(logits), jnp.asarray(keys), jnp.asarray(_TEMP),
+        jnp.asarray(_TOPK), jnp.asarray(_TOPP))
+    tt, tk = tsampling.sample_tokens(
+        torch.from_numpy(logits), torch.from_numpy(keys.astype(np.int64)),
+        torch.from_numpy(_TEMP), torch.from_numpy(_TOPK),
+        torch.from_numpy(_TOPP))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(tk.numpy(),
+                                  np.asarray(jk).astype(np.int64))
+
+
+def test_key_advance_is_two_r_minus_one_splits():
+    """Every call advances a key by exactly 2*(R-1) + 1 chain splits,
+    whatever its data or n_draft."""
+    logits, draft, keys = _verify_inputs(9, np.full((6,), 3, np.int32))
+    tk = torch.from_numpy(keys.astype(np.int64))
+    want = tk
+    for _ in range(2 * 3 + 1):
+        want = threefry.split(want, 2)[:, 0]
+    for nd in (np.zeros(6, np.int32), np.array([3, 2, 1, 0, 3, 3],
+                                               np.int32)):
+        _, _, got = tsampling.sample_or_verify(
+            torch.from_numpy(logits), torch.from_numpy(draft),
+            torch.from_numpy(nd), tk, torch.from_numpy(_TEMP),
+            torch.from_numpy(_TOPK), torch.from_numpy(_TOPP))
+        assert torch.equal(got, want)

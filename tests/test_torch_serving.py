@@ -1,14 +1,13 @@
 """The port's serving engine against the JAX package's.
 
-Greedy token streams of the port's ``LLMEngine`` (CPU, plain attention)
-must equal the JAX ragged engine's on the scenarios of
+Token streams of the port's ``LLMEngine`` (CPU, plain attention) must
+equal the JAX ragged engine's on the scenarios of
 ``tests/test_serving_ragged.py``: a chunked mixed workload, preemption,
 and prefix-cache copy-on-write. The weights are the JAX tiny model's,
-carried across with ``llama_state_from_jax``. Sampled rows ride along
-(they shape the batches) but are compared in distribution only
-elsewhere: the port's generator is not threefry. A randomized storm of
-``BlockManager``/``Scheduler`` operations drives both packages and must
-give identical decisions and free lists."""
+carried across with ``llama_state_from_jax``. Greedy and sampled rows
+alike: both packages draw from the same threefry streams. A randomized
+storm of ``BlockManager``/``Scheduler`` operations drives both packages
+and must give identical decisions and free lists."""
 import numpy as np
 import pytest
 
@@ -76,23 +75,23 @@ def _both(models, prompts, samplings, **cfg_kw):
             te, _serve(te, SamplingParams, prompts, samplings))
 
 
-def _greedy_rows(samplings):
-    return [i for i, sp in enumerate(samplings)
-            if sp.get("temperature", 0.0) <= 0.0]
-
-
 def test_mixed_workload_greedy_parity(models):
     """Long prompts over the token budget (forced chunks), short
-    prompts, a sampled row: every greedy stream equals the JAX engine's,
-    with chunked prefills sharing steps with decode rows."""
-    prompts = _prompts(21, 256, [29, 3, 22, 6])
+    prompts, sampled rows (a seeded one, top-k and top-p ones seeded by
+    their request ids): every stream, greedy and sampled, equals the JAX
+    engine's, with chunked prefills sharing steps with decode rows."""
+    prompts = _prompts(21, 256, [29, 3, 22, 6, 11, 4])
     sps = [dict(max_new_tokens=6),
            dict(max_new_tokens=5, temperature=0.8, seed=3),
-           dict(max_new_tokens=6), dict(max_new_tokens=4)]
+           dict(max_new_tokens=6), dict(max_new_tokens=4),
+           dict(max_new_tokens=7, temperature=1.0, top_k=20),
+           dict(max_new_tokens=6, temperature=0.7, top_p=0.9)]
     je, outs_j, te, outs_t = _both(models, prompts, sps,
                                    max_batched_tokens=16)
-    for i in _greedy_rows(sps):
-        assert outs_t[i] == outs_j[i], i
+    assert outs_t == outs_j
+    for rid in ("r1", "r4", "r5"):
+        np.testing.assert_array_equal(te.get_request(rid).device_key,
+                                      je.get_request(rid).device_key)
     assert len(outs_t[1]) == 5
     snap = te.metrics.snapshot()
     assert snap["serving_prefill_chunks"] > 0
@@ -116,8 +115,7 @@ def test_parity_through_preemption(models):
                                    max_model_len=32)
     assert je.scheduler.num_preemptions > 0
     assert te.scheduler.num_preemptions == je.scheduler.num_preemptions
-    for i in _greedy_rows(sps):
-        assert outs_t[i] == outs_j[i], i
+    assert outs_t == outs_j
     assert te.block_manager.num_free_blocks == te.cfg.num_blocks
     te.block_manager.check_invariants()
     assert te.metrics.snapshot()["padded_token_frac"] == 0.0
@@ -183,11 +181,39 @@ def test_nonfinite_guard_aborts_only_the_poisoned_row(models):
 
 @pytest.mark.parametrize("knob,value", [
     ("ragged", False), ("tp_degree", 2), ("kv_tiers", True),
-    ("swap_mode", "host"), ("step_timeout_s", 1.0),
-    ("draft_model", object())])
+    ("swap_mode", "host"), ("step_timeout_s", 1.0)])
 def test_unported_configurations_raise(knob, value):
     with pytest.raises(ValueError, match="not ported"):
         EngineConfig(**{knob: value})
+
+
+@pytest.mark.parametrize("case,match", [
+    ("draft_only", "BOTH"), ("k_only", "BOTH"), ("negative_k", ">= 0"),
+    ("ragged_false", None), ("vocab_mismatch", "tokenizer-width")])
+def test_spec_configurations_raise_as_jax(models, case, match):
+    """The speculative knobs are refused where the JAX engine refuses
+    them: draft model and num_spec_tokens come both or neither, k >= 0,
+    the ragged step only (the port refuses ragged=False altogether), and
+    one tokenizer width for draft and target."""
+    jm, tm = models
+    narrow = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
+                  num_hidden_layers=2, num_attention_heads=4,
+                  num_key_value_heads=2, max_position_embeddings=128)
+    paddle.seed(5)
+    jn = JLlama(JLlamaConfig(**narrow))
+    sides = ((JLLMEngine, JEngineConfig, jm, jn),
+             (LLMEngine, EngineConfig, tm,
+              LlamaForCausalLM(LlamaConfig(**narrow), device="cpu")))
+    for eng_cls, cfg_cls, target, narrow_draft in sides:
+        kw = {"draft_only": dict(draft_model=target),
+              "k_only": dict(num_spec_tokens=2),
+              "negative_k": dict(num_spec_tokens=-1),
+              "ragged_false": dict(draft_model=target, num_spec_tokens=2,
+                                   ragged=False),
+              "vocab_mismatch": dict(draft_model=narrow_draft,
+                                     num_spec_tokens=2)}[case]
+        with pytest.raises(ValueError, match=match):
+            eng_cls(target, cfg_cls(**kw))
 
 
 # ---------------------------------------------------------------------------
@@ -198,12 +224,18 @@ def _bm_state(bm):
             dict(bm._refs), bm.num_cow_copies, bm.num_prefix_hits)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_block_manager_storm_identical(seed):
+@pytest.mark.parametrize("seed,spec", [
+    (0, False), (1, False), (2, False), (0, True), (1, True), (2, True)],
+    ids=["0", "1", "2", "spec-0", "spec-1", "spec-2"])
+def test_block_manager_storm_identical(seed, spec):
+    """Allocations, growth, commits and frees, COW landings: identical
+    results, tables and free lists in both packages. With ``spec`` the
+    growth is a verify row instead: 1+d slots claimed, then a trim to the
+    accepted length (the speculative rollback)."""
     rng = np.random.default_rng(seed)
     jb = JBlockManager(24, 4, enable_prefix_cache=True)
     tb = BlockManager(24, 4, enable_prefix_cache=True)
-    prefixes = _prompts(seed + 100, 5, [8, 12])
+    prefixes = _prompts(seed + (200 if spec else 100), 5, [8, 12])
     live = {}
     for step in range(300):
         op = rng.integers(0, 4)
@@ -221,6 +253,21 @@ def test_block_manager_storm_identical(seed):
             assert res[0] == res[1]
             if res[0] != "oom":
                 live[rid] = toks
+        elif op == 1 and spec:                        # verify + rollback
+            rid = sorted(live)[int(rng.integers(0, len(live)))]
+            n = len(live[rid])
+            d = int(rng.integers(0, 5))
+            acc = int(rng.integers(0, d + 1))
+            res = []
+            for bm, oom in ((jb, JOOM), (tb, TOOM)):
+                try:
+                    res.append(bm.append_slot(rid, n + d, write_from=n - 1))
+                    res.append(bm.trim(rid, n + acc))
+                except oom:
+                    res.append("oom")
+            assert res[:len(res) // 2] == res[len(res) // 2:]
+            if res[0] != "oom":
+                live[rid] = live[rid] + [int(rng.integers(0, 5))] * acc
         elif op == 1:                                 # grow one token
             rid = sorted(live)[int(rng.integers(0, len(live)))]
             live[rid] = live[rid] + [int(rng.integers(0, 5))]
@@ -240,17 +287,24 @@ def test_block_manager_storm_identical(seed):
         else:                                         # land COW copies
             assert jb.take_cow_pairs() == tb.take_cow_pairs()
         assert _bm_state(jb) == _bm_state(tb)
+    if spec:
+        assert tb.trim("nobody", 3) == jb.trim("nobody", 3) == 0
     jb.take_cow_pairs()
     tb.take_cow_pairs()
     tb.check_invariants()
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_scheduler_storm_identical(seed):
+@pytest.mark.parametrize("seed,spec", [
+    (0, False), (1, False), (0, True), (1, True), (2, True)],
+    ids=["0", "1", "spec-0", "spec-1", "spec-2"])
+def test_scheduler_storm_identical(seed, spec):
     """Random arrivals, priorities and lengths through both mixed
     schedulers; each step the engine's bookkeeping is simulated the same
     way. Every batch (rows, chunk sizes, preemptions) and the free list
-    must match."""
+    must match. With ``spec``, 0-3 draft tokens are proposed for every
+    decode-eligible request before each step and the engine's
+    accept/trim bookkeeping is simulated too (1+d verify costs, shed
+    drafts); without it no request carries drafts (d = 0)."""
     rng = np.random.default_rng(seed)
     sides = []
     for bm_cls, sched_cls, cfg, req_cls in (
@@ -263,12 +317,13 @@ def test_scheduler_storm_identical(seed):
         bm = bm_cls(20, 4, enable_prefix_cache=True)
         sides.append((bm, sched_cls(bm, cfg), req_cls, {}))
     arrival = 0.0
-    for step in range(120):
+    steps, max_new = (150, 9) if spec else (120, 6)
+    for step in range(steps):
         if rng.random() < 0.35:
             n = int(rng.integers(1, 20))
             prompt = list(map(int, rng.integers(0, 3, size=n)))
             prio = int(rng.integers(0, 3))
-            new = int(rng.integers(1, 6))
+            new = int(rng.integers(1, max_new))
             arrival += 1.0
             for bm, sched, req_cls, reqs in sides:
                 sp_mod = (JSamplingParams if req_cls is JRequest
@@ -279,21 +334,47 @@ def test_scheduler_storm_identical(seed):
                             arrival_time=arrival)
                 reqs[r.request_id] = r
                 sched.add(r)
+        # the proposer: drafts for fully caught-up decode rows, capped by
+        # their max_new_tokens headroom, as the engine caps them
+        plan = {}
+        for r in sorted(sides[0][1].running, key=lambda x: x.request_id):
+            if not spec:
+                break
+            if r.num_generated < 1 or len(r.tokens) - r.num_cached != 1:
+                continue
+            d = min(int(rng.integers(0, 4)),
+                    r.sampling.max_new_tokens - r.num_generated - 1)
+            if d > 0:
+                plan[r.request_id] = list(map(int, rng.integers(0, 3, d)))
         decisions = []
         for bm, sched, _, reqs in sides:
+            for rid, toks in plan.items():
+                reqs[rid].draft_tokens = list(toks)
             batch = sched.schedule()
             decisions.append((batch.kind,
                               [r.request_id for r in batch.requests],
                               list(batch.num_scheduled),
                               [r.request_id for r in batch.preempted]))
             for r, n in zip(batch.requests, batch.num_scheduled):
-                r.num_cached += n
+                d = len(r.draft_tokens)
+                r.draft_tokens = []
+                r.num_cached += n - d
                 bm.commit_prefix(r.request_id, r.prompt_ids, r.num_cached)
                 if r.num_cached < len(r.tokens):
                     continue
-                tok = (len(r.tokens) * 7 + 3) % 3
-                if r.append_token(tok):
+                pre_len = len(r.tokens)
+                accepted = (pre_len * 5 + step) % (d + 1)
+                finished, appended = False, 0
+                for _ in range(accepted + 1):
+                    finished = r.append_token((len(r.tokens) * 7 + 3) % 3)
+                    appended += 1
+                    if finished:
+                        break
+                r.num_cached = pre_len + min(appended, accepted)
+                if finished:
                     sched.finish(r)
+                elif d:
+                    bm.trim(r.request_id, len(r.tokens))
             bm.take_cow_pairs()
         assert decisions[0] == decisions[1], step
         assert list(sides[0][0]._free) == list(sides[1][0]._free)
