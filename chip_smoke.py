@@ -26,18 +26,28 @@ non-zero (nothing is caught and passed over):
                decode-only batch (8 slots x 1 row, contexts 512-4096),
                which splits each slot's cache range and merges the
                splits; and on a speculative verify batch (8 slots x 5
-               rows mid-context, contexts 300-1100, as phase 9 gives
-               it). Times (CUDA events, L2 flushed before each launch)
-               and the bounds of all three.
+               rows mid-context, contexts 300-1100, padded to the
+               engine's 64-token bucket and split as phase 9 gives it).
+               Times (CUDA events, L2 flushed before each launch) and
+               the bounds of all three.
 4. serve     — Llama-3-8B at full width and depth (32 layers, bf16,
                random weights from a seeded generator on the card)
                through the port's LLMEngine: 8 requests, prompts of
                128-1024 tokens, 32 new tokens each (7 greedy, 1 sampled).
-               The kernel's launch count must be 32 x the model steps,
-               all of them on the tensor-core route.
+               Each step replays the CUDA graph of its token bucket
+               (captured at the bucket's first use, here in the warm-up):
+               captures, capture seconds, replays per bucket. The ragged
+               kernel's launches that the replays ran must be 32 x the
+               model steps, all of them on the tensor-core route, and its
+               wrapper must have counted only warm-ups and captures; the
+               buckets stepped must lie in the engine's lattice. Then, at
+               each bucket stepped, one recorded step's inputs through a
+               replay and through the eager ``_device_step``: packed rows
+               and cache bytes bit-identical.
 5. parity    — LlamaConfig.tiny in f32 (TF32 off) served on the card
-               (kernel) and on the CPU (plain version) from the same
-               weights: the greedy tokens must be identical.
+               (kernel, captured graphs) and on the CPU (plain version)
+               from the same weights: the greedy tokens must be
+               identical.
 6. flash     — the flash attention kernels (forward, dQ, dK/dV) against
                their plain versions on the card: at the training shapes
                (B 4, S 2048, H 16, D 128, bf16, causal: all three on the
@@ -63,9 +73,12 @@ non-zero (nothing is caught and passed over):
                with a Llama-3.2-1B-width draft proposing 4 tokens per
                decode row (``tools/llama3_8b_spec_serve.py``). Every
                request finishes with 32 tokens and the pool comes back
-               whole; the ragged kernel launches 32 x the model steps,
-               the flash forward 16 x 4 x the draft proposals, all on
-               the tensor cores, and no plain version runs. Tok/s, TTFT
+               whole; the target's verify steps and the draft's k
+               forwards replay CUDA graphs (per token bucket; per batch
+               and width bucket); the ragged kernel's replayed launches
+               are 32 x the model steps, the flash forward's 16 x 4 x the
+               draft proposals, all on the tensor cores, and no plain
+               version runs. Tok/s, TTFT
                and TPOT, acceptance, draft ms per step (synchronized
                wall time around each proposal), the draft forwards'
                (batch, width) buckets (the widest must be phase 6's
@@ -84,9 +97,10 @@ non-zero (nothing is caught and passed over):
 
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve and spec for
-the ragged kernel, train and spec for the flash forward — error, times,
-bound, library time), nvidia-smi's line, and last
-``{"ok": true, "device": {...}}``.
+the ragged kernel, train and spec for the flash forward; on the paths
+that replay graphs they are the launches the card ran, the eager
+warm-ups plus captured x replays — error, times, bound, library time),
+nvidia-smi's line, and last ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -94,6 +108,7 @@ import re
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -323,6 +338,11 @@ def _ragged_case(b, live, flush):
 
 
 def phase_kernel(dev):
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.serving import EngineConfig
+    from paddle_tpu_torch.serving.engine import token_buckets
+    from paddle_tpu_torch.tools import llama3_8b_serve, llama3_8b_spec_serve
+
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev).zero_
     mixed = _ragged_case(_ragged_batch(dev, gen, MIXED_LIVE, 8, 128, 1024,
@@ -330,8 +350,23 @@ def phase_kernel(dev):
     decode = _ragged_case(_ragged_batch(dev, gen, DECODE_LIVE, 8, 256, 1152,
                                         0), DECODE_LIVE, flush)
     assert decode["nsplit"] > 1, decode
-    verify = _ragged_case(_ragged_batch(dev, gen, VERIFY_LIVE, 8, 128, 640,
-                                        0), VERIFY_LIVE, flush)
+    # the spec path's verify launch (phase 9): k + 1 rows per slot, at
+    # the engine's token bucket, so with pad rows past cu[num_seqs], and
+    # at the split the kernel takes for the engine's shapes
+    ecfg = EngineConfig(**llama3_8b_serve.ENGINE)
+    assert {n for n, _ in VERIFY_LIVE} == {
+        llama3_8b_spec_serve.NUM_SPEC_TOKENS + 1}
+    assert len(VERIFY_LIVE) == ecfg.max_num_seqs
+    n_rows = sum(n for n, _ in VERIFY_LIVE)
+    t_verify = min(b for b in token_buckets(ecfg) if b >= n_rows)
+    mb = ecfg.max_model_len // ecfg.block_size
+    verify = _ragged_case(_ragged_batch(
+        dev, gen, VERIFY_LIVE, ecfg.max_num_seqs, mb, 640,
+        t_verify - n_rows), VERIFY_LIVE, flush)
+    _, want = rpa._splits(t_verify, ecfg.max_num_seqs, 8, 4, mb,
+                          ecfg.block_size, rpa._sm_count(dev.index))
+    assert verify["rows"] == t_verify > n_rows, verify
+    assert verify["nsplit"] == want > 1, (verify, want)
     emit({"phase": "kernel", "mixed": mixed, "decode": decode,
           "verify": verify})
     return mixed, verify
@@ -344,39 +379,35 @@ class _GreedyRows:
     drafts finds its j-th emitted token's row at R-1-d+j of the R
     gathered rows). ``stop`` (request id -> phase 4's tokens) ends a
     request's record at the first position where it differs. Reads the
-    sampler's input; launches no kernel, only one row gather per step."""
+    step graph's static logits output after each step; launches no
+    kernel, only one row gather per step. Also keeps, per step key, the
+    host arrays of the first step at it (``inputs``)."""
 
     def __init__(self, eng, rids, stop=None):
         self.eng, self.stop = eng, stop or {}
         self.rows = {rid: [] for rid in rids}
         self.done = set()
+        self.inputs = {}
         self.logits = self.pending = None
 
     def __enter__(self):
-        from paddle_tpu_torch.serving import engine as engine_mod
-
-        self.mod = engine_mod
-        self.sample = sample = engine_mod.sample_or_verify
         dispatch = self.eng._dispatch
 
-        def sampling(logits, *a, **kw):
-            self.logits = logits
-            return sample(logits, *a, **kw)
-
-        def dispatching(reqs, *a, **kw):
-            out = dispatch(reqs, *a, **kw)
+        def dispatching(reqs, key, arrays):
+            out = dispatch(reqs, key, arrays)
+            self.inputs.setdefault(key, [a.copy() for a in arrays])
+            self.logits = self.eng._graphs.outputs(key)[1]
             self.pending = [(i, r, len(r.generated), len(r.draft_tokens))
                             for i, r in enumerate(reqs)
                             if r.request_id in self.rows]
             return out
 
-        engine_mod.sample_or_verify = sampling
         self.eng._dispatch = dispatching
         return self
 
     def __exit__(self, *exc):
-        self.mod.sample_or_verify = self.sample
         del self.eng._dispatch
+        self.eng = None
 
     def after_step(self):
         """File the rows of the tokens this step emitted."""
@@ -449,26 +480,43 @@ def phase_serve(dev):
     rids, lens = llama3_8b_serve.add_requests(eng)
     torch.cuda.reset_peak_memory_stats()
     routes = rpa.route_launches()
+    snap = eng._graphs.snapshot()
     with _GreedyRows(eng, rids[:-1]) as rows:   # for phase 9's comparison
         rpa.launches = 0                  # main path starts here
         t1 = time.perf_counter()
-        steps = 0
+        step_ms = []
         while eng.has_unfinished():
+            t2 = time.perf_counter()
             eng.step()
+            step_ms.append((time.perf_counter() - t2) * 1e3)
             rows.after_step()
-            steps += 1
-            assert steps < 1000, "engine failed to converge"
+            assert len(step_ms) < 1000, "engine failed to converge"
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        launches = rpa.launches           # main path ends here
+        wrapped = rpa.launches            # main path ends here
     routes = {k: n - routes[k] for k, n in rpa.route_launches().items()}
+    window = eng._graphs.since(snap)
     model_steps = eng.metrics.engine_steps
-    assert launches == cfg.num_hidden_layers * model_steps, \
-        (launches, model_steps)
-    # bf16: every launch on the tensor cores (the combine runs on the
-    # steps whose batch is split)
-    assert routes["fma"] == 0 and routes["tensor_cores"] == launches, \
-        routes
+    layers = cfg.num_hidden_layers
+    replayed = window["replayed_launches"].get("ragged_paged_attention", 0)
+    launches = window["executed_launches"].get("ragged_paged_attention", 0)
+    # one replay per model step, the kernel once per layer in each; the
+    # wrapper counts launches only where it launches them: once in each
+    # capture's eager warm-up and once in the capture itself
+    assert sum(window["replays"].values()) == model_steps, window
+    assert replayed == layers * model_steps, (replayed, model_steps)
+    assert wrapped == 2 * layers * window["captures"], (wrapped, window)
+    assert launches == replayed + wrapped // 2, (launches, replayed, wrapped)
+    # bf16: every launch on the tensor cores, captured ones too (the
+    # combine runs on the steps whose batch is split)
+    assert routes["fma"] == 0 and routes["tensor_cores"] == wrapped, routes
+    graphs = eng._graphs.since()
+    assert graphs["captures"] == len(eng._seen_shapes), graphs
+    for key, captured in graphs["captured_launches"].items():
+        assert captured["ragged_paged_attention/tensor_cores"] == layers \
+            and "ragged_paged_attention/fma" not in captured, (key, captured)
+    lattice = {("ragged", b, eng.cfg.max_num_seqs) for b in eng.step_buckets}
+    assert eng._seen_shapes <= lattice, (eng._seen_shapes, lattice)
     gen_tokens = 0
     for rid in rids:
         r = eng.get_request(rid)
@@ -485,18 +533,34 @@ def phase_serve(dev):
            "wall_s": wall, "tokens_per_s": gen_tokens / wall,
            "ttft_ms_p50": float(np.percentile(m.ttfts_s, 50) * 1e3),
            "tpot_ms_p50": float(np.percentile(m.tpots_s, 50) * 1e3),
-           "steps": model_steps, "prefill_chunks":
-               int(eng.scheduler.num_prefill_chunks),
+           "steps": model_steps, "step_ms": step_ms,
+           "prefill_chunks": int(eng.scheduler.num_prefill_chunks),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "setup_s": setup_s, "kernel_launches": launches,
-           "route_launches": routes,
+           "kernel_launches_replayed": replayed,
+           "kernel_launches_wrapper": wrapped, "route_launches": routes,
+           "step_buckets": list(eng.step_buckets),
+           "graphs": {"engine": graphs, "window": window},
            "sampled": eng.get_request("r7").generated[:8]}
+    # at each bucket stepped, one recorded step's inputs: a replay of the
+    # bucket's graph against the eager step on the same buffers (the
+    # same shapes and kernels, so bit-identical; no tolerance)
+    from paddle_tpu_torch.tools.step_checks import replay_matches_eager
+
+    same = {"x".join(map(str, key[1:])):
+            replay_matches_eager(eng, key, arrays)
+            for key, arrays in sorted(rows.inputs.items())}
+    assert same and all(all(v.values()) for v in same.values()), same
+    res["replay_vs_eager_bit_identical"] = same
     emit(res)
     res["tokens"] = {rid: eng.get_request(rid).generated for rid in rids}
     res["rows"] = rows.rows
     assert all(len(v) == llama3_8b_serve.MAX_NEW_TOKENS
                for v in rows.rows.values())
+    gone = [weakref.ref(x) for x in (eng, eng.model)]
     del eng
+    # no reference cycle holds the engine: it and its model go now
+    assert not any(r() for r in gone), "the engine outlived its references"
     torch.cuda.empty_cache()
     return res
 
@@ -520,16 +584,18 @@ def phase_parity(dev):
     ecfg = dict(block_size=4, max_num_seqs=4, max_model_len=64,
                 max_batched_tokens=32)
     before = rpa.launches
-    on_card = LLMEngine(card_model, EngineConfig(**ecfg)).generate(prompts,
-                                                                   sp)
+    card_eng = LLMEngine(card_model, EngineConfig(**ecfg))
+    on_card = card_eng.generate(prompts, sp)
     card_launches = rpa.launches - before
     on_cpu = LLMEngine(cpu_model, EngineConfig(**ecfg)).generate(prompts,
                                                                  sp)
     assert card_launches > 0
+    assert set(card_eng._graphs.keys) == card_eng._seen_shapes
     assert on_card == on_cpu, (on_card, on_cpu)
     emit({"phase": "parity", "model": "tiny", "dtype": "float32",
           "requests": len(prompts), "identical": True,
-          "kernel_launches": card_launches, "tokens": on_card})
+          "kernel_launches": card_launches,
+          "graphs": card_eng._graphs.since(), "tokens": on_card})
 
 
 # ---------------------------------------------------------------------------
@@ -790,6 +856,7 @@ def phase_spec(dev, serve_res, draft_shape):
     eng._spec.propose = timed_propose
     torch.cuda.reset_peak_memory_stats()
     rroutes, froutes = rpa.route_launches(), fa.route_launches()
+    tsnap, dsnap = eng._graphs.snapshot(), spec.graphs.snapshot()
     greedy = rids[:-1]
     with _PlainCalls() as plain, _GreedyRows(
             eng, greedy, stop=serve_res["tokens"]) as rows:
@@ -797,29 +864,54 @@ def phase_spec(dev, serve_res, draft_shape):
         for name in fa.launches:
             fa.launches[name] = 0
         t1 = time.perf_counter()
-        steps = 0
+        step_ms = []
         while eng.has_unfinished():
+            t2 = time.perf_counter()
             eng.step()
+            step_ms.append((time.perf_counter() - t2) * 1e3)
             rows.after_step()
-            steps += 1
-            assert steps < 1000, "engine failed to converge"
+            assert len(step_ms) < 1000, "engine failed to converge"
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        k1, k2 = rpa.launches, dict(fa.launches)  # main path ends here
+        # main path ends here
+        wrapped = {"ragged_paged_attention": rpa.launches, **fa.launches}
     rroutes = {r: n - rroutes[r] for r, n in rpa.route_launches().items()}
     froutes = {name: {r: n - froutes[name][r] for r, n in v.items()}
                for name, v in fa.route_launches().items()}
+    twin = eng._graphs.since(tsnap)
+    dwin = spec.graphs.since(dsnap)
     model_steps = eng.metrics.engine_steps
-    assert k1 == cfg.num_hidden_layers * model_steps, (k1, model_steps)
-    assert rroutes["fma"] == 0 and rroutes["tensor_cores"] == k1, rroutes
+    # the target: one replay per model step, K1 once per layer in each;
+    # the draft: one replay per proposal, K2 once per layer and forward
+    assert sum(twin["replays"].values()) == model_steps, twin
+    assert sum(dwin["replays"].values()) == len(draft_ms) > 0, dwin
+    k1_replayed = twin["replayed_launches"].get("ragged_paged_attention", 0)
+    assert k1_replayed == cfg.num_hidden_layers * model_steps, \
+        (k1_replayed, model_steps)
+    k2_replayed = dwin["replayed_launches"].get("flash_attention_fwd", 0)
     want_k2 = dcfg.num_hidden_layers * k * len(draft_ms)
-    assert len(draft_ms) > 0 and k2["flash_attention_fwd"] == want_k2, \
-        (k2, want_k2)
-    assert k2["flash_attention_bwd_dq"] == k2["flash_attention_bwd_dkv"] \
-        == 0, k2
-    assert froutes["flash_attention_fwd"] == {"fma": 0,
-                                              "tensor_cores": want_k2}, \
-        froutes
+    assert k2_replayed == want_k2, (k2_replayed, want_k2)
+    # the wrappers counted the warm-ups and the captures only
+    assert wrapped["ragged_paged_attention"] == \
+        2 * cfg.num_hidden_layers * twin["captures"], (wrapped, twin)
+    assert wrapped["flash_attention_fwd"] == \
+        2 * dcfg.num_hidden_layers * k * dwin["captures"], (wrapped, dwin)
+    assert wrapped["flash_attention_bwd_dq"] == \
+        wrapped["flash_attention_bwd_dkv"] == 0, wrapped
+    assert rroutes["fma"] == 0 and \
+        rroutes["tensor_cores"] == wrapped["ragged_paged_attention"], rroutes
+    assert froutes["flash_attention_fwd"] == {
+        "fma": 0, "tensor_cores": wrapped["flash_attention_fwd"]}, froutes
+    tall, dall = eng._graphs.since(), spec.graphs.since()
+    for graphs, name in ((tall, "ragged_paged_attention"),
+                         (dall, "flash_attention_fwd")):
+        for key, captured in graphs["captured_launches"].items():
+            assert f"{name}/fma" not in captured and \
+                captured[f"{name}/tensor_cores"] == captured[name], \
+                (key, captured)
+    k1 = twin["executed_launches"].get("ragged_paged_attention", 0)
+    k2 = {name: dwin["executed_launches"].get(name, 0)
+          for name in fa.launches}
     assert not any(plain.calls.values()), plain.calls
     widest = max(buckets, key=lambda bw: bw[0] * bw[1])
     assert widest == tuple(draft_shape), (buckets, draft_shape)
@@ -848,7 +940,8 @@ def phase_spec(dev, serve_res, draft_shape):
            "tokens_per_s": gen_tokens / wall,
            "ttft_ms_p50": float(np.percentile(m.ttfts_s, 50) * 1e3),
            "tpot_ms_p50": float(np.percentile(m.tpots_s, 50) * 1e3),
-           "steps": model_steps, "spec_proposed": eng.num_spec_proposed,
+           "steps": model_steps, "step_ms": step_ms,
+           "spec_proposed": eng.num_spec_proposed,
            "spec_accepted": eng.num_spec_accepted,
            "spec_acceptance_rate": eng.spec_acceptance_rate,
            "proposals": len(draft_ms),
@@ -860,9 +953,15 @@ def phase_spec(dev, serve_res, draft_shape):
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "setup_s": setup_s,
            "kernel_launches": {"ragged_paged_attention": k1, **k2},
+           "kernel_launches_replayed": {
+               "ragged_paged_attention": k1_replayed,
+               "flash_attention_fwd": k2_replayed},
+           "kernel_launches_wrapper": wrapped,
            "route_launches": {"ragged_paged_attention": rroutes,
                               "flash_attention_fwd":
                                   froutes["flash_attention_fwd"]},
+           "graphs": {"target": {"engine": tall, "window": twin},
+                      "draft": {"engine": dall, "window": dwin}},
            "plain_calls": plain.calls,
            "greedy_tokens_equal_serve": equal,
            "greedy_first_divergence": first_diff,
@@ -874,8 +973,11 @@ def phase_spec(dev, serve_res, draft_shape):
                serve_res["rows"], serve_res["tokens"], rows.rows,
                {rid: eng.get_request(rid).generated for rid in greedy})}
     emit(res)
-    eng.cfg.draft_model = eng._spec = None
-    del eng
+    del spec.propose                      # the timing wrapper holds spec
+    gone = [weakref.ref(x) for x in (eng, eng.model, spec, spec.model)]
+    del eng, spec, propose, timed_propose
+    # no reference cycle holds the engine: it and its models go now
+    assert not any(r() for r in gone), "the engine outlived its references"
     torch.cuda.empty_cache()
     return res
 

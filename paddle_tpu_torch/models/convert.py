@@ -25,9 +25,18 @@ def llama_state_from_jax(np_state: Mapping[str, np.ndarray]
     match; the JAX ``Linear`` weights are stored ``[in, out]`` and are
     transposed to torch's ``[out, in]``. Embedding and norm weights copy
     as they are. The rope tables are not in either state dict: each side
-    rebuilds them from the config."""
-    return {name: _to_tensor(_torch_layout(name, value))
-            for name, value in np_state.items()}
+    rebuilds them from the config.
+
+    A tied JAX state (``tie_word_embeddings``) holds the embedding and no
+    ``lm_head.weight``; the head is then the embedding itself, as the
+    port's tied head computes ``x @ E^T``, and the state loads into a
+    tied port model."""
+    out = {name: _to_tensor(_torch_layout(name, value))
+           for name, value in np_state.items()}
+    embed = out.get("llama.embed_tokens.weight")
+    if "lm_head.weight" not in out and embed is not None:
+        out["lm_head.weight"] = embed
+    return out
 
 
 def _torch_layout(name: str, value) -> np.ndarray:

@@ -35,9 +35,62 @@ import torch
 
 from paddle_tpu_torch.ops import threefry
 
-__all__ = ["filtered_probs", "sample_tokens", "sample_or_verify"]
+__all__ = ["filtered_probs", "sample_tokens", "sample_or_verify",
+           "xla_cumsum", "xla_sum"]
 
 _M32 = 0xFFFFFFFF
+_SCAN_CHUNK = 16   # XLA:CPU's cumsum chunk (jax 0.9.0)
+_REDUCE_WINDOW = 32  # XLA:CPU's tree-reduction window (jax 0.9.0)
+
+
+def xla_sum(x):
+    """Sum over the last dim, added in the order XLA:CPU adds
+    ``jnp.sum`` (jax 0.9.0), so float32 results are bit-identical to the
+    JAX package's: while the dim is longer than 32, pad it to a multiple
+    of 32 (zeros split evenly, the odd one on the right) and add each
+    window of 32 sequentially; then add what is left sequentially."""
+    n = x.shape[-1]
+    while n > _REDUCE_WINDOW:
+        padded = -(-n // _REDUCE_WINDOW) * _REDUCE_WINDOW
+        lo = (padded - n) // 2
+        x = torch.nn.functional.pad(x, (lo, padded - n - lo)).reshape(
+            *x.shape[:-1], padded // _REDUCE_WINDOW, _REDUCE_WINDOW)
+        n = padded // _REDUCE_WINDOW
+        x = _sequential_sum(x)
+    return _sequential_sum(x)
+
+
+def _sequential_sum(x):
+    acc = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def xla_cumsum(x):
+    """Inclusive cumulative sum over the last dim, added in the order
+    XLA:CPU adds ``jnp.cumsum`` (jax 0.9.0), so float32 results are
+    bit-identical to the JAX package's: pad to a multiple of 16, add
+    sequentially within each 16-wide chunk, scan the chunk totals the
+    same way (recursively), and add each chunk's exclusive prefix. Every
+    add is a separate elementwise op, so the card adds in this order
+    too. The top-p cut compares these sums with ``top_p``; on tied
+    probabilities a sum in another order lands on the other side of it
+    and keeps another number of tokens."""
+    v = x.shape[-1]
+    n = -(-v // _SCAN_CHUNK) * _SCAN_CHUNK
+    chunks = torch.nn.functional.pad(x, (0, n - v)).reshape(
+        *x.shape[:-1], n // _SCAN_CHUNK, _SCAN_CHUNK)
+    cols = [chunks[..., 0]]
+    for j in range(1, _SCAN_CHUNK):
+        cols.append(cols[-1] + chunks[..., j])
+    out = torch.stack(cols, dim=-1)
+    if n > _SCAN_CHUNK:
+        totals = xla_cumsum(out[..., -1])
+        prefix = torch.cat([torch.zeros_like(totals[..., :1]),
+                            totals[..., :-1]], dim=-1)
+        out = out + prefix[..., None]
+    return out.reshape(*x.shape[:-1], n)[..., :v]
 
 
 def filtered_probs(logits, temperature, top_k, top_p):
@@ -47,7 +100,8 @@ def filtered_probs(logits, temperature, top_k, top_p):
 
     Same transform order as the JAX version — temperature softmax, then
     top-k renormalised, then the smallest nucleus with cumulative mass
-    >= top_p — in f32."""
+    >= top_p — in f32, with every sum and the cumulative sum added in
+    XLA's order (:func:`xla_sum`, :func:`xla_cumsum`)."""
     lg = logits.float()
     v = lg.shape[-1]
     greedy = temperature <= 0.0
@@ -55,28 +109,26 @@ def filtered_probs(logits, temperature, top_k, top_p):
     x = lg / t[:, None].float()
     x = x - x.max(dim=-1, keepdim=True).values
     p = x.exp()
-    p = p / p.sum(dim=-1, keepdim=True)
+    p = p / xla_sum(p)[:, None]
     # top-k: zero everything below the k-th largest probability
     desc = p.sort(dim=-1, descending=True).values
     k_eff = torch.where((top_k > 0) & (top_k < v), top_k,
                         torch.full_like(top_k, v)).long()
     kth = desc.gather(-1, (k_eff - 1)[:, None])
     p = torch.where(p >= kth, p, 0.0)
-    p = p / p.sum(dim=-1, keepdim=True)
+    p = p / xla_sum(p)[:, None]
     # top-p: keep the smallest descending-order prefix whose cumulative
     # mass reaches top_p (keep_n = #(csum < top_p) + 1, as in JAX)
     order = torch.argsort(-p, dim=-1, stable=True)
     sp = p.gather(-1, order)
-    csum = sp.cumsum(dim=-1)
+    csum = xla_cumsum(sp)
     keep_n = (csum < top_p[:, None].float()).sum(dim=-1) + 1
     rank = torch.argsort(order, dim=-1, stable=True)
     p = torch.where(rank < keep_n[:, None], p, 0.0)
-    p = p / p.sum(dim=-1, keepdim=True)
+    p = p / xla_sum(p)[:, None]
     onehot = torch.zeros_like(p).scatter_(
         -1, lg.argmax(dim=-1, keepdim=True), 1.0)
     return torch.where(greedy[:, None], onehot, p)
-
-
 
 
 def _split_rows(keys):

@@ -9,9 +9,15 @@ of ``paddle_tpu/serving/engine.py``, the ragged path).
   chunks and decode rows are packed into a (T,) token stream over S
   sequence slots and run through ``model.forward_ragged``, whose
   attention is the hand-written ragged paged attention kernel on the
-  card. PyTorch runs eagerly, so T is exactly this step's token count
-  (the JAX engine pads to a fixed budget so that XLA compiles one
-  shape; a CUDA graph would bring that back);
+  card. T is a bucket of a fixed lattice, ``min_prefill_bucket * 2**i``
+  capped at the token budget: the smallest that holds the step's
+  tokens, the rest pad rows (id 0, past ``cu_seqlens[num_seqs]``, so
+  they never reach the cache or attention). On the card each bucket's
+  step is captured once as a CUDA graph and replayed
+  (:class:`~paddle_tpu_torch.jit.trace.StepGraphs`); ``_seen_shapes``
+  holds the ``("ragged", T, S)`` keys stepped, on the card the captured
+  ones. (The JAX engine compiles one shape, the whole budget: a decode
+  step of 8 rows would then push 2048 rows through every GEMM);
 * prompt prefixes are cached: full prompt blocks register in the
   BlockManager's trie after the step that writes them, later requests
   share them by refcount, and the first divergent write copies on write
@@ -28,10 +34,17 @@ of ``paddle_tpu/serving/engine.py``, the ragged path).
   of the same ragged step (``forward_ragged_multi`` gathers R = k+1
   logit rows per slot) and the sampler rejection-samples them.
   Rejected drafts' KV slots roll back through ``BlockManager.trim``.
+  The draft's k forwards are one CUDA graph per (batch, width) bucket.
+* the caches are updated in place, as the JAX engine's donated buffers
+  are: with ``donate_cache`` (the default on the card) a failed step is
+  not retried — it may have written part of the cache, and on the card
+  an error inside a graph replay is sticky — and the engine aborts
+  every request with structured outputs.
 
 Not ported yet, refused at construction with the slice that brings
 them: the bucketed path (``ragged=False``), tensor parallelism, tiered
-KV, host swap and the step watchdog.
+KV, host swap (``num_host_blocks``), drain (``drain_grace_s``) and the
+step watchdog.
 """
 from __future__ import annotations
 
@@ -43,6 +56,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.dtype import to_torch
+from paddle_tpu_torch.jit.trace import StepGraphs
+from paddle_tpu_torch.ops import kernel_launches
 from paddle_tpu_torch.ops.sampling import sample_or_verify
 from paddle_tpu_torch.serving.block_manager import BlockManager, cdiv
 from paddle_tpu_torch.serving.metrics import ServingMetrics
@@ -53,7 +69,7 @@ from paddle_tpu_torch.serving.scheduler import Scheduler, SchedulerConfig
 from paddle_tpu_torch.testing import faults
 
 __all__ = ["EngineConfig", "LLMEngine", "AdmissionController",
-           "EngineStepError"]
+           "EngineStepError", "token_buckets"]
 
 
 class EngineStepError(RuntimeError):
@@ -80,7 +96,14 @@ class EngineConfig:
     tp_degree: int = 1
     max_batched_tokens: int = 2048
     max_model_len: Optional[int] = None   # default: model max positions
+    dtype: Optional[str] = None           # KV cache; default: the model's
+    # in-place cache updates without retry on a failed step; default:
+    # True on the card, False on the CPU
+    donate_cache: Optional[bool] = None
+    # the smallest step bucket: T runs over min_prefill_bucket * 2**i
+    min_prefill_bucket: int = 8
     swap_mode: str = "recompute"
+    num_host_blocks: Optional[int] = None
     kv_tiers: Optional[object] = None
     ragged: Optional[bool] = None
     prefix_cache: Optional[bool] = None
@@ -92,6 +115,7 @@ class EngineConfig:
     ttft_slo_ms: Optional[float] = None
     draft_model: Optional[object] = None
     num_spec_tokens: int = 0
+    drain_grace_s: float = 30.0
     step_timeout_s: float = 0.0
     # bounded retry with exponential backoff on step failures, and the
     # on-device NaN/Inf logits guard
@@ -104,12 +128,23 @@ class EngineConfig:
             raise ValueError("block_size must be >= 1")
         if self.num_blocks is not None and self.num_blocks < 1:
             raise ValueError("num_blocks must be >= 1")
+        if self.min_prefill_bucket < 1:
+            raise ValueError("min_prefill_bucket must be >= 1")
         if self.max_model_len is not None and self.max_model_len < 1:
             raise ValueError("max_model_len must be >= 1")
+        if self.swap_mode not in ("recompute", "host"):
+            raise ValueError(f"unknown swap_mode {self.swap_mode!r} "
+                             f"(want 'recompute' or 'host')")
+        if self.num_host_blocks is not None and self.num_host_blocks < 0:
+            raise ValueError("num_host_blocks must be >= 0")
         if self.max_queue_depth is not None and self.max_queue_depth < 0:
             raise ValueError("max_queue_depth must be >= 0")
         if self.ttft_slo_ms is not None and self.ttft_slo_ms <= 0:
             raise ValueError("ttft_slo_ms must be > 0")
+        if self.drain_grace_s < 0:
+            raise ValueError("drain_grace_s must be >= 0")
+        if self.step_timeout_s < 0:
+            raise ValueError("step_timeout_s must be >= 0")
         if self.max_step_retries < 0:
             raise ValueError("max_step_retries must be >= 0")
         if self.num_spec_tokens < 0:
@@ -119,7 +154,7 @@ class EngineConfig:
                 "speculative decoding takes BOTH draft_model and "
                 "num_spec_tokens >= 1, or neither")
         # what the port does not serve yet, named with the slice that
-        # brings it (ROADMAP.md, queue 2)
+        # brings it (ROADMAP.md, queue 1)
         later = []
         if self.ragged is False:
             later.append("ragged=False (the bucketed forward_paged path)")
@@ -131,6 +166,11 @@ class EngineConfig:
         if self.swap_mode != "recompute":
             later.append(f"swap_mode={self.swap_mode!r} (the "
                          f"swap-and-tiers slice)")
+        if self.num_host_blocks is not None:
+            later.append("num_host_blocks (the host swap pool, queue 1 "
+                         "item 2)")
+        if self.drain_grace_s != 30.0:
+            later.append("drain_grace_s (drain, queue 1 item 2)")
         if self.step_timeout_s != 0:
             later.append("step_timeout_s > 0 (the step watchdog, with "
                          "the fleet slice)")
@@ -173,6 +213,17 @@ class AdmissionController:
                         f"{self.ttft_slo_ms}ms at queue depth {depth} "
                         f"({prompt_tokens}-token prompt)")
         return None
+
+
+def token_buckets(cfg: EngineConfig) -> tuple:
+    """The step widths of an engine built with ``cfg``: ``min_prefill_
+    bucket * 2**i``, capped at the most tokens one step may pack (the
+    token budget, clamped to what a full batch could ever schedule)."""
+    cap = min(cfg.max_batched_tokens, cfg.max_num_seqs * cfg.max_model_len)
+    buckets = [cfg.min_prefill_bucket]
+    while buckets[-1] < cap:
+        buckets.append(buckets[-1] * 2)
+    return tuple(min(b, cap) for b in buckets)
 
 
 def _to_int32(keys: torch.Tensor) -> torch.Tensor:
@@ -219,11 +270,15 @@ class LLMEngine:
         self.cfg.chunked_prefill = True
         if self.cfg.prefix_cache is None:
             self.cfg.prefix_cache = True
-        # the most tokens one step may pack: the configured budget,
-        # clamped to what a full batch could ever schedule
-        self._token_budget = min(self.cfg.max_batched_tokens,
-                                 self.cfg.max_num_seqs
-                                 * self.cfg.max_model_len)
+        # the step widths; the widest, _ragged_T, is the most tokens one
+        # step may pack (the JAX engine's one compiled width)
+        self.step_buckets = token_buckets(self.cfg)
+        self._ragged_T = self.step_buckets[-1]
+        # ("ragged", T, S) keys stepped (on the card: captured)
+        self._seen_shapes: set = set()
+        donate = self.cfg.donate_cache
+        self._donated = (self.device.type != "cpu" if donate is None
+                         else bool(donate))
 
         self.block_manager = BlockManager(
             self.cfg.num_blocks, self.cfg.block_size,
@@ -231,19 +286,28 @@ class LLMEngine:
         self.scheduler = Scheduler(
             self.block_manager,
             SchedulerConfig(max_num_seqs=self.cfg.max_num_seqs,
-                            max_batched_tokens=self._token_budget))
+                            max_batched_tokens=self._ragged_T))
         self.admission = AdmissionController(
             max_queue_depth=self.cfg.max_queue_depth,
             ttft_slo_ms=self.cfg.ttft_slo_ms)
 
-        # -- device caches: (L, NB, BS, KH, D) stacked per layer, in the
-        # model's dtype (the kernel takes one dtype for q and the cache)
+        # -- device caches: (L, NB, BS, KH, D) stacked per layer, in
+        # cfg.dtype (default: the model's). Never reallocated: the
+        # captured steps hold their addresses.
+        cache_dtype = (model.dtype if self.cfg.dtype is None
+                       else to_torch(self.cfg.dtype))
+        if self.device.type == "cuda" and cache_dtype != model.dtype:
+            raise ValueError(
+                f"EngineConfig.dtype={self.cfg.dtype!r} with a "
+                f"{model.dtype} model: on the card the ragged attention "
+                f"kernel takes q and the cache in one dtype")
         kh = mcfg.num_key_value_heads
         hd = mcfg.hidden_size // mcfg.num_attention_heads
         shape = (mcfg.num_hidden_layers, self.cfg.num_blocks,
                  self.cfg.block_size, kh, hd)
-        self._kcs = torch.zeros(shape, dtype=model.dtype, device=self.device)
-        self._vcs = torch.zeros(shape, dtype=model.dtype, device=self.device)
+        self._kcs = torch.zeros(shape, dtype=cache_dtype, device=self.device)
+        self._vcs = torch.zeros(shape, dtype=cache_dtype, device=self.device)
+        self._graphs = StepGraphs(self.device, counters=kernel_launches)
 
         # -- speculative-decoding resolution ----------------------------
         if self.cfg.draft_model is not None:
@@ -268,7 +332,8 @@ class LLMEngine:
                     f"device")
             from paddle_tpu_torch.serving.spec import SpecDecoder
 
-            self._spec = SpecDecoder(draft, self.cfg.num_spec_tokens)
+            self._spec = SpecDecoder(draft, self.cfg.num_spec_tokens,
+                                     pool=self._graphs.pool)
         else:
             self._spec = None
         # R = verify width: logit rows gathered (and token slots packed)
@@ -431,57 +496,18 @@ class LLMEngine:
             return outputs
         reqs = batch.requests
         n_run = list(batch.num_scheduled)
-        # the packed token stream (T,) over S sequence slots — prefill
-        # chunks and decode rows differ only in their cu_seqlens deltas
-        S = self.cfg.max_num_seqs
         T = int(sum(n_run))
-        ids = np.zeros((T,), np.int32)
-        cu = np.zeros((S + 1,), np.int32)
-        ctx = np.zeros((S,), np.int32)
-        bt = np.full((S, self.max_blocks_per_seq), -1, np.int32)
-        off = 0
-        for i, r in enumerate(reqs):
-            n = n_run[i]
-            # a verify row's stream is its newest committed token
-            # followed by the draft proposals (scheduled as one 1+d
-            # mid-context row)
-            src = (r.tokens + r.draft_tokens if r.draft_tokens
-                   else r.tokens)
-            ids[off:off + n] = src[r.num_cached:r.num_cached + n]
-            off += n
-            cu[i + 1] = off
-            ctx[i] = r.num_cached + n
-            table = self.block_manager.block_table(r.request_id)
-            bt[i, :len(table)] = table
-        cu[len(reqs) + 1:] = off
-        arrays = (ids, bt, cu, ctx, np.asarray([len(reqs)], np.int32))
+        key = ("ragged", self._bucket(T), self.cfg.max_num_seqs)
+        arrays = self._pack(reqs, n_run, key[1])
 
         # copy-on-write block copies land before the step writes the
         # destination blocks
         self._apply_cow()
-        # per-slot sampling state for the on-device sampler: keys,
-        # knobs, and the draft rows under verification
-        R = self._spec_R
-        skeys = np.zeros((S, 2), np.int64)
-        stemp = np.zeros((S,), np.float32)
-        stopk = np.zeros((S,), np.int32)
-        stopp = np.ones((S,), np.float32)
-        sdraft = np.zeros((S, R - 1), np.int32)
-        sndraft = np.zeros((S,), np.int32)
-        for i, r in enumerate(reqs):
-            skeys[i] = r.device_key
-            stemp[i] = r.sampling.temperature
-            stopk[i] = r.sampling.top_k
-            stopp[i] = r.sampling.top_p
-            d = len(r.draft_tokens)
-            if d:
-                sdraft[i, :d] = r.draft_tokens
-                sndraft[i] = d
         if any(r.sampling.temperature > 0.0 for r in reqs):
             self.num_sampled_steps += 1
+        R = self._spec_R
         try:
-            out_np = self._dispatch(
-                reqs, arrays, (skeys, stemp, stopk, stopp, sdraft, sndraft))
+            out_np = self._dispatch(reqs, key, arrays)
         except EngineStepError as e:
             # this step's already-produced structured outputs must not
             # vanish with the failure — they ride the exception ahead of
@@ -499,6 +525,8 @@ class LLMEngine:
         decode_rows = sum(
             1 for r, n in zip(reqs, n_run)
             if n - len(r.draft_tokens) == 1 and r.num_generated > 0)
+        # padded_tokens counts attention-path padding; the bucket's pad
+        # rows never reach attention, as in the JAX engine's ragged step
         self.metrics.record_step(
             batch.kind, len(reqs), T, self.cfg.max_num_seqs,
             time.perf_counter() - t0, padded_tokens=0,
@@ -569,6 +597,54 @@ class LLMEngine:
                 self.block_manager.trim(r.request_id, len(r.tokens))
         return outputs
 
+    def _bucket(self, n: int) -> int:
+        """The smallest step bucket that holds ``n`` tokens."""
+        return next(b for b in self.step_buckets if b >= n)
+
+    def _pack(self, reqs, n_run, T: int) -> tuple:
+        """The step's host arrays at width ``T`` (at least
+        ``sum(n_run)``): the packed token stream (T,) over S sequence
+        slots — prefill chunks and decode rows differ only in their
+        cu_seqlens deltas; rows past ``cu[len(reqs)]`` are pad rows of id
+        0 — then each slot's sampling state for the on-device sampler:
+        keys, knobs, and the draft rows under verification."""
+        S, R = self.cfg.max_num_seqs, self._spec_R
+        ids = np.zeros((T,), np.int32)
+        cu = np.zeros((S + 1,), np.int32)
+        ctx = np.zeros((S,), np.int32)
+        bt = np.full((S, self.max_blocks_per_seq), -1, np.int32)
+        skeys = np.zeros((S, 2), np.int64)
+        stemp = np.zeros((S,), np.float32)
+        stopk = np.zeros((S,), np.int32)
+        stopp = np.ones((S,), np.float32)
+        sdraft = np.zeros((S, R - 1), np.int32)
+        sndraft = np.zeros((S,), np.int32)
+        off = 0
+        for i, r in enumerate(reqs):
+            n = n_run[i]
+            # a verify row's stream is its newest committed token
+            # followed by the draft proposals (scheduled as one 1+d
+            # mid-context row)
+            src = (r.tokens + r.draft_tokens if r.draft_tokens
+                   else r.tokens)
+            ids[off:off + n] = src[r.num_cached:r.num_cached + n]
+            off += n
+            cu[i + 1] = off
+            ctx[i] = r.num_cached + n
+            table = self.block_manager.block_table(r.request_id)
+            bt[i, :len(table)] = table
+            skeys[i] = r.device_key
+            stemp[i] = r.sampling.temperature
+            stopk[i] = r.sampling.top_k
+            stopp[i] = r.sampling.top_p
+            d = len(r.draft_tokens)
+            if d:
+                sdraft[i, :d] = r.draft_tokens
+                sndraft[i] = d
+        cu[len(reqs) + 1:] = off
+        return (ids, bt, cu, ctx, np.asarray([len(reqs)], np.int32),
+                skeys, stemp, stopk, stopp, sdraft, sndraft)
+
     def _propose_drafts(self):
         """One draft-model pass proposing ``num_spec_tokens`` greedy
         continuations for every decode-eligible running request (fully
@@ -613,15 +689,15 @@ class LLMEngine:
         self._kcs[:, dst] = self._kcs[:, src]
         self._vcs[:, dst] = self._vcs[:, src]
 
-    def _device_step(self, arrays, sampling_arrays) -> torch.Tensor:
+    def _device_step(self, ids, bt, cu, ctx, nseq, skeys, stemp, stopk,
+                     stopp, sdraft, sndraft):
         """The model forward + on-device sampling (rejection-sampling
-        verify where draft rows ride along). Returns the packed
-        (S, R+4) int32 tensor, still on the device."""
-        dev = self.device
-        ids, bt, cu, ctx, nseq = (torch.as_tensor(a, device=dev)
-                                  for a in arrays)
-        skeys, stemp, stopk, stopp, sdraft, sndraft = (
-            torch.as_tensor(a, device=dev) for a in sampling_arrays)
+        verify where draft rows ride along), on the tensors of
+        :meth:`_pack`'s arrays. Returns the packed (S, R+4) int32 tensor
+        and the (S, R, V) logit rows the sampler read, on the device.
+        This is the function each bucket's graph captures: no host
+        synchronisation, inputs read only, the caches written in
+        place."""
         if self._spec_R > 1:
             lg3, _, _ = self.model.forward_ragged_multi(
                 ids, self._kcs, self._vcs, bt, cu, ctx, nseq,
@@ -633,36 +709,44 @@ class LLMEngine:
         finite = torch.isfinite(lg3).all(dim=-1).all(dim=-1)
         toks, n_emit, nkeys = sample_or_verify(
             lg3, sdraft, sndraft, skeys, stemp, stopk, stopp)
-        return torch.cat([
+        packed = torch.cat([
             toks, n_emit[:, None], _to_int32(nkeys),
             finite.to(torch.int32)[:, None]], dim=1)
+        return packed, lg3
 
-    def _dispatch(self, reqs, arrays, sampling_arrays) -> np.ndarray:
-        """Run the step with bounded retry-with-backoff on failures, and
-        fetch its one packed host view: ``(len(reqs), R+4)`` int32 rows
-        of ``[tokens(R), n_emit, key_hi, key_lo, finite]``.
+    def _dispatch(self, reqs, key, arrays) -> np.ndarray:
+        """Run the step of bucket ``key`` on ``arrays`` (:meth:`_pack`)
+        with bounded retry-with-backoff on failures, and fetch its one
+        packed host view: ``(len(reqs), R+4)`` int32 rows of
+        ``[tokens(R), n_emit, key_hi, key_lo, finite]``.
 
         The KV writes of a step are idempotent (the same rows land in
         the same slots), so a retry after a partial step is exact. A
-        failure past the retry budget aborts EVERY live request with
-        ``finish_reason='aborted:error'`` structured outputs, closes the
-        engine to admission, and raises :class:`EngineStepError`
-        carrying them."""
+        failure with donated caches, or past the retry budget, aborts
+        EVERY live request with ``finish_reason='aborted:error'``
+        structured outputs, closes the engine to admission, and raises
+        :class:`EngineStepError` carrying them."""
         attempt = 0
         while True:
             try:
                 faults.fire(faults.SERVING_STEP)  # slow/raise point
                 with torch.no_grad():
-                    packed = self._device_step(arrays, sampling_arrays)
+                    packed, _ = self._graphs.run(key, self._device_step,
+                                                 arrays)
                 # the step's whole host boundary: one int32 row per slot
-                return packed[:len(reqs)].cpu().numpy()
+                out = self._graphs.fetch(packed[:len(reqs)])
+                self._seen_shapes.add(key)
+                return out
             except Exception as e:
-                if attempt >= self.cfg.max_step_retries:
+                if self._donated or attempt >= self.cfg.max_step_retries:
+                    why = ("donated caches make a failed step "
+                           "non-retryable" if self._donated else
+                           f"retry budget ({self.cfg.max_step_retries}) "
+                           f"exhausted")
                     outs = self._abort_running("aborted:error")
                     self._closed = True
                     raise EngineStepError(
-                        f"serving step failed (retry budget "
-                        f"{self.cfg.max_step_retries} exhausted): {e!r} — "
+                        f"serving step {key} failed ({why}): {e!r} — "
                         f"engine drained, {len(outs)} request(s) aborted "
                         f"with structured outputs", outs) from e
                 attempt += 1

@@ -34,7 +34,10 @@ class SamplingParams:
     evicted last); default 0, ties broken FCFS by arrival.
 
     ``seed`` fixes the request's sampling stream; without it the stream
-    derives from the request id."""
+    derives from the request id.
+
+    ``tenant_id`` names the traffic source for the fleet router's
+    fairness; the port has no fleet yet, so only the default is taken."""
 
     max_new_tokens: int = 32
     temperature: float = 0.0
@@ -44,6 +47,7 @@ class SamplingParams:
     seed: Optional[int] = None
     deadline_ms: Optional[float] = None
     priority: int = 0
+    tenant_id: str = "default"
 
     def __post_init__(self):
         if self.max_new_tokens < 1:
@@ -54,6 +58,11 @@ class SamplingParams:
             raise ValueError("top_k must be >= 0")
         if self.deadline_ms is not None and self.deadline_ms <= 0:
             raise ValueError("deadline_ms must be > 0")
+        if self.tenant_id != "default":
+            raise ValueError(
+                f"tenant_id={self.tenant_id!r} is not ported to "
+                f"paddle_tpu_torch yet: tenants come with the fleet "
+                f"(queue 1 item 6)")
 
 
 class RequestStatus(Enum):

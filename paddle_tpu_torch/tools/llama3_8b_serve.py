@@ -38,9 +38,12 @@ def target_model(device) -> LlamaForCausalLM:
 
 
 def warm_up(eng: LLMEngine, max_new_tokens: int = 2) -> LLMEngine:
-    """Serve one short request (cuBLAS heuristics, the allocator), release
-    it and reset the metrics window."""
-    eng.add_request("warmup", list(range(1, 65)),
+    """Serve one request whose prompt fills the step budget, release it
+    and reset the metrics window: on the card this captures the step at
+    the largest bucket and at the smallest (its decode steps), the two
+    that the workload's prefill and decode steps take."""
+    n = min(eng._ragged_T, eng.cfg.max_model_len - max_new_tokens)
+    eng.add_request("warmup", [1 + i % 1000 for i in range(n)],
                     SamplingParams(max_new_tokens=max_new_tokens))
     eng.run()
     eng.release_request("warmup")

@@ -9,11 +9,15 @@ phase 9 (:mod:`paddle_tpu_torch.tools.llama3_8b_spec_serve`: the same
 with a Llama-3.2-1B-width draft proposing 4 tokens per decode row, whose
 proposals fall inside each decode step), and profiles two windows with
 ``torch.profiler``: the first step (a 2048-token prefill) and 4 steps
-once every request decodes. For each window it
-prints one JSON line: host wall time per step, device kernels launched
+once every request decodes. Each step replays the CUDA graph of its
+token bucket (the warm-up captured the buckets these windows take), and
+the draft's proposals replay theirs. For each window it prints one JSON
+line: host wall time per step, device kernels run per step (those inside
+graph replays included, as the profiler reports them), graph launches
 per step, device busy time (the sum of kernel times; overlapping kernels
 would be counted twice, and this path runs one stream), the busy share
-of the wall time, and the top kernels by device time. The profiler's
+of the wall time, the top kernels by device time, and the window's
+captures and replays per bucket. The profiler's
 own host overhead lengthens the wall time; ``chip_smoke.py`` gives the
 unprofiled step times. With ``--out DIR`` the full profiler tables go to
 ``DIR/profile_serve.txt``.
@@ -49,6 +53,10 @@ def _device_us(evt) -> float:
 def _window(eng, n_steps, label, out_dir):
     from torch.profiler import ProfilerActivity, profile
 
+    graphs = {"step": eng._graphs}
+    if eng._spec is not None:
+        graphs["draft"] = eng._spec.graphs
+    snaps = {name: g.snapshot() for name, g in graphs.items()}
     torch.cuda.synchronize()
     walls = []
     with profile(activities=[ProfilerActivity.CPU,
@@ -60,16 +68,22 @@ def _window(eng, n_steps, label, out_dir):
             walls.append((time.perf_counter() - t0) * 1e3)
     avgs = prof.key_averages()
     kernels = [e for e in avgs if _is_kernel(e)]
+    graph_launches = sum(e.count for e in avgs
+                         if not _is_kernel(e) and e.key == "cudaGraphLaunch")
     busy_us = sum(_device_us(e) for e in kernels)
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
     wall_ms = sum(walls)
     res = {"window": label, "steps": n_steps, "wall_ms_per_step": walls,
            "kernels_per_step": sum(e.count for e in kernels) / n_steps,
+           "graph_launches_per_step": graph_launches / n_steps,
            "device_busy_ms_per_step": busy_us / 1e3 / n_steps,
            "device_busy_share": busy_us / 1e3 / wall_ms,
            "top_device_ms_per_step": [
                [e.key[:60], e.count // n_steps,
-                round(_device_us(e) / 1e3 / n_steps, 4)] for e in top]}
+                round(_device_us(e) / 1e3 / n_steps, 4)] for e in top],
+           "graphs": {name: {k: v for k, v in g.since(snaps[name]).items()
+                             if k in ("capture_s", "replays")}
+                      for name, g in graphs.items()}}
     print(json.dumps(res), flush=True)
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)

@@ -17,8 +17,8 @@ budget). Two engines per side:
   not held to a bound).
 
 The card side runs the ragged attention kernel (verify rows) and the
-flash attention forward kernel (draft forwards), the CPU side their
-plain versions.
+flash attention forward kernel (draft forwards), replayed from the
+engines' CUDA graphs; the CPU side runs their plain versions eagerly.
 """
 from __future__ import annotations
 
@@ -46,8 +46,12 @@ def _serve(model, k, prompts, sps) -> dict:
     reqs = [eng.get_request(r) for r in rids]
     assert all(r.finish_reason == "length" for r in reqs)
     assert eng.block_manager.num_free_blocks == eng.cfg.num_blocks
+    graphs = [g.since() for g in
+              [eng._graphs] + ([eng._spec.graphs] if k else [])]
     return {"tokens": [r.generated for r in reqs],
             "keys": [[int(x) for x in r.device_key] for r in reqs],
+            "captures": sum(g["captures"] for g in graphs),
+            "replays": sum(sum(g["replays"].values()) for g in graphs),
             "proposed": eng.num_spec_proposed,
             "accepted": eng.num_spec_accepted,
             "acceptance": eng.spec_acceptance_rate,

@@ -378,3 +378,154 @@ def test_tiny_spec_engine_card_matches_cpu(card):
 
     res = tiny_spec_parity.run(card)
     assert res["cpu_identical"]
+
+
+# --------------------------------------------------------------------------
+# the serving step as captured CUDA graphs
+# --------------------------------------------------------------------------
+def _graph_engine(card, dtype):
+    """The tiny model in ``dtype`` behind an engine on the card (block 4,
+    4 sequences, a 16-token budget: buckets 8 and 16), with a recorder of
+    the first step's arrays at each bucket (``eng.first_arrays``)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import EngineConfig, LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype=dtype), device=card)
+    model.init_weights(torch.Generator(device=card).manual_seed(0))
+    eng = LLMEngine(model, EngineConfig(
+        block_size=4, max_num_seqs=4, max_model_len=64,
+        max_batched_tokens=16))
+    eng.first_arrays = {}
+    dispatch = eng._dispatch
+
+    def recording(reqs, key, arrays):
+        eng.first_arrays.setdefault(key, [a.copy() for a in arrays])
+        return dispatch(reqs, key, arrays)
+
+    eng._dispatch = recording
+    return eng
+
+
+def _graph_workload(eng):
+    from paddle_tpu_torch.serving import SamplingParams
+
+    for i, n in enumerate((13, 3, 9, 14)):
+        eng.add_request(f"g{i}", list(range(1 + i, 1 + i + n)),
+                        SamplingParams(max_new_tokens=6,
+                                       temperature=0.8 if i == 1 else 0.0,
+                                       seed=i))
+    eng.run()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_replay_matches_eager_step(card, dtype):
+    """At two buckets (8 and 16), a replay of the bucket's graph and an
+    eager ``_device_step`` on the same input buffers give bit-identical
+    packed rows and cache bytes: the same shapes and the same kernels."""
+    from paddle_tpu_torch.tools.step_checks import replay_matches_eager
+
+    eng = _graph_engine(card, dtype)
+    _graph_workload(eng)
+    assert {k[1] for k in eng.first_arrays} == {8, 16}
+    for key, arrays in eng.first_arrays.items():
+        res = replay_matches_eager(eng, key, arrays)
+        assert all(res.values()), (key, res)
+
+
+@pytest.mark.gpu
+def test_graph_counts_launches_and_addresses(card):
+    """One capture per bucket stepped, one replay per model step; K1
+    runs once per layer per replay (on the tensor cores, in bf16) and its
+    wrapper counts only the warm-ups and the captures; the caches, the
+    weights and the rope tables keep their addresses."""
+    eng = _graph_engine(card, "bfloat16")
+    model = eng.model
+    held = {"kcs": eng._kcs, "vcs": eng._vcs,
+            **dict(model.named_parameters()), **dict(model.named_buffers())}
+    addr = {k: t.data_ptr() for k, t in held.items()}
+    before = rpa.launches
+    _graph_workload(eng)
+    torch.cuda.synchronize()
+    g = eng._graphs.since()
+    layers = model.config.num_hidden_layers
+    assert set(eng._graphs.keys) == eng._seen_shapes == set(eng.first_arrays)
+    n_keys = len(eng._seen_shapes)
+    assert g["captures"] == len(g["captured_launches"]) == n_keys
+    assert sum(g["replays"].values()) == eng.metrics.engine_steps
+    for name, captured in g["captured_launches"].items():
+        assert captured["ragged_paged_attention"] == layers, name
+        assert captured["ragged_paged_attention/tensor_cores"] == layers
+        assert "ragged_paged_attention/fma" not in captured
+    assert rpa.launches - before == 2 * layers * n_keys
+    assert g["replayed_launches"]["ragged_paged_attention"] == \
+        layers * eng.metrics.engine_steps
+    assert g["executed_launches"]["ragged_paged_attention"] == layers * (
+        eng.metrics.engine_steps + n_keys)
+    assert {k: t.data_ptr() for k, t in held.items()} == addr
+    assert eng._kcs is held["kcs"] and eng._vcs is held["vcs"]
+
+
+@pytest.mark.gpu
+def test_draft_propose_on_graphs_matches_eager(card):
+    """The draft's k chained forwards, replayed from the bucket's graph,
+    propose what the eager forwards propose; the second call replays."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving.spec import SpecDecoder
+
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype="bfloat16"), device=card)
+    model.init_weights(torch.Generator(device=card).manual_seed(1))
+    spec = SpecDecoder(model, 3)
+    lists = [list(range(1, 1 + n)) for n in (5, 13, 1)]
+    got = spec.propose(lists)
+    again = spec.propose(lists)
+    ids = np.zeros((4, 16), np.int64)
+    lens = np.ones((4,), np.int64)
+    for i, t in enumerate(lists):
+        ids[i, :len(t)] = t
+        lens[i] = len(t)
+    with torch.no_grad():
+        eager = spec._forwards(torch.from_numpy(ids).to(card),
+                               torch.from_numpy(lens).to(card))
+    want = eager.cpu().numpy()[:3]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(again, want)
+    g = spec.graphs.since()
+    assert spec.graphs.keys == [("draft", 4, 16)]
+    assert g["replays"] == {"4x16": 2}
+    assert g["captured_launches"]["4x16"][
+        "flash_attention_fwd"] == 3 * model.config.num_hidden_layers
+
+
+@pytest.mark.gpu
+def test_capture_runs_with_the_collector_off(card):
+    """A dead graph (or any object in a reference cycle that holds one)
+    freed by the garbage collector inside a capture would free memory
+    there and invalidate the capture. ``StepGraphs`` collects before it
+    captures and keeps the collector off while it does: the captured
+    call sees garbage made before it collected and the collector
+    disabled, and the collector is on again after."""
+    import gc
+    import weakref
+
+    from paddle_tpu_torch.jit.trace import StepGraphs
+
+    class Cycle:
+        pass
+
+    dead = Cycle()
+    dead.me = dead
+    ref = weakref.ref(dead)
+    del dead
+    seen = []
+
+    def step(x):
+        seen.append((gc.isenabled(), ref() is None))
+        return x * 2
+
+    graphs = StepGraphs(card)
+    out = graphs.run(("k",), step, [np.arange(4, dtype=np.float32)])
+    assert len(seen) == 2 and seen[1] == (False, True), seen
+    assert gc.isenabled()
+    np.testing.assert_array_equal(graphs.fetch(out), np.arange(4) * 2.0)

@@ -137,3 +137,42 @@ def test_entry_point_without_card_raises():
         LlamaForCausalLM(LlamaConfig.tiny(), device="cuda")
     m = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     assert m.device.type == "cpu"
+
+
+def test_tied_state_loads_and_matches_the_transposed_head():
+    """A tied JAX state holds the embedding and no ``lm_head.weight``; it
+    loads into a tied port model, whose head computes x @ E^T. The JAX
+    package's own tied ``LlamaForCausalLM`` cannot run a forward, so the
+    oracle is its untied model with ``lm_head.weight`` set to E^T:
+    logits agree (f32, rtol 1e-5) and greedy serving tokens are
+    identical."""
+    from paddle_tpu.serving import EngineConfig as JEngineConfig
+    from paddle_tpu.serving import LLMEngine as JLLMEngine
+    from paddle_tpu.serving import SamplingParams as JSamplingParams
+    from paddle_tpu_torch.serving import (EngineConfig, LLMEngine,
+                                          SamplingParams)
+
+    paddle.seed(4)
+    tied = JLlama(JLlamaConfig.tiny(tie_word_embeddings=True))
+    state = {k: np.asarray(v.numpy()) for k, v in tied.state_dict().items()}
+    assert "lm_head.weight" not in state
+    oracle = JLlama(JLlamaConfig.tiny())
+    oracle.eval()
+    oracle.set_state_dict(
+        dict(state, **{"lm_head.weight":
+                       state["llama.embed_tokens.weight"].T}))
+    port = LlamaForCausalLM(LlamaConfig.tiny(tie_word_embeddings=True),
+                            device="cpu")
+    port.load_state_dict(llama_state_from_jax(state))
+    assert port.lm_head.weight is port.llama.embed_tokens.weight
+    ids = np.random.default_rng(5).integers(0, 256, (2, 9)).astype(np.int32)
+    want = np.asarray(oracle(paddle.to_tensor(ids)).numpy())
+    got = port(torch.from_numpy(ids)).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    prompts = [list(map(int, p)) for p in ids]
+    knobs = dict(block_size=4, max_num_seqs=2, max_model_len=32)
+    j = JLLMEngine(oracle, JEngineConfig(**knobs)).generate(
+        prompts, JSamplingParams(max_new_tokens=6))
+    t = LLMEngine(port, EngineConfig(**knobs)).generate(
+        prompts, SamplingParams(max_new_tokens=6))
+    assert t == [list(map(int, x)) for x in j]

@@ -249,3 +249,52 @@ def test_key_advance_is_two_r_minus_one_splits():
             torch.from_numpy(nd), tk, torch.from_numpy(_TEMP),
             torch.from_numpy(_TOPK), torch.from_numpy(_TOPP))
         assert torch.equal(got, want)
+
+
+def test_top_p_on_tied_rows_keeps_what_jax_keeps():
+    """S = 64 uniform rows (V = 50 zero logits), temperature 1, top-p
+    0.5: the 25th sorted probability's cumulative sum is 0.49999997 in
+    XLA's order and 0.5 in a plain left-to-right one, so the cut keeps
+    26 tokens in the JAX package. Tokens, keys and ``filtered_probs``
+    are identical to the JAX package's."""
+    s, v = 64, 50
+    logits = np.zeros((s, v), np.float32)
+    keys = np.random.default_rng(1).integers(0, 2 ** 32, (s, 2))
+    temp = np.ones((s,), np.float32)
+    top_k = np.zeros((s,), np.int32)
+    top_p = np.full((s,), 0.5, np.float32)
+    jt, jk = jsampling.sample_tokens(
+        jnp.asarray(logits), jnp.asarray(keys.astype(np.uint32)),
+        jnp.asarray(temp), jnp.asarray(top_k), jnp.asarray(top_p))
+    tt, tk = tsampling.sample_tokens(
+        *(torch.from_numpy(x) for x in (logits, keys.astype(np.int64), temp,
+                                        top_k, top_p)))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(tk.numpy(),
+                                  np.asarray(jk).astype(np.int64))
+    pj = np.asarray(jsampling.filtered_probs(
+        jnp.asarray(logits), jnp.asarray(temp), jnp.asarray(top_k),
+        jnp.asarray(top_p)))
+    pt = tsampling.filtered_probs(
+        *(torch.from_numpy(x) for x in (logits, temp, top_k, top_p)))
+    np.testing.assert_array_equal(pt.numpy(), pj)
+    assert ((pj > 0).sum(axis=-1) == 26).all()
+
+
+@pytest.mark.parametrize("v", [50, 256, 4096, 128256])
+def test_cumsum_and_sum_are_bit_identical_to_jnp(v):
+    """The sampler's cumsum and sums add in XLA:CPU's order:
+    bit-identical to ``jnp.cumsum`` and ``jnp.sum`` (under ``jit``, as
+    the JAX sampler runs) on uniform rows, random rows and sorted
+    Dirichlet rows (what the top-p cut sums)."""
+    rng = np.random.default_rng(v)
+    x = np.stack([np.full((v,), 1.0 / v, np.float32),
+                  rng.random(v).astype(np.float32),
+                  np.sort(rng.dirichlet(np.ones(v)))[::-1].astype(
+                      np.float32)])
+    want = np.asarray(jnp.cumsum(jnp.asarray(x), axis=-1))
+    got = tsampling.xla_cumsum(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    want = np.asarray(jax.jit(lambda a: jnp.sum(a, axis=-1))(x))
+    got = tsampling.xla_sum(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)

@@ -10,6 +10,7 @@ storm of ``BlockManager``/``Scheduler`` operations drives both packages
 and must give identical decisions and free lists."""
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.models.llama import LlamaConfig as JLlamaConfig
@@ -30,6 +31,7 @@ from paddle_tpu_torch.serving.block_manager import BlockManager
 from paddle_tpu_torch.serving.block_manager import NoFreeBlocksError as TOOM
 from paddle_tpu_torch.serving.request import Request
 from paddle_tpu_torch.serving.scheduler import Scheduler, SchedulerConfig
+from paddle_tpu_torch.tools.step_checks import bucket_keys, record_step_sizes
 
 
 @pytest.fixture(scope="module")
@@ -71,8 +73,14 @@ def _both(models, prompts, samplings, **cfg_kw):
     jm, tm = models
     je = JLLMEngine(jm, JEngineConfig(**_knobs(**cfg_kw)))
     te = LLMEngine(tm, EngineConfig(**_knobs(**cfg_kw)))
-    return (je, _serve(je, JSamplingParams, prompts, samplings),
-            te, _serve(te, SamplingParams, prompts, samplings))
+    sizes = record_step_sizes(te)
+    out = (je, _serve(je, JSamplingParams, prompts, samplings),
+           te, _serve(te, SamplingParams, prompts, samplings))
+    # the port steps at the lattice buckets its step sizes round up to;
+    # the JAX engine compiles one shape, its whole budget
+    assert te._seen_shapes == bucket_keys(te, sizes)
+    assert len(je._seen_shapes) == 1
+    return out
 
 
 def test_mixed_workload_greedy_parity(models):
@@ -181,10 +189,52 @@ def test_nonfinite_guard_aborts_only_the_poisoned_row(models):
 
 @pytest.mark.parametrize("knob,value", [
     ("ragged", False), ("tp_degree", 2), ("kv_tiers", True),
-    ("swap_mode", "host"), ("step_timeout_s", 1.0)])
+    ("swap_mode", "host"), ("step_timeout_s", 1.0),
+    ("drain_grace_s", 5.0), ("num_host_blocks", 4), ("tenant_id", "t1")])
 def test_unported_configurations_raise(knob, value):
+    cls = SamplingParams if knob == "tenant_id" else EngineConfig
     with pytest.raises(ValueError, match="not ported"):
-        EngineConfig(**{knob: value})
+        cls(**{knob: value})
+
+
+def test_reference_config_fields_are_taken_and_validated():
+    """Every field of the JAX package's ``EngineConfig`` and
+    ``SamplingParams.tenant_id`` is taken at its default; out-of-range
+    values raise in both packages."""
+    import dataclasses
+
+    jfields = {f.name for f in dataclasses.fields(JEngineConfig)}
+    assert jfields <= {f.name for f in dataclasses.fields(EngineConfig)}
+    defaults = {f.name: f.default for f in dataclasses.fields(JEngineConfig)}
+    EngineConfig(**{k: defaults[k] for k in (
+        "dtype", "donate_cache", "min_prefill_bucket", "drain_grace_s",
+        "num_host_blocks")})
+    SamplingParams(tenant_id="default")
+    for bad in (dict(min_prefill_bucket=0), dict(num_host_blocks=-1),
+                dict(drain_grace_s=-1.0), dict(swap_mode="disk")):
+        for cls in (JEngineConfig, EngineConfig):
+            with pytest.raises(ValueError):
+                cls(**bad)
+
+
+def test_dtype_sets_the_cache_dtype(models):
+    """``EngineConfig(dtype="bfloat16")`` on the f32 tiny model: bf16
+    caches in both packages, and the same greedy tokens."""
+    prompts = _prompts(27, 256, [9, 4, 13])
+    sps = [dict(max_new_tokens=5)] * 3
+    je, outs_j, te, outs_t = _both(models, prompts, sps, dtype="bfloat16")
+    assert te._kcs.dtype == te._vcs.dtype == torch.bfloat16
+    assert str(je._kcs.dtype) == "bfloat16"
+    assert outs_t == outs_j
+
+
+def test_min_prefill_bucket_floors_the_lattice(models):
+    _, tm = models
+    eng = LLMEngine(tm, EngineConfig(min_prefill_bucket=3,
+                                     **_knobs(max_batched_tokens=40)))
+    assert eng.step_buckets == (3, 6, 12, 24, 40)
+    assert [eng._bucket(n) for n in (1, 3, 4, 13, 25, 40)] == \
+        [3, 3, 6, 24, 40, 40]
 
 
 @pytest.mark.parametrize("case,match", [
@@ -384,6 +434,93 @@ def test_scheduler_storm_identical(seed, spec):
 # ---------------------------------------------------------------------------
 # engine lifecycle on the port alone
 # ---------------------------------------------------------------------------
+def test_donated_failure_is_not_retried(models):
+    """With donated caches (the default on the card) a failed step is not
+    retried: every request aborts with a structured output at once."""
+    from paddle_tpu_torch.serving import EngineStepError
+    from paddle_tpu_torch.testing import faults
+
+    _, tm = models
+    assert not LLMEngine(tm, EngineConfig(**_knobs()))._donated
+    eng = LLMEngine(tm, EngineConfig(donate_cache=True, max_step_retries=2,
+                                     step_retry_backoff_s=0.0, **_knobs()))
+    for i, p in enumerate(_prompts(28, 256, [5, 9])):
+        eng.add_request(f"d{i}", p, sampling=SamplingParams(max_new_tokens=3))
+    with faults.injected(f"{faults.SERVING_STEP}:raise"):
+        with pytest.raises(EngineStepError, match="non-retryable") as info:
+            eng.step()
+    assert eng.num_step_retries == 0
+    assert sorted(o.finish_reason for o in info.value.outputs) == \
+        ["aborted:error"] * 2
+    assert eng.block_manager.num_free_blocks == eng.cfg.num_blocks
+
+
+@pytest.mark.parametrize("spec", [False, True])
+def test_engine_is_freed_without_the_collector(spec):
+    """After a run (a spec run: the draft's graphs too), dropping the last
+    reference frees the engine, its models and its step graphs at once:
+    nothing holds them in a reference cycle, so their memory does not
+    wait for the garbage collector."""
+    import gc
+    import weakref
+
+    def tiny(seed):
+        return LlamaForCausalLM(LlamaConfig.tiny(), device="cpu").init_weights(
+            torch.Generator().manual_seed(seed))
+
+    extra = dict(draft_model=tiny(1), num_spec_tokens=2) if spec else {}
+    eng = LLMEngine(tiny(0), EngineConfig(**_knobs(), **extra))
+    eng.generate(_prompts(30, 256, [5, 11]), SamplingParams(max_new_tokens=4))
+    assert eng._seen_shapes
+    held = [eng, eng.model, eng._graphs]
+    if spec:
+        assert eng.num_spec_proposed > 0
+        held += [eng._spec, eng._spec.graphs, eng.cfg.draft_model]
+    gone = [weakref.ref(x) for x in held]
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del eng, held, extra
+        assert [r() is None for r in gone] == [True] * len(gone)
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def test_padded_step_equals_the_exact_step(models):
+    """At a mixed batch (a prefill chunk beside decode rows, one sampled
+    row; 12 live rows in the 16 bucket), ``_device_step`` on the bucket's
+    padded buffers and on buffers of the exact token count gives
+    identical packed rows and identical cache bytes: the pad
+    rows are inert. (Below 6 rows MKL's sgemm takes another kernel,
+    whose sums round otherwise, so the live rows alone would differ in
+    the last bit: the batch has more.)"""
+    from paddle_tpu_torch.tools.step_checks import padding_is_inert
+
+    _, tm = models
+    eng = LLMEngine(tm, EngineConfig(**_knobs(max_batched_tokens=16)))
+    prompts = _prompts(29, 256, [13, 3, 9, 14])
+    for i, p in enumerate(prompts):
+        eng.add_request(f"m{i}", p, sampling=SamplingParams(
+            max_new_tokens=6, temperature=0.8 if i == 1 else 0.0, seed=i))
+    dispatch, checked = eng._dispatch, []
+
+    def checking(reqs, key, arrays):
+        n = int(arrays[2][len(reqs)])
+        mixed = (any(r.num_generated > 0 for r in reqs)
+                 and any(r.num_cached < len(r.prompt_ids) for r in reqs))
+        if mixed and n < key[1]:
+            checked.append(padding_is_inert(eng, reqs, arrays))
+        return dispatch(reqs, key, arrays)
+
+    eng._dispatch = checking
+    eng.run()
+    assert checked, "no mixed padded step"
+    for res in checked:
+        assert res["packed"] and res["key_cache"] and res["value_cache"], res
+        assert res["widths"][0] > res["widths"][1]
+
+
 def test_step_fault_retries_then_succeeds(models):
     from paddle_tpu_torch.testing import faults
 

@@ -30,6 +30,9 @@ from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops import sampling as tsampling
 from paddle_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
 from paddle_tpu_torch.serving.spec import SpecDecoder
+from paddle_tpu_torch.tools.step_checks import (bucket_keys,
+                                                padding_is_inert,
+                                                record_step_sizes)
 
 
 def _pair(seed):
@@ -131,9 +134,15 @@ def _both(pair, draft_pair, k, prompts, samplings, **kw):
     j = _serve(JLLMEngine(pair[0], JEngineConfig(
         draft_model=draft_pair[0], num_spec_tokens=k, **kw)),
         JSamplingParams, prompts, samplings)
-    t = _serve(LLMEngine(pair[1], EngineConfig(
-        draft_model=draft_pair[1], num_spec_tokens=k, **kw)),
-        SamplingParams, prompts, samplings)
+    te = LLMEngine(pair[1], EngineConfig(
+        draft_model=draft_pair[1], num_spec_tokens=k, **kw))
+    sizes = record_step_sizes(te)
+    t = _serve(te, SamplingParams, prompts, samplings)
+    # the target steps at the lattice buckets its step sizes round up to
+    # (the JAX engine: one shape), the draft at its (batch, width) ones
+    assert te._seen_shapes == bucket_keys(te, sizes)
+    assert set(te._spec.graphs.keys) <= {
+        ("draft", b, w) for b in (1, 2, 4, 8) for w in (8, 16, 32, 64)}
     return j, t
 
 
@@ -303,3 +312,29 @@ def test_rng_state_hand_off_continues_the_stream(models, direction):
                        rng_state={"device_key": key})
     second.run()
     assert head + second.get_request("h").generated == full
+
+
+def test_padded_verify_step_equals_the_exact_step(models):
+    """At a verify batch (R = 4: draft == target, k = 3; 1+3-token rows
+    in a padded bucket), ``_device_step`` on the bucket's padded buffers
+    and on buffers of the exact token count gives identical packed rows
+    and identical cache bytes: the pad rows are inert."""
+    _, tm = models
+    eng = LLMEngine(tm, EngineConfig(block_size=4, draft_model=tm,
+                                     num_spec_tokens=3))
+    assert eng._spec_R == 4
+    for i, p in enumerate(_prompts(10, 256, [5, 7, 4])):
+        eng.add_request(f"v{i}", p, SamplingParams(max_new_tokens=8))
+    dispatch, checked = eng._dispatch, []
+
+    def checking(reqs, key, arrays):
+        if arrays[-1].any() and int(arrays[2][len(reqs)]) < key[1]:
+            checked.append(padding_is_inert(eng, reqs, arrays))
+        return dispatch(reqs, key, arrays)
+
+    eng._dispatch = checking
+    eng.run()
+    assert checked, "no padded verify step"
+    for res in checked:
+        assert res["packed"] and res["key_cache"] and res["value_cache"], res
+        assert res["widths"][0] > res["widths"][1] >= 6
