@@ -27,9 +27,12 @@ non-zero (nothing is caught and passed over):
                which splits each slot's cache range and merges the
                splits; and on a speculative verify batch (8 slots x 5
                rows mid-context, contexts 300-1100, padded to the
-               engine's 64-token bucket and split as phase 9 gives it).
+               engine's 64-token bucket and split as phase 9 gives it);
+               and at the steps of phase 13's cached ``generate`` (its
+               2-slot engine: the 2 x 128-row prefill, a 2-row decode at
+               context 143 in the 8-row bucket), at that engine's split.
                Times (CUDA events, L2 flushed before each launch) and
-               the bounds of all three.
+               the bounds of all.
 4. serve     — Llama-3-8B at full width and depth (32 layers, bf16,
                random weights from a seeded generator on the card)
                through the port's LLMEngine: 8 requests, prompts of
@@ -54,7 +57,9 @@ non-zero (nothing is caught and passed over):
                tensor cores), at the widest draft forward of phase 9
                (batch and width bucket from phase 4's prompts:
                B 8, S 1024, H 32, D 64, bf16, causal) and at the widest
-               width bucket the engine allows (S 2048), in f32 at a
+               width bucket the engine allows (S 2048), at phase 13's
+               naive ``generate`` widths (B 2, H 32, D 128, S 129 and
+               143: ragged tail tiles), in f32 at a
                smaller size (the f32 FMA kernels), and with Sq != Sk and
                ragged tail tiles. At the training shapes: times (CUDA
                events, L2 flushed before each launch), bounds, TFLOP/s
@@ -95,11 +100,51 @@ non-zero (nothing is caught and passed over):
                identical, greedy equal to a non-speculative engine on
                the card, greedy acceptance above 0.9.
 
+11. swap      — one Llama-3-8B (as phase 4's, built once for phases
+               11-13 and freed after them) behind phase 4's engine
+               settings on 128 KV blocks, about half what the workload
+               needs: the serve workload with ``swap_mode="host"``, then
+               with ``"recompute"``. Host: swap-outs > 0, swap-ins equal
+               them, every block restored from the pinned host pool
+               holds the spilled bytes bit for bit (``SwapCheck``, a
+               wrapper around the engine's swapper), every device block
+               and host slot free at the end, K1 launched. Both:
+               preemptions, TTFT and TPOT p50, tok/s; host: spill bytes
+               and the host ms of each spill, fence and restore. The
+               greedy streams equal under both modes are reported, not
+               asserted (bf16).
+12. drain     — the serve workload on phase 11's host-swap engine with a
+               ``PreemptionMonitor`` installed and a real SIGTERM after
+               the first decode step: every request ends once, as
+               ``length`` or ``aborted:drain``; those waiting at the
+               drain end with the tokens they had (some with none); the
+               engine drained, every block free, a late request
+               rejected. Then the workload on a fresh engine with
+               ``step_timeout_s`` 2.0 across its fresh captures (no
+               alarm), and a warm step sleeping past the deadline:
+               ``StepHungError``, every request ``aborted:error``.
+13. bucketed  — the serve workload through ``ragged=False``: one graph
+               per ``(kind, B, S)`` key, ``_seen_shapes`` equal to the
+               keys stepped, replay and eager step bit-identical at one
+               prefill and one decode key, no K1 launch; TTFT, TPOT,
+               tok/s, padding, captures, capture s, peak memory. Then
+               ``generate`` on a (2, 128) prompt, 16 new tokens, cached
+               (K1) and naive (K2), their agreement reported (bf16)
+               with the logit row behind each token kept: at each
+               stream's first divergence, each side's margin between
+               the two tokens and the rows' largest difference.
+14. resilience_parity — ``tools/tiny_resilience_parity.py`` (f32, TF32
+               off): swap vs recompute, drain, the bucketed engine and
+               ``generate`` cached vs naive serve the CPU's tokens.
+
 Then one line with the kernel table (name, route, source, launches on
-the main paths — ``launches_by_path`` splits them: serve and spec for
-the ragged kernel, train and spec for the flash forward; on the paths
-that replay graphs they are the launches the card ran, the eager
-warm-ups plus captured x replays — error, times, bound, library time),
+the main paths — ``launches_by_path`` splits them: serve, spec, swap
+(both modes), drain, the watched run and cached generate for the ragged
+kernel, train, spec and naive generate for the flash forward; on the
+paths that replay graphs they are the launches the card ran, the eager
+warm-ups plus captured x replays — error, times, bound, library time;
+``spec_shapes`` and ``generate_shapes`` repeat them at those paths'
+shapes),
 nvidia-smi's line, and last ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -114,6 +159,10 @@ import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
+SWAP_BLOCKS = 128              # about half the serve workload's KV blocks
+STEP_TIMEOUT_S = 2.0           # the watchdog's deadline in phase 12
+GENERATE_PROMPT = (2, 128)     # phase 13's generate: (batch, prompt)
+GENERATE_NEW = 16              # and its new tokens
 H100_BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 
 
@@ -367,9 +416,40 @@ def phase_kernel(dev):
                           ecfg.block_size, rpa._sm_count(dev.index))
     assert verify["rows"] == t_verify > n_rows, verify
     assert verify["nsplit"] == want > 1, (verify, want)
+    gen_cases = _generate_k1_cases(dev, gen, flush)
     emit({"phase": "kernel", "mixed": mixed, "decode": decode,
-          "verify": verify})
-    return mixed, verify
+          "verify": verify, "generate": gen_cases})
+    return mixed, verify, gen_cases
+
+
+def _generate_k1_cases(dev, gen, flush):
+    """K1 at the steps of phase 13's cached ``generate`` (the engine it
+    builds for GENERATE_PROMPT, Llama-3-8B): its prefill step (both
+    prompts whole, at their bucket) and its last decode step (one row
+    per slot at the longest context, padded to the smallest bucket), at
+    the split the kernel takes for that engine's shapes."""
+    from paddle_tpu_torch.models.llama import (LlamaConfig,
+                                               generate_engine_config)
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.serving.engine import token_buckets
+
+    b, s = GENERATE_PROMPT
+    ecfg = generate_engine_config(LlamaConfig.llama3_8b(), b, s,
+                                  GENERATE_NEW)
+    mb = ecfg.max_model_len // ecfg.block_size
+    cases = {}
+    for name, live in (("prefill", [(s, s)] * b),
+                       ("decode", [(1, s + GENERATE_NEW - 1)] * b)):
+        rows = sum(n for n, _ in live)
+        t = min(k for k in token_buckets(ecfg) if k >= rows)
+        case = _ragged_case(_ragged_batch(
+            dev, gen, live, ecfg.max_num_seqs, mb, ecfg.max_num_seqs * mb,
+            t - rows), live, flush)
+        _, want = rpa._splits(t, ecfg.max_num_seqs, 8, 4, mb,
+                              ecfg.block_size, rpa._sm_count(dev.index))
+        assert case["rows"] == t and case["nsplit"] == want, (case, want)
+        cases[name] = case
+    return cases
 
 
 class _GreedyRows:
@@ -434,12 +514,15 @@ def _margin(row, a, b):
     return float(row[a].float() - row[b].float())
 
 
-def _divergences(serve_rows, serve_tokens, spec_rows, spec_tokens):
+def _divergences(serve_rows, serve_tokens, spec_rows, spec_tokens,
+                 names=("serve", "spec")):
     """Per greedy request: the first position where phase 9's stream
     leaves phase 4's, phase 4's margin of its token over phase 9's in its
     decode row and phase 9's margin of its token over phase 4's in its
     verify row (both >= 0: each row's argmax), the two rows' largest
-    difference there, and the largest over the equal prefix before."""
+    difference there, and the largest over the equal prefix before.
+    ``names`` label the two sides' keys (phase 13: cached and naive
+    ``generate``)."""
     for rows, tokens in ((serve_rows, serve_tokens),
                          (spec_rows, spec_tokens)):
         for rid, kept in rows.items():   # each row is its token's argmax
@@ -459,9 +542,9 @@ def _divergences(serve_rows, serve_tokens, spec_rows, spec_tokens):
             r4, r9 = serve_rows[rid][p], rows9[p]
             res.update({
                 "tokens": [int(t4[p]), int(t9[p])],
-                "serve_margin": _margin(r4, t4[p], t9[p]),
-                "spec_margin": _margin(r9, t9[p], t4[p]),
-                "serve_top": float(r4.float().max()),
+                f"{names[0]}_margin": _margin(r4, t4[p], t9[p]),
+                f"{names[1]}_margin": _margin(r9, t9[p], t4[p]),
+                f"{names[0]}_top": float(r4.float().max()),
                 "max_abs_diff": diffs[p]})
         out[rid] = res
     return out
@@ -630,20 +713,34 @@ def _visible_pairs(sq, sk, causal):
 
 def phase_flash(dev, draft_shape):
     """``draft_shape``: (batch, width) of phase 9's widest draft forward,
-    checked and timed as the ``draft_shapes`` case."""
+    checked and timed as the ``draft_shapes`` case. Phase 13's naive
+    ``generate`` (Llama-3-8B heads, GENERATE_PROMPT) runs the forward at
+    widths prompt .. prompt + GENERATE_NEW - 1: its first ragged tail
+    tile and its widest, checked and timed as ``generate_s*``."""
     import torch.nn.functional as F
 
+    from paddle_tpu_torch.models.llama import LlamaConfig
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.tools.llama3_8b_spec_serve import DRAFT
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(2)
-    res = {"phase": "flash", "cases": {}}
+    res = {"phase": "flash", "cases": {}, "fwd_only": {}}
     db, dw = draft_shape
     dh = DRAFT["num_attention_heads"]
     draft_case = ("draft_shapes", torch.bfloat16, db, dw, dw, dh,
                   DRAFT["hidden_size"] // dh, True)
-    for name, dtype, b, sq, sk, h, d, causal in [draft_case] + FLASH_CASES:
+    big = LlamaConfig.llama3_8b()
+    gb, gs = GENERATE_PROMPT
+    gh = big.num_attention_heads
+    generate_cases = [(f"generate_s{w}", torch.bfloat16, gb, w, w, gh,
+                       big.hidden_size // gh, True)
+                      for w in (gs + 1, gs + GENERATE_NEW - 1)]
+    fwd_only = {c[0] for c in [draft_case] + generate_cases}
+    # the generate cases draw last, so the earlier cases keep the inputs
+    # they were checked on before the generate cases came in
+    for name, dtype, b, sq, sk, h, d, causal in (
+            [draft_case] + FLASH_CASES + generate_cases):
         def randn(s):
             return torch.randn((b, s, h, d), generator=gen, device=dev,
                                dtype=torch.float32).to(dtype)
@@ -679,7 +776,7 @@ def phase_flash(dev, draft_shape):
         pairs = _visible_pairs(sq, sk, causal) * b * h
         esz, n_q, n_k = q.element_size(), q.numel(), k.numel()
         stats = 4 * b * h * sq                  # lse or delta, f32
-        if name == "draft_shapes":   # the draft forward: no backward
+        if name in fwd_only:   # inference: the forward timed alone
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             ms = {"fwd": cuda_ms(lambda: fa._flash_fwd_cuda(*args), 10,
                                  flush),
@@ -690,10 +787,10 @@ def phase_flash(dev, draft_shape):
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True), 10, flush)
             bound = _bound(esz * (2 * n_q + 2 * n_k) + stats, 4 * d * pairs)
-            res["draft"] = {"ms": ms, "bound": bound,
-                            "tflops": bound["flops"] / (ms["fwd"] * 1e-3)
-                            / 1e12,
-                            "bound_share": bound["bound_ms"] / ms["fwd"]}
+            res["fwd_only"][name] = {
+                "ms": ms, "bound": bound,
+                "tflops": bound["flops"] / (ms["fwd"] * 1e-3) / 1e12,
+                "bound_share": bound["bound_ms"] / ms["fwd"]}
             continue
         if name != "train_shapes":
             continue
@@ -988,17 +1085,402 @@ def phase_spec_parity(dev):
     emit({"phase": "spec_parity", **tiny_spec_parity.run(dev)})
 
 
+# ---------------------------------------------------------------------------
+# one-card resilience: host swap, drain, the watchdog, the bucketed path
+# ---------------------------------------------------------------------------
+def _serve_8b(eng):
+    """Queue the serve workload on ``eng`` and step it to the end. Returns
+    the request ids, every output, the wall seconds and the step ms."""
+    from paddle_tpu_torch.tools import llama3_8b_serve
+
+    rids, _ = llama3_8b_serve.add_requests(eng)
+    outs, step_ms = [], []
+    t0 = time.perf_counter()
+    while eng.has_unfinished():
+        t1 = time.perf_counter()
+        outs.extend(eng.step())
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        assert len(step_ms) < 2000, "engine failed to converge"
+    torch.cuda.synchronize()
+    return rids, outs, time.perf_counter() - t0, step_ms
+
+
+def _latency(eng, wall) -> dict:
+    m = eng.metrics
+    return {"ttft_ms_p50": float(np.percentile(m.ttfts_s, 50) * 1e3),
+            "tpot_ms_p50": float(np.percentile(m.tpots_s, 50) * 1e3),
+            "tokens_per_s": m.num_generated_tokens / wall,
+            "generated_tokens": m.num_generated_tokens, "wall_s": wall,
+            "steps": m.engine_steps}
+
+
+def _k1(window) -> int:
+    return window["executed_launches"].get("ragged_paged_attention", 0)
+
+
+def _freed(*objs):
+    """Weak references to ``objs``, which must be dead once the caller
+    drops its own references (no reference cycle holds them)."""
+    return [weakref.ref(o) for o in objs]
+
+
+def phase_swap(dev, model):
+    """Serve on half the KV blocks the workload needs, preempting by host
+    swap, then by recompute; the restored bytes checked bit for bit."""
+    from paddle_tpu_torch.serving import EngineConfig, LLMEngine
+    from paddle_tpu_torch.tools import llama3_8b_serve
+    from paddle_tpu_torch.tools.step_checks import SwapCheck
+
+    t0 = time.perf_counter()
+    runs, tokens = {}, {}
+    for mode in ("host", "recompute"):
+        eng = LLMEngine(model, EngineConfig(**llama3_8b_serve.ENGINE,
+                                            num_blocks=SWAP_BLOCKS,
+                                            swap_mode=mode))
+        check = SwapCheck(eng) if mode == "host" else None
+        caches = (eng._kcs, eng._vcs)
+        addr = [t.data_ptr() for t in caches]
+        snap = eng._graphs.snapshot()
+        rids, _, wall, step_ms = _serve_8b(eng)
+        # the graphs hold the caches' addresses: restores write in place
+        assert eng._kcs is caches[0] and eng._vcs is caches[1]
+        assert [t.data_ptr() for t in caches] == addr
+        window = eng._graphs.since(snap)
+        sch, bm = eng.scheduler, eng.block_manager
+        for rid in rids:
+            r = eng.get_request(rid)
+            assert r.finish_reason == "length", (rid, r.finish_reason)
+            assert len(r.generated) == llama3_8b_serve.MAX_NEW_TOKENS
+        assert bm.num_free_blocks == eng.cfg.num_blocks
+        assert bm.num_free_host_blocks == eng.cfg.num_host_blocks
+        assert _k1(window) > 0, window
+        run = {"preemptions": sch.num_preemptions,
+               "swap_outs": sch.num_swap_outs, "swap_ins": sch.num_swap_ins,
+               **_latency(eng, wall), "step_ms_p50":
+                   float(np.percentile(step_ms, 50)),
+               "captures": window["captures"],
+               "capture_s": window["capture_s"],
+               "kernel_launches": _k1(window)}
+        if check is not None:
+            check.close()
+            assert sch.num_swap_outs > 0, run
+            assert sch.num_swap_ins == sch.num_swap_outs, run
+            assert check.restored == sch.num_swap_ins, check.restored
+            assert not check.mismatches, check.mismatches
+            assert eng._host_k.is_pinned() and eng._host_v.is_pinned()
+            run.update({
+                "restored_bit_identical": True,
+                "spill_bytes": check.spilled_bytes,
+                "host_pool_bytes": 2 * eng._host_k.numel()
+                * eng._host_k.element_size(),
+                **{f"{k}_ms": v for k, v in check.ms.items()}})
+        runs[mode] = run
+        tokens[mode] = [eng.get_request(r).generated for r in rids]
+        gone = _freed(eng)
+        del eng, check, caches
+        assert not any(r() for r in gone), "the engine outlived its refs"
+        torch.cuda.empty_cache()
+    greedy = llama3_8b_serve.NUM_REQUESTS - 1
+    res = {"phase": "swap", "model": "llama3_8b", "dtype": "bfloat16",
+           "num_blocks": SWAP_BLOCKS, **runs,
+           # bf16: recompute rebuilds a victim's K/V in a prefill chunk,
+           # swap keeps the decode rows' bytes (reported, not asserted)
+           "greedy_streams_equal": sum(
+               a == b for a, b in zip(tokens["host"][:greedy],
+                                      tokens["recompute"][:greedy])),
+           "greedy_streams": greedy,
+           "wall_s": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def phase_drain(dev, model):
+    """The serve workload with a real SIGTERM after the first decode step;
+    then a run with the watchdog armed across fresh captures; then a warm
+    step that sleeps past the deadline."""
+    from paddle_tpu_torch.distributed.watchdog import PreemptionMonitor
+    from paddle_tpu_torch.serving import (EngineConfig, LLMEngine,
+                                          SamplingParams, StepHungError)
+    from paddle_tpu_torch.testing import faults
+    from paddle_tpu_torch.tools import llama3_8b_serve
+
+    t0 = time.perf_counter()
+    eng = LLMEngine(model, EngineConfig(**llama3_8b_serve.ENGINE,
+                                        num_blocks=SWAP_BLOCKS,
+                                        swap_mode="host"))
+    monitor = eng.install_preemption_handler(PreemptionMonitor())
+    at_drain = {}
+    start_drain = eng.start_drain
+
+    def recorded_start(*a, **kw):
+        at_drain.update({rid: (r.status.value, len(r.generated))
+                         for rid, r in eng._requests.items()})
+        return start_drain(*a, **kw)
+
+    eng.start_drain = recorded_start
+    snap = eng._graphs.snapshot()
+    rids, _ = llama3_8b_serve.add_requests(eng)
+    outs, steps, sent = [], 0, False
+    try:
+        while eng.has_unfinished():
+            outs.extend(eng.step())
+            steps += 1
+            assert steps < 2000, "engine failed to converge"
+            if not sent and eng.metrics.decode_steps >= 1:
+                # the next dispatch raises a real SIGTERM
+                faults.install(f"{faults.SERVING_STEP}:sigterm*1")
+                sent = True
+        torch.cuda.synchronize()
+    finally:
+        monitor.uninstall()
+        faults.clear()
+    del eng.start_drain
+    window = eng._graphs.since(snap)
+    finals = [o for o in outs if o.finished]
+    assert sorted(o.request_id for o in finals) == sorted(rids), finals
+    reasons = {o.request_id: o.finish_reason for o in finals}
+    assert set(reasons.values()) <= {"length", "aborted:drain"}, reasons
+    waiting = [rid for rid, (st, _) in at_drain.items() if st == "waiting"]
+    assert waiting and all(reasons[rid] == "aborted:drain"
+                           and len(eng.get_request(rid).generated)
+                           == at_drain[rid][1] for rid in waiting), at_drain
+    assert any(at_drain[rid][1] == 0 for rid in waiting), at_drain
+    assert eng.drained and eng.num_drains_completed == 1
+    assert eng.block_manager.num_free_blocks == eng.cfg.num_blocks
+    assert eng.block_manager.num_free_host_blocks == eng.cfg.num_host_blocks
+    late = eng.add_request([1, 2, 3], SamplingParams(max_new_tokens=2))
+    assert eng.get_request(late).finish_reason == "rejected"
+    drain = {"steps": steps, "finish": reasons,
+             "at_drain": {k: list(v) for k, v in at_drain.items()},
+             "drain_aborted": eng.num_drain_aborted,
+             "kernel_launches": _k1(window), "late": "rejected"}
+    gone = _freed(eng)
+    del eng, start_drain, recorded_start
+    assert not any(r() for r in gone), "the engine outlived its refs"
+
+    # the watchdog armed across the workload's fresh captures
+    eng = LLMEngine(model, EngineConfig(**llama3_8b_serve.ENGINE,
+                                        step_timeout_s=STEP_TIMEOUT_S))
+    snap = eng._graphs.snapshot()
+    rids, _, wall, _ = _serve_8b(eng)
+    window = eng._graphs.since(snap)
+    wd = eng._watchdog
+    assert not wd.fired and wd._prober is not None, wd.fired
+    assert all(eng.get_request(r).finish_reason == "length" for r in rids)
+    watched = {"step_timeout_s": STEP_TIMEOUT_S, **_latency(eng, wall),
+               "captures": window["captures"],
+               "capture_s": window["capture_s"],
+               "kernel_launches": _k1(window), "false_alarms": 0}
+    # a warm step (a decode at a captured bucket) sleeping past it
+    hung = [eng.add_request(f"h{i}", list(range(1, 17)),
+                            SamplingParams(max_new_tokens=4))
+            for i in range(2)]
+    faults.install(f"{faults.SERVING_STEP}:sleep:{STEP_TIMEOUT_S + 1.0}"
+                   f"@1*1")
+    t1 = time.perf_counter()
+    try:
+        while eng.has_unfinished():
+            eng.step()
+        raise AssertionError("the hung step was not caught")
+    except StepHungError as e:
+        reasons = sorted(o.finish_reason for o in e.outputs)
+        assert sorted(o.request_id for o in e.outputs) == sorted(hung)
+        assert reasons == ["aborted:error"] * len(hung), reasons
+        assert all(eng.get_request(r).finish_reason == "aborted:error"
+                   for r in hung)
+        watched["hung_step"] = {"raised": type(e).__name__,
+                                "seconds": time.perf_counter() - t1,
+                                "outputs": reasons}
+    finally:
+        faults.clear()
+    assert wd.fired
+    assert eng.block_manager.num_free_blocks == eng.cfg.num_blocks
+    gone = _freed(eng, wd)
+    del eng, wd
+    assert not any(r() for r in gone), "the engine outlived its refs"
+    torch.cuda.empty_cache()
+    res = {"phase": "drain", "model": "llama3_8b", "dtype": "bfloat16",
+           "drain": drain, "watchdog": watched,
+           "wall_s": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+class _TokenRows:
+    """While active, keep the logit row behind each token that ``eng``
+    emits (no draft rows: the slot's one row), per (request id, position
+    of the token), and the request ids in the order they were added."""
+
+    def __init__(self, eng):
+        self.eng, self.rids, self.rows = eng, [], {}
+
+    def __enter__(self):
+        eng = self.eng
+        dispatch, add = eng._dispatch, eng.add_request
+
+        def adding(*a, **kw):
+            self.rids.append(add(*a, **kw))
+            return self.rids[-1]
+
+        def dispatching(reqs, key, arrays):
+            at = [(r.request_id, len(r.generated)) for r in reqs]
+            out = dispatch(reqs, key, arrays)
+            logits = eng._graphs.outputs(key)[1]
+            for i, k in enumerate(at):   # a later chunk's row wins
+                self.rows[k] = logits[i, -1].clone()
+            return out
+
+        eng._dispatch, eng.add_request = dispatching, adding
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._dispatch, self.eng.add_request
+        self.eng = None
+
+
+def phase_bucketed(dev, model):
+    """The serve workload through the bucketed path (ragged=False): one
+    graph per (kind, B, S) key, no K1; then generate, cached and naive."""
+    from paddle_tpu_torch.models.llama import generate_engine_config
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.serving import EngineConfig, LLMEngine
+    from paddle_tpu_torch.tools import llama3_8b_serve
+    from paddle_tpu_torch.tools.step_checks import replay_matches_eager
+
+    t0 = time.perf_counter()
+    eng = LLMEngine(model, EngineConfig(**llama3_8b_serve.ENGINE,
+                                        ragged=False))
+    first, stepped = {}, []
+    dispatch = eng._dispatch
+
+    def recording(reqs, key, arrays):
+        first.setdefault(key, [a.copy() for a in arrays])
+        stepped.append(key)
+        return dispatch(reqs, key, arrays)
+
+    eng._dispatch = recording
+    torch.cuda.reset_peak_memory_stats()
+    routes = rpa.route_launches()
+    rpa.launches = 0
+    rids, _, wall, step_ms = _serve_8b(eng)
+    wrapped = rpa.launches
+    del eng._dispatch
+    graphs = eng._graphs.since()
+    assert eng._seen_shapes == set(first) == set(eng._graphs.keys), \
+        (eng._seen_shapes, sorted(first))
+    assert wrapped == 0 and _k1(graphs) == 0, (wrapped, graphs)
+    assert len(stepped) == len(step_ms), (len(stepped), len(step_ms))
+    by_key = {}
+    for key, ms in zip(stepped, step_ms):
+        by_key.setdefault("x".join(map(str, key)), []).append(ms)
+    assert rpa.route_launches() == routes
+    for rid in rids:
+        r = eng.get_request(rid)
+        assert r.finish_reason == "length", (rid, r.finish_reason)
+        assert len(r.generated) == llama3_8b_serve.MAX_NEW_TOKENS
+    assert eng.block_manager.num_free_blocks == eng.cfg.num_blocks
+    peak = torch.cuda.max_memory_allocated()
+    # replay vs eager at one prefill key and one decode key
+    keys = [min(k for k in first if k[0] == kind)
+            for kind in ("prefill", "decode")]
+    same = {"x".join(map(str, k)): replay_matches_eager(eng, k, first[k])
+            for k in keys}
+    assert all(all(v.values()) for v in same.values()), same
+    snap = eng.metrics.snapshot()
+    res = {"phase": "bucketed", "model": "llama3_8b", "dtype": "bfloat16",
+           **_latency(eng, wall),
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           # each key's first step includes its warm-up and capture
+           "step_ms_by_key": by_key,
+           "padded_token_frac": snap["padded_token_frac"],
+           "keys": sorted("x".join(map(str, k)) for k in eng._seen_shapes),
+           "captures": graphs["captures"], "capture_s": graphs["capture_s"],
+           "capture_bytes": graphs["capture_bytes"],
+           "max_memory_allocated": peak,
+           "replay_vs_eager_bit_identical": same,
+           "kernel_launches_ragged": 0}
+    gone = _freed(eng)
+    del eng, dispatch, recording
+    assert not any(r() for r in gone), "the engine outlived its refs"
+    torch.cuda.empty_cache()
+
+    # generate on GENERATE_PROMPT: cached (the ragged engine, K1) and
+    # naive (forward, K2), compared (bf16: reported) with the logit row
+    # behind each token. The cached engine is built here as generate
+    # builds it, so that its rows can be kept from its first step
+    b, s = GENERATE_PROMPT
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, model.config.vocab_size, size=(b, s))).to(dev)
+    fa_before = fa.launches["flash_attention_fwd"]
+    rpa.launches = 0
+    t1 = time.perf_counter()
+    geng = LLMEngine(model, generate_engine_config(model.config, b, s,
+                                                   GENERATE_NEW))
+    model._serving_engine = geng
+    with _TokenRows(geng) as kept:
+        cached = model.generate(ids, max_new_tokens=GENERATE_NEW)
+    torch.cuda.synchronize()
+    cached_s = time.perf_counter() - t1
+    assert model._serving_engine is geng, "generate built another engine"
+    k1 = _k1(geng._graphs.since())
+    del geng
+    model.close()
+    naive_rows = []
+    hook = model.register_forward_hook(
+        lambda mod, args, out: naive_rows.append(out[:, -1].clone()))
+    try:
+        t1 = time.perf_counter()
+        naive = model.generate(ids, max_new_tokens=GENERATE_NEW,
+                               use_cache=False)
+        torch.cuda.synchronize()
+        naive_s = time.perf_counter() - t1
+    finally:
+        hook.remove()
+    k2 = fa.launches["flash_attention_fwd"] - fa_before
+    layers = model.config.num_hidden_layers
+    assert k1 > 0 and k2 == layers * GENERATE_NEW, (k1, k2)
+    assert cached.shape == naive.shape == (b, s + GENERATE_NEW)
+    assert torch.equal(cached[:, :s], ids)
+    new_c, new_n = cached[:, s:].tolist(), naive[:, s:].tolist()
+    assert len(kept.rids) == b and len(naive_rows) == GENERATE_NEW
+    div = _divergences(
+        {i: [kept.rows[(rid, p)] for p in range(GENERATE_NEW)]
+         for i, rid in enumerate(kept.rids)}, dict(enumerate(new_c)),
+        {i: [row[i] for row in naive_rows] for i in range(b)},
+        dict(enumerate(new_n)), names=("cached", "naive"))
+    res["generate"] = {
+        "prompt": [b, s], "new_tokens": GENERATE_NEW, "cached_s": cached_s,
+        "naive_s": naive_s, "tokens_equal": sum(
+            a == c for rc, rn in zip(new_c, new_n) for a, c in zip(rc, rn)),
+        "tokens": b * GENERATE_NEW, "divergences": div,
+        "kernel_launches": {"ragged_paged_attention": k1,
+                            "flash_attention_fwd": k2}}
+    res["wall_s"] = time.perf_counter() - t0
+    emit(res)
+    return res
+
+
+def phase_resilience_parity(dev):
+    from paddle_tpu_torch.tools import tiny_resilience_parity
+
+    t0 = time.perf_counter()
+    res = tiny_resilience_parity.run(dev)
+    emit({"phase": "resilience_parity", **res,
+          "wall_s": time.perf_counter() - t0})
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False)")
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
-    from paddle_tpu_torch.tools import llama3_8b_spec_serve
+    from paddle_tpu_torch.tools import llama3_8b_serve, llama3_8b_spec_serve
 
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    k, kv = phase_kernel(dev)
+    k, kv, kg = phase_kernel(dev)
     s = phase_serve(dev)
     phase_parity(dev)
     draft_shape = llama3_8b_spec_serve.draft_shape(s["prompt_lens"])
@@ -1008,18 +1490,36 @@ def main():
     sp = phase_spec(dev, s, draft_shape)
     del s["rows"]
     phase_spec_parity(dev)
+    # phases 11-13: one Llama-3-8B for all three, freed after them
+    model = llama3_8b_serve.target_model(dev)
+    sw = phase_swap(dev, model)
+    dn = phase_drain(dev, model)
+    bk = phase_bucketed(dev, model)
+    gone = _freed(model)
+    del model
+    assert not any(r() for r in gone), "the 8B model outlived its refs"
+    torch.cuda.empty_cache()
+    phase_resilience_parity(dev)
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
-    dr = fl["draft"]
+    dr = fl["fwd_only"]["draft_shapes"]
     # per path: the main paths' launches (each counted from 0 over its
     # own run) and, for the spec path's shapes, the kernel's numbers
     by_path = {
         "ragged_paged_attention": {
             "serve": s["kernel_launches"],
-            "spec": sp["kernel_launches"]["ragged_paged_attention"]},
+            "spec": sp["kernel_launches"]["ragged_paged_attention"],
+            "swap": sw["host"]["kernel_launches"],
+            "swap_recompute": sw["recompute"]["kernel_launches"],
+            "drain": dn["drain"]["kernel_launches"],
+            "watchdog": dn["watchdog"]["kernel_launches"],
+            "generate_cached": bk["generate"]["kernel_launches"][
+                "ragged_paged_attention"]},
         "flash_attention_fwd": {
             "train": tr["kernel_launches"]["flash_attention_fwd"],
-            "spec": sp["kernel_launches"]["flash_attention_fwd"]},
+            "spec": sp["kernel_launches"]["flash_attention_fwd"],
+            "generate_naive": bk["generate"]["kernel_launches"][
+                "flash_attention_fwd"]},
         "flash_attention_bwd_dq": {
             "train": tr["kernel_launches"]["flash_attention_bwd_dq"]},
         "flash_attention_bwd_dkv": {
@@ -1036,6 +1536,24 @@ def main():
             "bound_ms": dr["bound"]["bound_ms"],
             "bound_by": dr["bound"]["bound_by"],
             "library_ms": dr["ms"]["sdpa_fwd"]}}
+    # the kernels at the shapes of phase 13's generate: K1 at the cached
+    # engine's prefill and decode steps, K2 at naive widths
+    gen_shapes = {
+        "ragged_paged_attention": {
+            step: {"rows": c["rows"], "contexts": c["contexts"],
+                   **{key: c[key] for key in (
+                       "max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by")}, "library_ms": None}
+            for step, c in kg.items()},
+        "flash_attention_fwd": {
+            name: {"shape": fl["cases"][name]["shape"],
+                   "max_abs_err": fl["cases"][name]["max_abs_err"]["o"],
+                   "ms": f["ms"]["fwd"], "plain_ms": f["ms"]["plain_fwd"],
+                   "bound_ms": f["bound"]["bound_ms"],
+                   "bound_by": f["bound"]["bound_by"],
+                   "library_ms": f["ms"]["sdpa_fwd"]}
+            for name, f in fl["fwd_only"].items()
+            if name.startswith("generate_")}}
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
     ref = "paddle_tpu/ops/pallas/flash_attention.py"
     flash_rows = [
@@ -1064,6 +1582,7 @@ def main():
         row["launches_by_path"] = paths
         if row["name"] in spec_shapes:
             row["spec_shapes"] = spec_shapes[row["name"]]
+            row["generate_shapes"] = gen_shapes[row["name"]]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

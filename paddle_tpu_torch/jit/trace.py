@@ -258,7 +258,15 @@ class StepGraphs:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            # "thread_local": the capturing thread stays barred from
+            # unsafe calls, as in the default "global" mode, but other
+            # threads are not. The serving watchdog's prober may wait on
+            # an earlier step's event, and its monitor may query one,
+            # at any moment; in "global" mode such a call during a
+            # capture would invalidate it. A precaution: the prober is
+            # normally idle by then (the step before synchronised)
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
                 entry.outputs = fn(*entry.inputs)
         finally:
             if collecting:

@@ -1,5 +1,5 @@
 """Llama decoder (port of ``paddle_tpu/models/llama.py``): the training
-forward and the ragged serving path.
+forward, the ragged and the bucketed serving paths, and ``generate``.
 
 Plain ``nn.Linear(bias=False)`` and ``nn.Embedding`` under the JAX
 model's attribute names (``q_proj``, ``gate_proj``, ``embed_tokens``,
@@ -9,12 +9,16 @@ JAX weights across). ``forward`` is the training path: causal flash
 attention (the hand-written kernels on the card), or plain attention
 under an ``attn_mask``; :meth:`LlamaForCausalLM.criterion` is the LM
 loss. Recompute, sequence/context parallelism and tensor parallelism
-are refused at construction; ``forward_paged`` is not ported yet.
-``forward_ragged_multi`` is the speculative-verify step: the ragged
-forward with ``lm_head`` on each slot's last R packed positions.
+are refused at construction. ``forward_ragged_multi`` is the
+speculative-verify step: the ragged forward with ``lm_head`` on each
+slot's last R packed positions. ``forward_paged`` is the bucketed
+serving step over a padded (B, S) batch
+(:func:`~paddle_tpu_torch.incubate.nn.functional.block_multihead_attention`,
+plain torch ops); :meth:`LlamaForCausalLM.generate` decodes through a
+cached serving engine or by full recompute.
 
-The ragged forward updates the stacked KV caches IN PLACE (the JAX
-version returned new caches) and returns the same tensors.
+The ragged and paged forwards update the stacked KV caches IN PLACE (the
+JAX versions returned new caches) and return the same tensors.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from paddle_tpu_torch.ops.nn_ops import softmax_with_cross_entropy
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP",
-           "LlamaPretrainingCriterion"]
+           "LlamaPretrainingCriterion", "generate_engine_config"]
 
 
 @dataclass
@@ -183,6 +187,35 @@ class LlamaAttention(nn.Module):
         out = out.reshape(1, t, self.n_heads * self.head_dim)
         return self.o_proj(out), kc, vc
 
+    def forward_paged(self, x, cos, sin, key_cache, value_cache,
+                      block_tables, seq_lens_encoder, seq_lens_decoder,
+                      seq_lens_this_time):
+        """Serving attention over the paged KV cache for a padded batch.
+        ``x`` (B,S,h); ``cos``/``sin`` (B,S,D) gathered at absolute token
+        positions; caches (num_blocks, block_size, KH, D), updated in
+        place. Returns (out (B,S,h), key_cache, value_cache)."""
+        b, s, _ = x.shape
+        q = self.q_proj(x).view(b, s, self.n_heads, self.head_dim)
+        k = self.k_proj(x).view(b, s, self.n_kv, self.head_dim)
+        v = self.v_proj(x).view(b, s, self.n_kv, self.head_dim)
+        q, k = _rope_apply_at(q, k, cos, sin)
+        if self.n_kv != self.n_heads:
+            # K/V take the leading n_kv of the H head slots of the packed
+            # (B, S, 3, H, D) stack (the fused-projection layout
+            # block_multihead_attention unpacks)
+            pad = (0, 0, 0, self.n_heads - self.n_kv)
+            k = F_t.pad(k, pad)
+            v = F_t.pad(v, pad)
+        qkv = torch.stack([q, k, v], dim=2)
+        out, kc, vc = F.block_multihead_attention(
+            qkv, key_cache, value_cache,
+            seq_lens_encoder=seq_lens_encoder,
+            seq_lens_decoder=seq_lens_decoder,
+            seq_lens_this_time=seq_lens_this_time,
+            block_tables=block_tables)
+        out = out.reshape(b, s, self.n_heads * self.head_dim)
+        return self.o_proj(out), kc, vc
+
 
 class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
@@ -224,6 +257,22 @@ class LlamaDecoderLayer(nn.Module):
         attn_out, kc, vc = self.self_attn.forward_ragged(
             self.input_layernorm(x), cos, sin, key_cache, value_cache,
             block_tables, cu_seqlens, context_lens, num_seqs)
+        h = x + attn_out
+        out = h + self.mlp(self.post_attention_layernorm(h))
+        return out, kc, vc
+
+    def forward_paged(self, x, cos, sin, key_cache, value_cache,
+                      block_tables, seq_lens_encoder, seq_lens_decoder,
+                      seq_lens_this_time):
+        """One decoder block over the paged cache. ``cos``/``sin``
+        (B,S,D) are the rope rows at each token's position (gathered
+        once per step by :class:`LlamaModel`; the JAX layer gathers its
+        own from the positions); padding rows may hold any position in
+        range — the attention masks them by ``seq_lens_this_time``."""
+        attn_out, kc, vc = self.self_attn.forward_paged(
+            self.input_layernorm(x), cos, sin, key_cache, value_cache,
+            block_tables, seq_lens_encoder, seq_lens_decoder,
+            seq_lens_this_time)
         h = x + attn_out
         out = h + self.mlp(self.post_attention_layernorm(h))
         return out, kc, vc
@@ -292,6 +341,34 @@ class LlamaModel(nn.Module):
                 cu, ctx, num_seqs)
         return self.norm(x), key_caches, value_caches
 
+    @torch.no_grad()
+    def forward_paged(self, input_ids, key_caches, value_caches,
+                      block_tables, seq_lens_encoder, seq_lens_decoder,
+                      seq_lens_this_time):
+        """KV-cache forward of a padded (B, S) batch over the stacked
+        per-layer paged caches (L, num_blocks, block_size, KH, D),
+        updated in place. Per row, by the length tensors (each (B,)):
+        ``seq_lens_decoder[b] > 0`` is a decode continuing a cached
+        prefix of that many tokens, else a prefill from position 0;
+        ``seq_lens_this_time[b]`` counts the row's real tokens. Returns
+        (hidden (B,S,h), key_caches, value_caches)."""
+        dec = seq_lens_decoder.reshape(-1).long()
+        s = input_ids.shape[1]
+        # absolute position of each new token: after the cached prefix
+        # (decode) or from 0 (prefill); padding rows land in range and
+        # are masked downstream by seq_lens_this_time
+        positions = (torch.where(dec > 0, dec, 0)[:, None]
+                     + torch.arange(s, device=dec.device)[None, :]
+                     ).clamp(0, self.rope_cos.shape[0] - 1)
+        cos = self.rope_cos[positions]   # (B, S, D)
+        sin = self.rope_sin[positions]
+        x = self.embed_tokens(input_ids.long())
+        for i, layer in enumerate(self.layers):
+            x, _, _ = layer.forward_paged(
+                x, cos, sin, key_caches[i], value_caches[i], block_tables,
+                seq_lens_encoder, seq_lens_decoder, seq_lens_this_time)
+        return self.norm(x), key_caches, value_caches
+
 
 class LlamaPretrainingCriterion(nn.Module):
     """LM loss: cross entropy (f32 for bf16 logits, 0 at label -100), then
@@ -305,6 +382,24 @@ class LlamaPretrainingCriterion(nn.Module):
     def forward(self, logits, labels):
         return softmax_with_cross_entropy(
             logits, labels, ignore_index=self.ignore_index).mean()
+
+
+def generate_engine_config(config: LlamaConfig, batch, prompt_len,
+                           max_new_tokens):
+    """The :class:`~paddle_tpu_torch.serving.EngineConfig` of the engine
+    that a cached :meth:`LlamaForCausalLM.generate` of ``batch`` prompts
+    of ``prompt_len`` tokens builds: the cache sized to the padded need,
+    not the rope table's full span."""
+    from paddle_tpu_torch.serving import EngineConfig
+
+    need_len = prompt_len + max_new_tokens
+    mlen = 1
+    while mlen < need_len:
+        mlen *= 2
+    return EngineConfig(
+        max_num_seqs=max(batch, 1),
+        max_model_len=min(mlen, config.max_position_embeddings),
+        max_batched_tokens=max(2048, batch * prompt_len))
 
 
 class LlamaForCausalLM(nn.Module):
@@ -353,6 +448,24 @@ class LlamaForCausalLM(nn.Module):
         return self
 
     @torch.no_grad()
+    def forward_paged(self, input_ids, key_caches, value_caches,
+                      block_tables, seq_lens_encoder, seq_lens_decoder,
+                      seq_lens_this_time):
+        """Bucketed serving step: paged forward + lm_head on each row's
+        LAST valid token (the sampling position). Returns (logits (B,
+        vocab), key_caches, value_caches), the caches updated in place.
+        This is the step ``LLMEngine(ragged=False)`` captures per (kind,
+        B, S) bucket."""
+        h, kcs, vcs = self.llama.forward_paged(
+            input_ids, key_caches, value_caches, block_tables,
+            seq_lens_encoder, seq_lens_decoder, seq_lens_this_time)
+        now = seq_lens_this_time.reshape(-1).long()
+        b = h.shape[0]
+        last = (now - 1).clamp(0, h.shape[1] - 1)
+        return self.lm_head(h[torch.arange(b, device=h.device), last]), \
+            kcs, vcs
+
+    @torch.no_grad()
     def forward_ragged(self, input_ids, key_caches, value_caches,
                        block_tables, cu_seqlens, context_lens, num_seqs):
         """Ragged serving step: one unpadded forward over the packed
@@ -393,3 +506,80 @@ class LlamaForCausalLM(nn.Module):
         idx = torch.maximum(idx, cu[:-1, None]).clamp(0, t - 1)
         logits = self.lm_head(h[0, idx.reshape(-1)])
         return logits.reshape(idx.shape[0], r, -1), kcs, vcs
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
+                 top_k=0, use_cache=None):
+        """Decode ``max_new_tokens`` continuations of the (B, S) prompt
+        ids; returns (B, S + max_new_tokens) ids on the model's device,
+        in the prompt's dtype. ``use_cache`` routes through the paged
+        KV-cache serving engine (token-identical to the naive loop for
+        greedy decoding); default: the engine for greedy decoding, the
+        naive full-recompute loop otherwise. ``use_cache=False`` forces
+        the naive loop, which draws sampled tokens from the JAX package's
+        global generator: not ported yet (queue 1 item 7, A1's
+        ``core/generator.py``), so it is refused. The cached path keeps
+        its engine on the model for the next call; the model and that
+        engine refer to each other, so call :meth:`close` when done to
+        free both without the cycle collector."""
+        if use_cache is None:
+            use_cache = temperature <= 0
+        if use_cache:
+            return self._generate_paged(input_ids, max_new_tokens,
+                                        temperature, top_k)
+        return self._generate_naive(input_ids, max_new_tokens,
+                                    temperature, top_k)
+
+    def _generate_naive(self, input_ids, max_new_tokens, temperature,
+                        top_k):
+        """Full-context recompute per token (the pre-serving fallback):
+        greedy only, through :meth:`forward`."""
+        if temperature > 0:
+            raise NotImplementedError(
+                "generate(use_cache=False, temperature > 0) samples from "
+                "the global generator, which is not ported to "
+                "paddle_tpu_torch yet (queue 1 item 7: A1, "
+                "core/generator.py); use_cache=True samples through the "
+                "serving engine's per-request streams")
+        out = torch.as_tensor(input_ids).to(self.device)
+        for _ in range(max_new_tokens):
+            nxt = self(out)[:, -1].argmax(dim=-1)
+            out = torch.cat([out, nxt[:, None].to(out.dtype)], dim=1)
+        return out
+
+    def close(self):
+        """Drop the serving engine that :meth:`generate` keeps on the
+        model (its KV caches and, on the card, its captured graphs); the
+        next cached :meth:`generate` builds a new one."""
+        self.__dict__.pop("_serving_engine", None)
+
+    def _generate_paged(self, input_ids, max_new_tokens, temperature,
+                        top_k):
+        """KV-cache decode through a serving engine cached on the model
+        (``_serving_engine``, rebuilt when a call outgrows it, dropped by
+        :meth:`close`)."""
+        import numpy as np
+
+        from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+
+        ids_t = torch.as_tensor(input_ids)
+        ids = ids_t.cpu().numpy().astype(np.int64)
+        b, s = ids.shape
+        need_len = s + max_new_tokens
+        if need_len > self.config.max_position_embeddings:
+            raise ValueError(
+                f"prompt ({s}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds max_position_embeddings "
+                f"({self.config.max_position_embeddings})")
+        eng = getattr(self, "_serving_engine", None)
+        if (eng is None or eng.cfg.max_num_seqs < b
+                or eng.cfg.max_model_len < need_len):
+            eng = LLMEngine(self, generate_engine_config(
+                self.config, b, s, max_new_tokens))
+            self._serving_engine = eng
+        sampling = SamplingParams(max_new_tokens=max_new_tokens,
+                                  temperature=temperature, top_k=top_k)
+        generated = eng.generate([list(row) for row in ids], sampling)
+        full = np.concatenate([ids, np.asarray(generated, np.int64)],
+                              axis=1)
+        return torch.from_numpy(full).to(self.device, ids_t.dtype)

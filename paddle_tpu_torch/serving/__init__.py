@@ -1,15 +1,18 @@
 """paddle_tpu_torch.serving — continuous-batching LLM inference on the
-card (port of ``paddle_tpu.serving``, the ragged engine step).
+card (port of ``paddle_tpu.serving``: the ragged and the bucketed engine
+steps, host swap, drain and the step watchdog).
 
 =================  ====================================================
 :class:`BlockManager`  paged KV allocator: free-list, per-request block
                        tables, prefix trie with copy-on-write
 :class:`Scheduler`     iteration-level admission, chunked prefill mixed
-                       with decode rows, preemption-on-OOM
+                       with decode rows (or classic prefill-xor-decode),
+                       preemption-on-OOM by recompute or host swap
 :class:`LLMEngine`     the ragged step (hand-written attention kernel on
-                       the card), on-device threefry sampling, one host
-                       fetch per step, nonfinite-row isolation;
-                       speculative verify rows with a draft model
+                       the card) or the bucketed one, on-device threefry
+                       sampling, one host fetch per step, nonfinite-row
+                       isolation; speculative verify rows with a draft
+                       model; drain on SIGTERM, the step watchdog
 ``spec.SpecDecoder``   the greedy draft proposer (no KV cache)
 :class:`ServingMetrics` queue/KV/latency gauges through
                        ``profiler.register_counter_provider``
@@ -32,6 +35,7 @@ from paddle_tpu_torch.serving.block_manager import (  # noqa: F401
 )
 from paddle_tpu_torch.serving.engine import (  # noqa: F401
     AdmissionController, EngineConfig, EngineStepError, LLMEngine,
+    StepHungError,
 )
 from paddle_tpu_torch.serving.metrics import ServingMetrics  # noqa: F401
 from paddle_tpu_torch.serving.request import (  # noqa: F401
@@ -43,6 +47,7 @@ from paddle_tpu_torch.serving.scheduler import (  # noqa: F401
 
 __all__ = ["BlockManager", "NoFreeBlocksError", "AdmissionController",
            "EngineConfig", "EngineStepError", "LLMEngine", "ServingMetrics",
+           "StepHungError",
            "FINISH_REASONS", "Request", "RequestOutput", "RequestStatus",
            "SamplingParams", "ScheduledBatch", "Scheduler",
            "SchedulerConfig"]

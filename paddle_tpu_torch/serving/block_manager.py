@@ -25,10 +25,17 @@ JAX package):
   * free and owned are disjoint; trie keys map 1:1 onto keyed blocks,
   * ``free``/preemption returns every exclusively-owned block.
 
-The JAX package's host swap pool, KV tiers and fleet KV-ship paths are
-left out: the port serves recompute preemption only, and the engine
-refuses the configurations that would need them. :meth:`trim` is the
-speculative-decode rollback."""
+Swap pool: ``num_host_blocks > 0`` adds a second, host-side slot
+allocator for swap-based preemption: ``swap_out`` trades a victim's
+device blocks for refcounted host slots (the engine copies the KV
+bytes), ``swap_in`` trades them back. The same exact-accounting
+invariants hold for the host pool, and ``free()`` releases BOTH sides,
+so no lifecycle path (abort while swapped included) can leak.
+
+The JAX package's KV tiers (virtual host entries, ``demote_*``,
+``promote_blocks``, ``reachable_blocks``: C1) and fleet KV-ship paths
+(C2) are left out; the engine refuses the configurations that would
+need them. :meth:`trim` is the speculative-decode rollback."""
 from __future__ import annotations
 
 from collections import deque
@@ -50,9 +57,12 @@ def cdiv(a: int, b: int) -> int:
 
 class BlockManager:
     def __init__(self, num_blocks: int, block_size: int,
+                 num_host_blocks: int = 0,
                  enable_prefix_cache: bool = False, kv_layout=None):
         if num_blocks < 1 or block_size < 1:
             raise ValueError("num_blocks and block_size must be >= 1")
+        if num_host_blocks < 0:
+            raise ValueError("num_host_blocks must be >= 0")
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.enable_prefix_cache = enable_prefix_cache
@@ -79,6 +89,12 @@ class BlockManager:
         self.num_prefix_hit_tokens = 0
         self.num_cow_copies = 0
         self.last_hit_tokens = 0
+        # host swap pool (0 = swap disabled)
+        self.num_host_blocks = num_host_blocks
+        self._host_free: List[int] = list(range(num_host_blocks - 1, -1,
+                                                -1))
+        self._host_tables: Dict[str, List[int]] = {}
+        self._host_refs: Dict[int, int] = {}  # slot -> refcount
 
     # -- accounting ------------------------------------------------------
     @property
@@ -91,6 +107,10 @@ class BlockManager:
 
     def blocks_needed(self, num_tokens: int) -> int:
         return cdiv(num_tokens, self.block_size)
+
+    def can_allocate(self, num_tokens: int) -> bool:
+        """Conservative (prefix hits can only reduce the real need)."""
+        return self.blocks_needed(num_tokens) <= len(self._free)
 
     def has_table(self, request_id: str) -> bool:
         return request_id in self._tables
@@ -126,6 +146,12 @@ class BlockManager:
             self._prefix_index.pop(key)
         self._refs[b] = 1
         return b
+
+    def _claim_host(self) -> int:
+        """Pop a free host slot (hot end), born at refcount 1."""
+        s = self._host_free.pop()
+        self._host_refs[s] = 1
+        return s
 
     def _release(self, block: int):
         """Drop one reference; at zero the block returns to the free list
@@ -310,16 +336,111 @@ class BlockManager:
         return released
 
     def free(self, request_id: str) -> int:
-        """Release every block the request owns (completion, preemption,
-        abort). Shared blocks just drop one reference. Returns the
-        number of block references released; idempotent for unknown ids
-        (a request preempted before admission owns none)."""
+        """Release every block the request owns — device AND host swap
+        slots (completion, preemption, abort-while-swapped). Shared
+        blocks just drop one reference. Returns the number of device
+        block references released; idempotent for unknown ids (a request
+        preempted before admission owns none)."""
+        self.free_host(request_id)
         table = self._tables.pop(request_id, None)
         if table is None:
             return 0
         for b in table:
             self._release(b)
         return len(table)
+
+    # -- host swap pool ---------------------------------------------------
+    @property
+    def num_free_host_blocks(self) -> int:
+        return len(self._host_free)
+
+    @property
+    def num_used_host_blocks(self) -> int:
+        return self.num_host_blocks - len(self._host_free)
+
+    @property
+    def num_host_blocks_used(self) -> int:
+        """Host-pool occupancy: owned slots (no tiers here, so no
+        registered cached-free host content either)."""
+        return self.num_used_host_blocks
+
+    def has_host_table(self, request_id: str) -> bool:
+        return request_id in self._host_tables
+
+    def host_table(self, request_id: str) -> List[int]:
+        return list(self._host_tables[request_id])
+
+    def can_swap_out(self, request_id: str, num_tokens: int) -> bool:
+        """Could ``num_tokens`` worth of this request's cached K/V move
+        to host slots right now?"""
+        return (self.num_host_blocks > 0
+                and request_id in self._tables
+                and request_id not in self._host_tables
+                and self.blocks_needed(num_tokens) <= len(self._host_free))
+
+    def swap_out(self, request_id: str,
+                 num_tokens: int) -> Tuple[List[int], List[int]]:
+        """Trade the request's device blocks for host slots covering its
+        first ``num_tokens`` tokens. Returns ``(device_table,
+        host_table)`` — the caller must copy device->host before the
+        freed device blocks are rewritten (the engine's _KVSwapper
+        enqueues the copy on the step's stream, ahead of the next step).
+        Each host slot starts at refcount 1."""
+        if not self.can_swap_out(request_id, num_tokens):
+            raise NoFreeBlocksError(
+                f"request {request_id!r}: cannot swap out "
+                f"{self.blocks_needed(num_tokens)} block(s) "
+                f"({len(self._host_free)} host slots free, "
+                f"pool={self.num_host_blocks})")
+        need = self.blocks_needed(num_tokens)
+        host = [self._claim_host() for _ in range(need)]
+        self._host_tables[request_id] = host
+        dev = self._tables.pop(request_id)
+        for b in dev:
+            self._release(b)
+        return dev, host
+
+    def can_swap_in(self, request_id: str) -> bool:
+        return (request_id in self._host_tables
+                and len(self._host_tables[request_id]) <= len(self._free))
+
+    def swap_in(self, request_id: str) -> Tuple[List[int], List[int]]:
+        """Trade host slots back for fresh device blocks (one per spilled
+        block). Returns ``(host_table, device_table)`` — the caller
+        copies host->device, after which the host refs are already
+        dropped. Raises on OOM (the scheduler re-tries next iteration)."""
+        host = self._host_tables.get(request_id)
+        if host is None:
+            raise KeyError(f"request {request_id!r} holds no host table")
+        if request_id in self._tables:
+            raise ValueError(
+                f"request {request_id!r} already holds a device table")
+        if len(host) > len(self._free):
+            raise NoFreeBlocksError(
+                f"request {request_id!r}: {len(host)} device block(s) "
+                f"needed to swap in, {len(self._free)} free")
+        dev = [self._claim() for _ in range(len(host))]
+        self._tables[request_id] = dev
+        self._host_tables.pop(request_id)
+        self._unref_host(host)
+        return host, dev
+
+    def free_host(self, request_id: str) -> int:
+        """Drop the request's host slots (abort while swapped)."""
+        host = self._host_tables.pop(request_id, None)
+        if host is None:
+            return 0
+        self._unref_host(host)
+        return len(host)
+
+    def _unref_host(self, slots: List[int]):
+        for s in slots:
+            n = self._host_refs.get(s, 0) - 1
+            if n <= 0:
+                self._host_refs.pop(s, None)
+                self._host_free.append(s)
+            else:
+                self._host_refs[s] = n
 
     # -- introspection (tests + metrics) ---------------------------------
     def check_invariants(self):
@@ -350,3 +471,24 @@ class BlockManager:
                 f"trie drift: block {b} does not map back to its key"
         assert not self._cow_pairs, \
             "pending COW pairs not drained before invariant check"
+        # host pool: same exact accounting as the device side — a slot
+        # appears across the swap tables exactly ``_host_refs[slot]``
+        # times
+        h_owned = [s for t in self._host_tables.values() for s in t]
+        assert len(h_owned) == len(set(h_owned)), \
+            "double-allocated host swap slot"
+        h_counts: Dict[int, int] = {}
+        for s in h_owned:
+            h_counts[s] = h_counts.get(s, 0) + 1
+        assert h_counts == self._host_refs, (
+            f"host refcount drift: tables imply {h_counts}, refs track "
+            f"{self._host_refs}")
+        assert len(h_counts) + len(self._host_free) == \
+            self.num_host_blocks, (
+                f"host slot leak: {len(h_counts)} owned + "
+                f"{len(self._host_free)} free != {self.num_host_blocks}")
+        h_both = set(h_counts) & set(self._host_free)
+        assert not h_both, \
+            f"host slots both owned and free: {sorted(h_both)}"
+        assert len(set(self._host_free)) == len(self._host_free), \
+            "duplicate slot in host free list"

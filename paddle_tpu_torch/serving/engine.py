@@ -1,15 +1,16 @@
 """LLMEngine — continuous-batching inference over a paged KV cache (port
-of ``paddle_tpu/serving/engine.py``, the ragged path).
+of ``paddle_tpu/serving/engine.py``, the one-card paths).
 
 * the KV cache is ONE stacked device tensor per K and V —
   ``(layers, num_blocks, block_size, kv_heads, head_dim)`` — allocated on
   the model's device in the model's dtype, indexed by per-request block
   tables from :class:`BlockManager`, and updated IN PLACE by each step;
-* every iteration is ONE ragged step: the scheduled rows of prefill
-  chunks and decode rows are packed into a (T,) token stream over S
-  sequence slots and run through ``model.forward_ragged``, whose
-  attention is the hand-written ragged paged attention kernel on the
-  card. T is a bucket of a fixed lattice, ``min_prefill_bucket * 2**i``
+* on the ragged path (the default for models exposing
+  ``forward_ragged``) every iteration is ONE ragged step: the scheduled
+  rows of prefill chunks and decode rows are packed into a (T,) token
+  stream over S sequence slots and run through ``model.forward_ragged``,
+  whose attention is the hand-written ragged paged attention kernel on
+  the card. T is a bucket of a fixed lattice, ``min_prefill_bucket * 2**i``
   capped at the token budget: the smallest that holds the step's
   tokens, the rest pad rows (id 0, past ``cu_seqlens[num_seqs]``, so
   they never reach the cache or attention). On the card each bucket's
@@ -40,16 +41,39 @@ of ``paddle_tpu/serving/engine.py``, the ragged path).
   not retried — it may have written part of the cache, and on the card
   an error inside a graph replay is sticky — and the engine aborts
   every request with structured outputs.
+* ``ragged=False`` is the bucketed path, for models without
+  ``forward_ragged``: classic prefill-xor-decode batches padded to
+  (B, S) buckets (``_batch_bucket``, ``_seq_bucket``) through
+  ``model.forward_paged``, whose attention is plain torch ops
+  (``block_multihead_attention``); on the card one graph per
+  ``(kind, B, S)`` key, so ``_seen_shapes`` holds the reference's keys.
 
-Not ported yet, refused at construction with the slice that brings
-them: the bucketed path (``ragged=False``), tensor parallelism, tiered
-KV, host swap (``num_host_blocks``), drain (``drain_grace_s``) and the
-step watchdog.
+Resilience:
+
+* **swap-based preemption** — ``swap_mode='host'`` spills an OOM
+  victim's KV blocks to a pinned host pool of ``num_host_blocks`` slots
+  (:class:`_KVSwapper`, an async device-to-host copy on the step's
+  stream) and restores them in place on re-admission, token-identical
+  to the recompute path;
+* **graceful drain** — :meth:`LLMEngine.install_preemption_handler`
+  wires SIGTERM into the step loop: a draining engine stops admitting,
+  aborts waiting/swapped requests with ``finish_reason='aborted:drain'``
+  and finishes the running batch within ``drain_grace_s``;
+* **the step watchdog** — ``step_timeout_s > 0`` times every dispatch
+  with a process-local :class:`~paddle_tpu_torch.distributed.watchdog.
+  StepWatchdog` (a key's first step, which captures its graph, gets
+  ``COMPILE_ALLOWANCE`` x the deadline): a step past its deadline fails
+  the engine with :class:`StepHungError` and structured outputs.
+
+Not ported yet, refused at construction with the item that brings them:
+tensor parallelism (C3) and tiered KV (C1).
 """
 from __future__ import annotations
 
 import itertools
+import threading
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -69,7 +93,7 @@ from paddle_tpu_torch.serving.scheduler import Scheduler, SchedulerConfig
 from paddle_tpu_torch.testing import faults
 
 __all__ = ["EngineConfig", "LLMEngine", "AdmissionController",
-           "EngineStepError", "token_buckets"]
+           "EngineStepError", "StepHungError", "token_buckets"]
 
 
 class EngineStepError(RuntimeError):
@@ -81,6 +105,14 @@ class EngineStepError(RuntimeError):
     def __init__(self, msg: str, outputs: List[RequestOutput]):
         super().__init__(msg)
         self.outputs = outputs
+
+
+class StepHungError(EngineStepError):
+    """The watchdog deadline passed while a dispatched step was still
+    incomplete on the device. Raised once the dispatch finally returns
+    (a slow-but-alive device); a truly hung device never returns — a
+    watchdog built without ``on_timeout`` exits the process for that
+    case."""
 
 
 @dataclass
@@ -115,6 +147,8 @@ class EngineConfig:
     ttft_slo_ms: Optional[float] = None
     draft_model: Optional[object] = None
     num_spec_tokens: int = 0
+    # drain: running requests get this long to finish after a drain
+    # starts; the watchdog's deadline per dispatch (0 = off)
     drain_grace_s: float = 30.0
     step_timeout_s: float = 0.0
     # bounded retry with exponential backoff on step failures, and the
@@ -153,34 +187,17 @@ class EngineConfig:
             raise ValueError(
                 "speculative decoding takes BOTH draft_model and "
                 "num_spec_tokens >= 1, or neither")
-        # what the port does not serve yet, named with the slice that
+        # what the port does not serve yet, named with the item that
         # brings it (ROADMAP.md, queue 1)
         later = []
-        if self.ragged is False:
-            later.append("ragged=False (the bucketed forward_paged path)")
         if self.tp_degree != 1:
-            later.append(f"tp_degree={self.tp_degree} (slice C: tensor "
-                         f"parallelism)")
+            later.append(f"tp_degree={self.tp_degree} (C3: tensor-"
+                         f"parallel serving, queue 1 item 5)")
         if self.kv_tiers is not None:
-            later.append("kv_tiers (the swap-and-tiers slice)")
-        if self.swap_mode != "recompute":
-            later.append(f"swap_mode={self.swap_mode!r} (the "
-                         f"swap-and-tiers slice)")
-        if self.num_host_blocks is not None:
-            later.append("num_host_blocks (the host swap pool, queue 1 "
-                         "item 2)")
-        if self.drain_grace_s != 30.0:
-            later.append("drain_grace_s (drain, queue 1 item 2)")
-        if self.step_timeout_s != 0:
-            later.append("step_timeout_s > 0 (the step watchdog, with "
-                         "the fleet slice)")
+            later.append("kv_tiers (C1: tiered KV, queue 1 item 4)")
         if later:
             raise ValueError("not ported to paddle_tpu_torch yet: "
                              + "; ".join(later))
-        if self.chunked_prefill is False:
-            raise ValueError(
-                "chunked_prefill rides the ragged step: a lone "
-                "over-budget prompt must chunk to fit the token budget")
         # max_num_seqs / max_batched_tokens validate in SchedulerConfig
 
 
@@ -231,6 +248,100 @@ def _to_int32(keys: torch.Tensor) -> torch.Tensor:
     return torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys).to(torch.int32)
 
 
+def _weak_method(method) -> Callable:
+    """A callable that forwards to ``method`` while its object lives (a
+    watchdog thread holding it must not keep an engine alive)."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        m = ref()
+        if m is not None:
+            return m(*args)
+
+    return call
+
+
+class _KVSwapper:
+    """Block mover for swap-based preemption between the stacked (L, NB,
+    BS, KH, D) device caches and the (L, num_host_blocks, BS, KH, D)
+    host pool (pinned on the card). It holds the tensors, not the
+    engine.
+
+    ``copy_out`` is ASYNC: it gathers the victim's blocks into a fresh
+    device buffer on the current stream — the one the step graphs replay
+    on, so the gather reads the bytes the last step wrote and precedes
+    the next step, which may reuse the freed blocks — then starts a
+    non-blocking copy into pinned staging and records an event. The
+    staging stays referenced until :meth:`fence` waits on the event and
+    lands it in the pool slots (a host-side scatter: an advanced-index
+    assignment from device memory would go through a synchronous
+    temporary). Insertion order makes a reused host slot's last writer
+    win. ``copy_in`` fences, then writes the device caches IN PLACE
+    (``index_copy_`` from pinned memory): the captured graphs hold the
+    caches' addresses. The fleet's ``gather``/``scatter`` come with C2."""
+
+    def __init__(self, kcs, vcs, host_k, host_v):
+        self._kcs, self._vcs = kcs, vcs
+        self._host_k, self._host_v = host_k, host_v
+        self._on_card = kcs.device.type == "cuda"
+        # request_id -> (host slot ids, K staging, V staging, event)
+        self._pending: Dict[str, tuple] = {}
+
+    def copy_out(self, request: Request, dev_table: List[int],
+                 host_table: List[int]):
+        # the device table may hold one more block than was written (a
+        # decode-step slot claimed before the eviction); spill only the
+        # blocks the host table covers
+        dev = torch.as_tensor(dev_table[:len(host_table)], dtype=torch.long,
+                              device=self._kcs.device)
+        staged, done = [], None
+        for cache in (self._kcs, self._vcs):
+            blocks = cache.index_select(1, dev)   # its own buffer
+            if self._on_card:
+                # the device buffer may go at once: the caching
+                # allocator reuses it only behind this copy, in stream
+                # order
+                stage = torch.empty(blocks.shape, dtype=blocks.dtype,
+                                    pin_memory=True)
+                stage.copy_(blocks, non_blocking=True)
+                blocks = stage
+            staged.append(blocks)
+        if self._on_card:
+            done = torch.cuda.Event()
+            done.record()
+        self._pending[request.request_id] = (list(host_table), *staged,
+                                             done)
+
+    def fence(self):
+        """Land every in-flight spill in the host pool (blocking). Runs
+        before any host slot is read back."""
+        for host, k, v, done in self._pending.values():
+            if done is not None:
+                done.synchronize()
+            idx = torch.as_tensor(host, dtype=torch.long)
+            self._host_k.index_copy_(1, idx, k)
+            self._host_v.index_copy_(1, idx, v)
+        self._pending.clear()
+
+    def copy_in(self, request: Request, host_table: List[int],
+                dev_table: List[int]):
+        self.fence()                # the spill may still be in flight
+        hidx = torch.as_tensor(host_table, dtype=torch.long)
+        didx = torch.as_tensor(dev_table, dtype=torch.long,
+                               device=self._kcs.device)
+        for cache, pool in ((self._kcs, self._host_k),
+                            (self._vcs, self._host_v)):
+            if self._on_card:
+                src = torch.empty((pool.shape[0], len(host_table))
+                                  + tuple(pool.shape[2:]),
+                                  dtype=pool.dtype, pin_memory=True)
+                torch.index_select(pool, 1, hidx, out=src)
+                src = src.to(cache.device, non_blocking=True)
+            else:
+                src = pool.index_select(1, hidx)
+            cache.index_copy_(1, didx, src)
+
+
 class LLMEngine:
     """Drive a :class:`~paddle_tpu_torch.models.llama.LlamaForCausalLM`
     as a continuously-batched token server on the model's device::
@@ -250,9 +361,6 @@ class LLMEngine:
         self.model = model
         self.cfg = config or EngineConfig()
         mcfg = model.config
-        if not hasattr(model, "forward_ragged"):
-            raise ValueError("the engine needs a model exposing "
-                             "forward_ragged")
         self.device = model.device
         if self.cfg.max_model_len is None:
             self.cfg.max_model_len = mcfg.max_position_embeddings
@@ -266,30 +374,48 @@ class LLMEngine:
         if self.cfg.num_blocks is None:
             self.cfg.num_blocks = (self.cfg.max_num_seqs *
                                    self.max_blocks_per_seq)
-        self.cfg.ragged = True
-        self.cfg.chunked_prefill = True
+        if self.cfg.num_host_blocks is None:
+            self.cfg.num_host_blocks = (
+                self.cfg.num_blocks if self.cfg.swap_mode == "host" else 0)
+
+        # -- path resolution (model-dependent, so not in EngineConfig):
+        # ragged auto-enables on models exposing forward_ragged; chunked
+        # prefill is inseparable from it, prefix caching defaults on
+        # with it; the bucketed path takes neither
+        if self.cfg.ragged is None:
+            self.cfg.ragged = hasattr(model, "forward_ragged")
+        elif self.cfg.ragged and not hasattr(model, "forward_ragged"):
+            raise ValueError(
+                "ragged=True needs a model exposing forward_ragged "
+                "(fall back to the bucketed path with ragged=False)")
+        if not self.cfg.ragged and not hasattr(model, "forward_paged"):
+            raise ValueError("the engine needs a model exposing "
+                             "forward_ragged or forward_paged")
+        if self.cfg.chunked_prefill is None:
+            self.cfg.chunked_prefill = self.cfg.ragged
         if self.cfg.prefix_cache is None:
-            self.cfg.prefix_cache = True
-        # the step widths; the widest, _ragged_T, is the most tokens one
-        # step may pack (the JAX engine's one compiled width)
+            self.cfg.prefix_cache = self.cfg.ragged
+        if self.cfg.chunked_prefill != self.cfg.ragged:
+            raise ValueError(
+                "chunked_prefill rides the ragged step: a lone "
+                "over-budget prompt must chunk to fit the token budget, "
+                "and the bucketed step cannot run a mid-prefill "
+                "continuation — set both or neither")
+        if self.cfg.prefix_cache and not self.cfg.ragged:
+            raise ValueError(
+                "prefix_cache needs the ragged path (the classic "
+                "scheduler never passes prompt tokens to allocate)")
+        self._ragged = bool(self.cfg.ragged)
+        # the ragged step widths; the widest, _ragged_T, is the most
+        # tokens one step may pack (the JAX engine's one compiled width)
         self.step_buckets = token_buckets(self.cfg)
         self._ragged_T = self.step_buckets[-1]
-        # ("ragged", T, S) keys stepped (on the card: captured)
+        # the step keys stepped (on the card: captured): ("ragged", T, S)
+        # on the ragged path, (kind, B, S) on the bucketed one
         self._seen_shapes: set = set()
         donate = self.cfg.donate_cache
         self._donated = (self.device.type != "cpu" if donate is None
                          else bool(donate))
-
-        self.block_manager = BlockManager(
-            self.cfg.num_blocks, self.cfg.block_size,
-            enable_prefix_cache=self.cfg.prefix_cache)
-        self.scheduler = Scheduler(
-            self.block_manager,
-            SchedulerConfig(max_num_seqs=self.cfg.max_num_seqs,
-                            max_batched_tokens=self._ragged_T))
-        self.admission = AdmissionController(
-            max_queue_depth=self.cfg.max_queue_depth,
-            ttft_slo_ms=self.cfg.ttft_slo_ms)
 
         # -- device caches: (L, NB, BS, KH, D) stacked per layer, in
         # cfg.dtype (default: the model's). Never reallocated: the
@@ -307,10 +433,45 @@ class LLMEngine:
                  self.cfg.block_size, kh, hd)
         self._kcs = torch.zeros(shape, dtype=cache_dtype, device=self.device)
         self._vcs = torch.zeros(shape, dtype=cache_dtype, device=self.device)
+        # host swap pool (L, num_host_blocks, BS, KH, D), allocated once:
+        # pinned on the card, so spills and restores are async copies
+        if self.cfg.num_host_blocks > 0:
+            hshape = (mcfg.num_hidden_layers, self.cfg.num_host_blocks,
+                      self.cfg.block_size, kh, hd)
+            pin = self.device.type == "cuda"
+            self._host_k = torch.zeros(hshape, dtype=cache_dtype,
+                                       pin_memory=pin)
+            self._host_v = torch.zeros(hshape, dtype=cache_dtype,
+                                       pin_memory=pin)
+        else:
+            self._host_k = self._host_v = None
+        self._swapper = _KVSwapper(self._kcs, self._vcs, self._host_k,
+                                   self._host_v)
         self._graphs = StepGraphs(self.device, counters=kernel_launches)
+
+        self.block_manager = BlockManager(
+            self.cfg.num_blocks, self.cfg.block_size,
+            num_host_blocks=self.cfg.num_host_blocks,
+            enable_prefix_cache=self.cfg.prefix_cache)
+        self.scheduler = Scheduler(
+            self.block_manager,
+            SchedulerConfig(max_num_seqs=self.cfg.max_num_seqs,
+                            max_batched_tokens=(
+                                self._ragged_T if self._ragged
+                                else self.cfg.max_batched_tokens),
+                            chunked_prefill=self.cfg.chunked_prefill),
+            swap_mode=self.cfg.swap_mode, kv_swapper=self._swapper)
+        self.admission = AdmissionController(
+            max_queue_depth=self.cfg.max_queue_depth,
+            ttft_slo_ms=self.cfg.ttft_slo_ms)
 
         # -- speculative-decoding resolution ----------------------------
         if self.cfg.draft_model is not None:
+            if not self._ragged:
+                raise ValueError(
+                    "speculative decoding rides the ragged step (verify "
+                    "rows are mid-context multi-token rows) — it cannot "
+                    "run with ragged=False")
             draft = self.cfg.draft_model
             dcfg = getattr(draft, "config", None)
             dv = getattr(dcfg, "vocab_size", None)
@@ -352,10 +513,31 @@ class LLMEngine:
         self.num_rejected = 0
         self.num_step_retries = 0
         self.num_poisoned_aborts = 0
+        self.num_drains_started = 0
+        self.num_drain_aborted = 0
+        self.num_drains_completed = 0
         # per-terminal-reason histogram (serving/finish/*)
         self.finish_counts: Dict[str, int] = {}
-        self._closed = False            # latched by a fatal step failure
+        self._draining = False
+        self._drain_reason: Optional[str] = None
+        self._drain_deadline: Optional[float] = None
+        self._preempt = None            # PreemptionMonitor once installed
         self._pending_outputs: List[RequestOutput] = []
+        # hung-step hand-off: the watchdog's monitor thread writes the
+        # tags, the dispatching thread swaps them out
+        self._hung_lock = threading.Lock()
+        self._hung_tags: Optional[str] = None
+        if self.cfg.step_timeout_s > 0:
+            from paddle_tpu_torch.distributed.watchdog import StepWatchdog
+
+            # process-local; its threads reach the engine through a
+            # weak reference only
+            self._watchdog = StepWatchdog(
+                timeout=self.cfg.step_timeout_s,
+                on_timeout=_weak_method(self._on_step_timeout),
+                broadcast_abort=False)
+        else:
+            self._watchdog = None
         self.metrics = ServingMetrics(self)
 
     # -- request lifecycle ----------------------------------------------
@@ -399,9 +581,10 @@ class LLMEngine:
         if rng_state is not None and rng_state.get("device_key") is not None:
             req.device_key = np.asarray(rng_state["device_key"], np.uint32)
         self._requests[request_id] = req
-        # admission control: a closed engine admits nothing; a live one
-        # consults the controller. Rejection is a structured output.
-        verdict = ("engine is closed after a step failure" if self._closed
+        # admission control: a draining (or failed) engine admits
+        # nothing; a live one consults the controller. Rejection is a
+        # structured output.
+        verdict = ("engine is draining" if self._draining
                    else self.admission.verdict(
                        self, prompt_tokens=len(prompt_ids)))
         if verdict is not None:
@@ -423,15 +606,104 @@ class LLMEngine:
             self.finish_counts[reason] = \
                 self.finish_counts.get(reason, 0) + 1
 
-    def _abort_running(self, reason: str) -> List[RequestOutput]:
-        """Terminal sweep of every live request (running AND queued) —
-        the step-failed path. All blocks are reclaimed; each request
-        gets a structured output."""
+    # -- graceful drain --------------------------------------------------
+    def install_preemption_handler(self, monitor=None):
+        """Wire SIGTERM into the step loop: once the (process-wide by
+        default) :class:`~paddle_tpu_torch.distributed.watchdog.
+        PreemptionMonitor` reports a notice, the next :meth:`step`
+        starts a drain. Pass a monitor to share one across engines (or
+        to inject a test one); must run on the main thread (the signal
+        module's rule). The caller uninstalls it (``monitor.uninstall()``)
+        when done."""
+        if monitor is None:
+            from paddle_tpu_torch.distributed.watchdog import (
+                preemption_monitor)
+
+            monitor = preemption_monitor()
+        monitor.install()
+        self._preempt = monitor
+        return monitor
+
+    @property
+    def is_draining(self) -> bool:
+        return self._draining
+
+    @property
+    def drained(self) -> bool:
+        """True once a drain ran to completion: nothing unfinished,
+        every request either completed or holds a structured abort."""
+        return self._draining and not self.scheduler.has_unfinished()
+
+    def start_drain(self, reason: str = "manual",
+                    grace_s: Optional[float] = None
+                    ) -> List[RequestOutput]:
+        """Begin a graceful drain: admission closes, every WAITING and
+        SWAPPED request aborts NOW with ``finish_reason='aborted:drain'``
+        (their structured outputs are returned), and the running batch
+        keeps stepping until done or until ``grace_s`` (default
+        ``drain_grace_s``) elapses — stragglers then abort the same
+        way. Idempotent."""
+        if self._draining:
+            return []
+        self._draining = True
+        self._drain_reason = reason
+        grace = self.cfg.drain_grace_s if grace_s is None else grace_s
+        self._drain_deadline = time.monotonic() + grace
+        self.num_drains_started += 1
         outs = []
-        for r in list(self.scheduler.running) + list(self.scheduler.waiting):
-            self.scheduler.abort(r.request_id, reason)
+        pending = list(self.scheduler.waiting) + list(self.scheduler.swapped)
+        for r in pending:
+            self.scheduler.abort(r.request_id, "aborted:drain")
+            self.num_drain_aborted += 1
             outs.append(self._terminal_output(r))
         return outs
+
+    def drain(self, grace_s: Optional[float] = None,
+              reason: str = "manual") -> List[RequestOutput]:
+        """``start_drain`` + step to completion. Returns every output
+        emitted during the drain (completions and aborts)."""
+        outs = self.start_drain(reason=reason, grace_s=grace_s)
+        while self.scheduler.has_unfinished():
+            outs.extend(self.step())
+        outs.extend(self._flush_pending())
+        return outs
+
+    def _abort_running(self, reason: str) -> List[RequestOutput]:
+        """Terminal sweep of every live request (running, waiting AND
+        swapped) — the grace-budget-expired / step-failed path. All
+        blocks and host slots are reclaimed; each request gets a
+        structured output. (The reference also parks a drained request's
+        blocks for the fleet's KV hand-off, which comes with C2.)"""
+        outs = []
+        live = (list(self.scheduler.running) + list(self.scheduler.waiting)
+                + list(self.scheduler.swapped))
+        for r in live:
+            self.scheduler.abort(r.request_id, reason)
+            if reason == "aborted:drain":
+                self.num_drain_aborted += 1
+            outs.append(self._terminal_output(r))
+        return outs
+
+    def _finish_drain(self):
+        if self._drain_deadline is not None:
+            self._drain_deadline = None
+            self.num_drains_completed += 1
+
+    def _fail_closed(self):
+        """Latch the engine shut after a fatal step failure: admission
+        closes (new requests get 'rejected' outputs, not a crash on the
+        next dispatch — a failed replay may have written part of the
+        caches), and no further drain bookkeeping runs."""
+        self._draining = True
+        self._drain_reason = "step-failure"
+        self._drain_deadline = None
+
+    def _on_step_timeout(self, expired):
+        """Watchdog thread callback: note the hang; the dispatching
+        thread surfaces it as StepHungError when (if) the step
+        completes."""
+        with self._hung_lock:
+            self._hung_tags = ", ".join(ent[0] for ent in expired)
 
     def _terminal_output(self, req: Request) -> RequestOutput:
         """Structured tokenless emission for an aborted/expired/rejected
@@ -474,13 +746,29 @@ class LLMEngine:
 
     # -- one engine iteration -------------------------------------------
     def step(self) -> List[RequestOutput]:
-        """Schedule + run ONE ragged iteration (decode and verify rows,
-        prefill chunks and new admissions packed together), sample the
+        """Schedule + run ONE iteration — on the ragged path decode and
+        verify rows, prefill chunks and new admissions packed together;
+        on the bucketed path a prefill or a decode batch — sample the
         tokens of every row that finished its prompt, retire finished
         requests. Returns this step's per-request outputs — sampled
         tokens plus any structured terminal emissions (expired,
-        rejected, poisoned)."""
+        rejected, drain-aborted, poisoned)."""
         outputs: List[RequestOutput] = self._flush_pending()
+
+        # preemption notice (SIGTERM / programmatic) -> drain
+        if self._preempt is not None and not self._draining \
+                and self._preempt.requested():
+            outputs.extend(self.start_drain("preemption"))
+        if self._draining:
+            if not self.scheduler.has_unfinished():
+                self._finish_drain()
+                return outputs
+            if time.monotonic() > self._drain_deadline:
+                # grace budget spent: the stragglers abort, structured
+                outputs.extend(self._abort_running("aborted:drain"))
+                self._finish_drain()
+                return outputs
+
         if self._spec is not None:
             self._propose_drafts()
         t0 = time.perf_counter()
@@ -488,17 +776,23 @@ class LLMEngine:
         outputs.extend(self._terminal_output(r) for r in batch.expired)
         self.num_expired += len(batch.expired)
         if batch.is_empty:
-            if self.scheduler.has_unfinished() and not batch.preempted:
+            if self.scheduler.has_unfinished() and not (
+                    batch.preempted or batch.swapped_in
+                    or self.scheduler.num_swapped):
                 raise RuntimeError(
                     "scheduler produced an empty batch with unfinished "
                     "requests — KV cache too small for any waiting "
                     "request (admission validation should prevent this)")
             return outputs
         reqs = batch.requests
-        n_run = list(batch.num_scheduled)
+        n_run = (list(batch.num_scheduled) if batch.num_scheduled
+                 else [len(r.tokens_to_run()) for r in reqs])
         T = int(sum(n_run))
-        key = ("ragged", self._bucket(T), self.cfg.max_num_seqs)
-        arrays = self._pack(reqs, n_run, key[1])
+        if self._ragged:
+            key = ("ragged", self._bucket(T), self.cfg.max_num_seqs)
+            arrays = self._pack(reqs, n_run, key[1])
+        else:
+            key, arrays = self._pack_paged(batch.kind, reqs, n_run)
 
         # copy-on-write block copies land before the step writes the
         # destination blocks
@@ -518,19 +812,28 @@ class LLMEngine:
         # non-finite-logits guard: abort ONLY the poisoned row(s); the
         # rest of the batch continues untouched
         poisoned = self._poisoned_rows(reqs, out_np[:, R + 3])
-        # a verify row costs 1 + its draft count but is one decode row
-        prompt_toks = sum(
-            min(n, max(len(r.prompt_ids) - r.num_cached, 0))
-            for r, n in zip(reqs, n_run))
-        decode_rows = sum(
-            1 for r, n in zip(reqs, n_run)
-            if n - len(r.draft_tokens) == 1 and r.num_generated > 0)
-        # padded_tokens counts attention-path padding; the bucket's pad
-        # rows never reach attention, as in the JAX engine's ragged step
-        self.metrics.record_step(
-            batch.kind, len(reqs), T, self.cfg.max_num_seqs,
-            time.perf_counter() - t0, padded_tokens=0,
-            prompt_tokens=prompt_toks, decode_rows=decode_rows)
+        if self._ragged:
+            # a verify row costs 1 + its draft count but is one decode
+            # row
+            prompt_toks = sum(
+                min(n, max(len(r.prompt_ids) - r.num_cached, 0))
+                for r, n in zip(reqs, n_run))
+            decode_rows = sum(
+                1 for r, n in zip(reqs, n_run)
+                if n - len(r.draft_tokens) == 1 and r.num_generated > 0)
+            # padded_tokens counts attention-path padding; the bucket's
+            # pad rows never reach attention, as in the JAX engine's
+            # ragged step
+            self.metrics.record_step(
+                batch.kind, len(reqs), T, self.cfg.max_num_seqs,
+                time.perf_counter() - t0, padded_tokens=0,
+                prompt_tokens=prompt_toks, decode_rows=decode_rows)
+        else:
+            # the (B, S) pack's padding reaches attention
+            self.metrics.record_step(
+                batch.kind, len(reqs), T, self.cfg.max_num_seqs,
+                time.perf_counter() - t0,
+                padded_tokens=key[1] * key[2] - T)
         # unpack the step's single host fetch: per row [tokens(R),
         # n_emit, key_hi, key_lo, finite]
         tokens_mat = out_np[:, :R]
@@ -595,11 +898,75 @@ class LLMEngine:
                 # speculative rollback: free the slots claimed for
                 # rejected (or post-EOS) draft tokens
                 self.block_manager.trim(r.request_id, len(r.tokens))
+        if self._draining and not self.scheduler.has_unfinished():
+            self._finish_drain()  # this step emptied the engine
         return outputs
 
     def _bucket(self, n: int) -> int:
-        """The smallest step bucket that holds ``n`` tokens."""
+        """The smallest ragged step bucket that holds ``n`` tokens."""
         return next(b for b in self.step_buckets if b >= n)
+
+    # -- bucketed padding -----------------------------------------------
+    def _batch_bucket(self, n: int) -> int:
+        b = 1
+        while b < n:
+            b *= 2
+        return min(b, self.cfg.max_num_seqs)
+
+    def _seq_bucket(self, n: int) -> int:
+        s = self.cfg.min_prefill_bucket
+        while s < n:
+            s *= 2
+        cap = cdiv(self.cfg.max_model_len, 8) * 8
+        return min(s, cap)
+
+    def _sampling_arrays(self, reqs, rows: int) -> tuple:
+        """Each slot's sampling state for the on-device sampler: keys,
+        knobs, and the draft rows under verification (``rows`` slots)."""
+        R = self._spec_R
+        skeys = np.zeros((rows, 2), np.int64)
+        stemp = np.zeros((rows,), np.float32)
+        stopk = np.zeros((rows,), np.int32)
+        stopp = np.ones((rows,), np.float32)
+        sdraft = np.zeros((rows, R - 1), np.int32)
+        sndraft = np.zeros((rows,), np.int32)
+        for i, r in enumerate(reqs):
+            skeys[i] = r.device_key
+            stemp[i] = r.sampling.temperature
+            stopk[i] = r.sampling.top_k
+            stopp[i] = r.sampling.top_p
+            d = len(r.draft_tokens)
+            if d:
+                sdraft[i, :d] = r.draft_tokens
+                sndraft[i] = d
+        return skeys, stemp, stopk, stopp, sdraft, sndraft
+
+    def _pack_paged(self, kind: str, reqs, n_run) -> tuple:
+        """The bucketed step's key ``(kind, B, S)`` and host arrays: a
+        prefill batch pads every row to the seq bucket of its longest,
+        a decode batch takes one token per row; rows pad to the batch
+        bucket. Per row: ids (B, S), the block table, the length
+        tensors (encoder: prefill length; decoder: cached prefix; this
+        time: real tokens), then the sampling state."""
+        is_prefill = kind == "prefill"
+        S = self._seq_bucket(max(n_run)) if is_prefill else 1
+        B = self._batch_bucket(len(reqs))
+        ids = np.zeros((B, S), np.int32)
+        enc = np.zeros((B,), np.int32)
+        dec = np.zeros((B,), np.int32)
+        now = np.zeros((B,), np.int32)
+        bt = np.full((B, self.max_blocks_per_seq), -1, np.int32)
+        for i, r in enumerate(reqs):
+            run = r.tokens_to_run()
+            ids[i, :len(run)] = run
+            now[i] = len(run)
+            if is_prefill:
+                enc[i] = len(run)
+            dec[i] = r.num_cached
+            table = self.block_manager.block_table(r.request_id)
+            bt[i, :len(table)] = table
+        return (kind, B, S), (ids, bt, enc, dec, now,
+                              *self._sampling_arrays(reqs, B))
 
     def _pack(self, reqs, n_run, T: int) -> tuple:
         """The step's host arrays at width ``T`` (at least
@@ -608,17 +975,11 @@ class LLMEngine:
         cu_seqlens deltas; rows past ``cu[len(reqs)]`` are pad rows of id
         0 — then each slot's sampling state for the on-device sampler:
         keys, knobs, and the draft rows under verification."""
-        S, R = self.cfg.max_num_seqs, self._spec_R
+        S = self.cfg.max_num_seqs
         ids = np.zeros((T,), np.int32)
         cu = np.zeros((S + 1,), np.int32)
         ctx = np.zeros((S,), np.int32)
         bt = np.full((S, self.max_blocks_per_seq), -1, np.int32)
-        skeys = np.zeros((S, 2), np.int64)
-        stemp = np.zeros((S,), np.float32)
-        stopk = np.zeros((S,), np.int32)
-        stopp = np.ones((S,), np.float32)
-        sdraft = np.zeros((S, R - 1), np.int32)
-        sndraft = np.zeros((S,), np.int32)
         off = 0
         for i, r in enumerate(reqs):
             n = n_run[i]
@@ -633,17 +994,9 @@ class LLMEngine:
             ctx[i] = r.num_cached + n
             table = self.block_manager.block_table(r.request_id)
             bt[i, :len(table)] = table
-            skeys[i] = r.device_key
-            stemp[i] = r.sampling.temperature
-            stopk[i] = r.sampling.top_k
-            stopp[i] = r.sampling.top_p
-            d = len(r.draft_tokens)
-            if d:
-                sdraft[i, :d] = r.draft_tokens
-                sndraft[i] = d
         cu[len(reqs) + 1:] = off
         return (ids, bt, cu, ctx, np.asarray([len(reqs)], np.int32),
-                skeys, stemp, stopk, stopp, sdraft, sndraft)
+                *self._sampling_arrays(reqs, S))
 
     def _propose_drafts(self):
         """One draft-model pass proposing ``num_spec_tokens`` greedy
@@ -689,22 +1042,28 @@ class LLMEngine:
         self._kcs[:, dst] = self._kcs[:, src]
         self._vcs[:, dst] = self._vcs[:, src]
 
-    def _device_step(self, ids, bt, cu, ctx, nseq, skeys, stemp, stopk,
-                     stopp, sdraft, sndraft):
+    def _device_step(self, *arrays):
         """The model forward + on-device sampling (rejection-sampling
         verify where draft rows ride along), on the tensors of
-        :meth:`_pack`'s arrays. Returns the packed (S, R+4) int32 tensor
-        and the (S, R, V) logit rows the sampler read, on the device.
-        This is the function each bucket's graph captures: no host
-        synchronisation, inputs read only, the caches written in
+        :meth:`_pack`'s arrays (ragged: ids, bt, cu, ctx, nseq) or
+        :meth:`_pack_paged`'s (bucketed: ids, bt, enc, dec, now), each
+        followed by the six sampling arrays. Returns the packed (S, R+4)
+        int32 tensor and the (S, R, V) logit rows the sampler read, on
+        the device. This is the function each key's graph captures: no
+        host synchronisation, inputs read only, the caches written in
         place."""
-        if self._spec_R > 1:
+        ids, bt, a, b, c = arrays[:5]
+        skeys, stemp, stopk, stopp, sdraft, sndraft = arrays[5:]
+        if not self._ragged:
+            logits, _, _ = self.model.forward_paged(
+                ids, self._kcs, self._vcs, bt, a, b, c)
+            lg3 = logits[:, None, :]
+        elif self._spec_R > 1:
             lg3, _, _ = self.model.forward_ragged_multi(
-                ids, self._kcs, self._vcs, bt, cu, ctx, nseq,
-                self._spec_R)
+                ids, self._kcs, self._vcs, bt, a, b, c, self._spec_R)
         else:
             logits, _, _ = self.model.forward_ragged(
-                ids, self._kcs, self._vcs, bt, cu, ctx, nseq)
+                ids, self._kcs, self._vcs, bt, a, b, c)
             lg3 = logits[:, None, :]
         finite = torch.isfinite(lg3).all(dim=-1).all(dim=-1)
         toks, n_emit, nkeys = sample_or_verify(
@@ -714,45 +1073,94 @@ class LLMEngine:
             finite.to(torch.int32)[:, None]], dim=1)
         return packed, lg3
 
+    def _step_done(self):
+        """What the watchdog waits on: a CUDA event recorded after the
+        step on its stream; None on the CPU, where the step is done when
+        its call returns."""
+        if self.device.type != "cuda":
+            return None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return done
+
     def _dispatch(self, reqs, key, arrays) -> np.ndarray:
-        """Run the step of bucket ``key`` on ``arrays`` (:meth:`_pack`)
-        with bounded retry-with-backoff on failures, and fetch its one
-        packed host view: ``(len(reqs), R+4)`` int32 rows of
-        ``[tokens(R), n_emit, key_hi, key_lo, finite]``.
+        """Run the step of ``key`` on ``arrays`` under the fault-isolation
+        envelope — the watchdog armed before the dispatch (a key's first
+        step, which captures its graph on the card, gets
+        ``COMPILE_ALLOWANCE`` x the deadline), bounded retry-with-backoff
+        on failures — and fetch its one packed host view: ``(len(reqs),
+        R+4)`` int32 rows of ``[tokens(R), n_emit, key_hi, key_lo,
+        finite]``.
 
         The KV writes of a step are idempotent (the same rows land in
         the same slots), so a retry after a partial step is exact. A
         failure with donated caches, or past the retry budget, aborts
         EVERY live request with ``finish_reason='aborted:error'``
         structured outputs, closes the engine to admission, and raises
-        :class:`EngineStepError` carrying them."""
+        :class:`EngineStepError` carrying them; a step that outlived the
+        watchdog's deadline does the same with :class:`StepHungError`
+        once it returns."""
+        wd = self._watchdog
+        if self._ragged:
+            tag = f"serving.ragged[T={key[1]},S={key[2]}]"
+        else:
+            tag = f"serving.{key[0]}[B={key[1]},S={key[2]}]"
+        cold = key not in self._seen_shapes
         attempt = 0
         while True:
+            eid = 0
             try:
-                faults.fire(faults.SERVING_STEP)  # slow/raise point
+                # arm BEFORE anything that can block: a hang may happen
+                # inside the dispatch call itself
+                if wd is not None:
+                    from paddle_tpu_torch.distributed.watchdog import (
+                        COMPILE_ALLOWANCE)
+
+                    eid = wd.arm(tag, factor=COMPILE_ALLOWANCE if cold
+                                 else 1.0)
+                faults.fire(faults.SERVING_STEP)  # slow/raise/sigterm point
                 with torch.no_grad():
                     packed, _ = self._graphs.run(key, self._device_step,
                                                  arrays)
+                if wd is not None:
+                    wd.attach(eid, self._step_done())
                 # the step's whole host boundary: one int32 row per slot
                 out = self._graphs.fetch(packed[:len(reqs)])
-                self._seen_shapes.add(key)
-                return out
             except Exception as e:
+                if wd is not None:
+                    wd.disarm(eid)
                 if self._donated or attempt >= self.cfg.max_step_retries:
                     why = ("donated caches make a failed step "
                            "non-retryable" if self._donated else
                            f"retry budget ({self.cfg.max_step_retries}) "
                            f"exhausted")
                     outs = self._abort_running("aborted:error")
-                    self._closed = True
+                    self._fail_closed()
                     raise EngineStepError(
-                        f"serving step {key} failed ({why}): {e!r} — "
+                        f"serving step {tag} failed ({why}): {e!r} — "
                         f"engine drained, {len(outs)} request(s) aborted "
                         f"with structured outputs", outs) from e
                 attempt += 1
                 self.num_step_retries += 1
                 time.sleep(self.cfg.step_retry_backoff_s
                            * (2 ** (attempt - 1)))
+                continue
+            break
+        self._seen_shapes.add(key)
+        with self._hung_lock:
+            tags, self._hung_tags = self._hung_tags, None
+        if tags is not None:
+            # the deadline fired while this (eventually completed) step
+            # was in flight: the device is unhealthy-slow; fail the
+            # engine with drain semantics rather than serve SLO-less
+            outs = self._abort_running("aborted:error")
+            self._fail_closed()
+            raise StepHungError(
+                f"serving step(s) [{tags}] exceeded the "
+                f"{self.cfg.step_timeout_s}s watchdog deadline — engine "
+                f"drained, {len(outs)} request(s) aborted with "
+                f"structured outputs", outs)
+        return out
 
     def _poisoned_rows(self, reqs, finite_np) -> set:
         """Row indices whose logits are non-finite (or deterministically

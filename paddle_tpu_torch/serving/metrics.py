@@ -8,8 +8,8 @@ Exposed two ways:
 * snapshot — :meth:`ServingMetrics.snapshot` returns one dict.
 
 Copied from the JAX package's ``serving/metrics.py``; the gauges of
-paths not yet ported (swap, drain, fleet, tiers) are left out, and so
-are those paths' finish reasons.
+paths not yet ported (fleet, tiers) are left out, and so is the fleet's
+finish reason.
 
 TTFT (time-to-first-token) and TPOT (time-per-output-token, a.k.a.
 inter-token latency) follow the standard serving definitions: TTFT is
@@ -45,8 +45,10 @@ class ServingMetrics:
     GAUGES = ("queue_depth", "num_running", "num_waiting",
               "kv_block_utilization", "tokens_per_sec", "ttft_ms_avg",
               "tpot_ms_avg", "preemptions", "batch_occupancy",
-              # resilience: lifetime engine counters
-              "expired", "rejected", "step_retries", "poisoned_aborts",
+              # resilience: lifetime engine/scheduler counters
+              "num_swapped", "swapped_out", "swapped_in", "expired",
+              "rejected", "step_retries", "poisoned_aborts",
+              "drain_started", "drain_aborted", "drain_completed",
               # ragged hot path: attention-path padding waste plus
               # prefix-cache, copy-on-write, and chunked-prefill traffic
               "padded_token_frac", "prefix_cache_hits",
@@ -64,10 +66,16 @@ class ServingMetrics:
     # gauges read straight off the engine/scheduler (they outlive
     # reset_metrics, like `preemptions` always has)
     _ENGINE_GAUGES = {
+        "num_swapped": lambda eng: eng.scheduler.num_swapped,
+        "swapped_out": lambda eng: eng.scheduler.num_swap_outs,
+        "swapped_in": lambda eng: eng.scheduler.num_swap_ins,
         "expired": lambda eng: eng.num_expired,
         "rejected": lambda eng: eng.num_rejected,
         "step_retries": lambda eng: eng.num_step_retries,
         "poisoned_aborts": lambda eng: eng.num_poisoned_aborts,
+        "drain_started": lambda eng: eng.num_drains_started,
+        "drain_aborted": lambda eng: eng.num_drain_aborted,
+        "drain_completed": lambda eng: eng.num_drains_completed,
         "prefix_cache_hits": lambda eng: eng.block_manager.num_prefix_hits,
         "prefix_cache_hit_tokens":
             lambda eng: eng.block_manager.num_prefix_hit_tokens,
@@ -218,9 +226,11 @@ class ServingMetrics:
                 "kv_block_utilization": round(
                     eng.block_manager.utilization(), 4),
                 "kv_blocks_total": eng.block_manager.num_blocks,
+                "kv_host_blocks_total": eng.block_manager.num_host_blocks,
             })
-            # resilience + ragged-path counters: TTL expiry, admission
-            # rejects, step retries, poisoned-row aborts, prefix cache
+            # resilience + ragged-path counters: swap traffic, TTL
+            # expiry, admission rejects, step retries, poisoned-row
+            # aborts, drain lifecycle, prefix cache
             out.update({f"serving_{name}": int(get(eng))
                         for name, get in self._ENGINE_GAUGES.items()})
             # the one float engine gauge (kept out of the int() wrap)

@@ -5,7 +5,8 @@ Reference capability: the AnalysisPredictor request lifecycle
 Orca/vLLM continuous-batching model: a request is admitted, prefilled
 once, then produces one token per engine iteration until EOS/max-token
 completion — and may be preempted back to WAITING when the paged KV
-cache runs out of blocks (recompute-on-readmission)."""
+cache runs out of blocks: back to WAITING for recompute, or SWAPPED with
+its KV spilled to the host pool and restored on re-admission."""
 from __future__ import annotations
 
 import time
@@ -68,6 +69,7 @@ class SamplingParams:
 class RequestStatus(Enum):
     WAITING = "waiting"      # queued (new, or preempted for recompute)
     RUNNING = "running"      # KV cached; decoding one token per step
+    SWAPPED = "swapped"      # preempted with KV spilled to the host pool
     FINISHED = "finished"    # done — see Request.finish_reason for how
 
 
@@ -77,12 +79,12 @@ class RequestStatus(Enum):
 #   "expired"           deadline_ms TTL passed before completion
 #   "rejected"          admission controller refused it (never scheduled)
 #   "aborted:user"      abort_request() cancellation
+#   "aborted:drain"     engine drained (SIGTERM/preemption) before it ran
 #   "aborted:nonfinite" its logits went NaN/Inf (batch peers continue)
 #   "aborted:error"     engine step failed past the retry budget
-# (the JAX package's drain and fleet-lease reasons come with the slices
-# that port those paths)
+# (the JAX package's fleet-lease reason comes with the fleet, C2)
 FINISH_REASONS = ("stop", "length", "expired", "rejected", "aborted:user",
-                  "aborted:nonfinite", "aborted:error")
+                  "aborted:drain", "aborted:nonfinite", "aborted:error")
 
 
 @dataclass
@@ -104,6 +106,7 @@ class Request:
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     num_preemptions: int = 0
+    num_swaps: int = 0
     finish_reason: Optional[str] = None
     # True once the scheduler ever split this request's prefill into
     # budget-sized chunks (sticky; drives the prefill_chunks metric)
@@ -194,9 +197,23 @@ class Request:
         self.num_preemptions += 1
         self.draft_tokens = []
 
+    def swap_out(self):
+        """Preemption by host spill: device blocks freed, their contents
+        parked in the BlockManager's host pool. ``num_cached`` is KEPT —
+        for a SWAPPED request it counts tokens whose K/V live in host
+        slots; swap-in restores them and the request resumes decoding
+        with no recompute."""
+        self.status = RequestStatus.SWAPPED
+        self.num_preemptions += 1
+        self.num_swaps += 1
+        self.draft_tokens = []
+
+    def swap_in(self):
+        self.status = RequestStatus.RUNNING
+
     def abort(self, reason: str):
-        """Terminal, without a sampled token: expiry, rejection, user
-        cancel, poisoned logits, step failure."""
+        """Terminal, without a sampled token: drain, expiry, rejection,
+        user cancel, poisoned logits, step failure."""
         self.status = RequestStatus.FINISHED
         self.finish_reason = reason
         if self.finish_time is None:

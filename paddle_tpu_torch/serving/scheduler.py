@@ -1,35 +1,47 @@
 """Iteration-level (continuous-batching) scheduler, adapted from the JAX
-package's ``serving/scheduler.py``: its mixed, chunked-prefill policy
-(``_schedule_mixed``), which is the one the ragged engine step runs.
+package's ``serving/scheduler.py``.
 
 Orca's insight, as shipped by vLLM: scheduling decisions happen every
-model iteration, not per request. Each call to :meth:`schedule` packs
-one MIXED batch under a raw token budget — decode rows first, then
-in-flight prefill chunks, then new admissions whose prompts are chunked
-to the budget — so late-arriving requests join the running batch at the
-next iteration boundary instead of waiting for a full drain.
+model iteration, not per request. Two policies:
+
+* chunked prefill (``SchedulerConfig.chunked_prefill``, the ragged engine
+  step): each :meth:`Scheduler.schedule` packs one MIXED batch under a
+  raw token budget — decode rows first, then in-flight prefill chunks,
+  then new admissions whose prompts are chunked to the budget — so
+  late-arriving requests join the running batch at the next iteration
+  boundary instead of waiting for a full drain;
+* classic (the bucketed ``forward_paged`` step): either a PREFILL batch
+  (waiting requests admitted whole under a padded-token budget and the
+  free-block supply) or a DECODE batch (one token for every running
+  request).
 
 Preemption: when a row needs a block and none are free, the
 lowest-priority running request (largest ``(priority, arrival)`` key)
 is evicted — never a higher-priority one — until the victim set frees
-enough. The victim is reset to WAITING and recomputes its whole prefix
-on re-admission (vLLM's default). Priority-then-FCFS admission plus
-eviction-from-the-back gives the most important request a monotonically
-growing claim on the cache, so every admitted request eventually
-finishes.
+enough. Priority-then-FCFS admission plus eviction-from-the-back gives
+the most important request a monotonically growing claim on the cache,
+so every admitted request eventually finishes.
+
+Eviction has two modes (``swap_mode``): ``recompute`` resets the victim
+to WAITING and recomputes its whole prefix on re-admission (vLLM's
+default); ``host`` spills the victim's KV blocks to the
+:class:`BlockManager` host pool through the engine's KV swapper and
+restores them on re-admission — no recompute, token-identical by
+construction. A torn spill copy, or a full host pool, falls back to
+recompute.
 
 Deadlines: every :meth:`schedule` call first expires requests whose
-``deadline_ms`` TTL has passed — waiting or running — freeing their
-blocks and reporting them in ``ScheduledBatch.expired`` so the engine
-can emit structured ``finish_reason='expired'`` outputs.
+``deadline_ms`` TTL has passed — wherever they are (waiting, running,
+swapped) — freeing their blocks and reporting them in
+``ScheduledBatch.expired`` so the engine can emit structured
+``finish_reason='expired'`` outputs.
 
-Speculative verify rows ride pass A: a decode row carrying ``d`` draft
-tokens costs ``1 + d`` and claims their slots, or sheds its drafts when
-the budget cannot take them all.
+Speculative verify rows ride pass A of the mixed policy: a decode row
+carrying ``d`` draft tokens costs ``1 + d`` and claims their slots, or
+sheds its drafts when the budget cannot take them all.
 
-The JAX package's classic prefill-xor-decode policy, host swap, tier
-relief and KV-ship continuations are left out: the engine refuses the
-configurations that would need them."""
+The JAX package's tier relief (C1) reduces to its no-tier case here, and
+its KV-ship continuations (C2) are left out."""
 from __future__ import annotations
 
 import time
@@ -50,35 +62,47 @@ class SchedulerConfig:
 
     ``max_num_seqs``   — max concurrently RUNNING requests (rows of a
                          batch).
-    ``max_batched_tokens`` — per-iteration RAW token budget (the ragged
-                         step pads nothing, so the raw token count is
-                         the work).
+    ``max_batched_tokens`` — per-iteration token budget: RAW tokens with
+                         ``chunked_prefill`` (the ragged step pads
+                         nothing), PADDED tokens of a classic prefill
+                         batch (rows x longest row admitted, since the
+                         bucketed step pads every row to the longest).
+    ``chunked_prefill`` — the mixed policy (the ragged engine step); off:
+                         the classic prefill-xor-decode policy.
     """
 
     max_num_seqs: int = 8
     max_batched_tokens: int = 2048
+    chunked_prefill: bool = False
 
     def __post_init__(self):
         if self.max_num_seqs < 1:
             raise ValueError("max_num_seqs must be >= 1")
-        if self.max_batched_tokens < self.max_num_seqs:
+        if self.max_batched_tokens < 1:
+            raise ValueError("max_batched_tokens must be >= 1")
+        if self.chunked_prefill and \
+                self.max_batched_tokens < self.max_num_seqs:
             raise ValueError(
-                "max_batched_tokens must be >= max_num_seqs (every "
-                "running row must afford its decode token)")
+                "chunked_prefill needs max_batched_tokens >= max_num_seqs "
+                "(every running row must afford its decode token)")
 
 
 @dataclass
 class ScheduledBatch:
-    """One iteration's work: rows, the tokens scheduled for each
-    (parallel to ``requests``), and the batch kind. ``preempted`` lists
-    requests evicted while forming this batch (reset to WAITING for
-    recompute); ``expired`` lists requests whose deadline passed
-    (already terminal, blocks freed — the engine emits their
-    outputs)."""
+    """One iteration's work: rows, and the batch kind. ``num_scheduled``
+    (mixed policy) gives the tokens scheduled for each row, parallel to
+    ``requests``; empty for the classic policy, where each row runs its
+    whole ``tokens_to_run()``. ``preempted`` lists requests evicted while
+    forming this batch (reset to WAITING for recompute, or SWAPPED to the
+    host pool); ``swapped_in`` lists requests restored from the host pool
+    into ``running`` this iteration; ``expired`` lists requests whose
+    deadline passed (already terminal, blocks freed — the engine emits
+    their outputs)."""
 
     kind: str                       # "prefill" | "decode" | "mixed" | "idle"
     requests: List[Request] = field(default_factory=list)
     preempted: List[Request] = field(default_factory=list)
+    swapped_in: List[Request] = field(default_factory=list)
     expired: List[Request] = field(default_factory=list)
     num_scheduled: List[int] = field(default_factory=list)
 
@@ -89,12 +113,29 @@ class ScheduledBatch:
 
 class Scheduler:
     def __init__(self, block_manager: BlockManager,
-                 config: Optional[SchedulerConfig] = None):
+                 config: Optional[SchedulerConfig] = None,
+                 swap_mode: str = "recompute", kv_swapper=None):
+        """``swap_mode='host'`` needs a ``kv_swapper`` — the engine-side
+        mover with ``copy_out(request, dev_table, host_table)`` /
+        ``copy_in(request, host_table, dev_table)`` — plus a
+        BlockManager built with ``num_host_blocks > 0``. When the host
+        pool is full (or absent) eviction falls back to recompute, so
+        ``host`` mode degrades gracefully rather than deadlocking."""
+        if swap_mode not in ("recompute", "host"):
+            raise ValueError(f"unknown swap_mode {swap_mode!r} "
+                             f"(want 'recompute' or 'host')")
+        if swap_mode == "host" and kv_swapper is None:
+            raise ValueError("swap_mode='host' needs a kv_swapper")
         self.block_manager = block_manager
         self.config = config or SchedulerConfig()
+        self.swap_mode = swap_mode
+        self.kv_swapper = kv_swapper
         self.waiting: Deque[Request] = deque()
         self.running: List[Request] = []
+        self.swapped: List[Request] = []
         self.num_preemptions = 0
+        self.num_swap_outs = 0
+        self.num_swap_ins = 0
         # pieces scheduled for prompts the budget ever split (every
         # piece of a split prompt counts, including the final one)
         self.num_prefill_chunks = 0
@@ -105,7 +146,7 @@ class Scheduler:
         self.waiting.append(request)
 
     def has_unfinished(self) -> bool:
-        return bool(self.waiting or self.running)
+        return bool(self.waiting or self.running or self.swapped)
 
     @property
     def num_waiting(self) -> int:
@@ -122,6 +163,10 @@ class Scheduler:
     def num_running(self) -> int:
         return len(self.running)
 
+    @property
+    def num_swapped(self) -> int:
+        return len(self.swapped)
+
     def finish(self, request: Request):
         """Completion: reclaim blocks, drop from the running set."""
         self.block_manager.free(request.request_id)
@@ -129,9 +174,9 @@ class Scheduler:
             self.running.remove(request)
 
     def abort(self, request_id: str, reason: str = "aborted:user") -> bool:
-        """Cancel a request wherever it is — waiting or running (its
-        blocks freed); True when found."""
-        for q in (self.running, self.waiting):
+        """Cancel a request wherever it is — waiting, running, or
+        swapped (device blocks AND host slots freed); True when found."""
+        for q in (self.running, self.waiting, self.swapped):
             for r in list(q):
                 if r.request_id == request_id:
                     self.block_manager.free(r.request_id)
@@ -143,11 +188,11 @@ class Scheduler:
     def expire_deadlines(self, now: Optional[float] = None
                          ) -> List[Request]:
         """TTL sweep: terminate every request whose deadline passed,
-        on every lifecycle queue, freeing its blocks. Returns the
+        on every lifecycle queue, freeing its blocks/slots. Returns the
         expired requests (engine emits their structured outputs)."""
         now = time.monotonic() if now is None else now
         out: List[Request] = []
-        for q in (self.running, self.waiting):
+        for q in (self.running, self.waiting, self.swapped):
             for r in list(q):
                 if r.expired(now):
                     self.block_manager.free(r.request_id)
@@ -158,15 +203,40 @@ class Scheduler:
 
     # -- preemption ------------------------------------------------------
     def _evict(self, victim: Request):
-        """Evict ``victim`` from the running set: every block returns to
-        the free list and the victim goes to the FRONT of the waiting
-        queue for recompute, so it is not starved behind newer
-        arrivals."""
+        """Evict ``victim`` from the running set: spill its KV to the
+        host pool when swap is enabled and slots are available (the
+        cached prefix survives, restore is a pure copy), else reset to
+        WAITING — at the FRONT of the queue, so it is not starved behind
+        newer arrivals — for recompute. Either way every device block
+        returns to the free list before this returns."""
         self.running.remove(victim)
         self.num_preemptions += 1
-        self.block_manager.free(victim.request_id)
-        victim.preempt()
-        self.waiting.appendleft(victim)
+        if (self.swap_mode == "host" and victim.num_cached > 0
+                and self.block_manager.can_swap_out(victim.request_id,
+                                                    victim.num_cached)):
+            dev, host = self.block_manager.swap_out(victim.request_id,
+                                                    victim.num_cached)
+            # copy NOW: the freed device blocks' bytes are intact until
+            # the next step writes them, and nothing dispatches before
+            # schedule() returns (the copy is enqueued on the step's
+            # stream, ahead of that step)
+            try:
+                self.kv_swapper.copy_out(victim, dev, host)
+                victim.swap_out()
+            except Exception:
+                # a torn spill copy must not strand the host slots:
+                # drop them and demote to the recompute path (nothing
+                # was emitted, so the prompt replays exactly)
+                self.block_manager.free_host(victim.request_id)
+                victim.preempt()
+                self.waiting.appendleft(victim)
+                return
+            self.swapped.append(victim)
+            self.num_swap_outs += 1
+        else:
+            self.block_manager.free(victim.request_id)
+            victim.preempt()
+            self.waiting.appendleft(victim)
 
     def _preempt_one(self, for_request: Request) -> Optional[Request]:
         """Evict the lowest-priority running request — largest
@@ -183,8 +253,111 @@ class Scheduler:
         self._evict(victim)
         return victim
 
+    def _swap_in_ready(self) -> List[Request]:
+        """Restore swapped requests (most important first) while device
+        blocks allow; they rejoin ``running`` and decode this very
+        iteration."""
+        restored: List[Request] = []
+        for r in sorted(self.swapped, key=lambda r: r.sort_key):
+            if len(self.running) + len(restored) >= self.config.max_num_seqs:
+                break
+            if not self.block_manager.can_swap_in(r.request_id):
+                break  # device blocks free up as others finish
+            host, dev = self.block_manager.swap_in(r.request_id)
+            self.kv_swapper.copy_in(r, host, dev)
+            self.swapped.remove(r)
+            r.swap_in()
+            restored.append(r)
+            self.num_swap_ins += 1
+        self.running.extend(restored)
+        return restored
+
     # -- the per-iteration decision --------------------------------------
     def schedule(self) -> ScheduledBatch:
+        """Phase 0 — the TTL sweep, then restore swapped requests while
+        blocks allow (they already consumed compute; finishing them
+        frees host AND device memory fastest). Then one batch of the
+        configured policy."""
+        expired = self.expire_deadlines()
+        swapped_in = self._swap_in_ready()
+        if self.config.chunked_prefill:
+            return self._schedule_mixed(expired, swapped_in)
+        return self._schedule_classic(expired, swapped_in)
+
+    def _schedule_classic(self, expired: List[Request],
+                          swapped_in: List[Request]) -> ScheduledBatch:
+        """Phase 1 — admit waiting requests (priority, then FCFS) when
+        capacity allows. A request is admitted only when its FULL
+        uncached prefix fits the token budget and the free-block supply;
+        admission claims the blocks immediately so the batch can't
+        oversubscribe. Head-of-line: the first blocked candidate ends
+        admission, so a starved high-priority request is never
+        overtaken. Phase 2 (no prefill formed) — decode: one token for
+        every running request; an OOM on slot growth evicts the
+        least-important running request (possibly the request itself)."""
+        prefills: List[Request] = []
+        batch_max = 0  # longest row admitted -> the padded row width
+        for req in sorted(self.waiting, key=lambda r: r.sort_key):
+            need = len(req.tokens_to_run())
+            if len(self.running) + len(prefills) >= self.config.max_num_seqs:
+                break
+            # budget the PADDED batch (rows x longest row): the engine
+            # pads every row to the longest
+            padded = (len(prefills) + 1) * max(batch_max, need)
+            if prefills and padded > self.config.max_batched_tokens:
+                break  # batch full; this request leads the next one
+            # (a lone over-budget prompt is still admitted, alone —
+            # rejecting it forever would starve it)
+            if not self.block_manager.can_allocate(need):
+                break  # blocks free up as running requests finish
+            self.block_manager.allocate(req.request_id, need)
+            req.status = RequestStatus.RUNNING
+            prefills.append(req)
+            batch_max = max(batch_max, need)
+        if prefills:
+            admitted = set(id(r) for r in prefills)
+            self.waiting = deque(r for r in self.waiting
+                                 if id(r) not in admitted)
+            self.running.extend(prefills)
+            return ScheduledBatch(kind="prefill", requests=prefills,
+                                  swapped_in=swapped_in, expired=expired)
+
+        preempted: List[Request] = []
+        decodes: List[Request] = []
+        for req in sorted(self.running, key=lambda r: r.sort_key):
+            if req not in self.running:
+                continue  # evicted while a less important one ran
+            # this step computes K/V for tokens[-1] at position
+            # len(tokens)-1, so coverage of len(tokens) slots is exact
+            got_slot = False
+            while True:
+                try:
+                    self.block_manager.append_slot(req.request_id,
+                                                   len(req.tokens))
+                    got_slot = True
+                    break
+                except NoFreeBlocksError:
+                    victim = self._preempt_one(req)
+                    if victim is None:
+                        break  # nothing left to evict but req itself
+                    preempted.append(victim)
+                    if victim in decodes:
+                        # a more important request lost its slot too
+                        decodes.remove(victim)
+            if got_slot:
+                decodes.append(req)
+            else:
+                self._evict(req)
+                preempted.append(req)
+        if decodes:
+            return ScheduledBatch(kind="decode", requests=decodes,
+                                  preempted=preempted,
+                                  swapped_in=swapped_in, expired=expired)
+        return ScheduledBatch(kind="idle", preempted=preempted,
+                              swapped_in=swapped_in, expired=expired)
+
+    def _schedule_mixed(self, expired: List[Request],
+                        swapped_in: List[Request]) -> ScheduledBatch:
         """One MIXED batch under a raw token budget: (A) decode rows
         first — one token each, bounding TPOT; (B) mid-prefill rows
         continue with whatever budget remains, chunked; (C) new
@@ -192,7 +365,6 @@ class Scheduler:
         from the prefix cache where full prompt blocks match). Each pass
         runs the same evict-lowest-priority OOM loop, so the starvation
         guard holds throughout."""
-        expired = self.expire_deadlines()
         bm = self.block_manager
         budget = self.config.max_batched_tokens
         rows: List[Request] = []
@@ -311,9 +483,9 @@ class Scheduler:
 
         if not rows:
             return ScheduledBatch(kind="idle", preempted=preempted,
-                                  expired=expired)
+                                  swapped_in=swapped_in, expired=expired)
         kind = ("mixed" if (any_prefill and any_decode)
                 else "prefill" if any_prefill else "decode")
         return ScheduledBatch(kind=kind, requests=rows,
-                              preempted=preempted, expired=expired,
-                              num_scheduled=nsched)
+                              preempted=preempted, swapped_in=swapped_in,
+                              expired=expired, num_scheduled=nsched)

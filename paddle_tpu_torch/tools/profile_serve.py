@@ -1,17 +1,21 @@
 """Where a serving step's time goes on the card.
 
-    python -m paddle_tpu_torch.tools.profile_serve [--spec] [--out DIR]
+    python -m paddle_tpu_torch.tools.profile_serve [--spec | --bucketed]
+        [--out DIR]
 
 Serves the configuration of ``chip_smoke.py`` phase 4
 (:mod:`paddle_tpu_torch.tools.llama3_8b_serve`: Llama-3-8B at full width
 and depth, 8 requests, 32 new tokens each), or with ``--spec`` that of
 phase 9 (:mod:`paddle_tpu_torch.tools.llama3_8b_spec_serve`: the same
 with a Llama-3.2-1B-width draft proposing 4 tokens per decode row, whose
-proposals fall inside each decode step), and profiles two windows with
-``torch.profiler``: the first step (a 2048-token prefill) and 4 steps
-once every request decodes. Each step replays the CUDA graph of its
-token bucket (the warm-up captured the buckets these windows take), and
-the draft's proposals replay theirs. For each window it prints one JSON
+proposals fall inside each decode step), or with ``--bucketed`` phase
+4's model and workload through the bucketed path (``ragged=False``,
+``chip_smoke.py`` phase 13; warmed up by serving the workload once, so
+every ``(kind, B, S)`` key is captured), and profiles two windows with
+``torch.profiler``: the first step (a prefill: 2048 tokens, or 2 x 1024
+padded on the bucketed path) and 4 steps once every request decodes.
+Each step replays the CUDA graph of its bucket (the warm-up captured the
+buckets these windows take), and the draft's proposals replay theirs. For each window it prints one JSON
 line: host wall time per step, device kernels run per step (those inside
 graph replays included, as the profiler reports them), graph launches
 per step, device busy time (the sum of kernel times; overlapping kernels
@@ -100,19 +104,34 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="directory for the full profiler tables")
-    ap.add_argument("--spec", action="store_true",
-                    help="profile the speculative configuration")
+    kind = ap.add_mutually_exclusive_group()
+    kind.add_argument("--spec", action="store_true",
+                      help="profile the speculative configuration")
+    kind.add_argument("--bucketed", action="store_true",
+                      help="profile the bucketed path (ragged=False)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: no CUDA device")
 
+    from paddle_tpu_torch.serving import EngineConfig, LLMEngine
     from paddle_tpu_torch.tools import llama3_8b_serve, llama3_8b_spec_serve
 
-    cfg = llama3_8b_spec_serve if args.spec else llama3_8b_serve
-    eng = cfg.build_engine(torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    if args.bucketed:
+        eng = LLMEngine(llama3_8b_serve.target_model(dev),
+                        EngineConfig(**llama3_8b_serve.ENGINE,
+                                     ragged=False))
+        rids, _ = llama3_8b_serve.add_requests(eng)   # the warm-up
+        eng.run()
+        for rid in rids:
+            eng.release_request(rid)
+        eng.reset_metrics()
+    else:
+        cfg = llama3_8b_spec_serve if args.spec else llama3_8b_serve
+        eng = cfg.build_engine(dev)
     _, lens = llama3_8b_serve.add_requests(eng)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "spec": args.spec,
+                      "spec": args.spec, "bucketed": args.bucketed,
                       "prompt_lens": [int(x) for x in lens]}), flush=True)
     _window(eng, 1, "prefill", args.out)
     while any(r.num_generated == 0 for r in eng.scheduler.running) \

@@ -11,18 +11,24 @@
   tolerance applies);
 * :func:`record_step_sizes` and :func:`bucket_keys` — the step keys a
   run's step sizes round up to, which ``LLMEngine._seen_shapes`` must
-  equal.
+  equal;
+* :class:`SwapCheck` — wraps an engine's KV swapper from outside (no
+  hook in the engine): the bytes of every block restored from the host
+  pool against the bytes spilled, bit for bit, and the host wall time of
+  each spill, fence and restore.
 
 The first two start from the engine's caches as they are, and put them
 back.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 __all__ = ["padding_is_inert", "replay_matches_eager", "record_step_sizes",
-           "bucket_keys"]
+           "bucket_keys", "SwapCheck"]
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -101,3 +107,59 @@ def bucket_keys(eng, sizes) -> set:
     """The ``("ragged", T, S)`` keys of steps of ``sizes`` tokens: each
     at the engine's bucket for it."""
     return {("ragged", eng._bucket(n), eng.cfg.max_num_seqs) for n in sizes}
+
+
+class SwapCheck:
+    """Wrap ``eng._swapper``'s ``copy_out``, ``fence`` and ``copy_in``
+    (instance attributes over its methods; :meth:`close` takes them
+    away). At each spill, a device copy of the victim's blocks as the
+    cache holds them — enqueued on the step's stream ahead of the spill,
+    so no synchronisation — and at each restore, the restored blocks
+    against it, bit for bit. Records the host wall ms of every call
+    (``copy_in``'s includes its ``fence``), the bytes spilled, and the
+    restores that differed (``mismatches``, request ids)."""
+
+    def __init__(self, eng):
+        self._sw = sw = eng._swapper
+        kcs, vcs = eng._kcs, eng._vcs
+        self.ms = {"copy_out": [], "fence": [], "copy_in": []}
+        self.spilled_bytes = 0
+        self.restored = 0
+        self.mismatches = []
+        pending = {}
+        copy_out, fence, copy_in = sw.copy_out, sw.fence, sw.copy_in
+
+        def timed(name, fn, *args):
+            t = time.perf_counter()
+            fn(*args)
+            self.ms[name].append((time.perf_counter() - t) * 1e3)
+
+        def checked_out(request, dev_table, host_table):
+            dev = torch.as_tensor(dev_table[:len(host_table)],
+                                  device=kcs.device)
+            want = (kcs[:, dev].clone(), vcs[:, dev].clone())
+            timed("copy_out", copy_out, request, dev_table, host_table)
+            pending[request.request_id] = want
+            self.spilled_bytes += sum(t.numel() * t.element_size()
+                                      for t in want)
+
+        def checked_in(request, host_table, dev_table):
+            timed("copy_in", copy_in, request, host_table, dev_table)
+            dev = torch.as_tensor(dev_table, device=kcs.device)
+            want = pending.pop(request.request_id)
+            got = (kcs[:, dev], vcs[:, dev])
+            if not all(torch.equal(_bits(a), _bits(b))
+                       for a, b in zip(want, got)):
+                self.mismatches.append(request.request_id)
+            self.restored += 1
+
+        sw.copy_out = checked_out
+        sw.fence = lambda: timed("fence", fence)
+        sw.copy_in = checked_in
+
+    def close(self):
+        """Unwrap the swapper (the wrappers and the swapper refer to each
+        other)."""
+        for name in ("copy_out", "fence", "copy_in"):
+            self._sw.__dict__.pop(name, None)
+        self._sw = None

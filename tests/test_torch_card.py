@@ -13,7 +13,12 @@ head dims, dtypes, Sq != Sk and ragged tails, and three tiny training
 steps on the card against the CPU. A bf16 call launches the tensor-core
 kernels only (the libraries count launches by route). The threefry
 stream and the speculative sampler give the CPU's bits and tokens on the
-card, and the tiny speculative engine serves the CPU's tokens and keys."""
+card, and the tiny speculative engine serves the CPU's tokens and keys.
+The resilience paths: a host swap restores the spilled bytes bit for bit
+with the caches where they were, a capture with the step watchdog armed
+is neither invalidated nor falsely fired, the bucketed step's replay
+equals its eager step, and the tiny swap, drain, bucketed and generate
+runs serve the CPU's tokens."""
 import numpy as np
 import pytest
 import torch
@@ -383,7 +388,7 @@ def test_tiny_spec_engine_card_matches_cpu(card):
 # --------------------------------------------------------------------------
 # the serving step as captured CUDA graphs
 # --------------------------------------------------------------------------
-def _graph_engine(card, dtype):
+def _graph_engine(card, dtype, **kw):
     """The tiny model in ``dtype`` behind an engine on the card (block 4,
     4 sequences, a 16-token budget: buckets 8 and 16), with a recorder of
     the first step's arrays at each bucket (``eng.first_arrays``)."""
@@ -395,7 +400,7 @@ def _graph_engine(card, dtype):
     model.init_weights(torch.Generator(device=card).manual_seed(0))
     eng = LLMEngine(model, EngineConfig(
         block_size=4, max_num_seqs=4, max_model_len=64,
-        max_batched_tokens=16))
+        max_batched_tokens=16, **kw))
     eng.first_arrays = {}
     dispatch = eng._dispatch
 
@@ -529,3 +534,118 @@ def test_capture_runs_with_the_collector_off(card):
     assert len(seen) == 2 and seen[1] == (False, True), seen
     assert gc.isenabled()
     np.testing.assert_array_equal(graphs.fetch(out), np.arange(4) * 2.0)
+
+
+# --------------------------------------------------------------------------
+# one-card resilience: host swap, the watchdog, the bucketed step
+# --------------------------------------------------------------------------
+def _tiny_card_engine(card, dtype="bfloat16", **kw):
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import EngineConfig, LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype=dtype), device=card)
+    model.init_weights(torch.Generator(device=card).manual_seed(0))
+    kw.setdefault("block_size", 4)
+    kw.setdefault("max_num_seqs", 4)
+    kw.setdefault("max_model_len", 32)
+    return LLMEngine(model, EngineConfig(**kw))
+
+
+def _swap_workload(eng):
+    from paddle_tpu_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(15)
+    return eng.generate([list(map(int, rng.integers(0, 256, size=n)))
+                         for n in (6, 8, 5, 7)],
+                        SamplingParams(max_new_tokens=8))
+
+
+@pytest.mark.gpu
+def test_swap_round_trip_is_bit_exact_in_place(card):
+    """On a cache too small for the batch: every block restored from the
+    pinned host pool holds the spilled bytes bit for bit, the caches
+    keep their addresses (the captured graphs hold them), and the tokens
+    equal the recompute run's."""
+    from paddle_tpu_torch.tools.step_checks import SwapCheck
+
+    eng = _tiny_card_engine(card, num_blocks=10, swap_mode="host")
+    assert eng._host_k.is_pinned() and eng._host_v.is_pinned()
+    held = {"kcs": eng._kcs, "vcs": eng._vcs}
+    addr = {k: t.data_ptr() for k, t in held.items()}
+    check = SwapCheck(eng)
+    tokens = _swap_workload(eng)
+    check.close()
+    torch.cuda.synchronize()
+    assert eng.scheduler.num_swap_outs > 0
+    assert check.restored == eng.scheduler.num_swap_ins \
+        == eng.scheduler.num_swap_outs
+    assert not check.mismatches, check.mismatches
+    assert {k: t.data_ptr() for k, t in held.items()} == addr
+    assert eng._kcs is held["kcs"] and eng._vcs is held["vcs"]
+    assert eng.block_manager.num_free_host_blocks == eng.cfg.num_host_blocks
+    recompute = _tiny_card_engine(card, num_blocks=10)
+    assert _swap_workload(recompute) == tokens
+
+
+@pytest.mark.gpu
+def test_capture_with_the_watchdog_armed(card):
+    """A whole workload with ``step_timeout_s`` set, every bucket captured
+    fresh while the watchdog's threads wait on earlier steps' events:
+    no false alarm, no invalidated capture (each bucket's replay equals
+    its eager step), and the tokens equal an unwatched engine's."""
+    from paddle_tpu_torch.tools.step_checks import replay_matches_eager
+
+    eng = _graph_engine(card, "bfloat16", step_timeout_s=2.0)
+    plain = _graph_engine(card, "bfloat16")
+    _graph_workload(eng)
+    _graph_workload(plain)
+    assert eng._watchdog._prober is not None and not eng._watchdog.fired
+    assert set(eng._graphs.keys) == eng._seen_shapes
+    assert len(eng._seen_shapes) >= 2
+    for rid in ("g0", "g1", "g2", "g3"):
+        assert eng.get_request(rid).generated == \
+            plain.get_request(rid).generated
+    for key, arrays in eng.first_arrays.items():
+        res = replay_matches_eager(eng, key, arrays)
+        assert all(res.values()), (key, res)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bucketed_replay_matches_eager_step(card, dtype):
+    """The bucketed path (``ragged=False``): one graph per ``(kind, B,
+    S)`` key, its replay bit-identical to an eager ``_device_step`` on
+    the same buffers at a prefill and a decode key; no K1 launch."""
+    from paddle_tpu_torch.serving import SamplingParams
+    from paddle_tpu_torch.tools.step_checks import replay_matches_eager
+
+    eng = _tiny_card_engine(card, dtype, ragged=False, max_model_len=64,
+                            max_batched_tokens=32)
+    first = {}
+    dispatch = eng._dispatch
+
+    def recording(reqs, key, arrays):
+        first.setdefault(key, [a.copy() for a in arrays])
+        return dispatch(reqs, key, arrays)
+
+    eng._dispatch = recording
+    before = rpa.launches
+    for i, n in enumerate((13, 3, 9, 14)):
+        eng.add_request(f"p{i}", list(range(1 + i, 1 + i + n)),
+                        SamplingParams(max_new_tokens=6))
+    eng.run()
+    assert rpa.launches == before
+    assert set(eng._graphs.keys) == eng._seen_shapes == set(first)
+    assert {k[0] for k in first} == {"prefill", "decode"}
+    for key, arrays in first.items():
+        res = replay_matches_eager(eng, key, arrays)
+        assert all(res.values()), (key, res)
+
+
+@pytest.mark.gpu
+def test_tiny_resilience_card_matches_cpu(card):
+    from paddle_tpu_torch.tools import tiny_resilience_parity
+
+    res = tiny_resilience_parity.run(card)
+    assert res["cpu_identical"]

@@ -27,6 +27,14 @@ _MODULES = [
     "paddle_tpu_torch.tools.llama3_8b_serve",
     "paddle_tpu_torch.tools.llama3_8b_spec_serve",
     "paddle_tpu_torch.tools.tiny_spec_parity",
+    "paddle_tpu_torch.distributed", "paddle_tpu_torch.distributed.watchdog",
+    "paddle_tpu_torch.serving.engine", "paddle_tpu_torch.serving.scheduler",
+    "paddle_tpu_torch.serving.block_manager",
+    "paddle_tpu_torch.serving.metrics", "paddle_tpu_torch.serving.request",
+    "paddle_tpu_torch.incubate.nn.functional.block_attention",
+    "paddle_tpu_torch.tools.tiny_resilience_parity",
+    "paddle_tpu_torch.tools.step_checks",
+    "paddle_tpu_torch.tools.flash_check_draws",
 ]
 
 

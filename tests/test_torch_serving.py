@@ -3,11 +3,13 @@
 Token streams of the port's ``LLMEngine`` (CPU, plain attention) must
 equal the JAX ragged engine's on the scenarios of
 ``tests/test_serving_ragged.py``: a chunked mixed workload, preemption,
-and prefix-cache copy-on-write. The weights are the JAX tiny model's,
-carried across with ``llama_state_from_jax``. Greedy and sampled rows
-alike: both packages draw from the same threefry streams. A randomized
-storm of ``BlockManager``/``Scheduler`` operations drives both packages
-and must give identical decisions and free lists."""
+and prefix-cache copy-on-write; and the JAX bucketed engine's
+(``ragged=False``) on a mixed workload, with the same ``(kind, B, S)``
+step keys. The weights are the JAX tiny model's, carried across with
+``llama_state_from_jax``. Greedy and sampled rows alike: both packages
+draw from the same threefry streams. A randomized storm of
+``BlockManager``/``Scheduler`` operations (host swap included) drives
+both packages and must give identical decisions and free lists."""
 import numpy as np
 import pytest
 import torch
@@ -50,11 +52,12 @@ def _prompts(seed, vocab, lens):
     return [list(map(int, rng.integers(0, vocab, size=n))) for n in lens]
 
 
-def _knobs(**kw):
+def _knobs(ragged=True, **kw):
     kw.setdefault("block_size", 4)
     kw.setdefault("max_num_seqs", 4)
     kw.setdefault("max_model_len", 64)
-    return dict(ragged=True, chunked_prefill=True, prefix_cache=True, **kw)
+    return dict(ragged=ragged, chunked_prefill=ragged, prefix_cache=ragged,
+                **kw)
 
 
 def _serve(eng, sp_cls, prompts, samplings):
@@ -76,10 +79,14 @@ def _both(models, prompts, samplings, **cfg_kw):
     sizes = record_step_sizes(te)
     out = (je, _serve(je, JSamplingParams, prompts, samplings),
            te, _serve(te, SamplingParams, prompts, samplings))
-    # the port steps at the lattice buckets its step sizes round up to;
-    # the JAX engine compiles one shape, its whole budget
-    assert te._seen_shapes == bucket_keys(te, sizes)
-    assert len(je._seen_shapes) == 1
+    if te.cfg.ragged:
+        # the port steps at the lattice buckets its step sizes round up
+        # to; the JAX engine compiles one shape, its whole budget
+        assert te._seen_shapes == bucket_keys(te, sizes)
+        assert len(je._seen_shapes) == 1
+    else:
+        # the bucketed path: the same (kind, B, S) keys
+        assert te._seen_shapes == je._seen_shapes
     return out
 
 
@@ -171,6 +178,31 @@ def test_prefix_cache_hit_cap_and_cow_keep_parity(models):
     assert bm.num_free_blocks == engines["torch"].cfg.num_blocks
 
 
+def test_bucketed_mixed_workload_parity(models):
+    """``ragged=False``: classic prefill-xor-decode batches padded to
+    (B, S) buckets through ``forward_paged``. Greedy and sampled
+    streams, the ``(kind, B, S)`` keys (checked in ``_both``), the
+    padding fraction and the step and preemption counts equal the JAX
+    bucketed engine's; a cache too small for the batch forces
+    preemption on the way."""
+    prompts = _prompts(32, 256, [29, 3, 22, 6, 11, 4])
+    sps = [dict(max_new_tokens=6),
+           dict(max_new_tokens=5, temperature=0.8, seed=3),
+           dict(max_new_tokens=6), dict(max_new_tokens=4),
+           dict(max_new_tokens=7, temperature=1.0, top_k=20),
+           dict(max_new_tokens=6, temperature=0.7, top_p=0.9)]
+    je, outs_j, te, outs_t = _both(models, prompts, sps, ragged=False,
+                                   num_blocks=14, max_batched_tokens=32)
+    assert outs_t == outs_j
+    assert {k[0] for k in te._seen_shapes} == {"prefill", "decode"}
+    snap_t, snap_j = te.metrics.snapshot(), je.metrics.snapshot()
+    for k in ("padded_token_frac", "engine_steps", "prefill_steps",
+              "decode_steps", "preemptions", "serving_sampled_steps"):
+        assert snap_t[k] == snap_j[k], k
+    assert snap_t["padded_token_frac"] > 0 and snap_t["preemptions"] > 0
+    assert te.block_manager.num_free_blocks == te.cfg.num_blocks
+
+
 def test_nonfinite_guard_aborts_only_the_poisoned_row(models):
     from paddle_tpu_torch.testing import faults
 
@@ -187,14 +219,30 @@ def test_nonfinite_guard_aborts_only_the_poisoned_row(models):
     assert eng.block_manager.num_free_blocks == eng.cfg.num_blocks
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("ragged", False), ("tp_degree", 2), ("kv_tiers", True),
-    ("swap_mode", "host"), ("step_timeout_s", 1.0),
-    ("drain_grace_s", 5.0), ("num_host_blocks", 4), ("tenant_id", "t1")])
-def test_unported_configurations_raise(knob, value):
+@pytest.mark.parametrize("knob,value,item", [
+    ("tp_degree", 2, "C3"), ("kv_tiers", True, "C1"),
+    ("tenant_id", "t1", "item 6")])
+def test_unported_configurations_raise(knob, value, item):
+    """What the port does not serve yet raises at construction, naming
+    the queue item that brings it."""
     cls = SamplingParams if knob == "tenant_id" else EngineConfig
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match=f"not ported.*{item}"):
         cls(**{knob: value})
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("ragged", False), ("swap_mode", "host"), ("step_timeout_s", 1.0),
+    ("drain_grace_s", 5.0), ("num_host_blocks", 4)])
+def test_resilience_configurations_construct_and_serve(models, knob, value):
+    """The knobs this slice ports construct an engine that serves the
+    JAX engine's greedy tokens."""
+    prompts = _prompts(31, 256, [7, 5, 9])
+    sps = [dict(max_new_tokens=4)] * 3
+    kw = ({"ragged": False} if knob == "ragged" else {knob: value})
+    je, outs_j, te, outs_t = _both(models, prompts, sps, **kw)
+    assert outs_t == outs_j
+    assert getattr(te.cfg, knob) == getattr(je.cfg, knob) == value
+    assert te.block_manager.num_free_blocks == te.cfg.num_blocks
 
 
 def test_reference_config_fields_are_taken_and_validated():
@@ -243,8 +291,8 @@ def test_min_prefill_bucket_floors_the_lattice(models):
 def test_spec_configurations_raise_as_jax(models, case, match):
     """The speculative knobs are refused where the JAX engine refuses
     them: draft model and num_spec_tokens come both or neither, k >= 0,
-    the ragged step only (the port refuses ragged=False altogether), and
-    one tokenizer width for draft and target."""
+    the ragged step only (not with ragged=False), and one tokenizer
+    width for draft and target."""
     jm, tm = models
     narrow = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
                   num_hidden_layers=2, num_attention_heads=4,
@@ -271,22 +319,34 @@ def test_spec_configurations_raise_as_jax(models, case, match):
 # ---------------------------------------------------------------------------
 def _bm_state(bm):
     return (list(bm._free), {k: list(v) for k, v in bm._tables.items()},
-            dict(bm._refs), bm.num_cow_copies, bm.num_prefix_hits)
+            dict(bm._refs), bm.num_cow_copies, bm.num_prefix_hits,
+            list(bm._host_free),
+            {k: list(v) for k, v in bm._host_tables.items()},
+            dict(bm._host_refs))
 
 
-@pytest.mark.parametrize("seed,spec", [
-    (0, False), (1, False), (2, False), (0, True), (1, True), (2, True)],
-    ids=["0", "1", "2", "spec-0", "spec-1", "spec-2"])
-def test_block_manager_storm_identical(seed, spec):
+@pytest.mark.parametrize("seed,mode", [
+    (0, "plain"), (1, "plain"), (2, "plain"), (0, "spec"), (1, "spec"),
+    (2, "spec"), (0, "swap"), (1, "swap"), (2, "swap")],
+    ids=["0", "1", "2", "spec-0", "spec-1", "spec-2", "swap-0", "swap-1",
+         "swap-2"])
+def test_block_manager_storm_identical(seed, mode):
     """Allocations, growth, commits and frees, COW landings: identical
     results, tables and free lists in both packages. With ``spec`` the
     growth is a verify row instead: 1+d slots claimed, then a trim to the
-    accepted length (the speculative rollback)."""
+    accepted length (the speculative rollback). With ``swap`` it is a
+    swap-out of a live request's covered tokens to an 8-slot host pool
+    or a swap-in of a swapped one, and frees strike swapped requests
+    too: host tables, refcounts and host free lists identical as well."""
+    spec, swap = mode == "spec", mode == "swap"
     rng = np.random.default_rng(seed)
-    jb = JBlockManager(24, 4, enable_prefix_cache=True)
-    tb = BlockManager(24, 4, enable_prefix_cache=True)
-    prefixes = _prompts(seed + (200 if spec else 100), 5, [8, 12])
-    live = {}
+    nhb = 8 if swap else 0
+    jb = JBlockManager(24, 4, num_host_blocks=nhb, enable_prefix_cache=True)
+    tb = BlockManager(24, 4, num_host_blocks=nhb, enable_prefix_cache=True)
+    prefixes = _prompts(seed + {"plain": 100, "spec": 200, "swap": 300}[mode],
+                        5, [8, 12])
+    live, swapped = {}, {}
+    n_swaps = 0
     for step in range(300):
         op = rng.integers(0, 4)
         if op == 0 or not live:                       # allocate
@@ -303,6 +363,26 @@ def test_block_manager_storm_identical(seed, spec):
             assert res[0] == res[1]
             if res[0] != "oom":
                 live[rid] = toks
+        elif op == 1 and swap:                        # swap out or in
+            if swapped and rng.random() < 0.5:
+                rid = sorted(swapped)[int(rng.integers(0, len(swapped)))]
+                can = [bm.can_swap_in(rid) for bm in (jb, tb)]
+                assert can[0] == can[1]
+                if can[0]:
+                    res = [bm.swap_in(rid) for bm in (jb, tb)]
+                    assert res[0] == res[1]
+                    live[rid] = swapped.pop(rid)
+            else:
+                rid = sorted(live)[int(rng.integers(0, len(live)))]
+                n = int(rng.integers(1, len(live[rid]) + 1))
+                can = [bm.can_swap_out(rid, n) for bm in (jb, tb)]
+                assert can[0] == can[1]
+                if can[0]:
+                    res = [bm.swap_out(rid, n) for bm in (jb, tb)]
+                    assert res[0] == res[1]
+                    # only the first n tokens' blocks come back
+                    swapped[rid] = live.pop(rid)[:n]
+                    n_swaps += 1
         elif op == 1 and spec:                        # verify + rollback
             rid = sorted(live)[int(rng.integers(0, len(live)))]
             n = len(live[rid])
@@ -329,16 +409,19 @@ def test_block_manager_storm_identical(seed, spec):
                     res.append("oom")
             assert res[0] == res[1]
         elif op == 2:                                 # commit + free
-            rid = sorted(live)[int(rng.integers(0, len(live)))]
-            toks = live.pop(rid)
+            pool = sorted(live) + sorted(swapped)
+            rid = pool[int(rng.integers(0, len(pool)))]
+            toks = live.pop(rid, None) or swapped.pop(rid)
             for bm in (jb, tb):
                 bm.commit_prefix(rid, toks, len(toks))
-                bm.free(rid)
+                assert bm.free(rid) >= 0
         else:                                         # land COW copies
             assert jb.take_cow_pairs() == tb.take_cow_pairs()
         assert _bm_state(jb) == _bm_state(tb)
     if spec:
         assert tb.trim("nobody", 3) == jb.trim("nobody", 3) == 0
+    if swap:
+        assert n_swaps > 0, "the storm never swapped"
     jb.take_cow_pairs()
     tb.take_cow_pairs()
     tb.check_invariants()
@@ -362,8 +445,8 @@ def test_scheduler_storm_identical(seed, spec):
              JSchedulerConfig(max_num_seqs=4, max_batched_tokens=12,
                               chunked_prefill=True), JRequest),
             (BlockManager, Scheduler,
-             SchedulerConfig(max_num_seqs=4, max_batched_tokens=12),
-             Request)):
+             SchedulerConfig(max_num_seqs=4, max_batched_tokens=12,
+                             chunked_prefill=True), Request)):
         bm = bm_cls(20, 4, enable_prefix_cache=True)
         sides.append((bm, sched_cls(bm, cfg), req_cls, {}))
     arrival = 0.0
