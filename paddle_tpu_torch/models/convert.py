@@ -1,5 +1,5 @@
 """Weights and optimizer state across frameworks: the JAX Llama's state
-dict and AdamW slots -> the port's."""
+dict, AdamW slots and optimizer ``state_dict`` -> the port's."""
 from __future__ import annotations
 
 from typing import Dict, Mapping
@@ -7,7 +7,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["llama_state_from_jax", "optimizer_slots_from_jax"]
+__all__ = ["llama_state_from_jax", "optimizer_slots_from_jax",
+           "optimizer_state_from_jax"]
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -72,3 +73,39 @@ def optimizer_slots_from_jax(np_slots: Mapping[str, Mapping[str, np.ndarray]],
             k: _to_tensor(_torch_layout(name, v)).to(p.device)
             for k, v in slots.items()}
     optimizer._step_count = int(step)
+
+
+def optimizer_state_from_jax(jax_state: Mapping, model: torch.nn.Module
+                             ) -> dict:
+    """Turn a JAX optimizer's ``state_dict()`` (over the JAX
+    ``LlamaForCausalLM``'s ``parameters()``) into one for the port's
+    ``Optimizer.set_state_dict`` over ``model.parameters()``, in the same
+    order. ``step`` and ``LR_Scheduler`` carry over as they are. A slot
+    key is ``<name>.<slot>``: the JAX package names a parameter with an
+    automatic name ``param_<position>``, which the port's optimizer over
+    bare tensors does too, so the key stays; a name of the model's
+    (``named_parameters``) is kept as well. Each slot keeps its dtype;
+    Linear slots are transposed like the weights (``[in, out]`` ->
+    ``[out, in]``). Values may be JAX ``Tensor``s or numpy arrays."""
+    names = [n for n, _ in model.named_parameters()]
+    out = {}
+    for key, val in jax_state.items():
+        if key in ("step", "LR_Scheduler"):
+            out[key] = val
+            continue
+        pname, _, slot = key.rpartition(".")
+        if pname.startswith("param_"):
+            pos = int(pname[len("param_"):].split("__")[0])
+            layout_name = names[pos]
+        elif pname in names:
+            layout_name = pname
+        else:
+            raise KeyError(f"{key}: no parameter of the port's model is "
+                           f"named {pname!r}")
+        arr = np.asarray(val.numpy() if hasattr(val, "numpy") else val)
+        if slot == "ys":   # ASGD's window: [n, *param shape]
+            arr = np.stack([_torch_layout(layout_name, a) for a in arr])
+        else:
+            arr = _torch_layout(layout_name, arr)
+        out[key] = _to_tensor(arr)
+    return out

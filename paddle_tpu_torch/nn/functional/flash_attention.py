@@ -17,11 +17,13 @@ from typing import Optional
 
 import torch
 
+from paddle_tpu_torch.core.op import op
 from paddle_tpu_torch.ops.flash_attention import flash_attention_data
 
 __all__ = ["flash_attention", "scaled_dot_product_attention"]
 
 
+@op
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True,
@@ -59,6 +61,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     return torch.matmul(probs, v).transpose(1, 2)
 
 
+@op
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None,
                     training=True, name=None,

@@ -5,9 +5,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from paddle_tpu_torch.core.op import op
+
 __all__ = ["rms_norm", "RMSNorm"]
 
 
+@op
 def rms_norm(x, weight=None, epsilon=1e-6):
     """Same order as the JAX op: normalise in f32, cast back to the
     input dtype, then multiply by the weight."""

@@ -3,9 +3,12 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.core.op import op
+
 __all__ = ["softmax_with_cross_entropy"]
 
 
+@op
 def softmax_with_cross_entropy(logits, label, ignore_index=-100):
     """Per-position loss over the last axis, the JAX op's semantics for
     hard labels: low-precision logits are taken to f32 first (the loss

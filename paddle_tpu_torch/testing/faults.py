@@ -1,5 +1,6 @@
 """Fault-injection harness (copied from the JAX package's
-``testing/faults.py``, serving points only).
+``testing/faults.py``: the serving points, the checkpoint commit
+protocol's points and ``tear_file``).
 
 Production code calls :func:`fire` at named fault points. With no
 faults installed the call is a dict lookup on an empty dict, so the
@@ -33,7 +34,9 @@ from typing import Dict, List, Optional
 __all__ = [
     "FAULT_EXIT", "FAULT_POINTS", "Fault", "FaultInjector", "fire",
     "check", "install", "clear", "injected", "active_injector",
-    "SERVING_FORCE_OOM", "SERVING_STEP", "SERVING_NAN_LOGITS",
+    "tear_file", "SERVING_FORCE_OOM", "SERVING_STEP", "SERVING_NAN_LOGITS",
+    "CKPT_BEFORE_COMMIT", "CKPT_BEFORE_MARKER", "CKPT_COMMITTED",
+    "CKPT_DATA_WRITTEN",
 ]
 
 # -- the fault-point registry ----------------------------------------------
@@ -44,8 +47,16 @@ SERVING_FORCE_OOM = "serving.force_oom"        # keyed: .<request_id>
 SERVING_STEP = "serving.step"
 SERVING_NAN_LOGITS = "serving.nan_logits"
 
+# checkpoint commit protocol
+CKPT_BEFORE_COMMIT = "ckpt.before_commit"
+CKPT_BEFORE_MARKER = "ckpt.before_marker"
+CKPT_COMMITTED = "ckpt.committed"
+CKPT_DATA_WRITTEN = "ckpt.data_written"
+
 FAULT_POINTS = frozenset({SERVING_FORCE_OOM, SERVING_STEP,
-                          SERVING_NAN_LOGITS})
+                          SERVING_NAN_LOGITS, CKPT_BEFORE_COMMIT,
+                          CKPT_BEFORE_MARKER, CKPT_COMMITTED,
+                          CKPT_DATA_WRITTEN})
 
 # exit code for the "crash" action: distinct from every code the runtime
 # uses (watchdog 6, gang-abort 7, launch re-form 75) so tests can assert
@@ -217,3 +228,12 @@ class injected:
         global _active
         _active = self._prev
         return False
+
+
+# -- test-side helpers (no production callers) ----------------------------
+def tear_file(path: str, frac: float = 0.5):
+    """Truncate ``path`` to ``frac`` of its size: a torn write, the
+    on-disk state a crash mid-``write()`` leaves behind."""
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.truncate(max(0, int(size * frac)))

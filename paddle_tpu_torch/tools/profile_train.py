@@ -1,11 +1,13 @@
 """Where a training step's time goes on the card.
 
-    python -m paddle_tpu_torch.tools.profile_train [--out DIR]
+    python -m paddle_tpu_torch.tools.profile_train [--eager] [--out DIR]
 
 Trains the configuration of ``chip_smoke.py`` phase ``train``
 (:mod:`paddle_tpu_torch.tools.gpt_1b_train`: the 0.95B Llama at full
 width and depth, bf16, batch 4 x 2048, AdamW) for one warm-up step, then
-profiles 2 steps with ``torch.profiler``. It prints one JSON line: host
+profiles 2 steps with ``torch.profiler``; with ``--eager``, phase
+``eager_train``'s loop over the same model (``tools/eager_train.py``:
+AdamW with f32 master weights, the clip, a scheduler and a scaler). It prints one JSON line: host
 wall time per step, device kernels per step, device busy time (the sum
 of kernel times; this path runs one stream), its share of the wall time,
 device time per step by group (the flash kernels, GEMMs, the rest), and
@@ -45,14 +47,25 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="directory for the full profiler table")
+    ap.add_argument("--eager", action="store_true",
+                    help="profile the eager loop instead of TrainStep")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.tools import gpt_1b_train
+    from paddle_tpu_torch.tools import eager_train, gpt_1b_train
 
-    model, step, x, y = gpt_1b_train.build(torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    if args.eager:
+        run = eager_train.build(gpt_1b_train.config(), dev,
+                                (gpt_1b_train.BATCH, gpt_1b_train.SEQ))
+
+        def step(*_):
+            return eager_train.step(run)
+        x = y = None
+    else:
+        model, step, x, y = gpt_1b_train.build(dev)
     step(x, y)                       # warm-up: cuBLAS heuristics, allocator
     torch.cuda.synchronize()
     walls = []
@@ -72,6 +85,7 @@ def main(argv=None):
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "steps": STEPS,
+        "loop": "eager" if args.eager else "TrainStep",
         "wall_ms_per_step": walls,
         "kernels_per_step": sum(e.count for e in kernels) / STEPS,
         "device_busy_ms_per_step": busy_us / 1e3 / STEPS,
@@ -84,7 +98,9 @@ def main(argv=None):
         flush=True)
     if args.out is not None:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile_train.txt"), "w") as f:
+        name = "profile_train_eager.txt" if args.eager else \
+            "profile_train.txt"
+        with open(os.path.join(args.out, name), "w") as f:
             f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                               row_limit=50))
 

@@ -18,13 +18,17 @@ The resilience paths: a host swap restores the spilled bytes bit for bit
 with the caches where they were, a capture with the step watchdog armed
 is neither invalidated nor falsely fired, the bucketed step's replay
 equals its eager step, and the tiny swap, drain, bucketed and generate
-runs serve the CPU's tokens."""
+runs serve the CPU's tokens. The eager loop (scheduler, scaler, AdamW or
+Momentum) trains on the card as on the CPU, a checkpoint resume on the
+card is bit-exact, and the bf16 flash check (F4) holds on 16 seeded
+draws at two shapes."""
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+from paddle_tpu_torch.testing import flash_check
 
 
 @pytest.fixture
@@ -219,21 +223,6 @@ def _flash_inputs(dev, dtype, b, sq, sk, h, d, seed):
             randn(b, sq, h, d))
 
 
-# f32: the f32-FMA kernels and the plain version differ in summation order
-# only (TF32 off). bf16: every kernel accumulates in f32 and rounds its
-# output to bf16 once (half a relative step of 2^-8, which rtol covers).
-# The tensor-core forward and dK/dV also round P and dS to bf16 before the
-# P V-type products, as the TPU kernels do; against a plain version that
-# keeps them in f32 that rounding alone exceeds atol near zero: 2.4e-3 in O
-# on an H100, about 5e-3 in dK and dV as estimated on the CPU from the
-# same inputs. So the plain versions round at the same places (`round_to`:
-# the forward's online softmax over KEY_BLOCK keys, dS for dQ, P and dS for
-# dK and dV; held against the Pallas kernels in bf16 by
-# tests/test_torch_flash_attention.py) and the tolerance stays as it was.
-_FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
-              torch.bfloat16: dict(rtol=1e-2, atol=2e-3)}
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
@@ -263,21 +252,27 @@ def test_flash_kernels_match_plain(card, dtype, d, b, sq, sk, h, causal):
     for n in before:
         assert now[n]["tensor_cores"] - routes[n]["tensor_cores"] == int(tc)
         assert now[n]["fma"] - routes[n]["fma"] == int(not tc)
-    f = [x.float() for x in (q, k, v, do)]
-    o_ref, lse_ref = fa._flash_fwd_ref(f[0], f[1], f[2], scale, causal,
-                                       round_to=dtype)
-    tol = _FLASH_TOL[dtype]
-    torch.testing.assert_close(o.float(), o_ref, **tol)
-    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
-    # the backward's reference takes the kernel's own O and lse
-    grads = fa._flash_bwd_ref(f[0], f[1], f[2], o.float(), lse, f[3], scale,
-                              causal, round_to=dtype)
-    for got, want in zip((dq, dk, dv), grads):
-        torch.testing.assert_close(got.float(), want, **tol)
+    # element-wise at flash_check.TOL; in bf16 plus the one-ulp effect of
+    # the P and dS entries near a bf16 rounding boundary (F4's check)
+    flash_check.check(q, k, v, do, {"o": o, "lse": lse, "dq": dq, "dk": dk,
+                                    "dv": dv}, scale, causal)
     if causal and sq > sk:
         blind = sq - sk             # rows 0 .. blind-1 see no key
         assert torch.all(o[:, :blind] == 0) and torch.all(dq[:, :blind] == 0)
         assert torch.all(lse.view(b, h, sq)[:, :, :blind] == float("-inf"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 2048, 32, 64), (4, 2048, 16, 128)])
+def test_flash_check_holds_on_16_draws(card, shape):
+    """F4: 16 seeded bf16 draws at each shape of the failures it was
+    found on pass the check (``tools/flash_check_draws.py``'s loop)."""
+    from paddle_tpu_torch.tools import flash_check_draws
+
+    res = flash_check_draws.run(shape, 16, seed=2)
+    failed = [r["failure"] for r in res["reports"] if not r["passed"]]
+    assert not failed, failed[:2]
+    assert res["summary"]["passed"] == 16
 
 
 @pytest.mark.gpu
@@ -328,6 +323,32 @@ def test_tiny_train_card_matches_cpu(card):
 
     # asserts the losses, the parameters and the kernel launches itself
     tiny_train_parity.run(card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["adamw", "momentum"])
+def test_tiny_eager_loop_card_matches_cpu(card, rule):
+    """An eager AdamW (or Momentum) + scheduler + scaler loop on the card
+    equals the CPU's at phase 8's tolerances, with equal lrs and scaler
+    states (``tiny_train_parity.run_eager`` asserts them)."""
+    from paddle_tpu_torch.tools import tiny_train_parity
+
+    res = tiny_train_parity.run_eager(card, rule)
+    assert res["lrs"][0] != res["lrs"][-1]
+
+
+@pytest.mark.gpu
+def test_checkpoint_resume_on_card_is_bit_exact(card, tmp_path):
+    """Save and restore through CheckpointManager on the card: the resumed
+    run's losses and final state equal the unbroken run's bit for bit,
+    and every restored tensor is on the card."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.tools import eager_train
+
+    rep = eager_train.resume(LlamaConfig.tiny(dtype="bfloat16"), card,
+                             (2, 16), str(tmp_path / "ck"))
+    assert rep["bit_identical_losses"] and rep["bit_identical_state"]
+    assert rep["state_on_device"]
 
 
 # --------------------------------------------------------------------------

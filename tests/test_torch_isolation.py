@@ -35,6 +35,12 @@ _MODULES = [
     "paddle_tpu_torch.tools.tiny_resilience_parity",
     "paddle_tpu_torch.tools.step_checks",
     "paddle_tpu_torch.tools.flash_check_draws",
+    "paddle_tpu_torch.testing.flash_check", "paddle_tpu_torch.amp",
+    "paddle_tpu_torch.core.op", "paddle_tpu_torch.optimizer.lr",
+    "paddle_tpu_torch.distributed.checkpoint",
+    "paddle_tpu_torch.distributed.checkpoint.manager",
+    "paddle_tpu_torch.distributed.checkpoint.metadata",
+    "paddle_tpu_torch.tools.eager_train",
 ]
 
 

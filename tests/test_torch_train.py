@@ -377,20 +377,59 @@ def test_config_refuses_later_slices(field, value):
         LlamaForCausalLM(LlamaConfig.tiny(**{field: value}), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(scaler=object()), dict(sharding="dp"),
+@pytest.mark.parametrize("kw", [dict(run_steps=2), dict(sharding="dp"),
                                 dict(accumulate_steps=2),
                                 dict(donate=False)])
 def test_trainstep_refuses_later_slices(kw):
     m = torch.nn.Linear(2, 2)
+    if "run_steps" in kw:
+        step = TrainStep(m, _mse, AdamW(parameters=m.parameters()))
+        with pytest.raises(NotImplementedError, match="comes with"):
+            step.run_steps(kw["run_steps"], np.zeros((1, 2), np.float32),
+                           np.zeros((1, 2), np.float32))
+        return
     with pytest.raises(NotImplementedError, match="comes with"):
         TrainStep(m, _mse, AdamW(parameters=m.parameters()), **kw)
 
 
 def test_run_steps_and_lr_scheduler_refused():
+    """run_steps stays refused (B3, a CUDA graph); an LRScheduler is now
+    taken, and any other non-number learning rate is refused with the
+    JAX package's TypeError (``float(learning_rate)``)."""
     m = torch.nn.Linear(2, 2)
     step = TrainStep(m, _mse, AdamW(parameters=m.parameters()))
     with pytest.raises(NotImplementedError, match="CUDA graph"):
         step.run_steps(2, np.zeros((1, 2), np.float32),
                        np.zeros((1, 2), np.float32))
-    with pytest.raises(NotImplementedError, match="B2"):
+    with pytest.raises(TypeError):
         AdamW(learning_rate=lambda: 1e-3, parameters=m.parameters())
+    with pytest.raises(TypeError):
+        joptim.AdamW(learning_rate=lambda: 1e-3,
+                     parameters=[paddle.to_tensor(np.zeros(2, np.float32))])
+
+
+def test_trainstep_accepts_a_scaler_and_a_scheduler():
+    """What the refusals used to turn away: a GradScaler and an
+    LRScheduler-driven optimizer. The lr follows the scheduler, the
+    scaler's state is synced from the device once per call."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.optimizer.lr import StepDecay
+
+    torch.manual_seed(0)
+    m = torch.nn.Linear(2, 2)
+    sched = StepDecay(0.1, step_size=1, gamma=0.5)
+    opt = AdamW(learning_rate=sched, parameters=m.parameters())
+    scaler = GradScaler(init_loss_scaling=8.0, incr_every_n_steps=2)
+    step = TrainStep(m, _mse, opt, scaler=scaler)
+    x = np.ones((3, 2), np.float32)
+    lrs = []
+    for _ in range(3):
+        lrs.append(opt.get_lr())
+        w0 = m.weight.detach().clone()
+        step(x, x)
+        assert not torch.equal(w0, m.weight.detach())
+        sched.step()
+    assert lrs == [0.1, 0.05, 0.025]
+    assert scaler._scale == 16.0 and scaler._good_steps == 1
+    assert step._scaler_state.tolist() == [16.0, 1.0, 0.0, 0.0, 0.0]
+    assert opt._step_count == 3
