@@ -10,7 +10,9 @@ non-zero (nothing is caught and passed over):
                and power limit. No CUDA device: fail.
 2. build     — build both kernel sources of ``paddle_tpu_torch/csrc/``
                (ragged paged attention; flash attention fwd, dQ, dK/dV)
-               with nvcc for sm_90a, one nvcc per source, all at once;
+               with nvcc for sm_90a and the DataLoader's shared-memory
+               queue (``shm_queue.cpp``) with g++, one compiler per
+               source, all at once (the queue must load);
                seconds taken, ptxas's registers / spills / shared memory
                per kernel instance, each kernel's dynamic shared memory
                per CTA at head_dim 128 in bf16 and f32, and the wgmma
@@ -169,12 +171,35 @@ non-zero (nothing is caught and passed over):
                the eager loop with Momentum, a scheduler and a scaler on
                the card and on the CPU, at phase 8's tolerances; equal
                lrs and scaler states.
+18. fed_train — phase 7's configuration fed by the port's input
+               pipeline (``tools/fed_train.py``): ``DataLoader(num_workers
+               =2, use_shared_memory=True, use_device_prefetch=True,
+               device_prefetch_depth=2)`` over seeded token ids, each
+               batch a stack of 4 microbatches, into
+               ``TrainStep.run_steps(4, ..., stacked=True)``: one warm
+               dispatch (the eager warm-up step, then the capture of the
+               step's CUDA graph), then 3 measured ones. The workers'
+               queue must be the native ``ShmQueue``, one host-to-device
+               copy per batch (one dtype); K2-K4 captured (16 each, on
+               the tensor cores: their wrappers counted warm-up and
+               capture only) and replayed 15 x. A second model from the
+               same seed takes the same 16 microbatches through
+               ``__call__``: losses, every parameter and every slot
+               bit-identical. Per-step p50 of both, tokens/s and MFU
+               (``profiler.estimate_mfu`` with ``device_peak_flops``),
+               capture seconds, the host's wait for each batch, peak
+               memory.
+19. phases    — ``profiler.device_phases`` (torch.profiler's device
+               events: kernels, memcpy, memset) of one ``__call__`` step
+               and of one ``run_steps(4)`` dispatch of phase 18's models:
+               compute, copy and collective ms, op counts, fractions.
 
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
 (both modes), drain, the watched run and cached generate for the ragged
 kernel, train, spec and naive generate for the flash forward, and
-eager_train and trainstep_scaler (phase 15) for K2-K4; on the
+eager_train and trainstep_scaler (phase 15) and fed_train (phase 18)
+for K2-K4; on the
 paths that replay graphs they are the launches the card ran, the eager
 warm-ups plus captured x replays — error, times, bound, library time;
 ``spec_shapes`` and ``generate_shapes`` repeat them at those paths'
@@ -276,7 +301,10 @@ def phase_build():
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
     t0 = time.perf_counter()
-    infos = _build.build_all(["ragged_paged_attention", "flash_attention"])
+    infos = _build.build_all(["ragged_paged_attention", "flash_attention",
+                              "shm_queue"])
+    from paddle_tpu_torch.io import shm_queue
+    assert shm_queue.native_available(), shm_queue._LIB_ERR
     dts = ("bfloat16", "float32")
     smem = {f"ragged_paged_attention_{dt}":
             rpa.smem_bytes(128, getattr(torch, dt)) for dt in dts}
@@ -287,7 +315,7 @@ def phase_build():
     # holds wgmma instructions; the f32 FMA kernels and the split combine
     # hold none
     hgmma = {}
-    for name in infos:
+    for name in ("ragged_paged_attention", "flash_attention"):
         hgmma.update(_hgmma_counts(infos[name]["path"], _build._nvcc()))
     tc = {k: n for k, n in hgmma.items() if "_tc" in k.split("<")[0]}
     assert len(tc) == 16 and all(n > 0 for n in tc.values()), hgmma
@@ -1675,6 +1703,123 @@ def phase_eager_parity(dev):
           **tiny_train_parity.run_eager(dev, "momentum")})
 
 
+# ---------------------------------------------------------------------------
+# the fed training loop and the phase breakdown (phases 18-19)
+# ---------------------------------------------------------------------------
+def phase_fed_train(dev, tr):
+    """Phase 18, and phase 19 on the same two models. ``tr``: phase 7's
+    result (its p50)."""
+    import gc
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.tools import fed_train, gpt_1b_train
+
+    k = fed_train.K
+    data = fed_train.TokenBatches(k * fed_train.DISPATCHES,
+                                  gpt_1b_train.config().vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, step = fed_train.build(dev)
+    loader = fed_train.make_loader(data, dev)
+    routes = fa.route_launches()
+    for name in fa.launches:                         # main path starts here
+        fa.launches[name] = 0
+    fed = fed_train.run_fed(step, loader)
+    launches = dict(fa.launches)                     # main path ends here
+    routes = {n: {r: c - routes[n][r] for r, c in v.items()}
+              for n, v in fa.route_launches().items()}
+    graphs = step.graph_stats()
+    fed_state = fed_train.snapshot(model, opt)
+    n_steps = len(data)
+    (key, captured), = graphs["captured_launches"].items()
+    replays = graphs["replays"][key]
+    # the wrappers count where they issue: the warm-up step and the
+    # capture; the card ran warm-up + captured x replays
+    assert replays == n_steps - 1, graphs
+    layers = gpt_1b_train.config().num_hidden_layers
+    for name in fa.launches:
+        assert launches[name] == 2 * layers, launches
+        assert captured[name] == layers, captured
+        assert captured[f"{name}/tensor_cores"] == layers, captured
+        assert routes[name] == {"fma": 0, "tensor_cores": 2 * layers}, routes
+        assert graphs["executed_launches"][name] == layers * n_steps, graphs
+    transport, pf = loader.transport, loader.prefetcher
+    assert transport == "ShmQueue", transport
+    assert pf.batches == fed_train.DISPATCHES and \
+        pf.transfers == pf.batches, (pf.batches, pf.transfers)
+    assert all(np.isfinite(fed["losses"])), fed["losses"]
+    # phase 19's run_steps half: one more dispatch, profiled
+    stack = [torch.from_numpy(np.stack(a)).to(dev) for a in zip(
+        *(data[i] for i in range(k)))]
+    ph_run = profiler.device_phases(
+        lambda: step.run_steps(k, *stack, stacked=True), steps=1, warmup=0)
+    peak_fed = torch.cuda.max_memory_allocated()
+    del model, opt, step, loader, stack
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, step = fed_train.build(dev)
+    calls = fed_train.run_calls(step, data, dev)
+    diff = fed_train.first_difference(fed_state, fed_train.snapshot(model,
+                                                                    opt))
+    assert fed["losses"] == calls["losses"], (fed["losses"],
+                                              calls["losses"])
+    assert diff is None, f"first tensor that differs: {diff}"
+    ids, labels = (torch.from_numpy(a).to(dev) for a in data[0])
+    ph_call = profiler.device_phases(lambda: step(ids, labels), steps=1,
+                                     warmup=0)
+    peak_call = torch.cuda.max_memory_allocated()
+    n_state = len(fed_state)
+    del model, opt, step, fed_state, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    per_step = [ms / k for ms in fed["dispatch_ms"][1:]]   # measured
+    p50 = float(np.percentile(per_step, 50))
+    call_p50 = float(np.percentile(calls["step_ms"][1:], 50))
+    tokens = gpt_1b_train.BATCH * gpt_1b_train.SEQ
+    fpt = tr["flops_per_token"]
+    peak = profiler.device_peak_flops()
+    res = {"phase": "fed_train", "model": "gpt_1b (bench.py bench_gpt_1b)",
+           "dtype": "bfloat16", "steps_per_dispatch": k,
+           "dispatches": fed_train.DISPATCHES,
+           "loader": {"num_workers": fed_train.WORKERS,
+                      "use_shared_memory": True, "use_device_prefetch": True,
+                      "device_prefetch_depth": fed_train.DEPTH,
+                      "transport": transport,
+                      "h2d_copies_per_batch": pf.transfers / pf.batches},
+           "losses": fed["losses"],
+           "dispatch_ms": fed["dispatch_ms"],
+           "run_steps_step_ms": per_step, "run_steps_step_ms_p50": p50,
+           "call_step_ms": calls["step_ms"], "call_step_ms_p50": call_p50,
+           "run_steps_over_call": p50 / call_p50,
+           "trainstep_p50_phase7": tr["step_ms_p50"],
+           "tokens_per_s": tokens / (p50 / 1e3),
+           "mfu": profiler.estimate_mfu(fpt * tokens, p50 / 1e3, peak),
+           "mfu_peak_flops": peak,
+           "capture_s": graphs["capture_s"],
+           "loader_wait_ms": fed["wait_ms"],
+           "graph_key": key, "captured_launches": captured,
+           "replays": replays,
+           "replayed_launches": {n: captured[n] * replays
+                                 for n in fa.launches},
+           "executed_launches": {n: graphs["executed_launches"][n]
+                                 for n in fa.launches},
+           "wrapper_launches": launches, "route_launches": routes,
+           "bit_identical_to_call": {"losses": True,
+                                     "tensors_compared": n_state},
+           "max_memory_allocated": {"run_steps": peak_fed,
+                                    "call": peak_call}}
+    emit(res)
+    phases = {"phase": "phases", "call_step": ph_call,
+              "run_steps_dispatch": ph_run, "run_steps_k": k}
+    for name, ph in (("call_step", ph_call), ("run_steps_dispatch", ph_run)):
+        assert ph and ph["total_device_ms"] > 0, (name, ph)
+    emit(phases)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1708,6 +1853,7 @@ def main():
     et = phase_eager_train(dev, tr)
     phase_resume(dev)
     phase_eager_parity(dev)
+    fe = phase_fed_train(dev, tr)
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
     dr = fl["fwd_only"]["draft_shapes"]
@@ -1737,6 +1883,7 @@ def main():
         by_path[name]["eager_train"] = et["kernel_launches"][name]
         by_path[name]["trainstep_scaler"] = \
             et["trainstep_scaler"]["kernel_launches"][name]
+        by_path[name]["fed_train"] = fe["executed_launches"][name]
     spec_shapes = {
         "ragged_paged_attention": {
             "max_abs_err": kv["max_abs_err"], "ms": kv["ms"],

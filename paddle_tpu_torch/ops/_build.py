@@ -1,13 +1,14 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each source ``csrc/<name>.cu`` exposes a plain C interface. It is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library and
 loaded with ``ctypes``; nothing includes PyTorch's headers, so a build
-takes seconds. Libraries go into ``paddle_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name carrying a hash of the source, of every
-header under ``csrc/`` and of the flags, so an edited source or header
-is never served by a stale library. A build happens at first use, from
-the checkout's sources only.
+takes seconds. A host-only source ``csrc/<name>.cpp`` (the DataLoader's
+shared-memory queue) is compiled the same way with ``g++``. Libraries go
+into ``paddle_tpu_torch/_build/`` (listed in ``.gitignore``) under a
+name carrying a hash of the source, of every header under ``csrc/`` and
+of the flags, so an edited source or header is never served by a stale
+library. A build happens at first use, from the checkout's sources only.
 """
 from __future__ import annotations
 
@@ -21,14 +22,15 @@ import threading
 import time
 from typing import Dict
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "build_all",
-           "load"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "GXX_FLAGS", "NVCC_FLAGS", "build",
+           "build_all", "load"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-lpthread"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -47,12 +49,33 @@ def _nvcc() -> str:
     return path
 
 
+def _gxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if not found:
+        raise RuntimeError("g++ not found (PATH, $CXX): the port's host "
+                           "libraries are built with it")
+    return found
+
+
 def _source(name: str) -> str:
-    return os.path.join(CSRC_DIR, f"{name}.cu")
+    cu = os.path.join(CSRC_DIR, f"{name}.cu")
+    return cu if os.path.exists(cu) else os.path.join(CSRC_DIR,
+                                                       f"{name}.cpp")
+
+
+def _is_host(name: str) -> bool:
+    return _source(name).endswith(".cpp")
+
+
+def _command(name: str, out: str):
+    if _is_host(name):
+        return [_gxx(), "-o", out, _source(name), *GXX_FLAGS]
+    return [_nvcc(), *NVCC_FLAGS, "-o", out, _source(name)]
 
 
 def library_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = GXX_FLAGS if _is_host(name) else NVCC_FLAGS
+    h = hashlib.sha256(" ".join(flags).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for path in [_source(name)] + [os.path.join(CSRC_DIR, f)
                                    for f in headers]:
@@ -70,8 +93,9 @@ def _ptxas_summary(log: str) -> str:
 
 
 def build_all(names) -> Dict[str, dict]:
-    """Compile ``csrc/<name>.cu`` for every name whose current library is
-    not on disk, one ``nvcc`` per source, all started together. Returns
+    """Compile ``csrc/<name>.cu`` (or ``.cpp``) for every name whose
+    current library is not on disk, one ``nvcc`` (or ``g++``) per source,
+    all started together. Returns
     ``{name: {"path", "built", "seconds", "ptxas"}}`` (``built`` is False
     when the library on disk was reused). Raises with the compiler's
     output when a build fails, after stopping the other builds."""
@@ -86,7 +110,7 @@ def build_all(names) -> Dict[str, dict]:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, _source(name)],
+            _command(name, tmp),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out, time.perf_counter())
     try:
@@ -94,7 +118,7 @@ def build_all(names) -> Dict[str, dict]:
             log, _ = proc.communicate()
             seconds = time.perf_counter() - t0
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name} (exit "
+                raise RuntimeError(f"build failed for {name} (exit "
                                    f"{proc.returncode}):\n{log}")
             os.replace(tmp, out)
             results[name] = {"path": out, "built": True, "seconds": seconds,
@@ -113,7 +137,8 @@ def build(name: str) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    """The loaded library for ``csrc/<name>.cu`` (or ``.cpp``), built at
+    first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -6,7 +6,8 @@ As in the JAX package, each optimizer defines a rule
 ``_rule_mp`` wraps it for ``multi_precision`` (the update runs on an f32
 master weight and is cast back to the low-precision parameter). The
 port applies the result IN PLACE under ``no_grad``: :meth:`_apply`
-copies the new values into the parameter and its slots, or, where a
+copies the new values into the parameter and its slots (or, for
+``TrainStep(donate=False)``, binds them as new tensors), or, where a
 ``skip`` flag (a bool tensor on the device) is set, keeps the old ones
 bit for bit with no host sync. ``torch.optim.AdamW`` keeps no master
 weights, so it is no drop-in.
@@ -170,14 +171,18 @@ class Optimizer:
 
     # -- in-place application ----------------------------------------------
     @torch.no_grad()
-    def _apply(self, params, grads, lr, step, skip=None, cast_grads=True):
-        """One update of ``params`` from ``grads`` (same order), IN PLACE.
-        ``step`` is the bias-correction step (a number or a 0-dim
-        tensor); where the 0-dim bool tensor ``skip`` is True, every
-        parameter and slot keeps its old bits. ``cast_grads`` casts each
-        gradient to its parameter's dtype first, as the JAX eager step
-        does (its TrainStep hands the rule an unscaled f32 gradient as
-        it is)."""
+    def _apply(self, params, grads, lr, step, skip=None, cast_grads=True,
+               inplace=True):
+        """One update of ``params`` from ``grads`` (same order), in place
+        by default. ``lr`` and ``step`` (the bias-correction step) are numbers or
+        0-dim tensors; where the 0-dim bool tensor ``skip`` is True,
+        every parameter and slot keeps its old bits. ``cast_grads`` casts
+        each gradient to its parameter's dtype first, as the JAX eager
+        step does (its TrainStep hands the rule an unscaled f32 gradient
+        as it is). ``inplace=False`` binds the new values as new tensors
+        instead (``p.data`` and the slot entries), so a tensor taken from
+        a parameter or slot before the update keeps its values (the JAX
+        step's ``donate=False``)."""
         for p, g in zip(params, grads):
             slots = self._slots.get(id(p))
             if slots is None:
@@ -187,11 +192,17 @@ class Optimizer:
             self._current_decay_enabled = self._decay_enabled(p)
             new_p, new_slots = self._rule_mp(p.detach(), g, slots, lr, step)
             self._current_decay_enabled = True
-            for old, new in [(p, new_p)] + [(slots[k], v)
-                                            for k, v in new_slots.items()]:
+            for key, old, new in [(None, p, new_p)] + [
+                    (k, slots[k], v) for k, v in new_slots.items()]:
                 if new is old:
                     continue
-                old.copy_(new if skip is None else torch.where(skip, old, new))
+                val = new if skip is None else torch.where(skip, old, new)
+                if inplace:
+                    old.copy_(val)
+                elif key is None:
+                    p.data = val
+                else:
+                    slots[key] = val
 
     # -- eager step --------------------------------------------------------
     @torch.no_grad()

@@ -670,3 +670,180 @@ def test_tiny_resilience_card_matches_cpu(card):
 
     res = tiny_resilience_parity.run(card)
     assert res["cpu_identical"]
+
+
+# --------------------------------------------------------------------------
+# the fed training loop: run_steps on graphs, the prefetcher, the workers
+# --------------------------------------------------------------------------
+def _tiny_trainer(card, donate=True, scaled=False):
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig.tiny(dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device=card)
+    model.init_weights(torch.Generator(device=card).manual_seed(0))
+    opt = AdamW(1e-3, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    # a first scale of 2**126 overflows the scaled loss: the first steps
+    # are skipped until the schedule has halved it enough
+    scaler = GradScaler(init_loss_scaling=2.0 ** 126, incr_every_n_steps=2,
+                        decr_every_n_nan_or_inf=1) if scaled else None
+    return model, opt, TrainStep(model, model.criterion(), opt,
+                                 donate=donate, scaler=scaler,
+                                 skip_nonfinite=scaled)
+
+
+def _tiny_stack(card, k, seed=0):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randint(0, 256, (k, 2, 32))).to(card)
+            for _ in range(2)]
+
+
+def _same_state(a, b):
+    (ma, oa), (mb, ob) = a, b
+    for (name, pa), pb in zip(ma.named_parameters(), mb.parameters()):
+        assert torch.equal(pa.view(torch.int16), pb.view(torch.int16)), name
+        for key, va in oa._slots[id(pa)].items():
+            vb = ob._slots[id(pb)][key]
+            assert torch.equal(va.view(torch.uint8) if va.dim() else va,
+                               vb.view(torch.uint8) if vb.dim() else vb), \
+                (name, key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("donate", [True, False])
+def test_run_steps_replay_is_bitwise_the_eager_step(card, donate):
+    """Two dispatches of run_steps(4, stacked) (the first captures the
+    step's CUDA graph after an eager warm-up step; then 7 replays)
+    against 8 __call__s from the same weights: losses, every parameter
+    and every slot bit-identical, with a loss scale that overflows the
+    first steps (skipped by the scaler and the guard in both, the scale
+    halving through the device schedule); donate=False hands back new
+    tensors and leaves what was taken before alone."""
+    ids, labels = _tiny_stack(card, 8)
+    ma, oa, sa = _tiny_trainer(card, donate, scaled=True)
+    mb, ob, sb = _tiny_trainer(card, True, scaled=True)
+    p0 = next(ma.parameters())
+    taken = p0.detach()
+    before = taken.clone()
+    got = torch.cat([sa.run_steps(4, ids[:4], labels[:4], stacked=True),
+                     sa.run_steps(4, ids[4:], labels[4:], stacked=True)])
+    want = torch.stack([sb(ids[i], labels[i]) for i in range(8)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got, want)
+    _same_state((ma, oa), (mb, ob))
+    assert oa._step_count == ob._step_count == 8
+    assert sa.skipped_steps == sb.skipped_steps >= 1
+    assert torch.equal(sa._scaler_state, sb._scaler_state)
+    assert sa._scaler._scale == sb._scaler._scale
+    stats = sa.graph_stats()
+    assert stats["captures"] == 1 and list(stats["replays"].values()) == [7]
+    assert torch.equal(taken, before) == (not donate)
+
+
+@pytest.mark.gpu
+def test_run_steps_captures_the_flash_backward(card):
+    """K2, K3 and K4 (the backward runs on autograd's thread) land in the
+    captured graph: each counted once per layer by the capture, on the
+    tensor cores, and by the wrappers only at the warm-up and the
+    capture; the replays run captured x replays."""
+    model, _, step = _tiny_trainer(card)
+    layers = model.config.num_hidden_layers
+    ids, labels = _tiny_stack(card, 4, seed=1)
+    before = dict(fa.launches)
+    step.run_steps(4, ids, labels, stacked=True)
+    step.run_steps(4, ids, labels, stacked=True)
+    torch.cuda.synchronize()
+    (captured,) = step.graph_stats()["captured_launches"].values()
+    executed = step.graph_stats()["executed_launches"]
+    for name in fa.launches:
+        assert captured[name] == layers, captured
+        assert captured[f"{name}/tensor_cores"] == layers, captured
+        assert f"{name}/fma" not in captured, captured
+        assert fa.launches[name] - before[name] == 2 * layers
+        assert executed[name] == layers * 8, executed
+
+
+@pytest.mark.gpu
+def test_run_steps_sees_a_rebound_state_between_dispatches(card):
+    """A restore that binds new tensors (an optimizer set_state_dict, a
+    user's p.data =) between dispatches is copied into the graph's
+    buffers: the next replay trains the restored values, as __call__s
+    would."""
+    ids, labels = _tiny_stack(card, 4, seed=2)
+    ma, oa, sa = _tiny_trainer(card)
+    mb, ob, sb = _tiny_trainer(card)
+    sa.run_steps(2, ids[:2], labels[:2], stacked=True)
+    for i in range(2):
+        sb(ids[i], labels[i])
+    state = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+             for k, v in ob.state_dict().items()}
+    oa.set_state_dict(state)
+    with torch.no_grad():
+        for pa, pb in zip(ma.parameters(), mb.parameters()):
+            pa.data = pb.detach().clone()
+    got = sa.run_steps(2, ids[2:], labels[2:], stacked=True)
+    want = torch.stack([sb(ids[i], labels[i]) for i in (2, 3)])
+    assert torch.equal(got, want)
+    _same_state((ma, oa), (mb, ob))
+
+
+@pytest.mark.gpu
+def test_prefetcher_lands_on_the_card_one_copy_per_dtype(card):
+    """Pinned host buffers, one host-to-device copy per dtype per batch
+    on the copy thread's stream; the leaves are views of that copy on
+    the card, equal to the host batch; the staged memory survives the
+    consumer's use on its own stream."""
+    from paddle_tpu_torch.io import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    data = [(rng.normal(size=(64, 33)).astype(np.float32),
+             rng.integers(0, 9, (64,)).astype(np.int64),
+             rng.normal(size=(5,)).astype(np.float32), "meta")
+            for _ in range(6)]
+    pf = prefetch_to_device(data, depth=2)
+    assert pf._device.type == "cuda"
+    outs = []
+    for x, y, z, meta in pf:
+        assert x.device.type == y.device.type == z.device.type == "cuda"
+        assert meta == "meta"
+        outs.append((x * 2).sum() + y.sum() + z.sum())  # consumer's stream
+    torch.cuda.synchronize()
+    assert (pf.batches, pf.transfers) == (6, 12)
+    for (x, y, z, _), got in zip(data, outs):
+        want = (torch.from_numpy(x) * 2).sum() + y.sum() + \
+            torch.from_numpy(z).sum()
+        assert abs(float(got) - float(want)) < 1e-3 * (1 + abs(float(want)))
+
+
+@pytest.mark.gpu
+def test_forked_shm_worker_after_cuda_is_up(card):
+    """The loader forks its workers from a process whose CUDA context is
+    up; the workers collate on the host through the shared-memory queue
+    and the parent lands the batches on the card, equal to the
+    in-process loader's."""
+    from paddle_tpu_torch.io import DataLoader, Dataset
+
+    torch.ones(1, device=card).sum().item()     # CUDA is up
+
+    class Items(Dataset):
+        def __len__(self):
+            return 23
+
+        def __getitem__(self, i):
+            return np.full((3,), i, np.float32), np.int64(i)
+
+    single = [(x.cpu(), y.cpu()) for x, y in
+              DataLoader(Items(), batch_size=4, places=card)]
+    for prefetch in (False, True):
+        dl = DataLoader(Items(), batch_size=4, num_workers=2,
+                        use_device_prefetch=prefetch, places=card)
+        multi = list(dl)
+        assert dl.transport == "ShmQueue"
+        assert len(multi) == len(single) == 6
+        for (xs, ys), (xm, ym) in zip(single, multi):
+            assert xm.device.type == "cuda"
+            assert torch.equal(xs, xm.cpu()) and torch.equal(ys, ym.cpu())

@@ -1,5 +1,7 @@
 """The port stands alone: ``paddle_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package (whose ``__init__`` loads JAX)."""
+import neither JAX nor the JAX package (whose ``__init__`` loads JAX),
+nor ``ml_dtypes`` (the card's machine does not have it: a bf16 numpy
+array is known by its dtype's name)."""
 import os
 import re
 import subprocess
@@ -40,7 +42,9 @@ _MODULES = [
     "paddle_tpu_torch.distributed.checkpoint",
     "paddle_tpu_torch.distributed.checkpoint.manager",
     "paddle_tpu_torch.distributed.checkpoint.metadata",
-    "paddle_tpu_torch.tools.eager_train",
+    "paddle_tpu_torch.tools.eager_train", "paddle_tpu_torch.io",
+    "paddle_tpu_torch.io.shm_queue", "paddle_tpu_torch.io.prefetch",
+    "paddle_tpu_torch.profiler.timer", "paddle_tpu_torch.tools.fed_train",
 ]
 
 
@@ -57,7 +61,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             f"for m in {_MODULES!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(k for k in sys.modules\n"
             "    if k == 'jax' or k.startswith('jax.')\n"
-            "    or k == 'paddle_tpu' or k.startswith('paddle_tpu.'))))\n")
+            "    or k == 'paddle_tpu' or k.startswith('paddle_tpu.')\n"
+            "    or k == 'ml_dtypes' or k.startswith('ml_dtypes.'))))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -68,6 +73,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("pattern", [
     r"^\s*(import|from)\s+jax\b",
     r"^\s*(import|from)\s+paddle_tpu(\.|\s|$)",
+    r"^\s*(import|from)\s+ml_dtypes\b",
 ])
 def test_sources_do_not_import_jax(pattern):
     rx = re.compile(pattern, re.M)

@@ -377,30 +377,22 @@ def test_config_refuses_later_slices(field, value):
         LlamaForCausalLM(LlamaConfig.tiny(**{field: value}), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(run_steps=2), dict(sharding="dp"),
-                                dict(accumulate_steps=2),
-                                dict(donate=False)])
-def test_trainstep_refuses_later_slices(kw):
+@pytest.mark.parametrize("kw,match", [
+    (dict(sharding="dp"), "comes with slice D"),
+    (dict(accumulate_steps=2), "never reads it")])
+def test_trainstep_refuses_later_slices(kw, match):
+    """``sharding`` comes with slice D; ``accumulate_steps > 1`` is refused
+    by design: the JAX TrainStep accepts it and never reads it."""
     m = torch.nn.Linear(2, 2)
-    if "run_steps" in kw:
-        step = TrainStep(m, _mse, AdamW(parameters=m.parameters()))
-        with pytest.raises(NotImplementedError, match="comes with"):
-            step.run_steps(kw["run_steps"], np.zeros((1, 2), np.float32),
-                           np.zeros((1, 2), np.float32))
-        return
-    with pytest.raises(NotImplementedError, match="comes with"):
+    with pytest.raises(NotImplementedError, match=match):
         TrainStep(m, _mse, AdamW(parameters=m.parameters()), **kw)
 
 
 def test_run_steps_and_lr_scheduler_refused():
-    """run_steps stays refused (B3, a CUDA graph); an LRScheduler is now
-    taken, and any other non-number learning rate is refused with the
-    JAX package's TypeError (``float(learning_rate)``)."""
+    """An LRScheduler is taken (run_steps is ported:
+    tests/test_torch_run_steps.py); any other non-number learning rate is
+    refused with the JAX package's TypeError (``float(learning_rate)``)."""
     m = torch.nn.Linear(2, 2)
-    step = TrainStep(m, _mse, AdamW(parameters=m.parameters()))
-    with pytest.raises(NotImplementedError, match="CUDA graph"):
-        step.run_steps(2, np.zeros((1, 2), np.float32),
-                       np.zeros((1, 2), np.float32))
     with pytest.raises(TypeError):
         AdamW(learning_rate=lambda: 1e-3, parameters=m.parameters())
     with pytest.raises(TypeError):
