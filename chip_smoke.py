@@ -193,13 +193,35 @@ non-zero (nothing is caught and passed over):
                events: kernels, memcpy, memset) of one ``__call__`` step
                and of one ``run_steps(4)`` dispatch of phase 18's models:
                compute, copy and collective ms, op counts, fractions.
+20. tensor_api — the eager Tensor API (``tools/tensor_api_train.py``):
+               phase 7's model written as a function of ``to_tensor``
+               parameters and registry ops, its weights carried from a
+               port ``LlamaForCausalLM`` of the same seed. In f32 (TF32
+               off) at full width and 2 layers, batch 4 x 2048: one
+               forward and ``loss.backward()`` against the module path
+               (loss within rtol 1e-5, every gradient within relative L2
+               1e-4; the f32 FMA kernels). In bf16 at full depth: step 0
+               against the module path (loss within 1e-3 nats, every
+               gradient's cosine similarity at least 0.9999), then 4 AdamW
+               steps over the Tensor parameters (finite losses, the last
+               below the first) and 4 through the module path: both step
+               p50s and their ratio. K2-K4 launched 16 x 4 times each on
+               the Tensor API's steps, all on the tensor cores, and no
+               plain version called on the bf16 path. ``paddle.grad(
+               create_graph=True)`` twice through tanh(matmul(x, w)) at
+               [256, 512] f32 against the CPU (rtol 1e-5);
+               ``flash_attn_unpadded`` over 8 packed sequences of 37-2048
+               tokens, 32 query and 8 KV heads of 128, bf16, causal,
+               against the same call on the CPU in f32 at
+               ``flash_check.TOL[bfloat16]``; the registry's host cost of
+               a small ``add`` beside ``torch.add``'s (µs).
 
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
 (both modes), drain, the watched run and cached generate for the ragged
 kernel, train, spec and naive generate for the flash forward, and
-eager_train and trainstep_scaler (phase 15) and fed_train (phase 18)
-for K2-K4; on the
+eager_train and trainstep_scaler (phase 15), fed_train (phase 18) and
+tensor_api (phase 20) for K2-K4; on the
 paths that replay graphs they are the launches the card ran, the eager
 warm-ups plus captured x replays — error, times, bound, library time;
 ``spec_shapes`` and ``generate_shapes`` repeat them at those paths'
@@ -1820,6 +1842,128 @@ def phase_fed_train(dev, tr):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the eager Tensor API (phase 20)
+# ---------------------------------------------------------------------------
+TENSOR_API_STEPS = 4
+UNPADDED_SEQS = 8
+
+
+def phase_tensor_api(dev):
+    """Phase 20: the Tensor API's training path against the module path,
+    double grad and ``flash_attn_unpadded`` against the CPU, and the
+    registry's host cost per op."""
+    import dataclasses
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.testing import flash_check
+    from paddle_tpu_torch.tools import gpt_1b_train
+    from paddle_tpu_torch.tools import tensor_api_train as T
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    paddle.set_device("gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False    # the f32 checks
+    batch = (gpt_1b_train.BATCH, gpt_1b_train.SEQ)
+    res = {"phase": "tensor_api", "batch": list(batch)}
+
+    # f32, full width, 2 layers: the FMA kernels
+    cfg32 = dataclasses.replace(gpt_1b_train.config(), num_hidden_layers=2,
+                                dtype="float32")
+    model = T.build(cfg32, dev)
+    params = T.tensor_params(model)
+    ids, labels = T.batch(cfg32, *batch, dev)
+    routes = fa.route_launches()
+    c32 = T.compare_step0(model, params, ids, labels)
+    r32 = {k: {r: n - routes[k][r] for r, n in v.items()}
+           for k, v in fa.route_launches().items()}
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert abs(c32["loss_tensor_api"] - c32["loss_module"]) <= \
+        1e-5 * abs(c32["loss_module"]), c32
+    assert c32["grad_rel_l2_max"] <= 1e-4, c32
+    assert all(r["fma"] > 0 and r["tensor_cores"] == 0
+               for r in r32.values()), r32
+    res["f32_2_layers"] = {**c32, "route_launches": r32}
+
+    # bf16, full depth
+    cfg = gpt_1b_train.config()
+    torch.cuda.reset_peak_memory_stats()
+    model = T.build(cfg, dev)
+    params = T.tensor_params(model)
+    ids, labels = T.batch(cfg, *batch, dev)
+    with _PlainCalls() as plain:
+        c16 = T.compare_step0(model, params, ids, labels)
+        routes = fa.route_launches()
+        for name in fa.launches:              # the Tensor API path starts
+            fa.launches[name] = 0
+        tens = T.train_tensor_api(model, params, ids, labels,
+                                  TENSOR_API_STEPS)
+        launches = dict(fa.launches)          # ... and ends here
+        r16 = {k: {r: n - routes[k][r] for r, n in v.items()}
+               for k, v in fa.route_launches().items()}
+        mod = T.train_module(model, ids, labels, TENSOR_API_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    del model, params, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert abs(c16["loss_tensor_api"] - c16["loss_module"]) <= 1e-3, c16
+    assert c16["grad_cosine_min"] >= 0.9999, c16
+    assert all(np.isfinite(tens["losses"])) and \
+        tens["losses"][-1] < tens["losses"][0], tens
+    want = cfg.num_hidden_layers * TENSOR_API_STEPS
+    assert all(n == want for n in launches.values()), (launches, want)
+    assert all(r == {"fma": 0, "tensor_cores": want}
+               for r in r16.values()), r16
+    assert not any(plain.calls.values()), plain.calls
+    p50 = float(np.percentile(tens["step_ms"], 50))
+    mp50 = float(np.percentile(mod["step_ms"], 50))
+    res["bf16_full_depth"] = {
+        "layers": cfg.num_hidden_layers, "step0": c16,
+        "tensor_api": tens, "module": mod, "step_ms_p50": p50,
+        "module_step_ms_p50": mp50, "p50_ratio": p50 / mp50,
+        "kernel_launches": launches, "route_launches": r16,
+        "plain_calls": plain.calls, "max_memory_allocated": peak}
+
+    # double grad, card against the CPU
+    card = T.double_grad(paddle.CUDAPlace(0))
+    cpu = T.double_grad(paddle.CPUPlace())
+    dg = []
+    for got, want_ in zip(card, cpu):
+        scale = float(np.abs(want_).max())
+        np.testing.assert_allclose(got, want_, rtol=1e-5, atol=1e-5 * scale)
+        dg.append(float(np.abs(got - want_).max() / scale))
+    res["double_grad"] = {"shape": [256, 512],
+                          "max_abs_err_over_max": dg}
+
+    # flash_attn_unpadded, card bf16 against the CPU in f32
+    rng = np.random.default_rng(20)
+    lengths = [2048, 37] + list(rng.integers(37, 2049, UNPADDED_SEQS - 2))
+    q, k, v, cu = T.unpadded_case(lengths, 32, 8, 128)
+    t0 = time.perf_counter()
+    got = T.unpadded(q, k, v, cu, paddle.CUDAPlace(0), "bfloat16")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = T.unpadded(*(paddle.to_tensor(a, dtype="bfloat16").astype(
+        "float32").numpy() for a in (q, k, v)), cu, paddle.CPUPlace(),
+        "float32")
+    cpu_s = time.perf_counter() - t0
+    tol = flash_check.TOL[torch.bfloat16]
+    np.testing.assert_allclose(got, ref, **tol)
+    res["flash_attn_unpadded"] = {
+        "lengths": [int(n) for n in lengths], "heads": [32, 8],
+        "head_dim": 128, "max_abs_err": float(np.abs(got - ref).max()),
+        "tol": tol, "card_s": card_s, "cpu_s": cpu_s}
+    res["host_cost_per_op"] = T.host_cost_per_op(dev)
+    emit(res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1854,6 +1998,7 @@ def main():
     phase_resume(dev)
     phase_eager_parity(dev)
     fe = phase_fed_train(dev, tr)
+    ta = phase_tensor_api(dev)
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
     dr = fl["fwd_only"]["draft_shapes"]
@@ -1884,6 +2029,8 @@ def main():
         by_path[name]["trainstep_scaler"] = \
             et["trainstep_scaler"]["kernel_launches"][name]
         by_path[name]["fed_train"] = fe["executed_launches"][name]
+        by_path[name]["tensor_api"] = \
+            ta["bf16_full_depth"]["kernel_launches"][name]
     spec_shapes = {
         "ragged_paged_attention": {
             "max_abs_err": kv["max_abs_err"], "ms": kv["ms"],

@@ -2,14 +2,49 @@
 
 The package mirrors the JAX package's layout (``paddle_tpu/serving/
 engine.py`` -> ``paddle_tpu_torch/serving/engine.py``) and imports
-``torch`` and numpy only. Ported so far: serving a Llama decoder
-through the ragged engine step (the ragged paged attention kernel
-written by hand in CUDA for Hopper, ``csrc/ragged_paged_attention.cu``),
-and training it through ``jit.TrainStep`` or an eager loop with the
-optimizers, LR schedulers, AMP and checkpoints (the flash attention
-kernels, ``csrc/flash_attention.cu``).
+``torch`` and numpy only. Ported so far: the eager Tensor API (``Tensor``,
+``to_tensor``, places, dtypes, flags, the op registry built from
+``ops/ops.yaml``, every op of its sections as ``paddle_tpu_torch.<op>``,
+and autograd on torch's engine: ``backward``, ``grad``, ``PyLayer``);
+serving a Llama decoder through the ragged engine step (the ragged paged
+attention kernel written by hand in CUDA for Hopper,
+``csrc/ragged_paged_attention.cu``); and training it through
+``jit.TrainStep`` or an eager loop with the optimizers, LR schedulers,
+AMP and checkpoints (the flash attention kernels,
+``csrc/flash_attention.cu``, which the Tensor API's ``flash_attention``
+runs too).
 
-Entry points run on the CUDA device unless the caller passes
-``device="cpu"``; with no GPU and no explicit device they raise.
+Entry points run on the CUDA device unless the caller asks for the CPU
+(``device="cpu"``, ``set_device("cpu")``, ``place=CPUPlace()``); with no
+GPU and no such request they raise. Importing the package touches no
+card and builds no kernel.
 """
 __version__ = "0.1.0"
+
+from paddle_tpu_torch.core.tensor import Tensor, is_tensor, to_tensor  # noqa: F401,E402
+from paddle_tpu_torch.core.dtype import (  # noqa: F401,E402
+    DType, dtype, bool_ as bool8, uint8, int8, int16, int32, int64,
+    float16, bfloat16, float32, float64, complex64, complex128,
+    get_default_dtype, set_default_dtype,
+)
+from paddle_tpu_torch.core.place import (  # noqa: F401,E402
+    CPUPlace, CUDAPlace, CustomPlace, Place, TPUPlace, device_count,
+    get_all_devices, get_device, is_compiled_with_cuda,
+    is_compiled_with_tpu, set_device,
+)
+from paddle_tpu_torch.core.flags import get_flags, set_flags  # noqa: F401,E402
+
+# op surface: every registry op becomes a paddle_tpu_torch.<op> function
+# (flash_attention lives in nn.functional, as in the JAX package)
+from paddle_tpu_torch import ops  # noqa: F401,E402
+from paddle_tpu_torch.ops.registry import API as _OPS_API  # noqa: E402
+
+globals().update({k: v for k, v in _OPS_API.items()
+                  if k != "flash_attention"})
+
+from paddle_tpu_torch.autograd import (  # noqa: F401,E402
+    enable_grad, grad, no_grad, set_grad_enabled,
+)
+from paddle_tpu_torch import autograd  # noqa: F401,E402
+from paddle_tpu_torch import nn  # noqa: F401,E402
+from paddle_tpu_torch import amp  # noqa: F401,E402

@@ -11,13 +11,16 @@
 * :func:`decorate` (O1, O2), :func:`is_bfloat16_supported`,
   :func:`is_float16_supported`.
 * :func:`auto_cast` / :data:`amp_guard`: the JAX package casts at its op
-  registry, which the port does not have (A2). Here a
-  ``torch.overrides.TorchFunctionMode`` casts the inputs of the torch
+  registry's boundary, and so does the port for a Tensor API op
+  (:func:`cast_for_op`, the registry's ``_AMP_HOOK``: the op is one cast
+  site, and its emitter then runs with torch function modes off). Code
+  on raw torch tensors (the Llama modules) is cast by a
+  ``torch.overrides.TorchFunctionMode``: the inputs of the torch
   functions, and of the port functions marked as ops
-  (:func:`paddle_tpu_torch.core.op.op`), whose names are in
-  :data:`WHITE_LIST` (f32 inputs to the compute dtype) or
-  :data:`BLACK_LIST` (floating inputs to f32); under O2 every call but a
-  black-listed one casts f32 inputs to the compute dtype.
+  (:func:`paddle_tpu_torch.core.op.op`). Either way, names in
+  :data:`WHITE_LIST` cast f32 inputs to the compute dtype, names in
+  :data:`BLACK_LIST` cast floating inputs to f32, and under O2 every call
+  but a black-listed one casts f32 inputs to the compute dtype.
   :data:`TORCH_NAMES` maps each list name to the function the mode sees.
 """
 from __future__ import annotations
@@ -156,6 +159,30 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
 
 
 amp_guard = auto_cast
+
+
+def cast_for_op(op_name, datas):
+    """The op registry's hook (called with a Tensor API op's name and the
+    data of its tensor arguments): the data cast per the active policy,
+    or None when no :func:`auto_cast` is active."""
+    st = amp_state()
+    if st is None:
+        return None
+    dt = st["dtype"]
+    if op_name in st["black"]:
+        out = [d.float() if isinstance(d, torch.Tensor)
+               and d.is_floating_point() else d for d in datas]
+    elif st["level"] == "O2" or op_name in st["white"]:
+        out = [d.to(dt) if isinstance(d, torch.Tensor)
+               and d.dtype == torch.float32 else d for d in datas]
+    else:
+        out = list(datas)
+    if st["observers"] and (op_name in st["white"]
+                            or op_name in st["black"]):
+        seen = [str(t.dtype).split(".")[-1] for t in _tensors(out, [])]
+        for obs in st["observers"]:
+            obs.append((op_name, seen))
+    return out
 
 
 @contextlib.contextmanager
@@ -388,3 +415,9 @@ def is_bfloat16_supported(place=None):
 
 def is_float16_supported(place=None):
     return True
+
+
+# the op registry's dispatch-boundary hook
+from paddle_tpu_torch.ops import registry as _registry  # noqa: E402
+
+_registry.set_amp_hook(cast_for_op)

@@ -1,9 +1,10 @@
 """Port functions that count as one operator for a torch function mode.
 
 The JAX package casts for ``amp.auto_cast`` at its op registry, where an
-op such as ``rms_norm`` is one call. The port has no registry (A2); its
-``auto_cast`` is a ``torch.overrides.TorchFunctionMode``, which sees
-torch functions. :func:`op` makes a port function one such call: under
+op such as ``rms_norm`` is one call; so does the port's registry for a
+Tensor API op. Code on raw torch tensors (the Llama modules) is cast by
+a ``torch.overrides.TorchFunctionMode``, which sees torch functions.
+:func:`op` makes a port function one such call: under
 an active mode the mode sees the function itself (by its ``__name__``,
 which is the JAX op's name), and inside it the mode is off, as a mode's
 handler runs. With no mode active the check costs one C call."""

@@ -9,15 +9,109 @@
   write is in place (the reference returns new caches; here the step's
   captured graphs hold the caches' addresses).
 
-``paged_attention`` and ``variable_length_memory_efficient_attention``
-are not ported yet (A6)."""
+* :func:`variable_length_memory_efficient_attention` and
+  :func:`paged_attention` — Tensor in, Tensor out (the JAX package's
+  contract), computed in plain torch ops as the reference computes them
+  in jnp, except that both products run in f32 whatever the inputs'
+  dtype and the output is rounded once (the JAX package's bf16 einsums
+  round the scores and the probabilities to bf16 first). Their outputs
+  take no part in autograd, as there.
+
+The first two take and return raw torch tensors: the Llama model's
+serving forwards call them."""
 from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.core.tensor import Tensor
 from paddle_tpu_torch.ops import ragged_paged_attention as _rpa
 
-__all__ = ["ragged_paged_attention", "block_multihead_attention"]
+__all__ = ["ragged_paged_attention", "block_multihead_attention",
+           "variable_length_memory_efficient_attention", "paged_attention"]
+
+
+def _data(x, device=None):
+    if isinstance(x, Tensor):
+        return x._data.detach()
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    return torch.as_tensor(x, device=device)
+
+
+@torch.no_grad()
+def variable_length_memory_efficient_attention(
+        query, key, value, seq_lens, kv_seq_lens, mask=None, scale=None,
+        causal=False, pre_cache_length=0):
+    """query (B, H, S, D); key/value (B, KH, Sk, D), KH dividing H (query
+    head h reads kv head h // (H / KH)); seq_lens/kv_seq_lens (B,) or
+    (B, 1) valid lengths. Returns a Tensor (B, H, S, D) with padding rows
+    zeroed. Causal is top-left aligned, shifted by ``pre_cache_length``."""
+    q = _data(query)
+    k = _data(key, q.device)
+    v = _data(value, q.device)
+    ql = _data(seq_lens, q.device).reshape(-1).to(q.device, torch.int32)
+    kl = _data(kv_seq_lens, q.device).reshape(-1).to(q.device, torch.int32)
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    if kh != h:
+        rep = h // kh
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
+    t = k.shape[2]
+    q_valid = torch.arange(s, device=q.device)[None, :] < ql[:, None]
+    k_valid = torch.arange(t, device=q.device)[None, :] < kl[:, None]
+    neg = torch.tensor(torch.finfo(torch.float32).min, dtype=logits.dtype,
+                       device=q.device)
+    att_mask = k_valid[:, None, None, :]
+    if causal:
+        causal_m = (torch.arange(s, device=q.device)[:, None]
+                    + pre_cache_length
+                    >= torch.arange(t, device=q.device)[None, :])
+        att_mask = att_mask & causal_m[None, None]
+    logits = torch.where(att_mask, logits, neg)
+    if mask is not None:
+        logits = logits + _data(mask, q.device).to(logits.dtype)
+    probs = torch.softmax(logits.float(), dim=-1)
+    out = torch.einsum("bhst,bhtd->bhsd", probs, v.float()).to(v.dtype)
+    return Tensor._from_data(out * q_valid[:, None, :, None].to(out.dtype))
+
+
+@torch.no_grad()
+def paged_attention(q, key_cache, value_cache, block_tables, seq_lens,
+                    scale=None):
+    """Decode attention over a paged cache: q (B, H, D), one new token per
+    sequence; caches (num_blocks, block_size, KH, D); block_tables
+    (B, max_blocks), -1 pads; seq_lens (B,) cached tokens including the
+    new one. Returns a Tensor (B, H, D)."""
+    qd = _data(q)
+    kc = _data(key_cache, qd.device)
+    vc = _data(value_cache, qd.device)
+    bt = _data(block_tables, qd.device).to(qd.device).long()
+    sl = _data(seq_lens, qd.device).reshape(-1).to(qd.device, torch.int32)
+    b, h, d = qd.shape
+    nb, bs, kh, _ = kc.shape
+    mb = bt.shape[1]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    safe_bt = torch.clamp(bt, min=0)
+    k_seq = kc[safe_bt].reshape(b, mb * bs, kh, d)
+    v_seq = vc[safe_bt].reshape(b, mb * bs, kh, d)
+    if kh != h:
+        rep = h // kh
+        k_seq = torch.repeat_interleave(k_seq, rep, dim=2)
+        v_seq = torch.repeat_interleave(v_seq, rep, dim=2)
+    logits = torch.einsum("bhd,bthd->bht", qd.float(), k_seq.float()) * scale
+    pos = torch.arange(mb * bs, device=qd.device)[None, :]
+    valid = (pos < sl[:, None]) & torch.repeat_interleave(bt >= 0, bs, dim=1)
+    neg = torch.tensor(torch.finfo(torch.float32).min, dtype=logits.dtype,
+                       device=qd.device)
+    logits = torch.where(valid[:, None, :], logits, neg)
+    probs = torch.softmax(logits.float(), dim=-1)
+    return Tensor._from_data(torch.einsum(
+        "bht,bthd->bhd", probs, v_seq.float()).to(v_seq.dtype))
 
 
 def ragged_paged_attention(q, k_new, v_new, key_cache, value_cache,

@@ -31,9 +31,10 @@ from torch import nn
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.dtype import to_torch
 from paddle_tpu_torch.incubate.nn import functional as F
-from paddle_tpu_torch.nn import functional as NF
 from paddle_tpu_torch.nn.norm import RMSNorm
-from paddle_tpu_torch.ops.nn_ops import softmax_with_cross_entropy
+from paddle_tpu_torch.ops.nn_ops import (flash_attention,
+                                         scaled_dot_product_attention,
+                                         softmax_with_cross_entropy)
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP",
@@ -163,9 +164,9 @@ class LlamaAttention(nn.Module):
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
         if self.config.use_flash_attention and attn_mask is None:
-            out, _ = NF.flash_attention(q, k, v, causal=True)
+            out = flash_attention(q, k, v, causal=True)
         else:
-            out = NF.scaled_dot_product_attention(
+            out = scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None)
         return self.o_proj(out.reshape(b, s, self.n_heads * self.head_dim))
 

@@ -1,78 +1,101 @@
-"""Attention entry points (port of ``paddle_tpu/ops/pallas_attention.py``
-``flash_attention``, ``paddle_tpu/nn/functional/flash_attention.py``
-``flash_attention`` and the SDPA emitter of ``paddle_tpu/ops/nn_ops.py``).
+"""Attention entry points of the Tensor API (port of
+``paddle_tpu/nn/functional/flash_attention.py`` and of
+``paddle_tpu/ops/pallas_attention.py`` ``flash_attention``).
 
 Layout: [batch, seq, heads, head_dim]. Every dropout-free call goes to
-the flash op (:func:`paddle_tpu_torch.ops.flash_attention.flash_attention_data`:
-the hand-written kernels on the card, their plain versions on the CPU),
-whatever the sequence lengths; the JAX dispatcher sends shapes its TPU
-blocks do not tile to SDPA instead. ``dropout > 0`` keeps the JAX route:
-plain attention with dropout, drawn from an explicit generator.
-``flash_attn_unpadded`` is not ported yet.
+the registry's ``flash_attention`` op (the hand-written kernels on the
+card, their plain versions on the CPU), whatever the sequence lengths;
+the JAX dispatcher sends shapes its TPU blocks do not tile to SDPA
+instead. ``dropout > 0`` keeps the JAX route: plain attention with
+dropout, drawn from an explicit ``generator``. ``flash_attn_unpadded``
+repacks the packed rows into a padded batch and calls
+``variable_length_memory_efficient_attention``, as the JAX package does.
 """
 from __future__ import annotations
 
-import math
-from typing import Optional
-
+import numpy as np
 import torch
 
-from paddle_tpu_torch.core.op import op
-from paddle_tpu_torch.ops.flash_attention import flash_attention_data
+from paddle_tpu_torch.core.tensor import Tensor
+from paddle_tpu_torch.ops.registry import API as _API
 
-__all__ = ["flash_attention", "scaled_dot_product_attention"]
-
-
-@op
-def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 dropout_p=0.0, is_causal=False,
-                                 training=True,
-                                 generator: Optional[torch.Generator] = None):
-    """Plain attention, as the JAX emitter computes it: scores in the
-    inputs' dtype, masked entries set to -1e9 (causal bottom-right
-    aligned; a bool ``attn_mask`` selects, any other is added), softmax
-    in f32 cast back, then dropout with ``generator`` (required when
-    ``dropout_p > 0`` and ``training``)."""
-    q = query.transpose(1, 2)
-    k = key.transpose(1, 2)
-    v = value.transpose(1, 2)
-    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    neg = torch.tensor(-1e9, dtype=scores.dtype, device=scores.device)
-    if is_causal:
-        sq, sk = scores.shape[-2:]
-        causal = torch.ones((sq, sk), dtype=torch.bool,
-                            device=scores.device).tril(sk - sq)
-        scores = torch.where(causal, scores, neg)
-    if attn_mask is not None:
-        if attn_mask.dtype == torch.bool:
-            scores = torch.where(attn_mask, scores, neg)
-        else:
-            scores = scores + attn_mask
-    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-    if dropout_p > 0.0 and training:
-        if generator is None:
-            raise ValueError("attention dropout draws from an explicit "
-                             "torch.Generator: pass generator=")
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) < 1.0 - dropout_p
-        probs = torch.where(keep, probs / (1.0 - dropout_p),
-                            torch.zeros((), dtype=probs.dtype,
-                                        device=probs.device))
-    return torch.matmul(probs, v).transpose(1, 2)
+__all__ = ["flash_attention", "flash_attn_unpadded",
+           "scaled_dot_product_attention"]
 
 
-@op
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None,
-                    training=True, name=None,
-                    generator: Optional[torch.Generator] = None):
+                    training=True, name=None, generator=None):
     """paddle.nn.functional.flash_attention: returns ``(out, None)``, as
     the JAX package does (``return_softmax`` and ``fixed_seed_offset``
     are accepted and ignored there too)."""
     if dropout > 0.0:
-        out = scaled_dot_product_attention(
+        out = _API["scaled_dot_product_attention"](
             query, key, value, is_causal=causal, dropout_p=dropout,
             training=training, generator=generator)
     else:
-        out = flash_attention_data(query, key, value, causal=causal)
+        out = _API["flash_attention"](query, key, value, causal=causal)
     return out, None
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, generator=None):
+    return _API["scaled_dot_product_attention"](
+        query, key, value, attn_mask=attn_mask, dropout_p=dropout_p,
+        is_causal=is_causal, training=training, generator=generator)
+
+
+def _host_lens(cu):
+    if isinstance(cu, Tensor):
+        cu = cu._data
+    if isinstance(cu, torch.Tensor):
+        cu = cu.detach().cpu().numpy()
+    return np.asarray(cu).astype(np.int64)
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale=None,
+                        dropout=0.0, causal=False, return_softmax=False,
+                        name=None):
+    """Varlen (packed ragged) attention: query (total_q, H, D), key and
+    value (total_k, KH, D) with KH dividing H; ``cu_seqlens_*`` (B+1,)
+    delimit the sequences. The rows are repacked into a padded batch,
+    attended by :func:`~paddle_tpu_torch.incubate.nn.functional.
+    variable_length_memory_efficient_attention`, and packed back: the
+    output holds the live rows only, (total_q, H, D). Returns
+    ``(out, None)``."""
+    from paddle_tpu_torch.incubate.nn.functional import (
+        variable_length_memory_efficient_attention,
+    )
+
+    q = query._data if isinstance(query, Tensor) else torch.as_tensor(query)
+    k = key._data if isinstance(key, Tensor) else torch.as_tensor(key)
+    v = value._data if isinstance(value, Tensor) else torch.as_tensor(value)
+    cq, ck = _host_lens(cu_seqlens_q), _host_lens(cu_seqlens_k)
+    b = len(cq) - 1
+    sq, sk = int(max_seqlen_q), int(max_seqlen_k)
+    ql, kl = cq[1:] - cq[:-1], ck[1:] - ck[:-1]
+
+    def padded(x, cu, lens, s):
+        # row j of sequence i sits at packed row cu[i] + j (j < lens[i])
+        rows = np.minimum(cu[:-1, None] + np.arange(s)[None, :],
+                          max(x.shape[0] - 1, 0))
+        live = np.arange(s)[None, :] < lens[:, None]
+        idx = torch.from_numpy(rows.reshape(-1)).to(x.device)
+        out = x.detach()[idx].reshape(b, s, *x.shape[1:])
+        keep = torch.from_numpy(live).to(x.device)[:, :, None, None]
+        return torch.where(keep, out, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+
+    qb, kb, vb = padded(q, cq, ql, sq), padded(k, ck, kl, sk), \
+        padded(v, ck, kl, sk)
+    out = variable_length_memory_efficient_attention(
+        qb.transpose(1, 2), kb.transpose(1, 2), vb.transpose(1, 2),
+        torch.from_numpy(ql).to(q.device), torch.from_numpy(kl).to(q.device),
+        scale=scale, causal=causal)
+    od = out._data.transpose(1, 2)   # (B, Sq, H, D)
+    live = np.arange(sq)[None, :] < ql[:, None]
+    flat = torch.from_numpy(np.flatnonzero(live.reshape(-1))).to(q.device)
+    packed = od.reshape(b * sq, *od.shape[2:])[flat]
+    return Tensor._from_data(packed), None

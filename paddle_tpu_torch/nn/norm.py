@@ -1,26 +1,13 @@
-"""RMSNorm (port of ``ops/nn_ops.py::rms_norm`` and
-``nn/norm.py::RMSNorm``)."""
+"""RMSNorm (port of ``nn/norm.py::RMSNorm``) over the raw
+:func:`paddle_tpu_torch.ops.nn_ops.rms_norm` (the JAX op's order)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from paddle_tpu_torch.core.op import op
+from paddle_tpu_torch.ops.nn_ops import rms_norm
 
 __all__ = ["rms_norm", "RMSNorm"]
-
-
-@op
-def rms_norm(x, weight=None, epsilon=1e-6):
-    """Same order as the JAX op: normalise in f32, cast back to the
-    input dtype, then multiply by the weight."""
-    dt = x.dtype
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    out = (xf * torch.rsqrt(var + epsilon)).to(dt)
-    if weight is not None:
-        out = out * weight
-    return out
 
 
 class RMSNorm(nn.Module):

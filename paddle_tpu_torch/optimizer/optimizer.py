@@ -19,8 +19,11 @@ f32 lr and a device step. The clip, when there is one, is called on
 ``(parameter, grad)`` pairs and scales the grads in place. ``LBFGS``
 has its own ``step(closure)``.
 
-Parameters may be given as tensors or as ``(name, tensor)`` pairs (for
-example ``model.named_parameters()``); ``apply_decay_param_fun`` gets
+Parameters may be given as torch tensors, as Tensor API ``Tensor`` objects
+(``to_tensor(..., stop_gradient=False)``: the update is applied to each
+one's ``_data`` in place, and a Tensor whose data was rebound since is
+followed to its new data, slots and all), or as ``(name, tensor)`` pairs
+(for example ``model.named_parameters()``); ``apply_decay_param_fun`` gets
 that name, or the model's name for the parameter when ``TrainStep``
 names them. ``state_dict`` keys a slot ``<name>.<slot>``: a name given
 as a pair, else ``param_<position>`` (the JAX package's key for a
@@ -85,12 +88,31 @@ class Optimizer:
 
     def _set_parameters(self, parameters):
         plist = []
+        self._wrappers = []   # (position, Tensor API Tensor)
         for item in parameters:
+            name = None
             if isinstance(item, tuple):
                 name, item = item
+            if not isinstance(item, torch.Tensor) and hasattr(item, "_data"):
+                self._wrappers.append((len(plist), item))
+                item = item._data
+            if name is not None:
                 self._names[id(item)] = name
             plist.append(item)
         self._parameter_list = plist
+
+    def _follow_wrappers(self):
+        """Re-point the list (and the slots and names keyed by the torch
+        tensor) at each Tensor API parameter's current data."""
+        for pos, w in getattr(self, "_wrappers", ()):
+            old = self._parameter_list[pos]
+            new = w._data
+            if new is old:
+                continue
+            self._parameter_list[pos] = new
+            for table in (self._slots, self._names, self._model_names):
+                if id(old) in table:
+                    table[id(new)] = table.pop(id(old))
 
     def _name_of(self, p) -> str:
         """The name ``apply_decay_param_fun`` gets: the given name, else
@@ -208,6 +230,7 @@ class Optimizer:
     @torch.no_grad()
     def step(self):
         """One update of every parameter that has a ``.grad``, from it."""
+        self._follow_wrappers()
         pairs = [(p, p.grad) for p in self._parameter_list or []
                  if p.grad is not None and p.requires_grad]
         if self._grad_clip is not None:
@@ -220,6 +243,7 @@ class Optimizer:
         """Drop every parameter's ``.grad`` (the JAX package's
         ``Tensor.clear_grad`` sets it to None whatever ``set_to_zero``
         says; so does this)."""
+        self._follow_wrappers()
         for p in self._parameter_list or []:
             p.grad = None
 
@@ -242,6 +266,7 @@ class Optimizer:
         construction (an eager optimizer makes them at its first step),
         so that :meth:`state_dict` holds their keys: the template a
         checkpoint restores into."""
+        self._follow_wrappers()
         for p in self._parameter_list or []:
             if id(p) not in self._slots:
                 self._slots[id(p)] = self._init_slots_mp(p)
@@ -252,6 +277,7 @@ class Optimizer:
         ``<name>.<slot>`` per slot. The slot values are the live slot
         tensors (detached), as ``torch.nn.Module.state_dict`` gives;
         copy them to keep a snapshot across later steps."""
+        self._follow_wrappers()
         step = self._step_count
         if self._applied_step_provider is not None:
             applied = self._applied_step_provider()
@@ -269,6 +295,7 @@ class Optimizer:
         """Load :meth:`state_dict`'s keys. Each slot lands on its
         parameter's device in the dtype it was saved in; the values are
         copied, never shared."""
+        self._follow_wrappers()
         self._step_count = int(state.get("step", 0))
         if self._lr_scheduler is not None and "LR_Scheduler" in state:
             self._lr_scheduler.set_state_dict(state["LR_Scheduler"])
@@ -675,6 +702,7 @@ class LBFGS(Optimizer):
 
     # ---- flatten helpers -------------------------------------------------
     def _params(self):
+        self._follow_wrappers()
         return [p for p in (self._parameter_list or []) if p.requires_grad]
 
     def _gather_flat_grad(self):

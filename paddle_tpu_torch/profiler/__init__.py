@@ -9,9 +9,11 @@ where the JAX package reads an xplane trace: a recording window runs a
 ``torch.profiler.profile`` and exports its chrome trace into
 ``trace_dir``, and the device events of that trace (``kernel``,
 ``gpu_memcpy``, ``gpu_memset``) feed :meth:`Profiler.device_summary`,
-:meth:`Profiler.phase_summary` and :func:`device_phases`. There is no
-op registry in the port yet (A2), so ``record_op_events`` records
-torch's own operators, ``aten::mm`` as ``op::mm``.
+:meth:`Profiler.phase_summary` and :func:`device_phases`. With
+``record_op_events`` a recording window holds one ``op::<name>`` host
+event per Tensor API call (the op registry's ``_PROFILER_HOOK``, as the
+JAX package sets it) and torch's own operators of raw torch code,
+``aten::mm`` as ``op::mm``.
 
 On the CPU there is no device trace: :func:`device_phases` and
 :meth:`Profiler.phase_summary` return ``{}``, the JAX package's "no
@@ -322,12 +324,20 @@ class Profiler:
         if self._device_tracing or self.record_op_events:
             self._torch_prof = profile(activities=activities)
             self._torch_prof.start()
+        if self.record_op_events:
+            from paddle_tpu_torch.ops import registry as _registry
+
+            _registry.set_profiler_hook(lambda name: RecordEvent(name))
 
     def _exit_record(self):
         if self.timer_only:
             return
         _recorder.stop()
         events = list(_recorder.events)
+        if self.record_op_events:
+            from paddle_tpu_torch.ops import registry as _registry
+
+            _registry.set_profiler_hook(None)
         if self._torch_prof is not None:
             prof, self._torch_prof = self._torch_prof, None
             prof.stop()

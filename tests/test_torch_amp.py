@@ -453,3 +453,39 @@ def test_decorate_o2_casts_parameters_in_place():
     assert tm.llama.rope_cos.dtype == rope
     assert tamp.decorate(tm, level="O1") is tm
     assert tamp.is_bfloat16_supported() and tamp.is_float16_supported()
+
+
+@pytest.mark.parametrize("level", ["O1", "O2"])
+def test_tensor_api_casts_at_the_registry_boundary(level):
+    """Under ``auto_cast`` a Tensor API op is one cast site, as in the JAX
+    package: a white-listed ``matmul`` of f32 inputs runs in bf16, a
+    black-listed ``softmax`` of its bf16 output in f32; the dtypes are the
+    JAX package's and the values agree at bf16's rounding (rtol 2e-2)."""
+    import paddle_tpu_torch as tpaddle
+    from paddle_tpu_torch.core import place as tplace
+
+    prev = (tplace._current_place, tplace._current_device)
+    tpaddle.set_device("cpu")
+    try:
+        rng = np.random.default_rng(0)
+        a = rng.standard_normal((8, 16)).astype(np.float32)
+        b = rng.standard_normal((16, 8)).astype(np.float32)
+        got = {}
+        for P, mod in ((paddle, jamp), (tpaddle, tamp)):
+            with mod.auto_cast(level=level, dtype="bfloat16"):
+                m = P.matmul(P.to_tensor(a), P.to_tensor(b))
+                s = P.nn.functional.softmax(m)
+                t = P.tanh(P.to_tensor(a))
+            got[P.__name__] = (m, s, t)
+        (jm, js, jt), (tm, ts, tt) = got["paddle_tpu"], \
+            got["paddle_tpu_torch"]
+        for j, t in ((jm, tm), (js, ts), (jt, tt)):
+            assert t.dtype.name == j.dtype.name, (level, j.dtype, t.dtype)
+            np.testing.assert_allclose(t.numpy(), j.numpy(), rtol=2e-2,
+                                       atol=2e-2)
+        assert tm.dtype.name == "bfloat16" and ts.dtype.name == "float32"
+        with tamp.auto_cast(level=level), tamp.observe_casts() as seen:
+            tpaddle.matmul(tpaddle.to_tensor(a), tpaddle.to_tensor(b))
+        assert seen == [("matmul", ["bfloat16", "bfloat16"])], seen
+    finally:
+        tplace._current_place, tplace._current_device = prev

@@ -21,7 +21,9 @@ equals its eager step, and the tiny swap, drain, bucketed and generate
 runs serve the CPU's tokens. The eager loop (scheduler, scaler, AdamW or
 Momentum) trains on the card as on the CPU, a checkpoint resume on the
 card is bit-exact, and the bf16 flash check (F4) holds on 16 seeded
-draws at two shapes."""
+draws at two shapes. The eager Tensor API's Llama matches the module
+path in f32 and bf16 and trains on the tensor cores, double grad on the
+card matches the CPU, and so does ``flash_attn_unpadded``."""
 import numpy as np
 import pytest
 import torch
@@ -847,3 +849,102 @@ def test_forked_shm_worker_after_cuda_is_up(card):
         for (xs, ys), (xm, ym) in zip(single, multi):
             assert xm.device.type == "cuda"
             assert torch.equal(xs, xm.cpu()) and torch.equal(ys, ym.cpu())
+
+
+# -- the eager Tensor API (chip_smoke phase 20, smaller) ---------------------
+@pytest.fixture
+def card_place(card):
+    from paddle_tpu_torch.core import place
+
+    prev = (place._current_place, place._current_device)
+    place.set_device("gpu")
+    yield card
+    place._current_place, place._current_device = prev
+
+
+def _small_llama(dtype):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=512, hidden_size=256,
+                       intermediate_size=512, num_hidden_layers=2,
+                       num_attention_heads=4, num_key_value_heads=2,
+                       max_position_embeddings=256, dtype=dtype)
+
+
+@pytest.mark.gpu
+def test_tensor_api_step_matches_the_module_path_f32(card_place):
+    """f32 (TF32 off): one forward and backward of the Tensor API's Llama
+    against the module path from the same weights: loss within rtol
+    1e-5, every gradient within relative L2 1e-4 (FMA kernels)."""
+    from paddle_tpu_torch.tools import tensor_api_train as T
+
+    cfg = _small_llama("float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = T.build(cfg, card_place)
+    params = T.tensor_params(model)
+    ids, labels = T.batch(cfg, 2, 256, card_place)
+    routes = fa.route_launches()
+    c = T.compare_step0(model, params, ids, labels)
+    assert abs(c["loss_tensor_api"] - c["loss_module"]) <= \
+        1e-5 * abs(c["loss_module"]), c
+    assert c["grad_rel_l2_max"] <= 1e-4, c
+    now = fa.route_launches()
+    assert all(now[k]["fma"] > routes[k]["fma"] for k in now), now
+
+
+@pytest.mark.gpu
+def test_tensor_api_trains_bf16_on_the_tensor_cores(card_place):
+    """bf16: step 0 against the module path (loss within 1e-3 nats, every
+    gradient's cosine similarity >= 0.9999), then 3 AdamW steps over the
+    Tensor parameters: finite falling losses, K2-K4 once per layer a step
+    on the tensor cores."""
+    from paddle_tpu_torch.tools import tensor_api_train as T
+
+    cfg = _small_llama("bfloat16")
+    model = T.build(cfg, card_place)
+    params = T.tensor_params(model)
+    ids, labels = T.batch(cfg, 2, 256, card_place)
+    c = T.compare_step0(model, params, ids, labels)
+    assert abs(c["loss_tensor_api"] - c["loss_module"]) <= 1e-3, c
+    assert c["grad_cosine_min"] >= 0.9999, c
+    routes = fa.route_launches()
+    run = T.train_tensor_api(model, params, ids, labels, 3, lr=1e-3)
+    assert np.all(np.isfinite(run["losses"])), run
+    assert run["losses"][-1] < run["losses"][0], run
+    now = fa.route_launches()
+    for k in now:
+        assert now[k]["tensor_cores"] - routes[k]["tensor_cores"] == 6, now
+        assert now[k]["fma"] == routes[k]["fma"], now
+
+
+@pytest.mark.gpu
+def test_double_grad_on_the_card_matches_the_cpu(card_place):
+    """``paddle.grad(create_graph=True)`` twice through tanh(matmul(x, w))
+    in f32 (TF32 off): the card's first and second gradients against the
+    CPU's at rtol 1e-5 (atol 1e-5 of the largest value)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import tensor_api_train as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = T.double_grad(paddle.CUDAPlace(0), shape=(64, 128))
+    want = T.double_grad(paddle.CPUPlace(), shape=(64, 128))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.gpu
+def test_flash_attn_unpadded_on_the_card_matches_the_cpu(card_place):
+    """Packed sequences of 37-300 tokens, 8 query and 2 KV heads of 128,
+    bf16 causal on the card against the same call in f32 on the CPU (on
+    the bf16-rounded inputs), at ``flash_check.TOL[bfloat16]``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import tensor_api_train as T
+
+    q, k, v, cu = T.unpadded_case([300, 37, 129, 64], 8, 2, 128)
+    got = T.unpadded(q, k, v, cu, paddle.CUDAPlace(0), "bfloat16")
+    rounded = [paddle.to_tensor(a, dtype="bfloat16").astype(
+        "float32").numpy() for a in (q, k, v)]
+    want = T.unpadded(*rounded, cu, paddle.CPUPlace(), "float32")
+    np.testing.assert_allclose(got, want,
+                               **flash_check.TOL[torch.bfloat16])

@@ -1,7 +1,8 @@
 """The port stands alone: ``paddle_tpu_torch`` and ``chip_smoke.py``
 import neither JAX nor the JAX package (whose ``__init__`` loads JAX),
 nor ``ml_dtypes`` (the card's machine does not have it: a bf16 numpy
-array is known by its dtype's name)."""
+array is known by its dtype's name), nor ``yaml`` (the card's machine
+has no PyYAML: the op manifest is read by the port's own parser)."""
 import os
 import re
 import subprocess
@@ -45,6 +46,17 @@ _MODULES = [
     "paddle_tpu_torch.tools.eager_train", "paddle_tpu_torch.io",
     "paddle_tpu_torch.io.shm_queue", "paddle_tpu_torch.io.prefetch",
     "paddle_tpu_torch.profiler.timer", "paddle_tpu_torch.tools.fed_train",
+    "paddle_tpu_torch.core.place", "paddle_tpu_torch.core.dtype",
+    "paddle_tpu_torch.core.flags", "paddle_tpu_torch.core.tensor",
+    "paddle_tpu_torch.ops", "paddle_tpu_torch.ops.registry",
+    "paddle_tpu_torch.ops.math", "paddle_tpu_torch.ops.creation",
+    "paddle_tpu_torch.ops.logic", "paddle_tpu_torch.ops.manipulation",
+    "paddle_tpu_torch.ops.linalg", "paddle_tpu_torch.autograd",
+    "paddle_tpu_torch.autograd.engine",
+    "paddle_tpu_torch.autograd.functional",
+    "paddle_tpu_torch.autograd.py_layer",
+    "paddle_tpu_torch.nn.functional.flash_attention",
+    "paddle_tpu_torch.nn.norm", "paddle_tpu_torch.tools.tensor_api_train",
 ]
 
 
@@ -62,7 +74,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "print(json.dumps(sorted(k for k in sys.modules\n"
             "    if k == 'jax' or k.startswith('jax.')\n"
             "    or k == 'paddle_tpu' or k.startswith('paddle_tpu.')\n"
-            "    or k == 'ml_dtypes' or k.startswith('ml_dtypes.'))))\n")
+            "    or k == 'ml_dtypes' or k.startswith('ml_dtypes.')\n"
+            "    or k == 'yaml' or k.startswith('yaml.'))))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -74,6 +87,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     r"^\s*(import|from)\s+jax\b",
     r"^\s*(import|from)\s+paddle_tpu(\.|\s|$)",
     r"^\s*(import|from)\s+ml_dtypes\b",
+    r"^\s*(import|from)\s+yaml\b",
 ])
 def test_sources_do_not_import_jax(pattern):
     rx = re.compile(pattern, re.M)

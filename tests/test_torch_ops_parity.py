@@ -1,0 +1,89 @@
+"""Every op of the port's manifest sections against the JAX package:
+the math sections here (binary and unary math, reductions; the cases and
+their rules are in ``tests/test_torch_ops_cases.py``), and the manifest
+itself: the port's entries equal the reference's field for field, every
+ported entry has a case, and the entries left out are exactly the ones
+ROADMAP.md lists.
+"""
+import os
+import re
+
+import pytest
+
+from test_torch_ops_cases import _cpu_place, cases, check_case  # noqa: F401
+
+from test_torch_ops_cases import CASES, port_registry
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("case", **cases("binary math", "unary math",
+                                         "reductions"))
+def test_op_matches_reference(case):
+    check_case(case)
+
+# ---------------------------------------------------------------------------
+def _yaml_entries(path):
+    from paddle_tpu_torch.ops import _parse_flow_yaml
+    return _parse_flow_yaml(path)
+
+
+_REF_YAML = os.path.join(ROOT, "paddle_tpu", "ops", "ops.yaml")
+_PORT_YAML = os.path.join(ROOT, "paddle_tpu_torch", "ops", "ops.yaml")
+_PORTED_SECTIONS = (
+    "binary math", "unary math", "reductions", "creation",
+    "logic / compare", "manipulation", "linalg", "activations",
+    "nn: linear / embedding / conv / pool", "nn: normalization", "losses",
+    "attention")
+
+
+def _sections(path):
+    """{section title: [entry line, ...]} of a manifest."""
+    out, cur = {}, None
+    with open(path) as fh:
+        for line in fh:
+            m = re.match(r"# ---- (.+?) -+$", line.strip())
+            if m:
+                cur = m.group(1)
+                out.setdefault(cur, [])
+            elif line.startswith("- {") and cur is not None:
+                out[cur].append(line.strip())
+    return out
+
+
+def test_every_ported_entry_has_a_case():
+    ops = {e["op"] for e in _yaml_entries(_PORT_YAML)}
+    assert ops == set(port_registry.OPS)
+    assert ops == {c.op for c in CASES}
+    # every case sits in a section one of the four sweep files runs
+    assert {c.section for c in CASES} == set(_PORTED_SECTIONS)
+
+
+def test_manifest_entries_equal_the_reference():
+    ref = {e["op"]: e for e in _yaml_entries(_REF_YAML)}
+    ref["flash_attention"] = {"op": "flash_attention",
+                              "tensor_args": ["q", "k", "v"], "methods": []}
+    for e in _yaml_entries(_PORT_YAML):
+        assert e == ref[e["op"]], e["op"]
+
+
+def test_left_out_entries_are_the_ones_roadmap_lists():
+    """From the ported sections only the entries that draw random numbers
+    are left out: ``gumbel_softmax``, and the dropout / sampling section
+    (which comes with the generator, A1)."""
+    ref = _sections(_REF_YAML)
+    port_ops = {e["op"] for e in _yaml_entries(_PORT_YAML)}
+    left_out = set()
+    for title in _PORTED_SECTIONS + ("nn: dropout / sampling",):
+        for line in ref[title]:
+            op = re.match(r"- \{op: (\w+)", line).group(1)
+            if op not in port_ops:
+                left_out.add(op)
+    with open(os.path.join(ROOT, "ROADMAP.md")) as fh:
+        roadmap = fh.read()
+    m = re.search(r"Left out of the ported manifest sections:\s+(.+?)\.",
+                  roadmap, re.S)
+    assert m, "ROADMAP.md lists no left-out manifest entries"
+    listed = set(re.findall(r"`(\w+)`", m.group(1)))
+    assert left_out == listed == {"gumbel_softmax", "dropout", "bernoulli",
+                                  "multinomial"}

@@ -307,3 +307,33 @@ def test_counters_are_kept():
     assert "test/x" not in tprof.counters()
     tprof.unregister_counter_provider("test/x")
     assert np.isfinite(len(tprof.counters()))
+
+
+def test_tensor_api_ops_are_recorded_by_name():
+    """A recording window holds ``op::<name>`` for each Tensor API call
+    (the registry's hook, as the JAX package sets it), also in the JAX
+    package; the hook is cleared when the window closes."""
+    import paddle_tpu as jpaddle
+    import paddle_tpu_torch as tpaddle
+    from paddle_tpu_torch.core import place as tplace
+    from paddle_tpu_torch.ops import registry as tregistry
+
+    prev = (tplace._current_place, tplace._current_device)
+    tpaddle.set_device("cpu")
+    try:
+        x = np.random.default_rng(0).standard_normal((4, 4)).astype(
+            np.float32)
+        seen = {}
+        for P, prof in ((jpaddle, jprof), (tpaddle, tprof)):
+            t = P.to_tensor(x)
+            p = prof.Profiler(targets=[prof.ProfilerTarget.CPU]).start()
+            P.nn.functional.softmax(P.matmul(t, t) + t)
+            p.stop()
+            seen[P.__name__] = {e["name"] for e in p.host_events
+                                if e["name"] in ("op::matmul", "op::add",
+                                                 "op::softmax")}
+        assert seen["paddle_tpu_torch"] == seen["paddle_tpu"] == {
+            "op::matmul", "op::add", "op::softmax"}
+        assert tregistry._PROFILER_HOOK is None
+    finally:
+        tplace._current_place, tplace._current_device = prev
