@@ -215,13 +215,36 @@ non-zero (nothing is caught and passed over):
                against the same call on the CPU in f32 at
                ``flash_check.TOL[bfloat16]``; the registry's host cost of
                a small ``add`` beside ``torch.add``'s (µs).
+21. layer_api — the layer API (``tools/layer_api_train.py``): phase 7's
+               model written as a PaddlePaddle user writes it
+               (``nn.Layer``, ``nn.Embedding``, ``nn.RMSNorm``,
+               ``nn.Linear`` with [in, out] weights, ``nn.functional.
+               flash_attention``, ``nn.Silu``, ``nn.Dropout``,
+               ``nn.CrossEntropyLoss``), its weights carried from a port
+               ``LlamaForCausalLM`` of the same seed. f32 at 2 layers:
+               step 0 against the module path (loss rtol 1e-5, gradients'
+               relative L2 1e-4; bit-identity reported). bf16 at full
+               depth, dropout 0: step 0 (1e-3 nats, cosine 0.9999), then
+               4 AdamW steps (``paddle.optimizer.AdamW(parameters=
+               model.parameters())``) beside the module path's: losses
+               finite and falling, both p50s and their ratio; K2-K4 16 x
+               4 times each on the tensor cores, no plain version.
+               ``paddle.save`` of the bf16 ``state_dict``, ``paddle.load``
+               into a fresh model: the next step's loss bit-identical;
+               bytes, save and load seconds. One dropout mask of 4 x 2048
+               x 2048 from one ``get_rng_state()`` on the card and on the
+               CPU: equal bit for bit; ms per mask (CUDA events) and the
+               kernels one draw launches. Two steps with ``nn.Dropout(0.1)``
+               on: finite losses, one key per dropout call. One
+               ``nn.Linear(2048, 5632)`` after ``paddle.seed(0)`` on the
+               card and on the CPU: bit-identical. Peak memory, seconds.
 
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
 (both modes), drain, the watched run and cached generate for the ragged
 kernel, train, spec and naive generate for the flash forward, and
-eager_train and trainstep_scaler (phase 15), fed_train (phase 18) and
-tensor_api (phase 20) for K2-K4; on the
+eager_train and trainstep_scaler (phase 15), fed_train (phase 18),
+tensor_api (phase 20) and layer_api (phase 21) for K2-K4; on the
 paths that replay graphs they are the launches the card ran, the eager
 warm-ups plus captured x replays — error, times, bound, library time;
 ``spec_shapes`` and ``generate_shapes`` repeat them at those paths'
@@ -1964,6 +1987,169 @@ def phase_tensor_api(dev):
     return res
 
 
+LAYER_API_STEPS = 4
+LAYER_API_DROPOUT = 0.1
+LAYER_API_DROPOUT_STEPS = 2
+MASK_SHAPE = (4, 2048, 2048)   # one dropout mask of the training batch
+LAYER_API_DIR = "_layer_api_smoke"   # phase 21's save, under the checkout
+
+
+def phase_layer_api(dev):
+    """Phase 21: the layer API's Llama against the module path, trained
+    with AdamW, with dropout from the global generator, saved and loaded;
+    the generator's draws on the card against the CPU's."""
+    import dataclasses
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiler import device_phases
+    from paddle_tpu_torch.tools import gpt_1b_train
+    from paddle_tpu_torch.tools import layer_api_train as L
+    from paddle_tpu_torch.tools import tensor_api_train as T
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paddle.set_device("gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False    # the f32 checks
+    batch = (gpt_1b_train.BATCH, gpt_1b_train.SEQ)
+    res = {"phase": "layer_api", "batch": list(batch)}
+
+    def fresh_pair(cfg):
+        module = T.build(cfg, dev)
+        model = L.build(paddle, L.from_llama_config(cfg))
+        model.set_state_dict(L.layer_state_from_module(module))
+        return module, model
+
+    # f32, full width, 2 layers: the FMA kernels
+    cfg32 = dataclasses.replace(gpt_1b_train.config(), num_hidden_layers=2,
+                                dtype="float32")
+    module, model = fresh_pair(cfg32)
+    ids, labels = T.batch(cfg32, *batch, dev)
+    routes = fa.route_launches()
+    c32 = L.compare_step0(module, model, ids, labels)
+    r32 = {k: {r: n - routes[k][r] for r, n in v.items()}
+           for k, v in fa.route_launches().items()}
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert abs(c32["loss_layer_api"] - c32["loss_module"]) <= \
+        1e-5 * abs(c32["loss_module"]), c32
+    assert c32["grad_rel_l2_max"] <= 1e-4, c32
+    assert all(r["fma"] > 0 and r["tensor_cores"] == 0
+               for r in r32.values()), r32
+    res["f32_2_layers"] = {**c32, "route_launches": r32}
+
+    # bf16, full depth, dropout 0: step 0, then AdamW steps of each path
+    cfg = gpt_1b_train.config()
+    lcfg = L.from_llama_config(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    module, model = fresh_pair(cfg)
+    tids, tlabels = paddle.to_tensor(ids), paddle.to_tensor(labels)
+    sync = torch.cuda.synchronize
+    with _PlainCalls() as plain:
+        c16 = L.compare_step0(module, model, ids, labels)
+        routes = fa.route_launches()
+        for name in fa.launches:              # the layer API path starts
+            fa.launches[name] = 0
+        lay = L.train(paddle, model, tids, tlabels, LAYER_API_STEPS,
+                      sync=sync)
+        launches = dict(fa.launches)          # ... and ends here
+        r16 = {k: {r: n - routes[k][r] for r, n in v.items()}
+               for k, v in fa.route_launches().items()}
+        mod = T.train_module(module, ids, labels, LAYER_API_STEPS)
+    del module
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert abs(c16["loss_layer_api"] - c16["loss_module"]) <= 1e-3, c16
+    assert c16["grad_cosine_min"] >= 0.9999, c16
+    assert all(np.isfinite(lay["losses"])) and \
+        lay["losses"][-1] < lay["losses"][0], lay["losses"]
+    want = cfg.num_hidden_layers * LAYER_API_STEPS
+    assert all(n == want for n in launches.values()), (launches, want)
+    assert all(r == {"fma": 0, "tensor_cores": want}
+               for r in r16.values()), r16
+    assert not any(plain.calls.values()), plain.calls
+    opt = lay.pop("opt")
+    p50 = float(np.percentile(lay["step_ms"], 50))
+    mp50 = float(np.percentile(mod["step_ms"], 50))
+    res["bf16_full_depth"] = {
+        "layers": cfg.num_hidden_layers, "step0": c16, "layer_api": lay,
+        "module": mod, "step_ms_p50": p50, "module_step_ms_p50": mp50,
+        "p50_ratio": p50 / mp50, "kernel_launches": launches,
+        "route_launches": r16, "plain_calls": plain.calls}
+
+    # paddle.save / paddle.load of the bf16 state_dict, then the next step
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        LAYER_API_DIR)
+    os.makedirs(root, exist_ok=True)
+    try:
+        sl = L.save_load_resume(paddle, model, lcfg, tids, tlabels, opt,
+                                path=os.path.join(root, "model.pdparams"),
+                                sync=sync)
+    finally:
+        os.rmdir(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert not sl["missing"] and not sl["unexpected"], sl
+    assert sl["bit_identical"], sl
+    res["save_load"] = sl
+
+    # one dropout mask from one generator state, on the card and the CPU
+    state = paddle.get_rng_state()
+    card = L.mask_draw(paddle, MASK_SHAPE, LAYER_API_DROPOUT, "gpu:0", state)
+    t0 = time.perf_counter()
+    host = L.mask_draw(paddle, MASK_SHAPE, LAYER_API_DROPOUT, "cpu", state)
+    cpu_s = time.perf_counter() - t0
+    assert torch.equal(card.cpu(), host), "card mask != CPU mask"
+    ones = paddle.ones(list(MASK_SHAPE), dtype="float32")
+    draw = lambda: paddle.nn.functional.dropout(  # noqa: E731
+        ones, LAYER_API_DROPOUT)
+    mask_ms = cuda_ms(draw, 5)
+    ph = device_phases(draw, steps=1, warmup=1)
+    kernels = sum(v for k, v in ph.items() if k.endswith("_ops"))
+    res["dropout_mask"] = {
+        "shape": list(MASK_SHAPE), "p": LAYER_API_DROPOUT,
+        "card_equals_cpu": True,
+        "keep_frac": float(card.float().mean()), "ms_per_mask": mask_ms,
+        "kernels_per_draw": kernels, "cpu_s": cpu_s}
+    del card, host, ones
+
+    # two training steps with nn.Dropout(0.1) on, one key per dropout call
+    for layer in model.sublayers():
+        if isinstance(layer, paddle.nn.Dropout):
+            layer.p = LAYER_API_DROPOUT
+    before = paddle.get_rng_state()
+    drop = L.train(paddle, model, tids, tlabels, LAYER_API_DROPOUT_STEPS,
+                   opt=opt, sync=sync)
+    drop.pop("opt")
+    keys = paddle.get_rng_state()[1] - before[1]
+    calls = (2 * cfg.num_hidden_layers + 1) * LAYER_API_DROPOUT_STEPS
+    assert all(np.isfinite(drop["losses"])), drop["losses"]
+    assert keys == calls, (keys, calls)
+    res["dropout_train"] = {**drop, "keys_drawn": keys}
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt, tids, tlabels, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # initialisation: one seeded nn.Linear on the card and on the CPU
+    wc, bc = L.seeded_linear(paddle, 2048, 5632)
+    paddle.set_device("cpu")
+    try:
+        wh, bh = L.seeded_linear(paddle, 2048, 5632)
+    finally:
+        paddle.set_device("gpu")
+    assert torch.equal(wc._data.cpu(), wh._data), "card Linear != CPU"
+    assert torch.equal(bc._data.cpu(), bh._data)
+    res["seeded_linear"] = {"shape": [2048, 5632], "card_equals_cpu": True}
+    res["max_memory_allocated"] = peak
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1999,6 +2185,7 @@ def main():
     phase_eager_parity(dev)
     fe = phase_fed_train(dev, tr)
     ta = phase_tensor_api(dev)
+    la = phase_layer_api(dev)
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
     dr = fl["fwd_only"]["draft_shapes"]
@@ -2031,6 +2218,8 @@ def main():
         by_path[name]["fed_train"] = fe["executed_launches"][name]
         by_path[name]["tensor_api"] = \
             ta["bf16_full_depth"]["kernel_launches"][name]
+        by_path[name]["layer_api"] = \
+            la["bf16_full_depth"]["kernel_launches"][name]
     spec_shapes = {
         "ragged_paged_attention": {
             "max_abs_err": kv["max_abs_err"], "ms": kv["ms"],

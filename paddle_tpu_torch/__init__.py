@@ -6,6 +6,9 @@ engine.py`` -> ``paddle_tpu_torch/serving/engine.py``) and imports
 ``to_tensor``, places, dtypes, flags, the op registry built from
 ``ops/ops.yaml``, every op of its sections as ``paddle_tpu_torch.<op>``,
 and autograd on torch's engine: ``backward``, ``grad``, ``PyLayer``);
+the global generator (``seed``, ``get_rng_state``) with the random ops;
+the layer API (``nn.Layer``, its layers and initializers, ``ParamAttr``,
+``save`` / ``load``);
 serving a Llama decoder through the ragged engine step (the ragged paged
 attention kernel written by hand in CUDA for Hopper,
 ``csrc/ragged_paged_attention.cu``); and training it through
@@ -33,6 +36,9 @@ from paddle_tpu_torch.core.place import (  # noqa: F401,E402
     is_compiled_with_tpu, set_device,
 )
 from paddle_tpu_torch.core.flags import get_flags, set_flags  # noqa: F401,E402
+from paddle_tpu_torch.core.generator import (  # noqa: F401,E402
+    Generator, get_rng_state, seed, set_rng_state,
+)
 
 # op surface: every registry op becomes a paddle_tpu_torch.<op> function
 # (flash_attention lives in nn.functional, as in the JAX package)
@@ -48,3 +54,39 @@ from paddle_tpu_torch.autograd import (  # noqa: F401,E402
 from paddle_tpu_torch import autograd  # noqa: F401,E402
 from paddle_tpu_torch import nn  # noqa: F401,E402
 from paddle_tpu_torch import amp  # noqa: F401,E402
+from paddle_tpu_torch import optimizer  # noqa: F401,E402
+from paddle_tpu_torch import framework  # noqa: F401,E402
+from paddle_tpu_torch.framework.io_utils import load, save  # noqa: F401,E402
+from paddle_tpu_torch.framework.param_attr import ParamAttr  # noqa: F401,E402
+
+
+def einsum(equation, *operands):
+    """paddle.einsum(equation, *operands): the registry op takes the
+    operand list first, the public API leads with the equation."""
+    return _OPS_API["einsum"](list(operands), equation)
+
+
+def randn_like(x, dtype=None):
+    return _OPS_API["randn"](x.shape, dtype=dtype or x.dtype)
+
+
+def get_cuda_rng_state():
+    """The device RNG states, one per card: here the global generator's
+    ``(seed, counter)`` (one stream per process), as in the JAX package."""
+    from paddle_tpu_torch.core.generator import default_generator
+
+    return [default_generator.get_state()]
+
+
+def set_cuda_rng_state(state_list):
+    from paddle_tpu_torch.core.generator import default_generator
+
+    default_generator.set_state(state_list[0])
+
+
+# namespace completion: in-place variants, aliases, dtype predicates, the
+# random fills; then the Tensor methods bound from module functions
+from paddle_tpu_torch import compat_extra as _compat_extra  # noqa: E402
+
+globals().update(_compat_extra.EXPORTS)
+_compat_extra._bind_tensor_methods()

@@ -194,7 +194,7 @@ class Tensor:
         return self
 
     def numpy(self):
-        d = self._data.detach()
+        d = self._data.detach().resolve_conj()
         if d.dtype == torch.bfloat16:
             d = d.float()
         return d.cpu().numpy()
@@ -267,12 +267,17 @@ class Tensor:
         return self
 
     def set_value(self, value):
+        """Rebind to a copy of ``value`` in this tensor's device, dtype and
+        shape (a copy: the port's optimizers update data in place, so the
+        source must not share it)."""
         d = self._data
         if isinstance(value, Tensor):
             value = value._data
-        elif not isinstance(value, torch.Tensor):
-            value = _np_to_torch(value, None, d.device)
-        return self._rebind(value.to(d.device, d.dtype).reshape(d.shape))
+        if isinstance(value, torch.Tensor):
+            value = value.detach().to(d.device, d.dtype, copy=True)
+        else:
+            value = _np_to_torch(value, None, d.device).to(d.dtype)
+        return self._rebind(value.reshape(d.shape))
 
     def copy_(self, other, *_):
         return self.set_value(other)
@@ -312,13 +317,22 @@ class Tensor:
     def __bool__(self):
         return bool(self._data.detach())
 
+    def _scalar_data(self):
+        """The data of a 0-d tensor; any other raises the JAX package's
+        ``TypeError`` (torch would take any one-element tensor)."""
+        d = self._data
+        if d.dim() != 0:
+            raise TypeError("Only scalar arrays can be converted to Python "
+                            f"scalars; got arr.ndim={d.dim()}")
+        return d.detach()
+
     def __int__(self):
-        return int(self._data.detach())
+        return int(self._scalar_data())
 
     __index__ = __int__
 
     def __float__(self):
-        return float(self._data.detach())
+        return float(self._scalar_data())
 
     def __iter__(self):
         for i in range(len(self)):

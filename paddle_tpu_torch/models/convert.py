@@ -1,14 +1,15 @@
-"""Weights and optimizer state across frameworks: the JAX Llama's state
-dict, AdamW slots and optimizer ``state_dict`` -> the port's."""
+"""Weights and state across frameworks: the JAX Llama's state dict,
+AdamW slots and optimizer ``state_dict``, and a JAX ``nn.Layer``'s
+state dict with the generator's state -> the port's."""
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["llama_state_from_jax", "optimizer_slots_from_jax",
-           "optimizer_state_from_jax"]
+           "optimizer_state_from_jax", "layer_state_from_jax"]
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -109,3 +110,16 @@ def optimizer_state_from_jax(jax_state: Mapping, model: torch.nn.Module
             arr = _torch_layout(layout_name, arr)
         out[key] = _to_tensor(arr)
     return out
+
+
+def layer_state_from_jax(np_state: Mapping[str, np.ndarray], rng_state
+                         ) -> Tuple[Dict[str, torch.Tensor], Tuple[int, int]]:
+    """A JAX ``nn.Layer``'s ``state_dict()`` (values as numpy arrays,
+    bf16 as ml_dtypes' arrays) and the JAX generator's ``(seed,
+    counter)`` -> what the port's ``Layer.set_state_dict`` and
+    ``set_rng_state`` take: the same names over torch tensors (both layer
+    APIs keep a ``Linear`` weight ``[in, out]``, so nothing is
+    transposed) and the pair as ints. Both packages then hold the same
+    weights and draw the same next keys."""
+    state = {name: _to_tensor(value) for name, value in np_state.items()}
+    return state, (int(rng_state[0]), int(rng_state[1]))

@@ -31,8 +31,7 @@ from torch import nn
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.dtype import to_torch
 from paddle_tpu_torch.incubate.nn import functional as F
-from paddle_tpu_torch.nn.norm import RMSNorm
-from paddle_tpu_torch.ops.nn_ops import (flash_attention,
+from paddle_tpu_torch.ops.nn_ops import (flash_attention, rms_norm,
                                          scaled_dot_product_attention,
                                          softmax_with_cross_entropy)
 
@@ -40,6 +39,23 @@ __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP",
            "LlamaPretrainingCriterion", "generate_engine_config"]
 
+
+
+class _RMSNorm(nn.Module):
+    """The Llama's RMSNorm module over the raw :func:`~paddle_tpu_torch.
+    ops.nn_ops.rms_norm` (the JAX op's order). ``nn.RMSNorm`` is the
+    Tensor API's layer; the Llama stays a ``torch.nn.Module`` (ROADMAP,
+    by design)."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(
+            torch.ones(hidden_size, device=device, dtype=dtype))
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, epsilon=self.epsilon)
 
 @dataclass
 class LlamaConfig:
@@ -237,10 +253,10 @@ class LlamaDecoderLayer(nn.Module):
         super().__init__()
         self.config = config
         kw = dict(device=device, dtype=dtype)
-        self.input_layernorm = RMSNorm(config.hidden_size,
+        self.input_layernorm = _RMSNorm(config.hidden_size,
                                        config.rms_norm_eps, **kw)
         self.self_attn = LlamaAttention(config, **kw)
-        self.post_attention_layernorm = RMSNorm(config.hidden_size,
+        self.post_attention_layernorm = _RMSNorm(config.hidden_size,
                                                 config.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(config, **kw)
 
@@ -290,7 +306,7 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, **kw)
              for _ in range(config.num_hidden_layers)])
-        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
+        self.norm = _RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
         head_dim = config.hidden_size // config.num_attention_heads
         cos, sin = _rope_tables(config.max_position_embeddings, head_dim,
                                 config.rope_theta, device=device)
@@ -533,18 +549,22 @@ class LlamaForCausalLM(nn.Module):
 
     def _generate_naive(self, input_ids, max_new_tokens, temperature,
                         top_k):
-        """Full-context recompute per token (the pre-serving fallback):
-        greedy only, through :meth:`forward`."""
-        if temperature > 0:
-            raise NotImplementedError(
-                "generate(use_cache=False, temperature > 0) samples from "
-                "the global generator, which is not ported to "
-                "paddle_tpu_torch yet (queue 1 item 7: A1, "
-                "core/generator.py); use_cache=True samples through the "
-                "serving engine's per-request streams")
+        """Full-context recompute per token (the pre-serving fallback),
+        through :meth:`forward`: greedy, or with ``temperature > 0`` one
+        ``jax.random.categorical`` draw over the batch's last logits
+        divided by the temperature, its key from the global generator."""
+        from paddle_tpu_torch.core import generator as gen
+        from paddle_tpu_torch.ops import threefry
+
         out = torch.as_tensor(input_ids).to(self.device)
         for _ in range(max_new_tokens):
-            nxt = self(out)[:, -1].argmax(dim=-1)
+            last = self(out)[:, -1]
+            if temperature > 0:
+                nxt = threefry.categorical(
+                    gen.active_key(), last / torch.tensor(
+                        temperature, dtype=last.dtype, device=last.device))
+            else:
+                nxt = last.argmax(dim=-1)
             out = torch.cat([out, nxt[:, None].to(out.dtype)], dim=1)
         return out
 

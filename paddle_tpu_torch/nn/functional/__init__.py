@@ -8,7 +8,7 @@ _F_OPS = [
     "relu", "relu6", "gelu", "sigmoid", "silu", "swish", "mish", "softplus",
     "softsign", "hardswish", "hardsigmoid", "hardtanh", "leaky_relu", "elu",
     "selu", "celu", "prelu", "glu", "tanhshrink", "hardshrink", "softshrink",
-    "thresholded_relu", "softmax", "log_softmax", "tanh",
+    "thresholded_relu", "softmax", "log_softmax", "gumbel_softmax", "tanh",
     # linear/conv/pool
     "linear", "embedding", "conv1d", "conv2d", "conv3d", "conv2d_transpose",
     "max_pool1d", "max_pool2d", "avg_pool1d", "avg_pool2d",
@@ -17,6 +17,8 @@ _F_OPS = [
     # norms
     "batch_norm", "layer_norm", "rms_norm", "group_norm", "instance_norm",
     "local_response_norm", "normalize",
+    # dropout
+    "dropout",
     # losses
     "cross_entropy", "softmax_with_cross_entropy", "nll_loss",
     "binary_cross_entropy", "binary_cross_entropy_with_logits", "mse_loss",

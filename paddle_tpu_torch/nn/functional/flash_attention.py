@@ -7,7 +7,7 @@ the registry's ``flash_attention`` op (the hand-written kernels on the
 card, their plain versions on the CPU), whatever the sequence lengths;
 the JAX dispatcher sends shapes its TPU blocks do not tile to SDPA
 instead. ``dropout > 0`` keeps the JAX route: plain attention with
-dropout, drawn from an explicit ``generator``. ``flash_attn_unpadded``
+dropout, its mask drawn from the global generator. ``flash_attn_unpadded``
 repacks the packed rows into a padded batch and calls
 ``variable_length_memory_efficient_attention``, as the JAX package does.
 """
@@ -25,14 +25,14 @@ __all__ = ["flash_attention", "flash_attn_unpadded",
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None,
-                    training=True, name=None, generator=None):
+                    training=True, name=None):
     """paddle.nn.functional.flash_attention: returns ``(out, None)``, as
     the JAX package does (``return_softmax`` and ``fixed_seed_offset``
     are accepted and ignored there too)."""
     if dropout > 0.0:
         out = _API["scaled_dot_product_attention"](
             query, key, value, is_causal=causal, dropout_p=dropout,
-            training=training, generator=generator)
+            training=training)
     else:
         out = _API["flash_attention"](query, key, value, causal=causal)
     return out, None
@@ -40,10 +40,10 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, generator=None):
+                                 training=True):
     return _API["scaled_dot_product_attention"](
         query, key, value, attn_mask=attn_mask, dropout_p=dropout_p,
-        is_causal=is_causal, training=training, generator=generator)
+        is_causal=is_causal, training=training)
 
 
 def _host_lens(cu):

@@ -502,6 +502,11 @@ def _flip_negative_steps(x, index):
 
 
 def _torch_index(index, device):
+    if isinstance(index, list):
+        # the JAX package's error: only a tuple indexes several dimensions
+        raise TypeError("Using a non-tuple sequence for multidimensional "
+                        "indexing is not allowed; use `arr[array(seq)]` "
+                        "instead of `arr[seq]`")
     comps = []
     for c in _components(index):
         if isinstance(c, list):

@@ -1,5 +1,6 @@
 """NN emitters (port of ``paddle_tpu/ops/nn_ops.py``): activations,
-linear and embedding, conv and pool, normalization, losses and attention.
+linear and embedding, conv and pool, normalization, dropout and sampling
+(each draw one key from the global generator), losses and attention.
 
 Conv, pool and products call torch's own functions (the JAX package
 computes them in XLA, outside any Pallas kernel); paddings the torch
@@ -24,8 +25,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.core import generator as gen
 from paddle_tpu_torch.core.op import op as _one_call
 from paddle_tpu_torch.ops.flash_attention import flash_attention_data
+from paddle_tpu_torch.ops import threefry
+from paddle_tpu_torch.ops.random_ops import bernoulli_bits
 from paddle_tpu_torch.ops.registry import register_emitter as op
 
 __all__ = ["rms_norm", "softmax_with_cross_entropy",
@@ -166,6 +170,20 @@ def softmax(x, axis=-1):
 @op
 def log_softmax(x, axis=-1):
     return torch.log_softmax(x, dim=int(axis))
+
+
+@op
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1):
+    """Softmax of ``(x + g) / temperature`` with ``g`` Gumbel noise of
+    ``x``'s dtype from one key; ``hard`` gives the one-hot of the argmax
+    in the forward and the soft gradient."""
+    g = threefry.gumbel(gen.active_key(), x.shape, x.dtype, x.device)
+    y = torch.softmax((x + g) / _scalar(temperature, x), dim=int(axis))
+    if hard:
+        idx = torch.argmax(y, dim=int(axis), keepdim=True)
+        y_hard = torch.zeros_like(y).scatter_(int(axis), idx, 1.0)
+        y = (y_hard - y).detach() + y
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -746,20 +764,66 @@ def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
 
 
 # ---------------------------------------------------------------------------
+# dropout & random
+# ---------------------------------------------------------------------------
+@op
+def dropout(x, p=0.5, training=True, mode="upscale_in_train", axis=None):
+    """One key from the global generator per call in training with
+    ``p > 0`` (none otherwise): the keep mask is an f32 uniform below
+    ``1 - p`` over ``x``'s shape (1 on the axes ``axis`` leaves out)."""
+    if not training or p == 0.0:
+        # downscale_in_infer trains with out = x * mask (no upscale), so
+        # inference compensates by (1 - p)
+        if mode == "downscale_in_infer" and p > 0.0:
+            return x * _scalar(1.0 - p, x)
+        return x
+    key = gen.active_key()
+    shape = list(x.shape)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+    keep = 1.0 - p
+    mask = bernoulli_bits(key, keep, shape, x.device)
+    if mode == "upscale_in_train":
+        return torch.where(mask, x / _scalar(keep, x), _scalar(0.0, x))
+    return torch.where(mask, x, _scalar(0.0, x))
+
+
+@op
+def bernoulli(x):
+    return bernoulli_bits(gen.active_key(), x, x.shape,
+                          x.device).to(x.dtype)
+
+
+@op
+def multinomial(x, num_samples=1, replacement=False):
+    """Indices drawn from the rows of ``x`` (unnormalised probabilities):
+    with replacement as ``jax.random.categorical`` draws them (its shape
+    rule included), without by the Gumbel top-k trick. int64 (the JAX
+    package gives int32; ROADMAP, by design)."""
+    key = gen.active_key()
+    logits = torch.log(torch.clamp_min(x, 1e-30))
+    if replacement:
+        return threefry.categorical(key, logits, -1,
+                                    (*x.shape[:-1], int(num_samples)))
+    z = threefry.gumbel(key, x.shape, torch.float32, x.device) + logits
+    return torch.topk(z, int(num_samples), dim=-1).indices
+
+
+# ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
 @op
 @_one_call
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, generator=None):
+                                 training=True):
     """Plain attention on [batch, seq, heads, head_dim], as the JAX emitter
     computes it: scores in the inputs' dtype, masked entries set to -1e9
     (causal bottom-right aligned; a bool ``attn_mask`` selects, any other
-    is added), softmax in f32 cast back, then dropout drawn from the
-    explicit ``generator`` (a ``torch.Generator``, required when
-    ``dropout_p > 0`` and ``training``: the port has no global generator
-    yet)."""
+    is added), softmax in f32 cast back, then, in training with
+    ``dropout_p > 0``, dropout whose keep mask takes one key from the
+    global generator."""
     q = query.transpose(1, 2)
     k = key.transpose(1, 2)
     v = value.transpose(1, 2)
@@ -777,14 +841,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             scores = scores + attn_mask
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     if dropout_p > 0.0 and training:
-        if generator is None:
-            raise ValueError("attention dropout draws from an explicit "
-                             "torch.Generator: pass generator=")
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) < 1.0 - dropout_p
-        probs = torch.where(keep, probs / (1.0 - dropout_p),
-                            torch.zeros((), dtype=probs.dtype,
-                                        device=probs.device))
+        keep = bernoulli_bits(gen.active_key(), 1.0 - dropout_p,
+                              probs.shape, probs.device)
+        probs = torch.where(keep, probs / _scalar(1.0 - dropout_p, probs),
+                            _scalar(0.0, probs))
     return torch.matmul(probs, v).transpose(1, 2)
 
 

@@ -49,8 +49,13 @@ __all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adadelta", "RMSProp",
 
 
 def _as_tensor(value, device) -> torch.Tensor:
-    """A state-dict value (a tensor, a numpy array, incl. ml_dtypes'
-    bfloat16, or a number) as a tensor of its own dtype on ``device``."""
+    """A state-dict value (a torch or port tensor, a numpy array, incl.
+    ml_dtypes' bfloat16, or a number) as a tensor of its own dtype on
+    ``device``."""
+    from paddle_tpu_torch.core.tensor import Tensor
+
+    if isinstance(value, Tensor):
+        value = value._data
     if isinstance(value, torch.Tensor):
         return value.detach().to(device).clone()
     arr = np.array(value, order="C")

@@ -23,7 +23,11 @@ Momentum) trains on the card as on the CPU, a checkpoint resume on the
 card is bit-exact, and the bf16 flash check (F4) holds on 16 seeded
 draws at two shapes. The eager Tensor API's Llama matches the module
 path in f32 and bf16 and trains on the tensor cores, double grad on the
-card matches the CPU, and so does ``flash_attn_unpadded``."""
+card matches the CPU, and so does ``flash_attn_unpadded``. The layer
+API's Llama trains on the card as on the CPU with the same dropout masks,
+a dropout mask and a seeded ``nn.Linear`` drawn on the card equal the
+CPU's bit for bit, ``paddle.save``/``paddle.load`` round trips on the
+card, and its bf16 steps run K2-K4 on the tensor cores."""
 import numpy as np
 import pytest
 import torch
@@ -948,3 +952,129 @@ def test_flash_attn_unpadded_on_the_card_matches_the_cpu(card_place):
     want = T.unpadded(*rounded, cu, paddle.CPUPlace(), "float32")
     np.testing.assert_allclose(got, want,
                                **flash_check.TOL[torch.bfloat16])
+
+
+def _small_layer_llama(dtype, dropout=0.0):
+    from paddle_tpu_torch.tools import layer_api_train as L
+
+    return L.from_llama_config(_small_llama(dtype), dropout=dropout)
+
+
+def _layer_train(place, cfg, ids, labels, state, rng_state, steps):
+    """The layer API's Llama on ``place`` ("gpu"/"cpu"): ``state`` loaded,
+    ``rng_state`` set, ``steps`` AdamW steps; its losses and dropout masks
+    (as numpy)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import layer_api_train as L
+
+    paddle.set_device(place)
+    model = L.build(paddle, cfg)
+    model.set_state_dict(state)
+    masks = L.masks_of(paddle, model)
+    paddle.set_rng_state(rng_state)
+    run = L.train(paddle, model, paddle.to_tensor(ids),
+                  paddle.to_tensor(labels), steps, lr=1e-3)
+    return run["losses"], masks
+
+
+@pytest.mark.gpu
+def test_layer_api_step_on_the_card_matches_the_cpu(card_place):
+    """f32 (TF32 off), dropout 0.1: the layer API's Llama from the same
+    weights and generator state, three AdamW steps on the card (the flash
+    kernels) and on the CPU (their plain versions): the same dropout
+    masks bit for bit, losses within rtol 1e-5."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import layer_api_train as L
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _small_layer_llama("float32", dropout=0.1)
+    paddle.seed(3)
+    state = {k: v.numpy() for k, v in L.build(paddle, cfg).state_dict(
+        ).items()}
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (2, 256))
+    labels = rng.randint(0, cfg.vocab_size, (2, 256))
+    got, got_masks = _layer_train("gpu", cfg, ids, labels, state, (7, 0), 3)
+    want, want_masks = _layer_train("cpu", cfg, ids, labels, state, (7, 0),
+                                    3)
+    paddle.set_device("gpu")
+    assert len(got_masks) == len(want_masks) == 3 * (2 * 2 + 1)
+    assert all(np.array_equal(a, b) for a, b in zip(got_masks, want_masks))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_dropout_mask_and_seeded_linear_on_the_card_equal_the_cpu(
+        card_place):
+    """From one generator state a dropout mask (4 x 256 x 256, p 0.1) and,
+    after ``paddle.seed(0)``, an ``nn.Linear(256, 512)``'s weights: the
+    card's equal the CPU's bit for bit (threefry is integer arithmetic;
+    the uniform transform is exact)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import layer_api_train as L
+
+    card = L.mask_draw(paddle, (4, 256, 256), 0.1, "gpu:0", (5, 9))
+    host = L.mask_draw(paddle, (4, 256, 256), 0.1, "cpu", (5, 9))
+    assert torch.equal(card.cpu(), host)
+    assert 0.88 < float(host.float().mean()) < 0.92
+    wc, bc = L.seeded_linear(paddle, 256, 512)
+    paddle.set_device("cpu")
+    try:
+        wh, bh = L.seeded_linear(paddle, 256, 512)
+    finally:
+        paddle.set_device("gpu")
+    assert wc._data.is_cuda and torch.equal(wc._data.cpu(), wh._data)
+    assert torch.equal(bc._data.cpu(), bh._data)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_save_load_round_trips_on_the_card(card_place, tmp_path, dtype):
+    """``paddle.save`` of a card model's ``state_dict`` and ``paddle.load``
+    into a fresh one: every entry bit-identical, on the card, in its
+    dtype; the next step's loss bit-identical to the unbroken model's."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import layer_api_train as L
+
+    cfg = _small_layer_llama(dtype)
+    paddle.seed(1)
+    model = L.build(paddle, cfg)
+    path = str(tmp_path / "m.pdparams")
+    paddle.save(model.state_dict(), path)
+    loaded = paddle.load(path)
+    for k, v in model.state_dict().items():
+        assert loaded[k]._data.is_cuda and loaded[k].dtype == v.dtype
+        assert torch.equal(loaded[k]._data, v._data), k
+    rng = np.random.RandomState(1)
+    ids = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (2, 128)))
+    labels = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (2, 128)))
+    run = L.train(paddle, model, ids, labels, 1)
+    res = L.save_load_resume(paddle, model, cfg, ids, labels, run["opt"],
+                             path=str(tmp_path / "r.pdparams"))
+    assert res["bit_identical"] and not res["missing"], res
+
+
+@pytest.mark.gpu
+def test_layer_api_bf16_runs_k2_k4_on_the_tensor_cores(card_place):
+    """bf16: three AdamW steps of the layer API's Llama launch K2, K3 and
+    K4 once per layer a step, all on the tensor cores, and no plain
+    version; the losses are finite and fall."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import layer_api_train as L
+
+    cfg = _small_layer_llama("bfloat16")
+    paddle.seed(2)
+    model = L.build(paddle, cfg)
+    rng = np.random.RandomState(2)
+    ids = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (2, 256)))
+    labels = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (2, 256)))
+    routes = fa.route_launches()
+    before = dict(fa.launches)
+    run = L.train(paddle, model, ids, labels, 3, lr=1e-3)
+    assert np.all(np.isfinite(run["losses"])), run
+    assert run["losses"][-1] < run["losses"][0], run
+    now = fa.route_launches()
+    for k in now:
+        assert now[k]["tensor_cores"] - routes[k]["tensor_cores"] == 6, now
+        assert now[k]["fma"] == routes[k]["fma"], now
+    assert all(fa.launches[k] - before[k] == 6 for k in before)

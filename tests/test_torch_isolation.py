@@ -57,6 +57,17 @@ _MODULES = [
     "paddle_tpu_torch.autograd.py_layer",
     "paddle_tpu_torch.nn.functional.flash_attention",
     "paddle_tpu_torch.nn.norm", "paddle_tpu_torch.tools.tensor_api_train",
+    "paddle_tpu_torch.core.generator", "paddle_tpu_torch.ops.random_ops",
+    "paddle_tpu_torch.ops.spectral", "paddle_tpu_torch.nn.layer",
+    "paddle_tpu_torch.nn.initializer", "paddle_tpu_torch.nn.common",
+    "paddle_tpu_torch.nn.activation", "paddle_tpu_torch.nn.loss",
+    "paddle_tpu_torch.nn.conv_pool", "paddle_tpu_torch.nn.utils",
+    "paddle_tpu_torch.framework", "paddle_tpu_torch.framework.io_utils",
+    "paddle_tpu_torch.framework.param_attr",
+    "paddle_tpu_torch.distributed.fleet",
+    "paddle_tpu_torch.distributed.fleet.mp_layers",
+    "paddle_tpu_torch.compat_extra",
+    "paddle_tpu_torch.tools.layer_api_train",
 ]
 
 

@@ -9,6 +9,15 @@ dtype, and for a ``diff: true`` op the gradient of a seeded cotangent
 input. Tolerances: rtol 1e-5, atol 1e-6 in f32, except the ops in
 ``_LOOSE`` (each with its reason).
 
+Random ops: both packages are seeded with the case's seed before its
+call (``paddle.seed``), so a drawing op must give the reference's draws:
+``rand``, ``uniform``, ``randint``, ``randperm``, ``shuffle``,
+``bernoulli`` and the ``dropout`` masks bit for bit (compared at the
+tolerance like any op, their values being equal), the others
+(``randn``, ``normal``, ``poisson``, ``exponential``, ``multinomial``,
+``gumbel_softmax``) through the same uniforms with transcendentals that
+may differ in the last bits, inside the same tolerance.
+
 Dtypes: the port keeps int64 (by design, ROADMAP queue 3), so where the
 JAX package gives int32 for an int64 input or for an index result, the
 port's int64 is the match; everywhere else the dtypes are equal.
@@ -56,7 +65,8 @@ _LOOSE = {
 _INDEX = {"argmax", "argmin", "argsort", "topk", "nonzero", "unique",
           "searchsorted", "count_nonzero", "numel", "bincount",
           "tril_indices", "triu_indices", "matrix_rank", "arange",
-          "lstsq", "sum", "cumsum", "nansum", "where"}
+          "lstsq", "sum", "cumsum", "nansum", "where", "randint",
+          "randperm", "multinomial"}
 
 
 @pytest.fixture(autouse=True)
@@ -502,6 +512,9 @@ add("softplus", X(lambda r: [f(r, 3, 8) * 10], beta=2.0, threshold=5.0),
 add("softmax", X(lambda r: [f(r, 3, 8)], axis=0), name="softmax_axis0")
 add("prelu", X(lambda r: [f(r, 2, 3), f(r, 3)]))
 add("glu", X(lambda r: [f(r, 3, 8)]))
+add("gumbel_softmax", X(lambda r: [f(r, 3, 8)], temperature=0.5))
+add("gumbel_softmax", X(lambda r: [f(r, 3, 8)], hard=True),
+    name="gumbel_softmax_hard")
 
 # nn: linear / embedding / conv / pool
 SECTION = "nn: linear / embedding / conv / pool"
@@ -614,6 +627,57 @@ add("scaled_dot_product_attention",
 add("flash_attention", X(lambda r: [f(r, 1, 64, 2, 16), f(r, 1, 64, 2, 16),
                                     f(r, 1, 64, 2, 16)], causal=True))
 
+# nn: dropout / sampling
+SECTION = "nn: dropout / sampling"
+add("dropout", X(lambda r: [f(r, 4, 6)], p=0.3))
+add("dropout", X(lambda r: [f(r, 4, 6, 5)], p=0.5, axis=[0, 2]),
+    name="dropout_axis")
+add("dropout", X(lambda r: [f(r, 4, 6)], p=0.3, mode="downscale_in_infer"),
+    name="dropout_downscale")
+add("dropout", X(lambda r: [f(r, 4, 6)], p=0.3, training=False,
+                 mode="downscale_in_infer"), name="dropout_infer")
+add("dropout", X(lambda r: [Bf16(f(r, 4, 6))], p=0.2), tol=BF16_TOL,
+    name="dropout_bf16")
+add("bernoulli", X(lambda r: [f(r, 5, 7, lo=0.0, hi=1.0)]), grad=False)
+add("multinomial", X(lambda r: [pos(r, 9)], num_samples=4))
+add("multinomial", X(lambda r: [pos(r, 3, 9)], num_samples=2),
+    name="multinomial_rows")
+add("multinomial", X(lambda r: [pos(r, 9)], num_samples=6,
+                     replacement=True), name="multinomial_replacement")
+
+# random (its einsum and fft family draw nothing)
+SECTION = "random"
+add("rand", A([3, 4]))
+add("rand", A([5, 6], dtype="bfloat16"), name="rand_bf16")
+add("randn", A([40, 30]))
+add("randint", A(-5, 20, [4, 6]))
+add("randint", A(7, shape=[30]), name="randint_high_none")
+add("uniform", A([3, 5], min=-0.3, max=2.0))
+add("normal", A(1.0, 2.0, [4, 5]))
+add("standard_normal", A([6, 4]))
+add("randperm", A(20))
+add("shuffle", X(lambda r: [f(r, 7)]))
+add("shuffle", X(lambda r: [f(r, 6, 3)], axis=1), name="shuffle_axis1")
+add("poisson", X(lambda r: [pos(r, 4, 5) * 4]))
+add("poisson", X(lambda r: [f(r, 4, 5, lo=10.0, hi=60.0)]),
+    name="poisson_rejection")
+add("exponential", X(lambda r: [pos(r, 3, 4)], lam=2.0))
+add("einsum", X(lambda r: [[f(r, 2, 3), f(r, 3, 4)], "ij,jk->ik"]))
+add("einsum", X(lambda r: [[f(r, 2, 3, 3)], "bii->b"]),
+    name="einsum_trace")
+for op in ("fft", "ifft", "rfft", "ihfft"):
+    add(op, X(lambda r: [f(r, 3, 8)]), grad=False)
+add("irfft", X(lambda r: [f(r, 3, 5) + 1j * f(r, 3, 5)]), grad=False)
+add("hfft", X(lambda r: [f(r, 3, 5) + 1j * f(r, 3, 5)], n=8), grad=False)
+for op in ("fft2", "ifft2", "fftn", "ifftn", "rfft2", "rfftn"):
+    add(op, X(lambda r: [f(r, 2, 4, 6)]), grad=False)
+add("fft", X(lambda r: [f(r, 3, 8)], n=6, norm="ortho"), grad=False,
+    name="fft_n_ortho")
+for op in ("irfft2", "irfftn"):
+    add(op, X(lambda r: [f(r, 2, 4, 4) + 1j * f(r, 2, 4, 4)]), grad=False)
+add("fftshift", X(lambda r: [f(r, 4, 5)]))
+add("ifftshift", X(lambda r: [f(r, 4, 5)], axes=[1]))
+
 # bf16, the Llama path's dtype: the result dtypes must be the JAX
 # package's (jnp's weak scalars, rms_norm and the loss computed in f32)
 SECTION = "nn: normalization"
@@ -696,8 +760,11 @@ def check_case(case):
     seed = zlib.crc32(case.id.encode())
     args_r, kw_r = case.make(np.random.default_rng(seed))
     args_p, kw_p = case.make(np.random.default_rng(seed))
+    P_ref.seed(seed)
     outs_r, leaves_r, diff = _run(P_ref, ref_registry, case, args_r, kw_r)
+    P_port.seed(seed)
     outs_p, leaves_p, _ = _run(P_port, port_registry, case, args_p, kw_p)
+    assert P_ref.get_rng_state() == P_port.get_rng_state(), case.id
     int64_inputs = any((isinstance(a, np.ndarray) and a.dtype == np.int64)
                        or (isinstance(a, str) and a == "int64")
                        for a in list(args_r) + list(kw_r.values()))

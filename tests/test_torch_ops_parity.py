@@ -33,8 +33,8 @@ _PORT_YAML = os.path.join(ROOT, "paddle_tpu_torch", "ops", "ops.yaml")
 _PORTED_SECTIONS = (
     "binary math", "unary math", "reductions", "creation",
     "logic / compare", "manipulation", "linalg", "activations",
-    "nn: linear / embedding / conv / pool", "nn: normalization", "losses",
-    "attention")
+    "nn: linear / embedding / conv / pool", "nn: normalization",
+    "nn: dropout / sampling", "losses", "attention", "random")
 
 
 def _sections(path):
@@ -68,13 +68,14 @@ def test_manifest_entries_equal_the_reference():
 
 
 def test_left_out_entries_are_the_ones_roadmap_lists():
-    """From the ported sections only the entries that draw random numbers
-    are left out: ``gumbel_softmax``, and the dropout / sampling section
-    (which comes with the generator, A1)."""
+    """Every entry of the ported sections is ported, the drawing ones
+    (``gumbel_softmax``, the dropout / sampling and random sections)
+    included since the generator came (item 7); ROADMAP's sentence says
+    so."""
     ref = _sections(_REF_YAML)
     port_ops = {e["op"] for e in _yaml_entries(_PORT_YAML)}
     left_out = set()
-    for title in _PORTED_SECTIONS + ("nn: dropout / sampling",):
+    for title in _PORTED_SECTIONS:
         for line in ref[title]:
             op = re.match(r"- \{op: (\w+)", line).group(1)
             if op not in port_ops:
@@ -85,5 +86,4 @@ def test_left_out_entries_are_the_ones_roadmap_lists():
                   roadmap, re.S)
     assert m, "ROADMAP.md lists no left-out manifest entries"
     listed = set(re.findall(r"`(\w+)`", m.group(1)))
-    assert left_out == listed == {"gumbel_softmax", "dropout", "bernoulli",
-                                  "multinomial"}
+    assert left_out == listed == set()

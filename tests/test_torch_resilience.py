@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import paddle_tpu as paddle
+import paddle_tpu_torch as tpaddle
 from paddle_tpu import profiler as jprofiler
 from paddle_tpu.distributed.watchdog import PreemptionMonitor as JMonitor
 from paddle_tpu.models.llama import LlamaConfig as JLlamaConfig
@@ -701,13 +702,25 @@ def test_model_is_freed_without_the_collector_after_close():
 
 
 def test_generate_sampled_naive_is_refused(models):
-    """The naive loop samples from the reference's global generator,
-    which is not ported (queue 1 item 7); the cached path samples."""
-    _, tm = models
-    x = torch.tensor([[1, 2, 3]])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tm.generate(x, max_new_tokens=2, temperature=0.8)
-    out = tm.generate(x, max_new_tokens=2, temperature=0.8, use_cache=True)
+    """The naive loop samples from the global generator, as the
+    reference's does (no longer refused since the generator came, queue 1
+    item 7): under one ``paddle.seed`` both packages give the same tokens
+    and spend one key a token; the cached path samples through the
+    engine's per-request streams. (The name is the one the test had while
+    naive sampling was refused; it is kept so that its record carries
+    on.)"""
+    jm, tm = models
+    x = np.array([[1, 2, 3]], np.int64)
+    paddle.seed(6)
+    want = np.asarray(jm.generate(paddle.to_tensor(x), max_new_tokens=3,
+                                  temperature=0.8, use_cache=False).numpy())
+    tpaddle.seed(6)
+    got = tm.generate(torch.from_numpy(x), max_new_tokens=3,
+                      temperature=0.8, use_cache=False)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert tpaddle.get_rng_state() == paddle.get_rng_state() == (6, 3)
+    out = tm.generate(torch.tensor([[1, 2, 3]]), max_new_tokens=2,
+                      temperature=0.8, use_cache=True)
     assert out.shape == (1, 5)
     tm.close()
 
