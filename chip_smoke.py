@@ -238,17 +238,55 @@ non-zero (nothing is caught and passed over):
                on: finite losses, one key per dropout call. One
                ``nn.Linear(2048, 5632)`` after ``paddle.seed(0)`` on the
                card and on the CPU: bit-identical. Peak memory, seconds.
+22. layer_trainstep — phase 21's bf16 layer-API Llama (full depth)
+               through ``paddle.jit.TrainStep`` (``tools/layer_api_train.
+               replay_against_calls``): two models from one seed, each
+               behind a TrainStep built from the same generator state.
+               Dropout 0: 8 ``__call__`` steps against two dispatches of
+               ``run_steps(4)`` (the first: its first step eager as the
+               capture's warm-up, then the capture and 3 replays; the
+               second: 4 replays): losses and every parameter bit-
+               identical; per-step p50 of the calls and of the replays
+               beside phase 18's module TrainStep p50s. ``nn.Dropout(0.1)``
+               on its 33 activations: 2 ``__call__`` steps against
+               ``run_steps(2)``: losses, parameters, the masks (the
+               calls' against the warm-up's and the replay's) and the
+               chains' final words bit-identical; the generator's counter
+               moves by 1 at each TrainStep's construction and by 0 over
+               its steps. K2-K4 on the tensor cores, no plain version.
+23. tiers     — tiered KV at Llama-3-8B (``tools/llama3_8b_tiers.py``:
+               bf16, 32 layers, random weights from seed 0, block 16, a
+               512-token step budget). A greedy request of a 3000-token
+               prompt and 32 new tokens on a tiered engine of 64 device
+               blocks (1024 tokens) and 512 host blocks: it demotes
+               (``num_demotes`` > 0), steps read the host tier's mirror,
+               and its tokens equal an untiered 1024-block engine's.
+               K1 at the first such step's tables (layer 0's caches and
+               mirror, random queries) against its plain version with the
+               mirror and bit for bit against one pool holding the same
+               pages; both times (CUDA events, L2 flushed). Then 8 greedy
+               two-turn sessions (turn 1: 400-900-token prompts, 32 new;
+               parked; turn 2: turn 1's tokens and 64 more, 32 new):
+               ``resume_session`` returns each parked coverage, 0 tokens
+               recomputed, ``kv_tier_park_resumes`` 8, the resumed
+               chains' bytes (read from the tier holding each block) equal
+               to what turn 1 left, and turn 2 against the same prompts
+               served cold by an untiered engine. Demotes, promotes, the
+               host ms of ``apply_moves`` and of ``claim_resume`` (which
+               holds the tail restore); the tiered steps run as captured
+               graphs (captures only at a bucket's first use).
 
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
 (both modes), drain, the watched run and cached generate for the ragged
 kernel, train, spec and naive generate for the flash forward, and
 eager_train and trainstep_scaler (phase 15), fed_train (phase 18),
-tensor_api (phase 20) and layer_api (phase 21) for K2-K4; on the
+tensor_api (phase 20), layer_api (phase 21) and layer_trainstep (phase
+22) for K2-K4, and tiers (phase 23's tiered engines) for K1; on the
 paths that replay graphs they are the launches the card ran, the eager
 warm-ups plus captured x replays — error, times, bound, library time;
-``spec_shapes`` and ``generate_shapes`` repeat them at those paths'
-shapes),
+``spec_shapes``, ``generate_shapes`` and ``tiers_shapes`` repeat them
+at those paths' shapes),
 nvidia-smi's line, and last ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -2150,6 +2188,234 @@ def phase_layer_api(dev):
     return res
 
 
+TRAINSTEP_STEPS = 4       # phase 22: run_steps(4) against 4 calls, twice
+TRAINSTEP_DROPOUT_STEPS = 2
+
+
+def phase_layer_trainstep(dev, fe):
+    """Phase 22: the layer-API Llama through ``jit.TrainStep``: replayed
+    steps against ``__call__`` steps, without and with dropout.
+    ``fe``: phase 18's result (its p50s)."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.tools import gpt_1b_train
+    from paddle_tpu_torch.tools import layer_api_train as L
+    from paddle_tpu_torch.tools import tensor_api_train as T
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    paddle.set_device("gpu")
+    cfg = gpt_1b_train.config()
+    ids, labels = T.batch(cfg, gpt_1b_train.BATCH, gpt_1b_train.SEQ, dev)
+    tids, tlabels = paddle.to_tensor(ids), paddle.to_tensor(labels)
+    sync = torch.cuda.synchronize
+    routes = fa.route_launches()
+    runs, launches = {}, {}
+    with _PlainCalls() as plain:
+        for name, dropout, steps, rounds in (
+                ("dropout_0", 0.0, TRAINSTEP_STEPS, 2),
+                ("dropout_0.1", LAYER_API_DROPOUT,
+                 TRAINSTEP_DROPOUT_STEPS, 1)):
+            r = L.replay_against_calls(
+                paddle, L.from_llama_config(cfg, dropout=dropout), tids,
+                tlabels, steps, rounds=rounds, sync=sync)
+            del r["models"]
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the calls' launches, then the replayed step's: warm-up plus
+            # captured x replays, by kernel (and by route: tensor cores)
+            executed = r["graph_stats"]["executed_launches"]
+            for k in r["call_launches"]:
+                launches[k] = launches.get(k, 0) + r["call_launches"][k] \
+                    + executed.get(k, 0)
+                assert executed.get(f"{k}/tensor_cores") == \
+                    executed.get(k), executed
+            runs[name] = r
+    r16 = {k: {r: n - routes[k][r] for r, n in v.items()}
+           for k, v in fa.route_launches().items()}
+    for name, r in runs.items():
+        assert r["losses_bit_identical"], (name, r["call_losses"],
+                                           r["replay_losses"])
+        assert r["params_bit_identical"], name
+        assert r["chains_equal"], name
+        assert r["generator_keys"] == {"call": (1, 0),
+                                       "replay": (1, 0)}, r
+        assert all(np.isfinite(r["call_losses"])), r["call_losses"]
+        assert r["graph_stats"]["captures"] == 1, r["graph_stats"]
+    assert runs["dropout_0"]["masks_bit_identical"] is None
+    assert runs["dropout_0.1"]["masks_bit_identical"], runs["dropout_0.1"]
+    assert runs["dropout_0.1"]["masks_per_step"] == \
+        2 * cfg.num_hidden_layers + 1
+    assert runs["dropout_0"]["call_losses"][-1] < \
+        runs["dropout_0"]["call_losses"][0]
+    want = cfg.num_hidden_layers * 2 * (2 * TRAINSTEP_STEPS
+                                        + TRAINSTEP_DROPOUT_STEPS)
+    assert all(n == want for n in launches.values()), (launches, want)
+    assert all(v["fma"] == 0 and v["tensor_cores"] > 0
+               for v in r16.values()), r16
+    assert not any(plain.calls.values()), plain.calls
+    a = runs["dropout_0"]
+    res = {"phase": "layer_trainstep", "layers": cfg.num_hidden_layers,
+           "batch": [gpt_1b_train.BATCH, gpt_1b_train.SEQ], **runs,
+           "call_step_ms_p50": float(np.percentile(a["call_step_ms"], 50)),
+           "replay_step_ms_p50": float(np.percentile(a["replay_step_ms"],
+                                                     50)),
+           "dropout_call_step_ms_p50": float(np.percentile(
+               runs["dropout_0.1"]["call_step_ms"], 50)),
+           "module_call_step_ms_p50_phase18": fe["call_step_ms_p50"],
+           "module_run_steps_step_ms_p50_phase18":
+               fe["run_steps_step_ms_p50"],
+           "kernel_launches": launches, "route_launches": r16,
+           "plain_calls": plain.calls,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_phase}
+    del tids, tlabels, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(res)
+    return res
+
+
+def _tiers_k1(dev, eng, arrays, flush):
+    """K1 at one tiered step's tables (``arrays``: bt, cu, ctx,
+    num_seqs of a step whose table names the host tier), on the tiered
+    engine's layer-0 cache and mirror with random queries: against the
+    plain version with the mirror (the ``round_to`` form in the kernel's
+    splits), bit for bit against the kernel on one pool holding the same
+    pages; both kernels' times and the plain version's."""
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+
+    bt, cu, ctx, ns = (torch.from_numpy(a).to(dev) for a in arrays)
+    ns = ns.reshape(1)
+    mcfg = eng.model.config
+    h, d = mcfg.num_attention_heads, mcfg.hidden_size // \
+        mcfg.num_attention_heads
+    kh = mcfg.num_key_value_heads
+    t_total = int(eng._ragged_T)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q = torch.randn((t_total, h, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    kc, vc, hk, hv = eng._kcs[0], eng._vcs[0], eng._htk[0], eng._htv[0]
+    scale = d ** -0.5
+    idx = (bt, cu, ctx, ns)
+    out = rpa._ragged_attend_cuda(q, kc, vc, *idx, scale, hk, hv)
+    one_k, one_v = torch.cat([kc, hk]), torch.cat([vc, hv])
+    one = rpa._ragged_attend_cuda(q, one_k, one_v, *idx, scale)
+    split, nsplit = rpa.kernel_split(q, kc, bt)
+    ref = rpa._ragged_attend_ref(q, kc, vc, *idx, scale,
+                                 out_dtype=torch.float32,
+                                 round_to=torch.bfloat16, split=split,
+                                 hkc=hk, hvc=hv)
+    torch.cuda.synchronize()
+    n = int(ns[0])
+    live = int(cu[n])
+    assert torch.equal(out, one), "the two pools and one pool differ"
+    assert torch.all(out[live:] == 0)
+    from paddle_tpu_torch.testing import flash_check
+
+    max_abs_err = float((out[:live].float() - ref[:live]).abs().max())
+    torch.testing.assert_close(out[:live].float(), ref[:live],
+                               **flash_check.TOL[torch.bfloat16])
+    ms = cuda_ms(lambda: rpa._ragged_attend_cuda(
+        q, kc, vc, *idx, scale, hk, hv), 20, flush=flush)
+    one_ms = cuda_ms(lambda: rpa._ragged_attend_cuda(
+        q, one_k, one_v, *idx, scale), 20, flush=flush)
+    plain_ms = cuda_ms(lambda: rpa._ragged_attend_ref(
+        q, kc, vc, *idx, scale, round_to=torch.bfloat16, split=split,
+        hkc=hk, hvc=hv), 3, flush=flush)
+    cu_h, ctx_h = cu.tolist(), ctx.tolist()
+    rows = [cu_h[i + 1] - cu_h[i] for i in range(n)]
+    contexts = ctx_h[:n]
+    nb = eng.cfg.num_blocks
+    virtual = int((bt[:n] >= nb).sum())
+    esz = q.element_size()
+    nbytes = (live * h * d * esz + t_total * h * d * esz
+              + 2 * sum(contexts) * kh * d * esz)
+    flops = 0
+    for r, c in zip(rows, contexts):
+        flops += 4 * h * d * int(np.arange(c - r + 1, c + 1).sum())
+    res = {"rows": rows, "contexts": contexts, "t_bucket": t_total,
+           "virtual_entries": virtual, "split": split, "nsplit": nsplit,
+           "max_abs_err": max_abs_err,
+           "tolerance": "flash_check.TOL[bfloat16] vs the f32 plain "
+                        "version's round_to=bfloat16 form with the mirror",
+           "bit_identical_to_one_pool": True, "ms": ms,
+           "one_pool_ms": one_ms, "plain_ms": plain_ms,
+           **_bound(nbytes, flops), "library_ms": None}
+    del one_k, one_v
+    return res
+
+
+def phase_tiers(dev):
+    """Phase 23: tiered KV serving at Llama-3-8B: a request past the
+    device pool, and parked sessions resumed."""
+    import gc
+
+    from paddle_tpu_torch.tools import llama3_8b_serve
+    from paddle_tpu_torch.tools import llama3_8b_tiers as TT
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev).zero_
+    model = llama3_8b_serve.target_model(dev)
+    with _PlainCalls() as plain:
+        op = TT.over_pool(model)
+    r = op["result"]
+    eng = op["engine"]
+    assert r["finish_reason"] == "length" and r["new_tokens"] == 32, r
+    assert r["num_demotes"] > 0, r
+    assert r["mirror_steps"] > 0 and op["mirror"].first is not None, r
+    assert r["tokens_identical"], r
+    assert r["preemptions"] == 0, r
+    window = op["window"]
+    assert _k1(window) > 0, window
+    k1 = _tiers_k1(dev, eng, op["mirror"].first, flush)
+    over = {**r, "captures": window["captures"],
+            "capture_s": window["capture_s"],
+            "replays": window["replays"], "kernel_launches": _k1(window),
+            "k1_mirror_step": k1}
+    del op, eng, window
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _PlainCalls() as plain2:
+        se = TT.sessions(model)
+    r = se["result"]
+    window = se["window"]
+    assert r["resume_hits_equal_parked"], r
+    assert r["num_resume_recomputed_tokens"] == 0, r
+    assert r["kv_tier_park_resumes"] == TT.SESSIONS, r
+    assert r["resumed_chain_bytes_equal"], r
+    assert r["turn2_mirror_steps"] > 0, r
+    assert all(d > 0 for d in r["parked_demoted"]), r
+    assert _k1(window) > 0, window
+    assert not any(plain.calls.values()) and \
+        not any(plain2.calls.values()), (plain.calls, plain2.calls)
+    sess = {**r, "captures": window["captures"],
+            "replays": window["replays"], "kernel_launches": _k1(window)}
+    # bf16: a cold run computes the turn-1 tokens' K/V in prefill chunks
+    # where the session computed them in its turn-1 steps (reported)
+    del se, window
+    gone = _freed(model)
+    del model, flush
+    gc.collect()
+    assert not any(g() for g in gone), "the 8B model outlived its refs"
+    torch.cuda.empty_cache()
+    res = {"phase": "tiers", "model": "llama3_8b", "dtype": "bfloat16",
+           "engine": TT.ENGINE, "over_pool": over, "sessions": sess,
+           "kernel_launches": over["kernel_launches"]
+           + sess["kernel_launches"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -2186,6 +2452,8 @@ def main():
     fe = phase_fed_train(dev, tr)
     ta = phase_tensor_api(dev)
     la = phase_layer_api(dev)
+    lt = phase_layer_trainstep(dev, fe)
+    ti = phase_tiers(dev)
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
     dr = fl["fwd_only"]["draft_shapes"]
@@ -2200,7 +2468,8 @@ def main():
             "drain": dn["drain"]["kernel_launches"],
             "watchdog": dn["watchdog"]["kernel_launches"],
             "generate_cached": bk["generate"]["kernel_launches"][
-                "ragged_paged_attention"]},
+                "ragged_paged_attention"],
+            "tiers": ti["kernel_launches"]},
         "flash_attention_fwd": {
             "train": tr["kernel_launches"]["flash_attention_fwd"],
             "spec": sp["kernel_launches"]["flash_attention_fwd"],
@@ -2220,6 +2489,7 @@ def main():
             ta["bf16_full_depth"]["kernel_launches"][name]
         by_path[name]["layer_api"] = \
             la["bf16_full_depth"]["kernel_launches"][name]
+        by_path[name]["layer_trainstep"] = lt["kernel_launches"][name]
     spec_shapes = {
         "ragged_paged_attention": {
             "max_abs_err": kv["max_abs_err"], "ms": kv["ms"],
@@ -2279,6 +2549,8 @@ def main():
         if row["name"] in spec_shapes:
             row["spec_shapes"] = spec_shapes[row["name"]]
             row["generate_shapes"] = gen_shapes[row["name"]]
+    # K1 at phase 23's first step that read the host tier's mirror
+    rows[0]["tiers_shapes"] = ti["over_pool"]["k1_mirror_step"]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -55,6 +55,7 @@ from paddle_tpu_torch import autograd  # noqa: F401,E402
 from paddle_tpu_torch import nn  # noqa: F401,E402
 from paddle_tpu_torch import amp  # noqa: F401,E402
 from paddle_tpu_torch import optimizer  # noqa: F401,E402
+from paddle_tpu_torch import jit  # noqa: F401,E402
 from paddle_tpu_torch import framework  # noqa: F401,E402
 from paddle_tpu_torch.framework.io_utils import load, save  # noqa: F401,E402
 from paddle_tpu_torch.framework.param_attr import ParamAttr  # noqa: F401,E402

@@ -18,7 +18,7 @@ from paddle_tpu_torch.ops import threefry
 __all__ = [
     "Generator", "default_generator", "seed", "get_rng_state",
     "set_rng_state", "RNGStatesTracker", "get_rng_tracker", "rng_state",
-    "active_key", "wrap_replay",
+    "active_key", "wrap_replay", "device_key_stream",
 ]
 
 
@@ -48,7 +48,11 @@ class Generator:
 
     def next_key(self):
         """The next key, a pair of Python ints (threadsafe, replayable
-        through the state)."""
+        through the state); under :func:`device_key_stream` the stream's
+        next ``(2,)`` key tensor, the counter left as it is."""
+        stream = _key_stream
+        if stream is not None:
+            return stream.next()
         with self._lock:
             c = self._counter
             self._counter += 1
@@ -64,6 +68,37 @@ class Generator:
 
 
 default_generator = Generator(0)
+
+
+class _DeviceKeyStream:
+    """Splits a ``(2,)`` key tensor once per draw (``key, sub =
+    split(key)``, the draw takes ``sub``), as the JAX package's
+    ``_TraceKeyStream`` splits its tracer key."""
+
+    def __init__(self, root):
+        self._key = root
+
+    def next(self):
+        pair = threefry.split(self._key)
+        self._key = pair[0]
+        return pair[1]
+
+
+_key_stream = None
+
+
+@contextlib.contextmanager
+def device_key_stream(root):
+    """Draws inside the context take successive splits of the ``(2,)``
+    key tensor ``root`` (on the device the draws land on) instead of the
+    generators' Python-int keys; no generator's state moves."""
+    global _key_stream
+    prev = _key_stream
+    _key_stream = _DeviceKeyStream(root)
+    try:
+        yield _key_stream
+    finally:
+        _key_stream = prev
 
 
 def seed(s: int) -> Generator:

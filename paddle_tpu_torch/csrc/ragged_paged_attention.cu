@@ -13,6 +13,11 @@
 //   q            (T, H, D)          bf16 or f32
 //   key/value    (NB, BS, KH, D)    same dtype as q, already holding
 //                                   this step's new K/V (written first)
+//   host key/value (NHB, BS, KH, D) optional second pool (the device
+//                                   mirror of a tiered engine's host tier):
+//                                   a table entry e with NB <= e < NB + NHB
+//                                   names its page e - NB; null, NHB = 0
+//                                   without one
 //   block_tables (S, MB) int32      -1 pads
 //   cu_seqlens   (S+1,) int32       cu[0] == 0
 //   context_lens (S,) int32         cache length per slot after the step
@@ -35,7 +40,10 @@
 //     read from device memory once per CTA, not once per head, and a
 //     decode row still fills the 64 rows of a wgmma.
 //   * the loop walks cache positions [0, last causal position of the
-//     tile] in chunks of 64 (64 / BS pages); -1 table entries are masked.
+//     tile] in chunks of 64 (64 / BS pages); -1 table entries, and
+//     entries at or past NB + NHB, are masked. An entry below NB reads
+//     the cache, one in [NB, NB + NHB) the second pool: the base pointer
+//     is chosen per page, so nothing but the page's reads changes.
 //
 // What bounds it on the H100: decode rows are one query row per slot,
 // so the kernel reads each slot's whole KV once for very little
@@ -98,6 +106,8 @@ struct Params {
   const void* q;
   const void* kc;
   const void* vc;
+  const void* hkc;  // second pool (NHB pages) or null
+  const void* hvc;
   const int* bt;
   const int* cu;
   const int* ctx;
@@ -105,7 +115,7 @@ struct Params {
   void* out;
   float* o_part;    // tensor cores, nsplit > 1: (nsplit, T, H, D)
   float* ml_part;   // (nsplit, T, H, 2): running max (log2 units), sum
-  int T, H, KH, D, NB, BS, S, MB;
+  int T, H, KH, D, NB, NHB, BS, S, MB;
   int rep;      // H / KH
   int BQ;       // q rows per tile: kMaxQV / rep
   int split;    // cache positions per split (a multiple of kKC)
@@ -176,6 +186,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* q = static_cast<const float*>(p.q);
   const float* kc = static_cast<const float*>(p.kc);
   const float* vc = static_cast<const float*>(p.vc);
+  const float* hkc = static_cast<const float*>(p.hkc);
+  const float* hvc = static_cast<const float*>(p.hvc);
   float* out = static_cast<float*>(p.out);
 
   const TileRows tr = find_tile(p, blockIdx.x);
@@ -222,7 +234,7 @@ __global__ void __launch_bounds__(kThreads)
     if (tid < npg) {
       const int j = c0 / p.BS + tid;
       const int b = j < p.MB ? bt[j] : -1;
-      pg_s[tid] = (b >= 0 && b < p.NB) ? b : -1;
+      pg_s[tid] = (b >= 0 && b < p.NB + p.NHB) ? b : -1;
     }
     __syncthreads();
     for (int e = tid; e < ncols * D; e += kThreads) {
@@ -230,10 +242,12 @@ __global__ void __launch_bounds__(kThreads)
       const int b = pg_s[c / p.BS];
       float kx = 0.f, vx = 0.f;
       if (b >= 0) {
+        const bool dev = b < p.NB;
         const size_t off =
-            (((size_t)b * p.BS + (c % p.BS)) * p.KH + g) * D + d;
-        kx = kc[off];
-        vx = vc[off];
+            (((size_t)(dev ? b : b - p.NB) * p.BS + (c % p.BS)) * p.KH +
+             g) * D + d;
+        kx = dev ? kc[off] : hkc[off];
+        vx = dev ? vc[off] : hvc[off];
       }
       Ks[c * Dp + d] = kx;
       Vs[c * D + d] = vx;
@@ -331,15 +345,16 @@ constexpr size_t tc_smem_bytes() {
          24 * kStages;
 }
 
-// cache position `pos` of `slot`: its row in a (NB, BS, KH, D) cache at
-// kv-head g, or -1 when the position is past `cend`, past the block
-// table or on a page that is -1 (or out of range)
+// cache position `pos` of `slot`: its row at kv-head g in the two pools
+// laid end to end (rows of the (NB, BS, KH, D) cache, then those of the
+// (NHB, BS, KH, D) second pool), or -1 when the position is past `cend`,
+// past the block table or on a page that is -1 (or out of range)
 __device__ __forceinline__ int cache_row(const Params& p, int slot, int pos,
                                          int cend, int g) {
   const int j = pos / p.BS;
   if (pos >= cend || j >= p.MB) return -1;
   const int b = p.bt[(size_t)slot * p.MB + j];
-  if (b < 0 || b >= p.NB) return -1;
+  if (b < 0 || b >= p.NB + p.NHB) return -1;
   return (b * p.BS + pos % p.BS) * p.KH + g;
 }
 
@@ -408,6 +423,9 @@ __global__ void __launch_bounds__(kTcThreads)
     const int lane = threadIdx.x % 32, pw = threadIdx.x / 32 - 4;
     const __nv_bfloat16* kc = static_cast<const __nv_bfloat16*>(p.kc);
     const __nv_bfloat16* vc = static_cast<const __nv_bfloat16*>(p.vc);
+    const __nv_bfloat16* hkc = static_cast<const __nv_bfloat16*>(p.hkc);
+    const __nv_bfloat16* hvc = static_cast<const __nv_bfloat16*>(p.hvc);
+    const int dev_rows = p.NB * p.BS * p.KH;   // rows of the first pool
     for (int it = 0; it < nch; ++it) {
       const int st = it % kStages, c0 = cbeg + it * KC;
       const int ra = cache_row(p, tr.slot, c0 + lane, cend, g);
@@ -426,10 +444,12 @@ __global__ void __launch_bounds__(kTcThreads)
         const int r = e / T::CHUNKS, c = e % T::CHUNKS;
         const int row = __shfl_sync(
             0xffffffffu, (e - lane) / T::CHUNKS < 32 ? ra : rb, r % 32);
-        const size_t src = row < 0 ? 0 : (size_t)row * D + 8 * c;
+        const bool dev = row < dev_rows;
+        const size_t src =
+            row < 0 ? 0 : (size_t)(dev ? row : row - dev_rows) * D + 8 * c;
         const uint32_t o = st * T::bytes(KC) + T::offset(KC, r, c);
-        cp_async_16(sK + o, kc + src, row >= 0);
-        cp_async_16(sV + o, vc + src, row >= 0);
+        cp_async_16(sK + o, (dev ? kc : hkc) + src, row >= 0);
+        cp_async_16(sV + o, (dev ? vc : hvc) + src, row >= 0);
       }
       cp_async_commit();
       if (it >= kStages - 1) {   // chunk it - kStages + 1 has landed
@@ -661,6 +681,7 @@ int launch_tc_d(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
+// host_key/host_value: the second pool of NHB pages (null with NHB = 0).
 // dtype: 0 = float32 (any D <= 128, the FMA kernel), 1 = bfloat16 (D in
 // {16, 32, 64, 128}, the tensor cores; `split` cache positions per split,
 // a multiple of 64, and `nsplit` splits covering MB * BS; with nsplit > 1
@@ -669,18 +690,21 @@ int launch_tc_d(const Params& p, cudaStream_t stream) {
 // 64 % BS == 0, every pointer on one device, contiguous, 16-byte aligned.
 extern "C" int ragged_paged_attention_fwd(
     const void* q, const void* key_cache, const void* value_cache,
-    const void* block_tables, const void* cu_seqlens,
+    const void* host_key, const void* host_value, const void* block_tables, const void* cu_seqlens,
     const void* context_lens, const void* num_seqs, void* out,
     float* o_part, float* ml_part, int T, int H, int KH, int D, int NB,
-    int BS, int S, int MB, int split, int nsplit, float scale, int dtype,
+    int NHB, int BS, int S, int MB, int split, int nsplit, float scale, int dtype,
     void* stream) {
   if (KH <= 0 || H % KH != 0 || H / KH > kMaxQV || D <= 0 || D > kMaxD ||
-      BS <= 0 || kKC % BS != 0 || T <= 0 || S <= 0 || MB <= 0)
+      BS <= 0 || kKC % BS != 0 || T <= 0 || S <= 0 || MB <= 0 ||
+      NHB < 0 || (NHB > 0 && (host_key == nullptr || host_value == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.kc = key_cache;
   p.vc = value_cache;
+  p.hkc = host_key;
+  p.hvc = host_value;
   p.bt = static_cast<const int*>(block_tables);
   p.cu = static_cast<const int*>(cu_seqlens);
   p.ctx = static_cast<const int*>(context_lens);
@@ -693,6 +717,7 @@ extern "C" int ragged_paged_attention_fwd(
   p.KH = KH;
   p.D = D;
   p.NB = NB;
+  p.NHB = NHB;
   p.BS = BS;
   p.S = S;
   p.MB = MB;

@@ -116,17 +116,21 @@ def paged_attention(q, key_cache, value_cache, block_tables, seq_lens,
 
 def ragged_paged_attention(q, k_new, v_new, key_cache, value_cache,
                            block_tables, cu_seqlens, context_lens,
-                           num_seqs, scale=None):
+                           num_seqs, scale=None, host_key_cache=None,
+                           host_value_cache=None):
     """Unpadded prefill+decode attention over a concatenated token stream
     (``ops/ragged_paged_attention.py``). q/k_new/v_new: (T, H|KH, D)
     ragged-packed rows; cu_seqlens (S+1,) delimits sequence slots,
     context_lens (S,) is the post-step cache length per slot,
-    block_tables (S, MB) the paged-cache indirection. Returns
-    (out (T, H, D), key_cache, value_cache) — the caches are updated in
-    place and returned."""
+    block_tables (S, MB) the paged-cache indirection; a tiered engine
+    passes its host tier's device mirror as ``host_key_cache`` /
+    ``host_value_cache`` (entries >= the cache's block count read it).
+    Returns (out (T, H, D), key_cache, value_cache) — the caches are
+    updated in place and returned."""
     return _rpa.ragged_paged_attention(
         q, k_new, v_new, key_cache, value_cache, block_tables, cu_seqlens,
-        context_lens, num_seqs, scale=scale)
+        context_lens, num_seqs, scale=scale, host_key_cache=host_key_cache,
+        host_value_cache=host_value_cache)
 
 
 def block_multihead_attention(

@@ -27,8 +27,9 @@ The step function is passed to each :meth:`StepGraphs.run`, not held:
 a step that is a bound method of its owner would otherwise tie the owner
 and its graphs in a reference cycle, and free them only when the garbage
 collector runs. Anything the step reads that is not an input buffer
-(weights, caches, tables) is baked into the graph by address, and must
-never be reallocated while the graph lives. The step must not
+(weights, caches, a tiered engine's host-tier mirror, tables) is baked
+into the graph by address, and must never be reallocated while the graph
+lives. The step must not
 synchronise with the host (no ``.item()``, ``.tolist()``, ``nonzero`` or
 data-dependent shapes) and must not change its inputs.
 

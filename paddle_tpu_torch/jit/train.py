@@ -37,6 +37,29 @@ restore is copied back into them before the next replay); under
 the replays and hand new tensors back after them (two copies per tensor
 per dispatch). On the CPU ``run_steps`` runs the k steps eagerly.
 
+The model is a ``torch.nn.Module`` or a port ``nn.Layer``. A Layer's
+parameters and buffers are lifted in the JAX step's order
+(``named_parameters()``, then ``named_buffers()``); the trainable ones
+are those with ``stop_gradient`` False; the step calls the Layer on
+Tensors and ``loss_fn`` on its Tensor outputs and the label Tensors.
+Every parameter and buffer keeps one torch tensor for the step's life
+(the address a captured graph reads): a Tensor rebound since the last
+step (``set_value``, ``set_state_dict``, a forward that rebinds
+BatchNorm's running stats) is copied back into it, so a restore lands
+where the graph reads and a buffer's new value is threaded to the next
+step, as the JAX step's ``new_buffers`` are (rolled back on a step the
+``skip_nonfinite`` guard skips).
+
+Randomness: as in the JAX step, the construction takes ONE key from the
+default generator and keeps it on the device as the chain, a ``(2,)``
+uint32 pair. Each step splits it (``chain, key = split(chain)``, the
+chain written back in place, on a skipped step too) and runs the forward
+under :func:`~paddle_tpu_torch.core.generator.device_key_stream` seeded
+by ``key``, so each draw of the forward (dropout, ...) splits the step
+key once more, in call order, and the generator's counter does not move.
+Every mask is a pure device function of the chain, so ``run_steps(k)``
+draws the masks of k ``__call__``s.
+
 Refused at construction: ``sharding`` (slice D), and
 ``accumulate_steps > 1``, which the JAX step accepts and never reads.
 The JAX step's SOT graph-break path has nothing to port: eager PyTorch
@@ -47,14 +70,17 @@ from __future__ import annotations
 import gc
 import time
 import weakref
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch import amp as _amp
 from paddle_tpu_torch import profiler as _prof
+from paddle_tpu_torch.core import generator as gen
+from paddle_tpu_torch.core.tensor import Tensor
 from paddle_tpu_torch.jit.trace import _delta
+from paddle_tpu_torch.ops import threefry
 
 __all__ = ["TrainStep", "nonfinite_any"]
 
@@ -96,9 +122,9 @@ class _Graph:
 class TrainStep:
     """``step(*batch)`` runs one optimizer step of ``model`` under
     ``loss_fn(model_outputs..., labels...)`` and returns the loss (a
-    detached 0-dim tensor on the model's device). The batch (tensors or
-    numpy arrays) is moved to the model's device first. By default the
-    model takes one input and the rest are labels."""
+    detached 0-dim tensor on the model's device). The batch (tensors,
+    Tensors or numpy arrays) is moved to the model's device first. By
+    default the model takes one input and the rest are labels."""
 
     def __init__(self, model, loss_fn: Callable, optimizer,
                  accumulate_steps: int = 1, sharding=None, scaler=None,
@@ -112,13 +138,29 @@ class TrainStep:
                 f"TrainStep(accumulate_steps={accumulate_steps}) is "
                 f"refused: the JAX package's TrainStep takes the argument "
                 f"and never reads it, so there is no accumulation to port")
+        from paddle_tpu_torch.nn.layer import Layer
+
         self._model = model
         self._loss_fn = loss_fn
         self._opt = optimizer
         self._donate = bool(donate)
         self._skip_nonfinite = bool(skip_nonfinite)
-        named = list(model.named_parameters())
-        self._params = [p for _, p in named if p.requires_grad]
+        self._is_layer = isinstance(model, Layer)
+        # a Layer's Tensors, each with the one torch tensor the step
+        # keeps for it: the parameters (named_parameters order), then the
+        # buffers
+        self._held: List[Tuple[Tensor, torch.Tensor]] = []
+        self._buffers: List[Tuple[Tensor, torch.Tensor]] = []
+        if self._is_layer:
+            named = [(n, p._data) for n, p in model.named_parameters()]
+            self._params = [p._data for _, p in model.named_parameters()
+                            if not p.stop_gradient]
+            self._buffers = [(b, b._data) for _, b in model.named_buffers()]
+            self._held = [(p, p._data) for _, p in model.named_parameters()
+                          ] + self._buffers
+        else:
+            named = list(model.named_parameters())
+            self._params = [p for _, p in named if p.requires_grad]
         if optimizer._parameter_list is None:
             optimizer._parameter_list = list(self._params)
         for name, p in named:
@@ -134,6 +176,10 @@ class TrainStep:
                                   device=self._device)
         self._nskip = torch.zeros((), device=self._device)
         self._lr = torch.zeros((), device=self._device)
+        # the rng chain: one key of the default generator, split on the
+        # device each step
+        self._chain = torch.tensor(gen.default_generator.next_key(),
+                                   dtype=torch.int64, device=self._device)
         self._lr_val: Optional[float] = None
         self._host_step_mirror = optimizer._step_count
         self._scaler = scaler if scaler is not None and scaler.is_enable() \
@@ -173,15 +219,49 @@ class TrainStep:
             self._lr.fill_(lr)
             self._lr_val = lr
 
+    @torch.no_grad()
+    def _adopt(self):
+        """Copy each Layer Tensor rebound since the last step back into
+        the torch tensor the step holds for it, and rebind it there."""
+        for t, fixed in self._held:
+            if t._data is not fixed:
+                fixed.copy_(t._data)
+                t._data = fixed
+        if self._held:
+            self._opt._follow_wrappers()
+
+    def _loss(self, datas, n_inputs: int):
+        """The forward under the step's key stream (a Layer on Tensors),
+        then the loss, as a torch tensor."""
+        pair = threefry.split(self._chain)
+        self._chain.copy_(pair[0])
+        wrap = Tensor._from_data if self._is_layer else (lambda d: d)
+        with gen.device_key_stream(pair[1]):
+            out = self._model(*map(wrap, datas[:n_inputs]))
+        outs = out if isinstance(out, tuple) else (out,)
+        loss = self._loss_fn(*outs, *map(wrap, datas[n_inputs:]))
+        return loss._data if isinstance(loss, Tensor) else loss
+
+    @torch.no_grad()
+    def _thread_buffers(self, rollback):
+        """A buffer the forward rebound lands in its held tensor (the
+        old value where ``rollback`` is set)."""
+        for b, fixed in self._buffers:
+            new = b._data
+            if new is fixed:
+                continue
+            if rollback is not None:
+                new = torch.where(rollback, fixed, new)
+            fixed.copy_(new)
+            b._data = fixed
+
     def _body(self, datas, n_inputs: int, inplace: bool):
         """One step on device tensors; returns the detached loss. No host
         read and no rebinding of the carry: it runs under capture."""
         state = self._scaler_state
         for p in self._params:
             p.grad = None
-        out = self._model(*datas[:n_inputs])
-        outs = out if isinstance(out, tuple) else (out,)
-        loss = self._loss_fn(*outs, *datas[n_inputs:])
+        loss = self._loss(datas, n_inputs)
         # loss scaling happens BEFORE backward (fp16 underflow)
         (loss if state is None else loss * state[0]).backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
@@ -207,10 +287,12 @@ class TrainStep:
         self._opt._apply(self._params, grads, self._lr, step, skip=skip,
                          cast_grads=False, inplace=inplace)
         if nonfinite is not None:
-            # only the guard rolls the step back; a found_inf skip and
-            # the scaler's schedule are never rolled back
+            # only the guard rolls the step and the buffers back; a
+            # found_inf skip and the scaler's schedule are never rolled
+            # back
             self._nskip.add_(nonfinite.float())
             step = torch.where(nonfinite, step - 1, step)
+        self._thread_buffers(nonfinite)
         self._step.copy_(step)
         if new_state is not None:
             self._scaler_state.copy_(new_state)
@@ -222,8 +304,9 @@ class TrainStep:
 
     def __call__(self, *batch, n_model_inputs: Optional[int] = None):
         n_inputs = 1 if n_model_inputs is None else n_model_inputs
-        datas = [torch.as_tensor(b).to(self._device, non_blocking=True)
+        datas = [_as_data(b).to(self._device, non_blocking=True)
                  for b in batch]
+        self._adopt()
         self._sync_step_carry()
         self._opt._step_count += 1
         self._host_step_mirror = self._opt._step_count
@@ -248,7 +331,7 @@ class TrainStep:
         ``skip_nonfinite`` guard run through every step; the Python
         ``GradScaler`` is synced once, after the k steps."""
         n_inputs = 1 if n_model_inputs is None else n_model_inputs
-        datas = [torch.as_tensor(b) for b in batch]
+        datas = [_as_data(b) for b in batch]
         if stacked:
             bad = [tuple(d.shape) for d in datas
                    if d.dim() == 0 or d.shape[0] != k]
@@ -257,6 +340,7 @@ class TrainStep:
                     f"run_steps(stacked=True) needs a leading dim of {k} "
                     f"on every batch array; got shapes {bad}")
         datas = [d.to(self._device, non_blocking=True) for d in datas]
+        self._adopt()
         self._sync_step_carry()
         self._sync_lr()
 
@@ -411,3 +495,8 @@ class TrainStep:
                                       for k, v in self._captured.items()},
                 "replays": dict(self._replays),
                 "executed_launches": dict(self._executed)}
+
+
+def _as_data(b) -> torch.Tensor:
+    """A batch element as a torch tensor (a Tensor's data as it is)."""
+    return b._data if isinstance(b, Tensor) else torch.as_tensor(b)

@@ -187,11 +187,14 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out.reshape(b, s, self.n_heads * self.head_dim))
 
     def forward_ragged(self, x, cos, sin, key_cache, value_cache,
-                       block_tables, cu_seqlens, context_lens, num_seqs):
+                       block_tables, cu_seqlens, context_lens, num_seqs,
+                       host_key_cache=None, host_value_cache=None):
         """Serving attention over a ragged-packed token stream. ``x``
         (1,T,h); ``cos``/``sin`` (1,T,D) gathered at absolute positions;
-        caches (num_blocks, block_size, KH, D), updated in place.
-        Returns (out (1,T,h), key_cache, value_cache)."""
+        caches (num_blocks, block_size, KH, D), updated in place; the
+        host tier's mirror (num_host_blocks, block_size, KH, D), read
+        only, when tiered. Returns (out (1,T,h), key_cache,
+        value_cache)."""
         b, t, _ = x.shape
         q = self.q_proj(x).view(b, t, self.n_heads, self.head_dim)
         k = self.k_proj(x).view(b, t, self.n_kv, self.head_dim)
@@ -200,7 +203,8 @@ class LlamaAttention(nn.Module):
         out, kc, vc = F.ragged_paged_attention(
             q[0], k[0], v[0], key_cache, value_cache,
             block_tables=block_tables, cu_seqlens=cu_seqlens,
-            context_lens=context_lens, num_seqs=num_seqs)
+            context_lens=context_lens, num_seqs=num_seqs,
+            host_key_cache=host_key_cache, host_value_cache=host_value_cache)
         out = out.reshape(1, t, self.n_heads * self.head_dim)
         return self.o_proj(out), kc, vc
 
@@ -267,13 +271,15 @@ class LlamaDecoderLayer(nn.Module):
         return h + self.mlp(self.post_attention_layernorm(h))
 
     def forward_ragged(self, x, cos, sin, key_cache, value_cache,
-                       block_tables, cu_seqlens, context_lens, num_seqs):
+                       block_tables, cu_seqlens, context_lens, num_seqs,
+                       host_key_cache=None, host_value_cache=None):
         """One decoder block over the ragged stream. ``cos``/``sin``
         (1,T,D) are the rope rows at each token's position (gathered once
         per step by :class:`LlamaModel`; the JAX layer gathers its own)."""
         attn_out, kc, vc = self.self_attn.forward_ragged(
             self.input_layernorm(x), cos, sin, key_cache, value_cache,
-            block_tables, cu_seqlens, context_lens, num_seqs)
+            block_tables, cu_seqlens, context_lens, num_seqs,
+            host_key_cache, host_value_cache)
         h = x + attn_out
         out = h + self.mlp(self.post_attention_layernorm(h))
         return out, kc, vc
@@ -328,14 +334,19 @@ class LlamaModel(nn.Module):
 
     @torch.no_grad()
     def forward_ragged(self, input_ids, key_caches, value_caches,
-                       block_tables, cu_seqlens, context_lens, num_seqs):
+                       block_tables, cu_seqlens, context_lens, num_seqs,
+                       host_key_caches=None, host_value_caches=None):
         """Ragged-packed KV-cache forward: ``input_ids`` (T,) is every
         sequence's new tokens concatenated (no padding rows between
         sequences); ``cu_seqlens`` (S+1,) delimits slots and
         ``context_lens`` (S,) is each slot's post-step cache length.
         ``key_caches``/``value_caches`` are the stacked per-layer caches
-        (L, num_blocks, block_size, KH, D), updated in place. Returns
-        (hidden (1,T,h), key_caches, value_caches)."""
+        (L, num_blocks, block_size, KH, D), updated in place; a tiered
+        engine passes its host tier's stacked device mirror (L,
+        num_host_blocks, block_size, KH, D) as ``host_key_caches`` /
+        ``host_value_caches``, whose pages the table's virtual entries
+        (>= num_blocks) name. Returns (hidden (1,T,h), key_caches,
+        value_caches)."""
         cu = cu_seqlens.to(torch.int32)
         ctx = context_lens.to(torch.int32)
         ids = input_ids.reshape(1, -1)
@@ -352,10 +363,13 @@ class LlamaModel(nn.Module):
         cos = self.rope_cos[positions][None]   # (1, T, D)
         sin = self.rope_sin[positions][None]
         x = self.embed_tokens(ids)
+        tiered = host_key_caches is not None
         for i, layer in enumerate(self.layers):
             x, _, _ = layer.forward_ragged(
                 x, cos, sin, key_caches[i], value_caches[i], block_tables,
-                cu, ctx, num_seqs)
+                cu, ctx, num_seqs,
+                host_key_caches[i] if tiered else None,
+                host_value_caches[i] if tiered else None)
         return self.norm(x), key_caches, value_caches
 
     @torch.no_grad()
@@ -484,15 +498,19 @@ class LlamaForCausalLM(nn.Module):
 
     @torch.no_grad()
     def forward_ragged(self, input_ids, key_caches, value_caches,
-                       block_tables, cu_seqlens, context_lens, num_seqs):
+                       block_tables, cu_seqlens, context_lens, num_seqs,
+                       host_key_caches=None, host_value_caches=None):
         """Ragged serving step: one unpadded forward over the packed
         token stream + lm_head on each slot's LAST packed token (the
         sampling position; for a mid-prompt prefill chunk the engine
         discards the row). Returns (logits (S, vocab), key_caches,
-        value_caches), the caches updated in place."""
+        value_caches), the caches updated in place; the host tier's
+        mirror, when given, is read only (:meth:`LlamaModel.
+        forward_ragged`)."""
         h, kcs, vcs = self.llama.forward_ragged(
             input_ids, key_caches, value_caches, block_tables,
-            cu_seqlens, context_lens, num_seqs)
+            cu_seqlens, context_lens, num_seqs, host_key_caches,
+            host_value_caches)
         cu = cu_seqlens.to(torch.int32)
         t = h.shape[1]
         # pad slots point at cu[num_seqs]-1 (a real row) — harmless, the
@@ -504,17 +522,20 @@ class LlamaForCausalLM(nn.Module):
     @torch.no_grad()
     def forward_ragged_multi(self, input_ids, key_caches, value_caches,
                              block_tables, cu_seqlens, context_lens,
-                             num_seqs, num_rows: int):
+                             num_seqs, num_rows: int, host_key_caches=None,
+                             host_value_caches=None):
         """Ragged serving step with a PER-ROW MULTI-LOGIT gather: lm_head
         on each slot's last ``R = num_rows`` packed tokens (the
         speculative-verify positions). Returns (logits (S, R, vocab),
         key_caches, value_caches). ``R == 1`` reduces to
         :meth:`forward_ragged`; rows shorter than R clamp to their own
         first position (the sampler masks them by ``n_draft``, so the
-        duplicated logits are never consumed)."""
+        duplicated logits are never consumed). The host tier's mirror as
+        in :meth:`forward_ragged`."""
         h, kcs, vcs = self.llama.forward_ragged(
             input_ids, key_caches, value_caches, block_tables,
-            cu_seqlens, context_lens, num_seqs)
+            cu_seqlens, context_lens, num_seqs, host_key_caches,
+            host_value_caches)
         cu = cu_seqlens.to(torch.int64)
         r = int(num_rows)
         t = h.shape[1]

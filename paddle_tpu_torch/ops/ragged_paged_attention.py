@@ -20,6 +20,15 @@ Contract (tensors on one device):
 * ``num_seqs``:     int32 tensor of one element — live slots; trailing
                     slots are padding. It stays on the device: the
                     kernel reads it there.
+* ``host_key_cache/host_value_cache``: optional (NHB, block_size, KH, D)
+                    second pool, the device mirror of a tiered engine's
+                    host tier: a table entry ``e`` with ``NB <= e < NB +
+                    NHB`` (a VIRTUAL entry) names its page ``e - NB``.
+                    Entries past ``NB + NHB``, and every -1, are masked.
+                    The pool is read only: a row whose entry is virtual
+                    is not written (the engine never schedules one; the
+                    JAX step's write into its concatenated copy is sliced
+                    away).
 
 Returns ``(out (T, H, D), key_cache, value_cache)``. The caches are
 updated IN PLACE (the JAX version returned new caches; on the TPU the
@@ -86,7 +95,8 @@ def _token_layout(t_total, s_slots, cu, ctx, num_seqs):
 def _write_kv(cache, new, block_tables, seg, pos):
     """Scatter packed new K/V rows into their paged slots, IN PLACE.
 
-    Rows with pos == -1, or whose block-table entry is -1, are dropped
+    Rows with pos == -1, or whose block-table entry is -1 or names no
+    block of ``cache`` (a virtual entry, >= its block count), are dropped
     through an explicit mask: routing them to slot 0 would clobber real
     cached tokens, and ``index_put_`` has no out-of-range drop mode. To
     keep the step free of host syncs, a dropped row is not removed from
@@ -96,13 +106,13 @@ def _write_kv(cache, new, block_tables, seg, pos):
     back the bytes its clamped slot already holds."""
     if pos.numel() == 0:
         return
-    bs = cache.shape[1]
+    nb, bs = cache.shape[:2]
     mb = block_tables.shape[1]
     p = pos.long()
     blk = torch.where(p >= 0, p // bs, 0)
     off = torch.where(p >= 0, p % bs, 0)
     entry = block_tables[seg, blk.clamp(max=mb - 1)].long()
-    valid = (p >= 0) & (blk < mb) & (entry >= 0)
+    valid = (p >= 0) & (blk < mb) & (entry >= 0) & (entry < nb)
     flat = entry.clamp(min=0) * bs + off
     cache_flat = cache.view(-1, *cache.shape[2:])
     first = torch.argmax(valid.to(torch.int32)).reshape(1)
@@ -153,11 +163,14 @@ def _chunked_attend(logits, vals, round_to, split):
 
 
 def _ragged_attend_ref(q, kc, vc, bt, cu, ctx, num_seqs, scale,
-                       out_dtype=None, round_to=None, split=None):
+                       out_dtype=None, round_to=None, split=None,
+                       hkc=None, hvc=None):
     """Plain PyTorch: for each live slot, gather its pages, take causal
     softmax attention in f32, write its rows. Reads the index arrays on
     the host (this version is for the CPU and for checking the kernel).
-    ``out_dtype`` defaults to q's dtype.
+    ``out_dtype`` defaults to q's dtype. A page ``e`` in ``[NB, NB +
+    NHB)`` reads the second pool ``hkc``/``hvc`` at ``e - NB``; pages
+    past it, and -1 pages, are masked.
 
     With ``round_to`` (a dtype) it takes the bfloat16 kernel's form
     (:func:`_chunked_attend`): P rounded to ``round_to`` per chunk of
@@ -165,11 +178,20 @@ def _ragged_attend_ref(q, kc, vc, bt, cu, ctx, num_seqs, scale,
     one split; the kernel's is :func:`kernel_split`), as the kernel and
     the TPU kernel round P before their P V products."""
     t_total, h, d = q.shape
-    _, bs, kh, _ = kc.shape
+    nb, bs, kh, _ = kc.shape
+    nhb = 0 if hkc is None else hkc.shape[0]
     s_slots, mb = bt.shape
     rep = h // kh
     out = torch.zeros((t_total, h, d), dtype=out_dtype or q.dtype,
                       device=q.device)
+
+    def gather(cache, pool, pages):
+        rows = cache[pages.clamp(0, nb - 1)]
+        if nhb:
+            rows = torch.where((pages >= nb)[:, None, None, None],
+                               pool[(pages - nb).clamp(0, nhb - 1)], rows)
+        return rows.reshape(-1, kh, d).float()
+
     cu_h = cu.tolist()
     ctx_h = ctx.tolist()
     ns = min(max(int(num_seqs.reshape(-1)[0]), 0), s_slots)
@@ -183,12 +205,13 @@ def _ragged_attend_ref(q, kc, vc, bt, cu, ctx, num_seqs, scale,
         if npages == 0:
             continue
         pages = bt[i, :npages].long()
-        keys = kc[pages.clamp(min=0)].reshape(npages * bs, kh, d).float()
-        vals = vc[pages.clamp(min=0)].reshape(npages * bs, kh, d).float()
+        keys = gather(kc, hkc, pages)
+        vals = gather(vc, hvc, pages)
         qpos = c - nq + torch.arange(hi - lo, device=q.device)
         col = torch.arange(npages * bs, device=q.device)
+        mapped = (pages >= 0) & (pages < nb + nhb)
         mask = ((col[None, :] <= qpos[:, None])
-                & (pages >= 0).repeat_interleave(bs)[None, :])   # (nq, L)
+                & mapped.repeat_interleave(bs)[None, :])   # (nq, L)
         qs = q[lo:hi].float().reshape(hi - lo, kh, rep, d)
         logits = torch.einsum("tgrd,lgd->tgrl", qs, keys) * scale
         logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
@@ -219,7 +242,7 @@ def _library():
 
         lib = _build.load(_KERNEL)
         fn = lib.ragged_paged_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ragged_paged_attention_error_string.argtypes = [ctypes.c_int]
@@ -284,26 +307,39 @@ def _check(cond, msg):
         raise ValueError(f"ragged_paged_attention kernel: {msg}")
 
 
-def _ragged_attend_cuda(q, kc, vc, bt, cu, ctx, num_seqs, scale):
+def _ragged_attend_cuda(q, kc, vc, bt, cu, ctx, num_seqs, scale,
+                        hkc=None, hvc=None):
     """Launch the Hopper kernel on PyTorch's current stream (bfloat16:
     the tensor-core kernel, and the combine kernel when it splits; float32:
-    the FMA kernel). Checks device, dtype, shape, contiguity and alignment
-    and raises on anything the kernels do not take; raises on a refused
+    the FMA kernel), reading the second pool ``hkc``/``hvc`` too when
+    given. Checks device, dtype, shape, contiguity and alignment and
+    raises on anything the kernels do not take; raises on a refused
     launch."""
     global launches
     t_total, h, d = q.shape
     nb, bs, kh, d2 = kc.shape
     s_slots, mb = bt.shape
     dev = q.device
-    for name, x in (("q", q), ("key_cache", kc), ("value_cache", vc),
-                    ("block_tables", bt), ("cu_seqlens", cu),
-                    ("context_lens", ctx), ("num_seqs", num_seqs)):
+    pools = (("key_cache", kc), ("value_cache", vc))
+    nhb = 0
+    if hkc is not None or hvc is not None:
+        _check(hkc is not None and hvc is not None,
+               "host_key_cache and host_value_cache go together")
+        pools += (("host_key_cache", hkc), ("host_value_cache", hvc))
+        nhb = hkc.shape[0]
+        _check(hkc.shape == hvc.shape and hkc.shape[1:] == kc.shape[1:],
+               f"host pools {tuple(hkc.shape)}/{tuple(hvc.shape)} for a "
+               f"cache of pages {tuple(kc.shape[1:])}")
+    for name, x in (("q", q),) + pools + (
+            ("block_tables", bt), ("cu_seqlens", cu),
+            ("context_lens", ctx), ("num_seqs", num_seqs)):
         _check(x.device == dev, f"{name} on {x.device}, q on {dev}")
         _check(x.is_contiguous(), f"{name} is not contiguous")
     _check(q.dtype in (torch.float32, torch.bfloat16),
            f"dtype {q.dtype} (want float32 or bfloat16)")
-    _check(kc.dtype == q.dtype and vc.dtype == q.dtype,
-           f"cache dtype {kc.dtype}/{vc.dtype} != q dtype {q.dtype}")
+    for name, x in pools:
+        _check(x.dtype == q.dtype, f"{name} dtype {x.dtype} != q dtype "
+                                   f"{q.dtype}")
     _check(vc.shape == kc.shape, f"value_cache {tuple(vc.shape)} != "
                                  f"key_cache {tuple(kc.shape)}")
     _check(d2 == d and 0 < d <= _MAX_D, f"head_dim {d} (cache {d2}); "
@@ -323,7 +359,7 @@ def _ragged_attend_cuda(q, kc, vc, bt, cu, ctx, num_seqs, scale):
            f"cu_seqlens {tuple(cu.shape)}, context_lens "
            f"{tuple(ctx.shape)}, num_seqs {tuple(num_seqs.shape)} for "
            f"{s_slots} slots")
-    for name, x in (("q", q), ("key_cache", kc), ("value_cache", vc)):
+    for name, x in (("q", q),) + pools:
         _check(x.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
     out = torch.empty_like(q)
     if t_total == 0:
@@ -339,11 +375,14 @@ def _ragged_attend_cuda(q, kc, vc, bt, cu, ctx, num_seqs, scale):
                                   dtype=torch.float32, device=dev)
     lib = _library()
     err = lib.ragged_paged_attention_fwd(
-        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), bt.data_ptr(),
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        None if hkc is None else hkc.data_ptr(),
+        None if hvc is None else hvc.data_ptr(), bt.data_ptr(),
         cu.data_ptr(), ctx.data_ptr(), num_seqs.data_ptr(), out.data_ptr(),
         None if o_part is None else o_part.data_ptr(),
         None if ml_part is None else ml_part.data_ptr(),
-        t_total, h, kh, d, nb, bs, s_slots, mb, split, nsplit, float(scale),
+        t_total, h, kh, d, nb, nhb, bs, s_slots, mb, split, nsplit,
+        float(scale),
         1 if tc else 0, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.ragged_paged_attention_error_string(err).decode()
@@ -358,7 +397,8 @@ def _ragged_attend_cuda(q, kc, vc, bt, cu, ctx, num_seqs, scale):
 # ---------------------------------------------------------------------------
 def ragged_paged_attention(q, k_new, v_new, key_cache, value_cache,
                            block_tables, cu_seqlens, context_lens,
-                           num_seqs, *, scale=None):
+                           num_seqs, *, scale=None, host_key_cache=None,
+                           host_value_cache=None):
     """See module docstring for the contract. Returns (out, key_cache,
     value_cache); the caches are updated in place first, so a row
     attends to its own K/V."""
@@ -378,10 +418,12 @@ def ragged_paged_attention(q, k_new, v_new, key_cache, value_cache,
 
     if dev.type == "cuda":
         out = _ragged_attend_cuda(q.contiguous(), key_cache, value_cache,
-                                  bt.contiguous(), cu, ctx, ns, scale)
+                                  bt.contiguous(), cu, ctx, ns, scale,
+                                  host_key_cache, host_value_cache)
     elif dev.type == "cpu":
         out = _ragged_attend_ref(q, key_cache, value_cache, bt, cu, ctx, ns,
-                                 scale)
+                                 scale, hkc=host_key_cache,
+                                 hvc=host_value_cache)
     else:
         raise ValueError(f"ragged_paged_attention: unsupported device {dev}")
     return out, key_cache, value_cache

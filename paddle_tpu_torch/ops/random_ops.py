@@ -5,9 +5,11 @@ transforms of :mod:`paddle_tpu_torch.ops.threefry` (``split``,
 
 Every draw takes one key from the active stream of the global generator
 (:func:`paddle_tpu_torch.core.generator.active_key`), as in the JAX
-package. A key is a pair of Python ints; its bits are
-``threefry2x32(k1, k2, 0, j)`` for element ``j``, computed on the device
-the result lands on, so the card and the CPU draw the same bits.
+package. A key is a pair of Python ints, or, under
+:func:`~paddle_tpu_torch.core.generator.device_key_stream` (a
+``jit.TrainStep``'s step), a ``(2,)`` tensor on the device the draw lands
+on; its bits are ``threefry2x32(k1, k2, 0, j)`` for element ``j``,
+computed on that device, so the card and the CPU draw the same bits.
 
 What is reproduced bit for bit, and what only in distribution:
 
@@ -49,7 +51,8 @@ def bernoulli_bits(key, p, shape, device):
         return threefry.uniform(key, shape, dtype=p.dtype,
                                 device=device) < p
     u = threefry.uniform(key, shape, device=device)
-    return u < torch.tensor(p, dtype=torch.float32, device=device)
+    # a fill, not a host copy: a captured CUDA graph may run this
+    return u < torch.full((), p, dtype=torch.float32, device=u.device)
 
 
 def randint_bits(key, shape, minval, maxval, device, dtype=torch.int32):

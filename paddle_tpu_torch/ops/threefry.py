@@ -170,14 +170,15 @@ def categorical(key, logits, axis: int = -1, shape=None):
     of the largest ``gumbel + logits`` along ``axis``, the noise in the
     logits' dtype.
 
-    A ``(..., 2)`` tensor key draws one token per row of ``logits``
-    (..., V), each row under its own key, as ``jax.vmap`` over the keys
-    does (``axis`` -1, no ``shape``). A Python-int key draws the noise
-    over ``(*prefix, *logits.shape)``, where ``shape`` (default the batch
-    shape, ``logits.shape`` without ``axis``) is ``prefix`` followed by a
-    shape the batch shape broadcasts to, as ``jax.random.categorical``
-    with replacement does."""
-    if isinstance(key, torch.Tensor):
+    A ``(..., 2)`` tensor of keys with batch dimensions draws one token
+    per row of ``logits`` (..., V), each row under its own key, as
+    ``jax.vmap`` over the keys does (``axis`` -1, no ``shape``). One key
+    (two Python ints, or a ``(2,)`` tensor under a device key stream)
+    draws the noise over ``(*prefix, *logits.shape)``, where ``shape``
+    (default the batch shape, ``logits.shape`` without ``axis``) is
+    ``prefix`` followed by a shape the batch shape broadcasts to, as
+    ``jax.random.categorical`` with replacement does."""
+    if isinstance(key, torch.Tensor) and key.dim() > 1:
         g = gumbel(key, logits.shape[-1:], logits.dtype)
         return torch.argmax(g + logits, dim=-1)
     nd = logits.dim()

@@ -3,8 +3,9 @@ adapted from the JAX package's ``serving/block_manager.py``.
 
 The physical cache is ``num_blocks`` fixed-size blocks per layer (one
 shared free list — every layer's cache uses the same block ids, so the
-block table a request holds indexes all layers at once, exactly how the
-ragged kernel consumes it).
+block table a request holds indexes all layers at once, exactly how
+``incubate.nn.functional.block_multihead_attention`` and the ragged
+kernel consume it).
 
 Prefix caching (``enable_prefix_cache=True``): device blocks are
 refcounted and FULL prompt blocks are registered in a prefix trie keyed
@@ -18,8 +19,8 @@ Freed blocks whose content is still registered go to the COLD end of the
 free list, so cached prefixes survive until capacity actually needs
 them (LRU-ish eviction: claiming a cached-free block drops its key).
 
-Invariants (pinned by tests/test_torch_serving.py storms against the
-JAX package):
+Invariants (pinned by tests/test_torch_serving.py storms and
+tests/test_torch_kvtier.py against the JAX package):
   * a block id appears in tables exactly ``refcount`` times,
   * ``len(free) + len(distinct owned) == num_blocks`` always,
   * free and owned are disjoint; trie keys map 1:1 onto keyed blocks,
@@ -27,23 +28,49 @@ JAX package):
 
 Swap pool: ``num_host_blocks > 0`` adds a second, host-side slot
 allocator for swap-based preemption: ``swap_out`` trades a victim's
-device blocks for refcounted host slots (the engine copies the KV
-bytes), ``swap_in`` trades them back. The same exact-accounting
-invariants hold for the host pool, and ``free()`` releases BOTH sides,
-so no lifecycle path (abort while swapped included) can leak.
+device blocks for refcounted host slots (the engine copies the KV bytes),
+``swap_in`` trades them back. Host slots are refcounted so a
+prefix-cache can share one spilled prefix between requests. The same
+exact-accounting invariants hold for the host pool, and ``free()``
+releases BOTH sides, so no lifecycle path (abort while swapped
+included) can leak.
 
-The JAX package's KV tiers (virtual host entries, ``demote_*``,
-``promote_blocks``, ``reachable_blocks``: C1) and fleet KV-ship paths
-(C2) are left out; the engine refuses the configurations that would
-need them. :meth:`trim` is the speculative-decode rollback."""
+Tiered mode (``tiered=True``): the host pool stops being a swap-only
+side channel and becomes a second ADDRESSABLE tier. A block table entry
+``>= num_blocks`` is a VIRTUAL id naming host slot ``entry -
+num_blocks``; the tiered engine step hands the ragged attention the host
+tier's device mirror as a second pool, so virtual entries are directly
+attendable — a running request's context can exceed the device pool.
+The prefix trie spans tiers by registering virtual ids in the same
+``_prefix_index``/``_block_key`` maps, so ``match_prefix`` and
+``commit_prefix`` are tier-blind. ``demote_*``
+moves cold fully-committed content device->host (table entries turn
+virtual, device blocks free); ``promote_blocks`` moves it back. Byte
+copies are NOT performed here: every migration appends to an ORDERED
+``_tier_moves`` queue (("demote", dev, slot) / ("promote", slot,
+dev)) the engine drains via :meth:`take_tier_moves` and applies
+in-order BEFORE pending COW pairs and before the next step writes —
+order matters because a block freed by one move may be re-claimed by a
+later one in the same scheduling round. Writes never target the host
+region: only fully-committed blocks strictly below a request's write
+frontier are demote-eligible, and the capped-write block of a prefix
+hit that lands on a virtual entry is promote-copied first (the
+cross-tier analogue of COW).
+
+Left out until the fleet (C2): the prefix advertisement
+(``prefix_digest``, ``prefix_blocks_by_hash`` and the hash maps behind
+them) and the KV ship (``export_blocks``, ``import_blocks``).
+:func:`prefix_chain_hashes` stays: a session record names its chain by
+it. :meth:`trim` is the speculative-decode rollback."""
 from __future__ import annotations
 
+import hashlib
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from paddle_tpu_torch.testing import faults
 
-__all__ = ["BlockManager", "NoFreeBlocksError"]
+__all__ = ["BlockManager", "NoFreeBlocksError", "prefix_chain_hashes"]
 
 
 class NoFreeBlocksError(RuntimeError):
@@ -55,14 +82,50 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _fold_hash(parent_hex: Optional[str],
+               block_tokens: Sequence[int]) -> str:
+    """Fold one full block of tokens into the content chain hash. The
+    chain mirrors the trie key structure ((key_{i-1}, block_i_tokens)),
+    so equal hashes imply (modulo blake2b collision) the entire prefix
+    matches — and a collision can at worst misroute or waste a ship,
+    never corrupt: the trie itself is keyed by actual token content."""
+    base = (parent_hex or "").encode()
+    body = ",".join(str(int(t)) for t in block_tokens).encode()
+    return hashlib.blake2b(base + b"|" + body,
+                           digest_size=8).hexdigest()
+
+
+def prefix_chain_hashes(tokens: Sequence[int],
+                        block_size: int) -> List[str]:
+    """Chain hash for every FULL-block prefix of ``tokens``:
+    ``hashes[i]`` identifies ``tokens[:(i + 1) * block_size]``. This is
+    the router-side mirror of the hashes a BlockManager advertises, so
+    the two sides agree without sharing any state but the tokens."""
+    out: List[str] = []
+    h: Optional[str] = None
+    i = 0
+    while (i + 1) * block_size <= len(tokens):
+        h = _fold_hash(h, tokens[i * block_size:(i + 1) * block_size])
+        out.append(h)
+        i += 1
+    return out
+
+
 class BlockManager:
     def __init__(self, num_blocks: int, block_size: int,
                  num_host_blocks: int = 0,
-                 enable_prefix_cache: bool = False, kv_layout=None):
+                 enable_prefix_cache: bool = False,
+                 kv_layout=None, tiered: bool = False):
         if num_blocks < 1 or block_size < 1:
             raise ValueError("num_blocks and block_size must be >= 1")
         if num_host_blocks < 0:
             raise ValueError("num_host_blocks must be >= 0")
+        if tiered and num_host_blocks < 1:
+            raise ValueError("tiered mode needs num_host_blocks >= 1 "
+                             "(the host tier IS the host pool)")
+        if tiered and not enable_prefix_cache:
+            raise ValueError("tiered mode needs enable_prefix_cache=True "
+                             "(the trie is what spans tiers)")
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.enable_prefix_cache = enable_prefix_cache
@@ -95,6 +158,27 @@ class BlockManager:
                                                 -1))
         self._host_tables: Dict[str, List[int]] = {}
         self._host_refs: Dict[int, int] = {}  # slot -> refcount
+        # tiered mode: virtual table entries + ordered
+        # pending byte-moves between tiers (see module docstring)
+        self.tiered = tiered
+        self._tier_moves: List[Tuple[str, int, int]] = []
+        self.num_demotes = 0
+        self.num_promotes = 0
+
+    # -- tier addressing --------------------------------------------------
+    def is_host_entry(self, entry: int) -> bool:
+        """True when a block-table entry is a VIRTUAL id naming a host
+        slot (tiered mode only produces these)."""
+        return entry >= self.num_blocks
+
+    def host_slot_of(self, entry: int) -> int:
+        return entry - self.num_blocks
+
+    def virtual_of(self, slot: int) -> int:
+        return self.num_blocks + slot
+
+    def tier_of(self, entry: int) -> str:
+        return "host" if self.is_host_entry(entry) else "device"
 
     # -- accounting ------------------------------------------------------
     @property
@@ -121,6 +205,9 @@ class BlockManager:
     def utilization(self) -> float:
         return self.num_used_blocks / self.num_blocks
 
+    def ref_count(self, block: int) -> int:
+        return self._refs.get(block, 0)
+
     # -- prefix cache ----------------------------------------------------
     def match_prefix(self, tokens: Sequence[int]) -> int:
         """Tokens of ``tokens`` covered by registered FULL blocks whose
@@ -137,25 +224,49 @@ class BlockManager:
             hit += bs
         return hit
 
+    def _drop_registration(self, entry: int):
+        """Forget the trie registration of a (device or virtual) id —
+        the cache-eviction point: reuse invalidates content."""
+        key = self._block_key.pop(entry, None)
+        if key is not None and self._prefix_index.get(key) == entry:
+            self._prefix_index.pop(key)
+
+    def _move_registration(self, src_entry: int, dst_entry: int):
+        """Re-point a trie registration at the id the content moved to
+        (demotion/promotion keep cached prefixes discoverable)."""
+        key = self._block_key.pop(src_entry, None)
+        if key is None:
+            return
+        self._block_key[dst_entry] = key
+        if self._prefix_index.get(key) == src_entry:
+            self._prefix_index[key] = dst_entry
+
     def _claim(self) -> int:
         """Pop a free block, dropping any stale prefix registration (this
         is the cache-eviction point: reuse invalidates content)."""
         b = self._free.pop()
-        key = self._block_key.pop(b, None)
-        if key is not None and self._prefix_index.get(key) == b:
-            self._prefix_index.pop(key)
+        self._drop_registration(b)
         self._refs[b] = 1
         return b
 
     def _claim_host(self) -> int:
-        """Pop a free host slot (hot end), born at refcount 1."""
+        """Pop a free host slot (hot end), dropping any stale host-tier
+        registration, born at refcount 1."""
         s = self._host_free.pop()
+        self._drop_registration(self.virtual_of(s))
+        # no pending-move filtering needed here: moves apply in record
+        # order, so a stale copy into a reclaimed slot is overwritten by
+        # the later move that claimed it before any step reads the slot
         self._host_refs[s] = 1
         return s
 
     def _release(self, block: int):
         """Drop one reference; at zero the block returns to the free list
-        (cold end if its content is still registered)."""
+        (cold end if its content is still registered). Virtual entries
+        release their host slot instead."""
+        if self.is_host_entry(block):
+            self._unref_host([self.host_slot_of(block)])
+            return
         n = self._refs.get(block, 0) - 1
         if n <= 0:
             self._refs.pop(block, None)
@@ -190,6 +301,185 @@ class BlockManager:
         pairs, self._cow_pairs = self._cow_pairs, []
         return pairs
 
+    # -- tier migration ---------------------------------------------------
+    def take_tier_moves(self) -> List[Tuple[str, int, int]]:
+        """Drain pending cross-tier byte moves, IN RECORD ORDER:
+        ``("demote", device_block, host_slot)`` copies device->host,
+        ``("promote", host_slot, device_block)`` host->device. The
+        engine must apply them in order (a block freed by one move may
+        be the destination of a later one) and BEFORE pending COW
+        pairs and before the next step writes."""
+        moves, self._tier_moves = self._tier_moves, []
+        return moves
+
+    def _promote_entry(self, request_id: str, idx: int,
+                       take_registration: bool) -> int:
+        """Materialize a virtual table entry on device: claim a fresh
+        device block, record the host->device byte move, drop this
+        table's host reference. With ``take_registration`` a sole owner
+        carries the trie registration to the device block (pure
+        promotion); without it the registration stays on the host slot
+        — the about-to-be-written device copy diverges from the cached
+        content (the cross-tier analogue of COW keeping src registered)."""
+        table = self._tables[request_id]
+        slot = self.host_slot_of(table[idx])
+        dst = self._claim()
+        table[idx] = dst
+        self._tier_moves.append(("promote", slot, dst))
+        self.num_promotes += 1
+        if take_registration and self._host_refs.get(slot, 0) <= 1:
+            self._move_registration(self.virtual_of(slot), dst)
+        self._unref_host([slot])
+        return dst
+
+    def demote_request_blocks(self, request_id: str, covered_tokens: int,
+                              max_blocks: int) -> int:
+        """Demote up to ``max_blocks`` of a request's leading device
+        blocks to host slots, coldest (lowest index) first. Only blocks
+        FULLY covered by ``covered_tokens`` (the request's committed
+        frontier) and held exclusively (refcount 1) are eligible, so
+        the step never writes a demoted block and no other table needs
+        repointing. Trie registrations move with the content. Returns
+        blocks demoted (0 when not tiered / nothing eligible)."""
+        if not self.tiered:
+            return 0
+        table = self._tables.get(request_id)
+        if table is None:
+            return 0
+        bs = self.block_size
+        done = 0
+        for idx in range(min(len(table), covered_tokens // bs)):
+            if done >= max_blocks or not self._host_free:
+                break
+            b = table[idx]
+            if self.is_host_entry(b) or self._refs.get(b, 0) != 1:
+                continue
+            slot = self._claim_host()
+            self._tier_moves.append(("demote", b, slot))
+            table[idx] = self.virtual_of(slot)
+            self._move_registration(b, self.virtual_of(slot))
+            self._release(b)   # registration moved: plain hot free
+            self.num_demotes += 1
+            done += 1
+        return done
+
+    def demote_cached_free(self, max_blocks: int) -> int:
+        """Demote registered cached-free DEVICE blocks (the cold end of
+        the free list) to host slots: device room becomes uncached-free
+        without evicting the prefixes. Slots park cold and unowned —
+        host-tier cached-free — until a prefix hit shares them or
+        capacity reclaims them. Returns blocks demoted."""
+        if not self.tiered:
+            return 0
+        done = 0
+        budget = len(self._host_free)
+        i = 0
+        while done < max_blocks and done < budget \
+                and i < len(self._free):
+            b = self._free[i]
+            if b not in self._block_key:
+                i += 1
+                continue
+            del self._free[i]
+            slot = self._host_free.pop()
+            self._drop_registration(self.virtual_of(slot))
+            self._tier_moves.append(("demote", b, slot))
+            self._move_registration(b, self.virtual_of(slot))
+            self._free.append(b)            # now uncached: hot end
+            self._host_free.insert(0, slot)  # cached-free: cold end
+            self.num_demotes += 1
+            done += 1
+        return done
+
+    def promote_blocks(self, request_id: str, max_blocks: int) -> int:
+        """Opportunistically move a request's leading virtual entries
+        back to device blocks (never raises: stops at device-OOM —
+        host-resident entries stay directly attendable)."""
+        if not self.tiered:
+            return 0
+        table = self._tables.get(request_id)
+        if table is None:
+            return 0
+        done = 0
+        for idx in range(len(table)):
+            if done >= max_blocks:
+                break
+            if not self.is_host_entry(table[idx]):
+                continue
+            if not self._free:
+                break
+            self._promote_entry(request_id, idx, True)
+            done += 1
+        return done
+
+    def demote_chain(self, tokens: Sequence[int], covered: int) -> int:
+        """Demote a registered chain's CACHED-FREE device blocks to
+        host slots (session park: the chain leaves HBM but stays
+        trie-discoverable). Blocks still referenced by a running
+        request skip — they are reachable either way — and a broken
+        chain link stops the walk (everything past it is undiscoverable
+        anyway). Returns blocks demoted."""
+        if not self.tiered:
+            return 0
+        bs = self.block_size
+        full = (min(covered, len(tokens)) // bs) * bs
+        key: Optional[tuple] = None
+        done = 0
+        hit = 0
+        while hit + bs <= full:
+            key = (key, tuple(tokens[hit:hit + bs]))
+            b = self._prefix_index.get(key)
+            if b is None:
+                break
+            hit += bs
+            if self.is_host_entry(b) or self._refs.get(b, 0) != 0 \
+                    or not self._host_free:
+                continue
+            self._free.remove(b)
+            # the slot stays UNOWNED (refcount 0, cached-free) — same
+            # shape as demote_cached_free, not a table-backed claim
+            slot = self._host_free.pop()
+            self._drop_registration(self.virtual_of(slot))
+            self._tier_moves.append(("demote", b, slot))
+            self._move_registration(b, self.virtual_of(slot))
+            self._free.append(b)             # now uncached: hot end
+            self._host_free.insert(0, slot)  # cached-free: cold end
+            self.num_demotes += 1
+            done += 1
+        return done
+
+    def evict_chain(self, tokens: Sequence[int], covered: int) -> int:
+        """Forget a registered chain's LOCAL copy (session offloaded to
+        a peer: the remote copy is now authoritative, keeping this one
+        discoverable would double-count the session). Registrations
+        drop on either tier; blocks a running request still references
+        merely become unregistered-owned. Returns registrations
+        dropped."""
+        bs = self.block_size
+        full = (min(covered, len(tokens)) // bs) * bs
+        key: Optional[tuple] = None
+        entries: List[int] = []
+        hit = 0
+        while hit + bs <= full:
+            key = (key, tuple(tokens[hit:hit + bs]))
+            b = self._prefix_index.get(key)
+            if b is None:
+                break
+            entries.append(b)
+            hit += bs
+        for b in entries:
+            self._drop_registration(b)
+            if self.is_host_entry(b):
+                s = self.host_slot_of(b)
+                if self._host_refs.get(s, 0) == 0:
+                    # re-park the now-unregistered slot at the hot end
+                    self._host_free.remove(s)
+                    self._host_free.append(s)
+            elif self._refs.get(b, 0) == 0:
+                self._free.remove(b)
+                self._free.append(b)
+        return len(entries)
+
     def commit_prefix(self, request_id: str, tokens: Sequence[int],
                       covered: int):
         """Register the request's prompt blocks whose content is fully
@@ -208,11 +498,20 @@ class BlockManager:
         while (idx + 1) * bs <= limit:
             key = (key, tuple(tokens[idx * bs:(idx + 1) * bs]))
             b = table[idx]
-            if key not in self._prefix_index and b not in self._block_key:
-                # (a prefix someone committed first keeps their block)
+            if key in self._prefix_index:
+                # someone committed this prefix first; keep their block
+                idx += 1
+                continue
+            if b not in self._block_key:
                 self._prefix_index[key] = b
                 self._block_key[b] = key
             idx += 1
+
+    @property
+    def num_uncached_free_blocks(self) -> int:
+        """Free blocks holding NO registered prefix content — the device
+        headroom the tier's ``balance`` keeps."""
+        return sum(1 for b in self._free if b not in self._block_key)
 
     # -- allocation ------------------------------------------------------
     def allocate(self, request_id: str, num_tokens: int,
@@ -246,13 +545,19 @@ class BlockManager:
         hit_tok = len(shared) * bs
         eff = min(hit_tok, max(num_tokens - 1, 0))
         fresh_need = need_total - len(shared)
-        shared_free = sum(1 for b in shared if self._refs.get(b, 0) == 0)
+        shared_free = sum(1 for b in shared
+                          if not self.is_host_entry(b)
+                          and self._refs.get(b, 0) == 0)
         # the capped write position lands inside a shared block someone
-        # else still references -> one extra block for the COW copy
+        # else still references -> one extra block for the COW copy;
+        # on a HOST-tier hit the write needs a device copy regardless
+        # (writes never target the host region)
         cow_idx = eff // bs if (0 < eff < hit_tok) else None
         cow_need = 0
-        if cow_idx is not None and self._refs.get(shared[cow_idx], 0) >= 1:
-            cow_need = 1
+        if cow_idx is not None:
+            cb = shared[cow_idx]
+            cow_need = 1 if (self.is_host_entry(cb)
+                             or self._refs.get(cb, 0) >= 1) else 0
         if fresh_need + shared_free + cow_need > len(self._free):
             raise NoFreeBlocksError(
                 f"need {fresh_need + cow_need} fresh block(s) for "
@@ -260,12 +565,7 @@ class BlockManager:
                 f"{len(self._free) - shared_free} free")
         table: List[int] = []
         for b in shared:
-            if self._refs.get(b, 0) == 0:
-                self._free.remove(b)  # un-free a cached block, key kept
-                self._refs[b] = 1
-            else:
-                self._refs[b] += 1
-            table.append(b)
+            table.append(self._share_entry(b))
         for _ in range(fresh_need):
             table.append(self._claim())
         self._tables[request_id] = table
@@ -273,9 +573,79 @@ class BlockManager:
         if eff > 0:
             self.num_prefix_hits += 1
             self.num_prefix_hit_tokens += eff
-        if cow_idx is not None and self._refs[table[cow_idx]] > 1:
-            self._cow(request_id, cow_idx)
+        if cow_idx is not None:
+            if self.is_host_entry(table[cow_idx]):
+                self._promote_entry(request_id, cow_idx, False)
+            elif self._refs[table[cow_idx]] > 1:
+                self._cow(request_id, cow_idx)
         return list(table)
+
+    def _share_entry(self, b: int) -> int:
+        """Take one reference on a trie-hit table entry (either tier),
+        un-freeing a cached-free block/slot (registration kept)."""
+        if self.is_host_entry(b):
+            slot = self.host_slot_of(b)
+            if self._host_refs.get(slot, 0) == 0:
+                self._host_free.remove(slot)
+                self._host_refs[slot] = 1
+            else:
+                self._host_refs[slot] += 1
+        elif self._refs.get(b, 0) == 0:
+            self._free.remove(b)  # un-free a cached block, key kept
+            self._refs[b] = 1
+        else:
+            self._refs[b] += 1
+        return b
+
+    def resume_chain(self, request_id: str, tokens: Sequence[int],
+                     covered: int, want_tail: bool = True
+                     ) -> Tuple[List[int], int, Optional[int]]:
+        """Rebuild a block table for a parked session being resumed:
+        share the registered chain blocks (EITHER tier) covering the
+        leading full blocks of ``tokens[:covered]``, then — with
+        ``want_tail``, i.e. the caller holds restorable bytes for THIS
+        partial tail — claim one fresh private device block for it. No
+        hit cap — the caller guarantees the resumed prompt extends past
+        ``covered``. Returns ``(table, hit_tokens, tail_block)``;
+        ``hit_tokens < covered`` when chain links were evicted since
+        parking or the tail block cannot be claimed — the caller
+        recomputes exactly the difference (fault-back: never loss,
+        never duplication)."""
+        if request_id in self._tables:
+            raise ValueError(
+                f"request {request_id!r} already holds a block table — "
+                f"free() it before resuming")
+        bs = self.block_size
+        full = (covered // bs) * bs
+        shared: List[int] = []
+        key: Optional[tuple] = None
+        hit = 0
+        while hit + bs <= full:
+            key = (key, tuple(tokens[hit:hit + bs]))
+            b = self._prefix_index.get(key)
+            if b is None:
+                break
+            shared.append(b)
+            hit += bs
+        table = [self._share_entry(b) for b in shared]
+        tail_block: Optional[int] = None
+        hit_tokens = hit
+        if want_tail and hit == full and covered > full and self._free:
+            tail_block = self._claim()
+            table.append(tail_block)
+            hit_tokens = covered
+        self._tables[request_id] = table
+        self.last_hit_tokens = hit_tokens
+        if hit_tokens > 0:
+            self.num_prefix_hits += 1
+            self.num_prefix_hit_tokens += hit_tokens
+        return list(table), hit_tokens, tail_block
+
+    def can_append(self, request_id: str, new_len: int) -> bool:
+        """Would growing this request's sequence to ``new_len`` tokens
+        fit (either inside its last block or with one free block)?"""
+        need = self.blocks_needed(new_len) - len(self._tables[request_id])
+        return need <= len(self._free)
 
     def append_slot(self, request_id: str, new_len: int,
                     write_from: Optional[int] = None) -> List[int]:
@@ -292,25 +662,32 @@ class BlockManager:
         bs = self.block_size
         span = range(max(write_from, 0) // bs,
                      min(len(table), cdiv(new_len, bs)))
-        cow_idxs = [i for i in span if self._refs.get(table[i], 0) > 1]
-        if need <= 0 and not cow_idxs:
+        cow_idxs = [i for i in span
+                    if self._refs.get(table[i], 0) > 1]
+        # a virtual entry in the write span must land on device first
+        # (defensive: demotion never covers the write frontier, but a
+        # resumed chain hitting host-tier blocks can reach here)
+        promo_idxs = [i for i in span if self.is_host_entry(table[i])]
+        if need <= 0 and not cow_idxs and not promo_idxs:
             return list(table)
         # deterministic forced-OOM injection points: a `flag` fault at
         # the global point (any request) or the per-request one
         # (`serving.force_oom.<request_id>`) makes this growth OOM
-        # exactly like a genuinely exhausted free list, so preemption is
-        # testable with a roomy cache
+        # exactly like a genuinely exhausted free list, so
+        # preemption/swap paths are testable with a roomy cache
         if faults.check(faults.SERVING_FORCE_OOM) or \
                 faults.check(f"{faults.SERVING_FORCE_OOM}.{request_id}"):
             raise NoFreeBlocksError(
                 f"request {request_id!r}: injected OOM "
                 f"(PADDLE_FAULTS serving.force_oom)")
-        want = max(need, 0) + len(cow_idxs)
+        want = max(need, 0) + len(cow_idxs) + len(promo_idxs)
         if want > len(self._free):
             raise NoFreeBlocksError(
                 f"request {request_id!r}: {want} "
                 f"more block(s) needed for length {new_len}, "
                 f"{len(self._free)} free")
+        for i in promo_idxs:
+            self._promote_entry(request_id, i, False)
         for i in cow_idxs:
             self._cow(request_id, i)
         for _ in range(max(need, 0)):
@@ -360,9 +737,32 @@ class BlockManager:
 
     @property
     def num_host_blocks_used(self) -> int:
-        """Host-pool occupancy: owned slots (no tiers here, so no
-        registered cached-free host content either)."""
-        return self.num_used_host_blocks
+        """Host-tier occupancy for the pressure watermark + gauge:
+        slots either owned (swap tables, virtual entries) or holding
+        registered cached-free content. Only plain-free unregistered
+        slots count as room."""
+        unreg_free = sum(1 for s in self._host_free
+                         if self.virtual_of(s) not in self._block_key)
+        return self.num_host_blocks - unreg_free
+
+    @property
+    def reachable_blocks(self) -> int:
+        """Admission capacity across tiers: the block count a single
+        request may ultimately occupy. Tiered engines admit against
+        this instead of the device pool alone."""
+        return self.num_blocks + (self.num_host_blocks if self.tiered
+                                  else 0)
+
+    def host_tier_stats(self) -> Dict[str, int]:
+        """Host-tier occupancy for watermark policy + gauges:
+        ``used`` counts owned slots (swap tables + virtual entries),
+        ``registered`` counts slots holding trie-discoverable content
+        (owned or parked cached-free)."""
+        reg = sum(1 for e in self._block_key if self.is_host_entry(e))
+        return {"total": self.num_host_blocks,
+                "free": len(self._host_free),
+                "used": self.num_used_host_blocks,
+                "registered": reg}
 
     def has_host_table(self, request_id: str) -> bool:
         return request_id in self._host_tables
@@ -376,6 +776,12 @@ class BlockManager:
         return (self.num_host_blocks > 0
                 and request_id in self._tables
                 and request_id not in self._host_tables
+                # a tiered table holding virtual entries is already
+                # partially host-resident; whole-table swap would
+                # double-count those slots — the ladder falls through
+                # to demotion or recompute instead
+                and not any(self.is_host_entry(b)
+                            for b in self._tables[request_id])
                 and self.blocks_needed(num_tokens) <= len(self._host_free))
 
     def swap_out(self, request_id: str,
@@ -383,9 +789,10 @@ class BlockManager:
         """Trade the request's device blocks for host slots covering its
         first ``num_tokens`` tokens. Returns ``(device_table,
         host_table)`` — the caller must copy device->host before the
-        freed device blocks are rewritten (the engine's _KVSwapper
-        enqueues the copy on the step's stream, ahead of the next step).
-        Each host slot starts at refcount 1."""
+        freed device blocks are rewritten (synchronously, or async with
+        a fence ahead of the next step that could reuse them; the
+        engine's _KVSwapper does the latter). Each host slot starts at
+        refcount 1."""
         if not self.can_swap_out(request_id, num_tokens):
             raise NoFreeBlocksError(
                 f"request {request_id!r}: cannot swap out "
@@ -438,7 +845,13 @@ class BlockManager:
             n = self._host_refs.get(s, 0) - 1
             if n <= 0:
                 self._host_refs.pop(s, None)
-                self._host_free.append(s)
+                if self.virtual_of(s) in self._block_key:
+                    # cached-free host slot: registered content parks at
+                    # the cold end so host-tier prefixes are reclaimed
+                    # last, oldest first (mirrors the device free list)
+                    self._host_free.insert(0, s)
+                else:
+                    self._host_free.append(s)
             else:
                 self._host_refs[s] = n
 
@@ -446,10 +859,15 @@ class BlockManager:
     def check_invariants(self):
         """Exact free-block accounting; raises AssertionError on any
         violation (used by the randomized-sequence tests every step)."""
+        owned = [b for t in self._tables.values() for b in t]
+        virt_owned = [self.host_slot_of(b) for b in owned
+                      if self.is_host_entry(b)]
+        owned = [b for b in owned if not self.is_host_entry(b)]
+        assert self.tiered or not virt_owned, \
+            "virtual table entries in a non-tiered manager"
         counts: Dict[int, int] = {}
-        for t in self._tables.values():
-            for b in t:
-                counts[b] = counts.get(b, 0) + 1
+        for b in owned:
+            counts[b] = counts.get(b, 0) + 1
         assert counts == self._refs, (
             f"refcount drift: tables imply {counts}, refs track "
             f"{self._refs}")
@@ -471,18 +889,23 @@ class BlockManager:
                 f"trie drift: block {b} does not map back to its key"
         assert not self._cow_pairs, \
             "pending COW pairs not drained before invariant check"
+        assert not self._tier_moves, \
+            "pending tier moves not drained before invariant check"
         # host pool: same exact accounting as the device side — a slot
-        # appears across the swap tables exactly ``_host_refs[slot]``
-        # times
+        # appears across swap tables AND virtual table entries exactly
+        # ``_host_refs[slot]`` times
         h_owned = [s for t in self._host_tables.values() for s in t]
         assert len(h_owned) == len(set(h_owned)), \
             "double-allocated host swap slot"
+        h_owned += virt_owned
         h_counts: Dict[int, int] = {}
         for s in h_owned:
             h_counts[s] = h_counts.get(s, 0) + 1
         assert h_counts == self._host_refs, (
             f"host refcount drift: tables imply {h_counts}, refs track "
             f"{self._host_refs}")
+        assert all(n >= 1 for n in self._host_refs.values()), \
+            "host slot with refcount < 1 still tracked"
         assert len(h_counts) + len(self._host_free) == \
             self.num_host_blocks, (
                 f"host slot leak: {len(h_counts)} owned + "
@@ -492,3 +915,12 @@ class BlockManager:
             f"host slots both owned and free: {sorted(h_both)}"
         assert len(set(self._host_free)) == len(self._host_free), \
             "duplicate slot in host free list"
+        # every registered host-tier id names a real slot, owned or
+        # parked cached-free — never dangling
+        for e in self._block_key:
+            if self.is_host_entry(e):
+                s = self.host_slot_of(e)
+                assert 0 <= s < self.num_host_blocks, \
+                    f"registered virtual id {e} out of range"
+                assert s in h_counts or s in self._host_free, \
+                    f"registered host slot {s} neither owned nor free"

@@ -65,8 +65,23 @@ Resilience:
   ``COMPILE_ALLOWANCE`` x the deadline): a step past its deadline fails
   the engine with :class:`StepHungError` and structured outputs.
 
-Not ported yet, refused at construction with the item that brings them:
-tensor parallelism (C3) and tiered KV (C1).
+Tiered KV (``kv_tiers``, the ragged path only): the host pool becomes a
+second cache tier (:mod:`~paddle_tpu_torch.serving.kvtier`). Cold
+prefixes and parked sessions demote there instead of being evicted, a
+request's context may exceed the device pool (admission counts the
+blocks reachable across tiers), and ``park_session`` /
+``resume_session`` serve multi-turn traffic with zero re-prefill. The
+step reads the host tier through its device mirror, ``(L,
+num_host_blocks, BS, KH, D)``, allocated once at a fixed address (the
+captured graphs hold it) and handed to the ragged attention as a second
+pool: a block-table entry ``>= num_blocks`` reads the mirror. The JAX
+engine instead concatenates the mirror onto the cache every step and
+slices the written cache back; the port's caches are updated in place,
+and a per-step concatenation would copy the whole pool each step.
+
+Not ported yet, refused at construction with the item that brings it:
+tensor parallelism (C3). The tier's fleet half (the peer tier, the
+router's offload) comes with C2.
 """
 from __future__ import annotations
 
@@ -85,6 +100,7 @@ from paddle_tpu_torch.jit.trace import StepGraphs
 from paddle_tpu_torch.ops import kernel_launches
 from paddle_tpu_torch.ops.sampling import sample_or_verify
 from paddle_tpu_torch.serving.block_manager import BlockManager, cdiv
+from paddle_tpu_torch.serving.kvtier import KVTiersConfig, TieredKVStore
 from paddle_tpu_torch.serving.metrics import ServingMetrics
 from paddle_tpu_torch.serving.request import (
     Request, RequestOutput, SamplingParams,
@@ -193,8 +209,6 @@ class EngineConfig:
         if self.tp_degree != 1:
             later.append(f"tp_degree={self.tp_degree} (C3: tensor-"
                          f"parallel serving, queue 1 item 5)")
-        if self.kv_tiers is not None:
-            later.append("kv_tiers (C1: tiered KV, queue 1 item 4)")
         if later:
             raise ValueError("not ported to paddle_tpu_torch yet: "
                              + "; ".join(later))
@@ -278,7 +292,10 @@ class _KVSwapper:
     temporary). Insertion order makes a reused host slot's last writer
     win. ``copy_in`` fences, then writes the device caches IN PLACE
     (``index_copy_`` from pinned memory): the captured graphs hold the
-    caches' addresses. The fleet's ``gather``/``scatter`` come with C2."""
+    caches' addresses. The tier's demotes and promotes go through the
+    same two halves (:meth:`spill`, :meth:`restore`), and :meth:`gather`
+    reads blocks of either tier to the host. The fleet's ``scatter``
+    comes with C2."""
 
     def __init__(self, kcs, vcs, host_k, host_v):
         self._kcs, self._vcs = kcs, vcs
@@ -292,7 +309,13 @@ class _KVSwapper:
         # the device table may hold one more block than was written (a
         # decode-step slot claimed before the eviction); spill only the
         # blocks the host table covers
-        dev = torch.as_tensor(dev_table[:len(host_table)], dtype=torch.long,
+        self.spill(request.request_id, dev_table[:len(host_table)],
+                   host_table)
+
+    def spill(self, key, dev_blocks: List[int], host_slots: List[int]):
+        """Queue the copy of device blocks into host slots under ``key``
+        (landed by :meth:`fence`)."""
+        dev = torch.as_tensor(dev_blocks, dtype=torch.long,
                               device=self._kcs.device)
         staged, done = [], None
         for cache in (self._kcs, self._vcs):
@@ -309,8 +332,7 @@ class _KVSwapper:
         if self._on_card:
             done = torch.cuda.Event()
             done.record()
-        self._pending[request.request_id] = (list(host_table), *staged,
-                                             done)
+        self._pending[key] = (list(host_slots), *staged, done)
 
     def fence(self):
         """Land every in-flight spill in the host pool (blocking). Runs
@@ -325,14 +347,19 @@ class _KVSwapper:
 
     def copy_in(self, request: Request, host_table: List[int],
                 dev_table: List[int]):
-        self.fence()                # the spill may still be in flight
-        hidx = torch.as_tensor(host_table, dtype=torch.long)
-        didx = torch.as_tensor(dev_table, dtype=torch.long,
+        self.restore(host_table, dev_table)
+
+    def restore(self, host_slots: List[int], dev_blocks: List[int]):
+        """Write host slots into device blocks, in place (fenced first:
+        the spill may still be in flight)."""
+        self.fence()
+        hidx = torch.as_tensor(host_slots, dtype=torch.long)
+        didx = torch.as_tensor(dev_blocks, dtype=torch.long,
                                device=self._kcs.device)
         for cache, pool in ((self._kcs, self._host_k),
                             (self._vcs, self._host_v)):
             if self._on_card:
-                src = torch.empty((pool.shape[0], len(host_table))
+                src = torch.empty((pool.shape[0], len(host_slots))
                                   + tuple(pool.shape[2:]),
                                   dtype=pool.dtype, pin_memory=True)
                 torch.index_select(pool, 1, hidx, out=src)
@@ -340,6 +367,31 @@ class _KVSwapper:
             else:
                 src = pool.index_select(1, hidx)
             cache.index_copy_(1, didx, src)
+
+    def gather(self, table: List[int], num_blocks: int):
+        """Host copies ``(K, V)``, each (L, len(table), BS, KH, D), of the
+        blocks a tiered table names: a device block through one
+        device-to-host copy, a virtual entry (``>= num_blocks``) from the
+        host pool, read after :meth:`fence`."""
+        self.fence()
+        dev_pos = [(i, b) for i, b in enumerate(table) if b < num_blocks]
+        host_pos = [(i, b - num_blocks) for i, b in enumerate(table)
+                    if b >= num_blocks]
+        out = []
+        for cache, pool in ((self._kcs, self._host_k),
+                            (self._vcs, self._host_v)):
+            got = torch.empty((cache.shape[0], len(table))
+                              + tuple(cache.shape[2:]), dtype=cache.dtype)
+            if dev_pos:
+                idx = torch.as_tensor([b for _, b in dev_pos],
+                                      dtype=torch.long, device=cache.device)
+                got[:, [i for i, _ in dev_pos]] = \
+                    cache.index_select(1, idx).cpu()
+            if host_pos:
+                got[:, [i for i, _ in host_pos]] = pool.index_select(
+                    1, torch.as_tensor([s for _, s in host_pos]))
+            out.append(got)
+        return tuple(out)
 
 
 class LLMEngine:
@@ -377,6 +429,17 @@ class LLMEngine:
         if self.cfg.num_host_blocks is None:
             self.cfg.num_host_blocks = (
                 self.cfg.num_blocks if self.cfg.swap_mode == "host" else 0)
+        # tiered KV: normalize the knob, then force a host pool at least
+        # as large as the device pool (the host tier IS the host pool;
+        # swap-mode spills share it)
+        self._tiers_cfg = KVTiersConfig.from_any(self.cfg.kv_tiers)
+        self._tiered = self._tiers_cfg is not None
+        if self._tiered:
+            want_host = (self._tiers_cfg.num_host_blocks
+                         if self._tiers_cfg.num_host_blocks is not None
+                         else self.cfg.num_blocks)
+            self.cfg.num_host_blocks = max(self.cfg.num_host_blocks,
+                                           want_host)
 
         # -- path resolution (model-dependent, so not in EngineConfig):
         # ragged auto-enables on models exposing forward_ragged; chunked
@@ -391,10 +454,19 @@ class LLMEngine:
         if not self.cfg.ragged and not hasattr(model, "forward_paged"):
             raise ValueError("the engine needs a model exposing "
                              "forward_ragged or forward_paged")
+        if not self.cfg.ragged and self._tiered:
+            raise ValueError(
+                "kv_tiers rides the ragged step (host-tier blocks are "
+                "attended through its attention's second pool) — it "
+                "cannot run with ragged=False")
         if self.cfg.chunked_prefill is None:
             self.cfg.chunked_prefill = self.cfg.ragged
         if self.cfg.prefix_cache is None:
             self.cfg.prefix_cache = self.cfg.ragged
+        if self._tiered and not self.cfg.prefix_cache:
+            raise ValueError(
+                "kv_tiers needs prefix_cache (the trie is what spans "
+                "tiers) — do not disable it with tiering on")
         if self.cfg.chunked_prefill != self.cfg.ragged:
             raise ValueError(
                 "chunked_prefill rides the ragged step: a lone "
@@ -445,6 +517,17 @@ class LLMEngine:
                                        pin_memory=pin)
         else:
             self._host_k = self._host_v = None
+        # tiered: the host tier's device mirror, the ragged attention's
+        # second pool, allocated once (the captured graphs hold it)
+        if self._tiered:
+            mshape = (mcfg.num_hidden_layers, self.cfg.num_host_blocks,
+                      self.cfg.block_size, kh, hd)
+            self._htk = torch.zeros(mshape, dtype=cache_dtype,
+                                    device=self.device)
+            self._htv = torch.zeros(mshape, dtype=cache_dtype,
+                                    device=self.device)
+        else:
+            self._htk = self._htv = None
         self._swapper = _KVSwapper(self._kcs, self._vcs, self._host_k,
                                    self._host_v)
         self._graphs = StepGraphs(self.device, counters=kernel_launches)
@@ -452,7 +535,9 @@ class LLMEngine:
         self.block_manager = BlockManager(
             self.cfg.num_blocks, self.cfg.block_size,
             num_host_blocks=self.cfg.num_host_blocks,
-            enable_prefix_cache=self.cfg.prefix_cache)
+            enable_prefix_cache=self.cfg.prefix_cache, tiered=self._tiered)
+        self._kvtier = (TieredKVStore(self, self._tiers_cfg)
+                        if self._tiered else None)
         self.scheduler = Scheduler(
             self.block_manager,
             SchedulerConfig(max_num_seqs=self.cfg.max_num_seqs,
@@ -461,6 +546,10 @@ class LLMEngine:
                                 else self.cfg.max_batched_tokens),
                             chunked_prefill=self.cfg.chunked_prefill),
             swap_mode=self.cfg.swap_mode, kv_swapper=self._swapper)
+        if self._kvtier is not None:
+            # demote-before-preempt: every scheduler OOM path tries
+            # this before evicting a batch peer
+            self.scheduler.tier_relief = self._kvtier.relief
         self.admission = AdmissionController(
             max_queue_depth=self.cfg.max_queue_depth,
             ttft_slo_ms=self.cfg.ttft_slo_ms)
@@ -570,16 +659,10 @@ class LLMEngine:
                 f"request {request_id!r}: prompt ({len(prompt_ids)}) + "
                 f"max_new_tokens ({sampling.max_new_tokens}) = {total} "
                 f"exceeds max_model_len {self.cfg.max_model_len}")
-        if cdiv(total, self.cfg.block_size) > self.cfg.num_blocks:
-            raise ValueError(
-                f"request {request_id!r} needs "
-                f"{cdiv(total, self.cfg.block_size)} KV blocks at full "
-                f"length but the cache holds {self.cfg.num_blocks} — it "
-                f"could never be served even alone")
+        self._check_fits(request_id, total)
         req = Request(request_id=request_id, prompt_ids=prompt_ids,
                       sampling=sampling, callback=callback)
-        if rng_state is not None and rng_state.get("device_key") is not None:
-            req.device_key = np.asarray(rng_state["device_key"], np.uint32)
+        self._apply_rng_state(req, rng_state)
         self._requests[request_id] = req
         # admission control: a draining (or failed) engine admits
         # nothing; a live one consults the controller. Rejection is a
@@ -594,6 +677,26 @@ class LLMEngine:
             return request_id
         self.scheduler.add(req)
         return request_id
+
+    def _check_fits(self, request_id: str, total: int):
+        """Refuse a request whose full length needs more blocks than are
+        reachable (the device pool, plus the host tier when tiered)."""
+        reach = self.block_manager.reachable_blocks
+        if cdiv(total, self.cfg.block_size) > reach:
+            raise ValueError(
+                f"request {request_id!r} needs "
+                f"{cdiv(total, self.cfg.block_size)} KV blocks at full "
+                f"length but only {reach} are reachable across tiers — it "
+                f"could never be served even alone")
+
+    @staticmethod
+    def _apply_rng_state(req: Request, rng_state) -> None:
+        """Resume a request's sampling stream from a hand-off state
+        ``{"device_key": [hi, lo]}`` (the composite form's ``"numpy"``
+        half, which the JAX engine's host sampler draws from, has no
+        reader here: the port samples on the device only)."""
+        if rng_state is not None and rng_state.get("device_key") is not None:
+            req.device_key = np.asarray(rng_state["device_key"], np.uint32)
 
     def abort_request(self, request_id: str) -> bool:
         found = self.scheduler.abort(request_id, "aborted:user")
@@ -744,6 +847,95 @@ class LLMEngine:
     def has_unfinished(self) -> bool:
         return self.scheduler.has_unfinished()
 
+    # -- tiered sessions (park / resume) ----------------------------------
+    def _require_tiers(self) -> TieredKVStore:
+        if self._kvtier is None:
+            raise ValueError(
+                "kv_tiers is off — build the engine with "
+                "EngineConfig(kv_tiers=True) for session park/resume")
+        return self._kvtier
+
+    def park_session(self, session_id: str) -> Optional[dict]:
+        """Demote a finished request's captured session chain to the
+        host tier (multi-turn park: the KV leaves HBM but stays
+        trie-discoverable for the next turn). Returns the session
+        summary, or None for an unknown/expired session. Idempotent."""
+        return self._require_tiers().park(session_id)
+
+    def resume_session(self, request_id: str, session_id: str,
+                       prompt_ids: Sequence[int],
+                       sampling: Optional[SamplingParams] = None,
+                       callback: Optional[Callable] = None, *,
+                       rng_state=None) -> int:
+        """Admit a new request continuing a parked session: the new
+        prompt must extend the session's token chain, whose cached KV
+        (either tier) is re-shared — zero prompt recompute on a full
+        hit. Returns the token count actually reused; 0 means the chain
+        was evicted since parking and the request admitted cold (the
+        ladder's recompute floor — never loss, never duplication).
+        Clean rejections raise ``ValueError`` (unknown session,
+        non-extending prompt, draining, duplicate id); the session
+        record is only consumed on success."""
+        kvt = self._require_tiers()
+        if self._draining:
+            raise ValueError("engine is draining")
+        if request_id in self._requests:
+            raise ValueError(f"duplicate request id {request_id!r}")
+        sampling = sampling or SamplingParams()
+        prompt_ids = [int(t) for t in prompt_ids]
+        total = len(prompt_ids) + sampling.max_new_tokens
+        if total > self.cfg.max_model_len:
+            raise ValueError(
+                f"request {request_id!r}: prompt ({len(prompt_ids)}) + "
+                f"max_new_tokens ({sampling.max_new_tokens}) = {total} "
+                f"exceeds max_model_len {self.cfg.max_model_len}")
+        self._check_fits(request_id, total)
+        _, hit = kvt.claim_resume(session_id, request_id, prompt_ids)
+        req = Request(request_id=request_id, prompt_ids=prompt_ids,
+                      sampling=sampling, callback=callback)
+        self._apply_rng_state(req, rng_state)
+        self._requests[request_id] = req
+        if hit > 0:
+            req.num_cached = hit
+            self.scheduler.add_continuation(req)
+        else:
+            self.scheduler.add(req)
+        return hit
+
+    def drop_session(self, session_id: str, *,
+                     to_peer: bool = False) -> bool:
+        """Forget a captured session; ``to_peer=True`` additionally
+        evicts its local chain (an offload hand-off; the peer tier comes
+        with C2). True when the session existed."""
+        if self._kvtier is None:
+            return False
+        return self._kvtier.drop(session_id, to_peer=to_peer)
+
+    def adopt_session(self, session_id: str, tokens: Sequence[int],
+                      covered: int, *,
+                      tenant: Optional[str] = None) -> bool:
+        """Register a session whose chain this engine's trie already
+        holds (the fleet's offload lands it, C2) as resumable. False
+        when the chain does not match the local trie — the adopter stays
+        cold, harmlessly."""
+        if self._kvtier is None:
+            return False
+        return self._kvtier.adopt(session_id, tokens, covered,
+                                  tenant=tenant)
+
+    def session_info(self, session_id: str) -> Optional[dict]:
+        if self._kvtier is None:
+            return None
+        rec = self._kvtier.sessions.get(session_id)
+        return None if rec is None else rec.summary()
+
+    def tier_stats(self) -> Optional[dict]:
+        """Host-tier occupancy/pressure + migration counters; None when
+        tiering is off."""
+        if self._kvtier is None:
+            return None
+        return self._kvtier.stats()
+
     # -- one engine iteration -------------------------------------------
     def step(self) -> List[RequestOutput]:
         """Schedule + run ONE iteration — on the ragged path decode and
@@ -771,6 +963,10 @@ class LLMEngine:
 
         if self._spec is not None:
             self._propose_drafts()
+        if self._kvtier is not None:
+            # pressure-driven rebalancing BEFORE scheduling, so the
+            # scheduler sees the post-demotion free list
+            self._kvtier.balance()
         t0 = time.perf_counter()
         batch = self.scheduler.schedule()
         outputs.extend(self._terminal_output(r) for r in batch.expired)
@@ -794,8 +990,11 @@ class LLMEngine:
         else:
             key, arrays = self._pack_paged(batch.kind, reqs, n_run)
 
-        # copy-on-write block copies land before the step writes the
-        # destination blocks
+        # pending tier moves land FIRST (a COW source may be a block a
+        # promote just filled), then copy-on-write block copies — both
+        # before the step writes the destination blocks
+        if self._kvtier is not None:
+            self._kvtier.apply_moves()
         self._apply_cow()
         if any(r.sampling.temperature > 0.0 for r in reqs):
             self.num_sampled_steps += 1
@@ -891,6 +1090,12 @@ class LLMEngine:
             # key position is a pure function of its emitted-step count
             r.device_key = keys_np[i].copy()
             if finished:
+                if self._kvtier is not None:
+                    # session capture BEFORE the table frees: the full
+                    # chain commits to the trie and the partial tail's
+                    # bytes stash host-side, so a multi-turn follow-up
+                    # resumes with zero prompt recompute
+                    self._kvtier.on_finish(r)
                 self.scheduler.finish(r)
                 self.metrics.record_finish(r)
                 self._count_finish(r.finish_reason)
@@ -1047,7 +1252,9 @@ class LLMEngine:
         verify where draft rows ride along), on the tensors of
         :meth:`_pack`'s arrays (ragged: ids, bt, cu, ctx, nseq) or
         :meth:`_pack_paged`'s (bucketed: ids, bt, enc, dec, now), each
-        followed by the six sampling arrays. Returns the packed (S, R+4)
+        followed by the six sampling arrays; a tiered engine's ragged
+        step also reads the host tier's device mirror (its second pool).
+        Returns the packed (S, R+4)
         int32 tensor and the (S, R, V) logit rows the sampler read, on
         the device. This is the function each key's graph captures: no
         host synchronisation, inputs read only, the caches written in
@@ -1060,10 +1267,12 @@ class LLMEngine:
             lg3 = logits[:, None, :]
         elif self._spec_R > 1:
             lg3, _, _ = self.model.forward_ragged_multi(
-                ids, self._kcs, self._vcs, bt, a, b, c, self._spec_R)
+                ids, self._kcs, self._vcs, bt, a, b, c, self._spec_R,
+                self._htk, self._htv)
         else:
             logits, _, _ = self.model.forward_ragged(
-                ids, self._kcs, self._vcs, bt, a, b, c)
+                ids, self._kcs, self._vcs, bt, a, b, c, self._htk,
+                self._htv)
             lg3 = logits[:, None, :]
         finite = torch.isfinite(lg3).all(dim=-1).all(dim=-1)
         toks, n_emit, nkeys = sample_or_verify(

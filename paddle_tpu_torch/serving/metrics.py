@@ -56,7 +56,13 @@ class ServingMetrics:
               # on-device sampling + speculative decoding: draft
               # proposal/acceptance traffic and sampled-step count
               "spec_proposed", "spec_accepted", "spec_acceptance_rate",
-              "sampled_steps")
+              "sampled_steps",
+              # tiered KV: cross-tier migration traffic, host/peer-tier
+              # occupancy, and parked-session resumes (all 0 on an
+              # untiered engine; the peer tier comes with C2)
+              "kv_tier_demotes", "kv_tier_promotes",
+              "kv_tier_host_blocks_used", "kv_tier_peer_blocks_used",
+              "kv_tier_park_resumes")
 
     # per-terminal-reason histogram: every request's end state lands in
     # exactly one bucket — `serving/finish/<reason>` counters,
@@ -84,6 +90,16 @@ class ServingMetrics:
         "spec_proposed": lambda eng: eng.num_spec_proposed,
         "spec_accepted": lambda eng: eng.num_spec_accepted,
         "sampled_steps": lambda eng: eng.num_sampled_steps,
+        # tiered-KV gauges: 0 on an untiered engine
+        "kv_tier_demotes": lambda eng: eng.block_manager.num_demotes,
+        "kv_tier_promotes": lambda eng: eng.block_manager.num_promotes,
+        "kv_tier_host_blocks_used": lambda eng: (
+            eng.block_manager.num_host_blocks_used
+            if eng._kvtier is not None else 0),
+        "kv_tier_peer_blocks_used": lambda eng: (
+            eng._kvtier.peer_blocks if eng._kvtier is not None else 0),
+        "kv_tier_park_resumes": lambda eng: (
+            eng._kvtier.num_park_resumes if eng._kvtier is not None else 0),
     }
 
     def __init__(self, engine):

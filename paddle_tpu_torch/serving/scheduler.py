@@ -40,8 +40,11 @@ Speculative verify rows ride pass A of the mixed policy: a decode row
 carrying ``d`` draft tokens costs ``1 + d`` and claims their slots, or
 sheds its drafts when the budget cannot take them all.
 
-The JAX package's tier relief (C1) reduces to its no-tier case here, and
-its KV-ship continuations (C2) are left out."""
+Tiered KV: the engine installs ``tier_relief`` (the tier's
+demote-before-preempt hook), which every OOM path tries before evicting
+a batch peer, and an admission that cannot fit the device pool even
+after relief shrinks its chunk. ``add_continuation`` queues a request
+that already holds a device table (a resumed session)."""
 from __future__ import annotations
 
 import time
@@ -139,9 +142,33 @@ class Scheduler:
         # pieces scheduled for prompts the budget ever split (every
         # piece of a split prompt counts, including the final one)
         self.num_prefill_chunks = 0
+        # continuations admitted with a pre-filled table (a resumed
+        # session's re-shared chain)
+        self.num_continuation_resumes = 0
+        # tiered-KV relief hook (engine-installed): called with the
+        # OOM'ing request before any preemption; True means >= 1 device
+        # block was freed by demoting cold content to the host tier, so
+        # the claim retries instead of evicting a batch peer. Each True
+        # strictly grows the free list, so every retry loop below stays
+        # bounded.
+        self.tier_relief = None
 
     # -- queue ops -------------------------------------------------------
     def add(self, request: Request):
+        request.status = RequestStatus.WAITING
+        self.waiting.append(request)
+
+    def add_continuation(self, request: Request):
+        """Admit a request that ALREADY holds a device table covering
+        ``request.num_cached`` tokens (a resumed session: the engine
+        re-shared its chain). It queues WAITING like any arrival — seats
+        are enforced at admission, and ``abort``/``expire_deadlines``
+        free blocks on every queue so the held table can't leak — but
+        the mixed scheduler's admission pass recognizes the existing
+        table and skips the fresh ``allocate``, continuing the row
+        mid-context like a chunked-prefill resume. If it is later
+        evicted, ``_evict`` resets ``num_cached`` and frees the blocks,
+        so recompute-from-scratch remains the universal fallback."""
         request.status = RequestStatus.WAITING
         self.waiting.append(request)
 
@@ -337,6 +364,9 @@ class Scheduler:
                     got_slot = True
                     break
                 except NoFreeBlocksError:
+                    if self.tier_relief is not None \
+                            and self.tier_relief(req):
+                        continue  # demoted cold content freed room
                     victim = self._preempt_one(req)
                     if victim is None:
                         break  # nothing left to evict but req itself
@@ -355,6 +385,36 @@ class Scheduler:
                                   swapped_in=swapped_in, expired=expired)
         return ScheduledBatch(kind="idle", preempted=preempted,
                               swapped_in=swapped_in, expired=expired)
+
+    def _claim_with_relief(self, req: Request, claim):
+        """Run a block claim, retrying after each successful tier-relief
+        demotion (tiered engines only; the claim raises BEFORE taking
+        anything, so a retry never double-claims). Re-raises the final
+        NoFreeBlocksError when relief is absent or dry."""
+        while True:
+            try:
+                return claim()
+            except NoFreeBlocksError:
+                if self.tier_relief is None or not self.tier_relief(req):
+                    raise
+
+    def _admit_with_relief(self, req: Request, n: int,
+                           claim) -> Optional[int]:
+        """Admission-time claim for an n-token chunk: ``claim(n)`` must
+        raise NoFreeBlocksError without taking anything. Tiered engines
+        additionally SHRINK the chunk when even relief cannot make the
+        whole thing fit the device pool — a request whose full context
+        exceeds device HBM admits with whatever fits and grows through
+        the mid-prefill pass, demoting its own cold prefix as it goes.
+        Returns the chunk size that fit, or None."""
+        while True:
+            try:
+                self._claim_with_relief(req, lambda: claim(n))
+                return n
+            except NoFreeBlocksError:
+                if self.tier_relief is None or n <= 1:
+                    return None
+                n = max(1, n // 2)
 
     def _schedule_mixed(self, expired: List[Request],
                         swapped_in: List[Request]) -> ScheduledBatch:
@@ -391,6 +451,9 @@ class Scheduler:
                                    write_from=write_from)
                     return True
                 except NoFreeBlocksError:
+                    if self.tier_relief is not None \
+                            and self.tier_relief(req):
+                        continue  # demoted cold content freed room
                     victim = self._preempt_one(req)
                     if victim is None:
                         self._evict(req)
@@ -458,11 +521,36 @@ class Scheduler:
             if left <= 0:
                 break
             total = len(req.tokens)
+            if bm.has_table(req.request_id):
+                # a continuation: its blocks were claimed (and filled)
+                # already, so admission is purely a seat + budget
+                # decision; growth past the held coverage goes through
+                # the ordinary slot claim
+                n = self._admit_with_relief(
+                    req, min(total - req.num_cached, left),
+                    lambda k: bm.append_slot(
+                        req.request_id, req.num_cached + k,
+                        write_from=req.num_cached))
+                if n is None:
+                    break  # blocks free up as running requests finish
+                req.status = RequestStatus.RUNNING
+                self.num_continuation_resumes += 1
+                admitted.append(req)
+                rows.append(req)
+                nsched.append(n)
+                used += n
+                any_prefill = True
+                if n < total - req.num_cached:
+                    req.was_chunked = True
+                if req.was_chunked:
+                    self.num_prefill_chunks += 1
+                continue
             eff = min(bm.match_prefix(req.tokens), total - 1)
-            n = min(total - eff, left)
-            try:
-                bm.allocate(req.request_id, eff + n, tokens=req.tokens)
-            except NoFreeBlocksError:
+            n = self._admit_with_relief(
+                req, min(total - eff, left),
+                lambda k: bm.allocate(req.request_id, eff + k,
+                                      tokens=req.tokens))
+            if n is None:
                 break  # blocks free up as running requests finish
             req.num_cached = bm.last_hit_tokens
             req.status = RequestStatus.RUNNING

@@ -6,8 +6,10 @@ on Tensor ops, ``nn.functional.flash_attention(causal=True)``,
 branch, ``nn.CrossEntropyLoss``; trained with
 ``paddle.optimizer.AdamW(parameters=model.parameters())``,
 ``loss.backward()``, ``opt.step()``, ``opt.clear_grad()``; saved with
-``paddle.save(model.state_dict())``. Shared by ``chip_smoke.py`` (phase
-21, ``layer_api``) and the tests.
+``paddle.save(model.state_dict())``; and through ``paddle.jit.TrainStep``,
+whose ``run_steps`` replays one captured step on the card
+(:func:`replay_against_calls`). Shared by ``chip_smoke.py`` (phases 21,
+``layer_api``, and 22, ``layer_trainstep``) and the tests.
 
 :func:`build` takes the package as its argument, so the CPU tests run
 the very same code on ``paddle_tpu`` and ``paddle_tpu_torch``.
@@ -28,7 +30,8 @@ from typing import Dict, List
 
 __all__ = ["LayerLlamaConfig", "from_llama_config", "build",
            "layer_state_from_module", "masks_of", "compare_step0", "train",
-           "save_load_resume", "mask_draw", "seeded_linear"]
+           "save_load_resume", "mask_draw", "seeded_linear", "train_step",
+           "replay_against_calls"]
 
 
 @dataclass
@@ -323,6 +326,116 @@ def seeded_linear(paddle, in_features, out_features, seed: int = 0):
     paddle.seed(seed)
     layer = paddle.nn.Linear(in_features, out_features)
     return layer.weight, layer.bias
+
+
+def train_step(paddle, model, lr: float = 3e-4):
+    """A ``paddle.jit.TrainStep`` of ``model`` (a :func:`build` model,
+    called on the ids) with :func:`train`'s AdamW, under the model's own
+    cross entropy on f32 logits; returns ``(step, opt)``."""
+    opt = paddle.optimizer.AdamW(learning_rate=lr,
+                                 parameters=model.parameters(),
+                                 weight_decay=0.01)
+    return paddle.jit.TrainStep(
+        model, lambda logits, labels: model.loss_fn(
+            logits.astype("float32"), labels), opt), opt
+
+
+def _keep_masks(paddle, model) -> List:
+    """Record, on each call of each ``nn.Dropout`` of ``model`` that
+    drops, where its output is nonzero, as a bool tensor on the model's
+    device: no host read, so the hooks run inside a CUDA graph capture
+    too (a captured hook's tensor then holds the latest replay's)."""
+    seen: List = []
+
+    def hook(layer, inputs, out):
+        if layer.training and layer.p > 0:
+            seen.append(out._data != 0)
+
+    for layer in model.sublayers():
+        if isinstance(layer, paddle.nn.Dropout):
+            layer.register_forward_post_hook(hook)
+    return seen
+
+
+def replay_against_calls(paddle, cfg: LayerLlamaConfig, ids, labels,
+                         steps: int, rounds: int = 1, seed: int = 0,
+                         sync=None) -> dict:
+    """Two models of ``cfg`` from ``paddle.seed(seed)``, each behind a
+    :func:`train_step` built from the same generator state: one takes
+    ``steps * rounds`` ``__call__`` steps, the other ``rounds`` dispatches
+    of ``run_steps(steps)`` (on the card: its first step eager, as the
+    warm-up of the capture, then replays). ``ids``/``labels`` are Tensors
+    of ``paddle``. Returns both loss lists; whether the losses, every
+    parameter, the dropout masks (each call's against the replay's
+    warm-up step and its last replayed step) and the final chains are
+    bit-identical; the generator's counter moves over each TrainStep's
+    construction and over its steps; per-step ms (each call synced; each
+    dispatch after the first, over ``steps``); and the replayed step's
+    ``graph_stats()``."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    models, stepped, moves = [], [], []
+    for _ in range(2):
+        paddle.seed(seed)
+        models.append(build(paddle, cfg))
+    masks = [_keep_masks(paddle, m) if cfg.dropout > 0 else []
+             for m in models]
+    state = paddle.get_rng_state()
+    call_ms, replay_ms, losses = [], [], []
+    before = dict(fa.launches)
+    for i, model in enumerate(models):
+        paddle.set_rng_state(state)
+        step, _ = train_step(paddle, model)
+        built = paddle.get_rng_state()
+        if i == 0:
+            out = []
+            for _ in range(steps * rounds):
+                t0 = time.perf_counter()
+                out.append(step(ids, labels))
+                if sync is not None:
+                    sync()
+                call_ms.append((time.perf_counter() - t0) * 1e3)
+            call_launches = {k: n - before.get(k, 0)
+                             for k, n in fa.launches.items()}
+            losses.append([float(x) for x in out])
+        else:
+            out = []
+            for r in range(rounds):
+                t0 = time.perf_counter()
+                out.append(step.run_steps(steps, ids, labels))
+                if sync is not None:
+                    sync()
+                if r:
+                    replay_ms.append((time.perf_counter() - t0) * 1e3
+                                     / steps)
+            losses.append([float(x) for x in torch.cat(out).tolist()])
+        moves.append((built[1] - state[1],
+                      paddle.get_rng_state()[1] - built[1]))
+        stepped.append(step)
+    a, b = models
+    same_params = all(bool((pa._data == pb._data).all())
+                      for pa, pb in zip(a.parameters(), b.parameters()))
+    n = len(masks[0]) // (steps * rounds) if masks[0] else 0
+    same_masks = None
+    if n:
+        mc, mr = masks
+        same_masks = all(bool(torch.equal(x, y)) for x, y in
+                         zip(mc[:n] + mc[-n:], mr[:n] + mr[-n:]))
+    return {"steps": steps, "rounds": rounds, "dropout": cfg.dropout,
+            "call_losses": losses[0], "replay_losses": losses[1],
+            "losses_bit_identical": losses[0] == losses[1],
+            "params_bit_identical": same_params,
+            "masks_per_step": n, "masks_bit_identical": same_masks,
+            "chains_equal": bool(torch.equal(stepped[0]._chain,
+                                              stepped[1]._chain)),
+            "chain": [int(x) for x in stepped[1]._chain.tolist()],
+            "generator_keys": {"call": moves[0], "replay": moves[1]},
+            "call_step_ms": call_ms, "replay_step_ms": replay_ms,
+            "call_launches": call_launches,
+            "graph_stats": stepped[1].graph_stats(),
+            "models": models}
 
 
 def _main():

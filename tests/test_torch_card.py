@@ -27,7 +27,13 @@ card matches the CPU, and so does ``flash_attn_unpadded``. The layer
 API's Llama trains on the card as on the CPU with the same dropout masks,
 a dropout mask and a seeded ``nn.Linear`` drawn on the card equal the
 CPU's bit for bit, ``paddle.save``/``paddle.load`` round trips on the
-card, and its bf16 steps run K2-K4 on the tensor cores."""
+card, and its bf16 steps run K2-K4 on the tensor cores. Its
+``jit.TrainStep`` replays a captured step bit-identically to ``__call__``
+with and without dropout (the device RNG chain). The ragged kernel reads
+a tiered engine's second pool (the host tier's mirror) as its plain
+version does and as one pool holding the same pages does, drops a write
+to a virtual entry, and a tiny tiered engine over a small device pool
+serves the untiered engine's and the CPU's tokens."""
 import numpy as np
 import pytest
 import torch
@@ -1078,3 +1084,182 @@ def test_layer_api_bf16_runs_k2_k4_on_the_tensor_cores(card_place):
         assert now[k]["tensor_cores"] - routes[k]["tensor_cores"] == 6, now
         assert now[k]["fma"] == routes[k]["fma"], now
     assert all(fa.launches[k] - before[k] == 6 for k in before)
+
+
+# ---------------------------------------------------------------------------
+# the device RNG chain under run_steps; the ragged kernel's second pool
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_layer_trainstep_replay_is_bitwise_the_eager_step(card, dropout):
+    """A tiny layer-API Llama (bf16) behind ``jit.TrainStep``: 2
+    dispatches of run_steps(2) (capture, then replays) against 4
+    ``__call__``s from the same weights and generator state: losses,
+    parameters, the dropout masks and the chains bit-identical; one
+    generator key per TrainStep and none per step; one capture."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place as _place
+    from paddle_tpu_torch.tools import layer_api_train as L
+
+    saved = (_place._current_place, _place._current_device)
+    paddle.set_device("gpu")
+    try:
+        cfg = L.LayerLlamaConfig(
+            vocab_size=256, hidden_size=128, intermediate_size=256,
+            num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, max_position_embeddings=64,
+            dropout=dropout, dtype="bfloat16")
+        rng = np.random.RandomState(0)
+        ids = paddle.to_tensor(rng.randint(0, 256, (2, 64)))
+        labels = paddle.to_tensor(rng.randint(0, 256, (2, 64)))
+        res = L.replay_against_calls(paddle, cfg, ids, labels, 2, rounds=2,
+                                     sync=torch.cuda.synchronize)
+    finally:
+        _place._current_place, _place._current_device = saved
+    assert res["losses_bit_identical"], res
+    assert res["params_bit_identical"] and res["chains_equal"]
+    assert res["masks_bit_identical"] in ((None,) if dropout == 0
+                                          else (True,))
+    assert res["generator_keys"] == {"call": (1, 0), "replay": (1, 0)}
+    stats = res["graph_stats"]
+    assert stats["captures"] == 1 and list(stats["replays"].values()) == [3]
+
+
+def _mirror_batch(card, dtype, seed=0, nhb=24):
+    """``_batch`` (bs 16, GQA 32/8, D 128) with each live slot's blocks
+    below its first written block moved to a second pool: the entries
+    become virtual (``nb + slot``) and the device copies are zeroed."""
+    b = _batch(card, dtype, 32, 8, 128, 16, seed=seed)
+    nb = b["key_cache"].shape[0]
+    hk = torch.zeros((nhb,) + tuple(b["key_cache"].shape[1:]), dtype=dtype,
+                     device=card)
+    hv = torch.zeros_like(hk)
+    bt = b["block_tables"].cpu().numpy()
+    cu = b["cu_seqlens"].cpu().numpy()
+    ctx = b["context_lens"].cpu().numpy()
+    slot = 0
+    for i in range(int(b["num_seqs"][0])):
+        first = (ctx[i] - (cu[i + 1] - cu[i])) // 16
+        for j in range(first):
+            e = int(bt[i, j])
+            hk[slot], hv[slot] = b["key_cache"][e], b["value_cache"][e]
+            b["key_cache"][e] = 0
+            b["value_cache"][e] = 0
+            bt[i, j] = nb + slot
+            slot += 1
+    assert slot > 0
+    b["block_tables"] = torch.from_numpy(bt).to(card)
+    return b, hk, hv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_reads_the_second_pool(card, dtype):
+    """Virtual entries inside the causal range read the mirror: against
+    the plain version with the mirror (bf16: its ``round_to`` form in the
+    kernel's splits) at ``flash_check.TOL``, and bit for bit against the
+    kernel on one pool holding the same pages (the split does not depend
+    on the pools)."""
+    b, hk, hv = _mirror_batch(card, dtype)
+    q, nb = b["q"], b["key_cache"].shape[0]
+    scale = q.shape[-1] ** -0.5
+    out, kc, vc = rpa.ragged_paged_attention(
+        **b, scale=scale, host_key_cache=hk, host_value_cache=hv)
+    idx = (b["block_tables"], b["cu_seqlens"], b["context_lens"],
+           b["num_seqs"])
+    split, _ = rpa.kernel_split(q, kc, b["block_tables"])
+    tc = dtype == torch.bfloat16
+    ref = rpa._ragged_attend_ref(q, kc, vc, *idx, scale,
+                                 out_dtype=torch.float32,
+                                 round_to=dtype if tc else None,
+                                 split=split, hkc=hk, hvc=hv)
+    one = rpa._ragged_attend_cuda(q, torch.cat([kc, hk]),
+                                  torch.cat([vc, hv]), *idx, scale)
+    torch.cuda.synchronize()
+    live = int(b["cu_seqlens"][int(b["num_seqs"][0])])
+    assert torch.all(out[live:] == 0)
+    torch.testing.assert_close(out[:live].float(), ref[:live],
+                               **flash_check.TOL[dtype])
+    assert torch.equal(out, one)
+    assert (b["block_tables"] >= nb).sum() > 0
+
+
+@pytest.mark.gpu
+def test_a_virtual_entry_write_is_dropped_on_the_card(card):
+    """A row whose entry is virtual writes nothing (the mirror is read
+    only), every other row lands in the cache, and the kernel launches."""
+    b, hk, hv = _mirror_batch(card, torch.bfloat16, seed=1)
+    bt = b["block_tables"].clone()
+    nb = b["key_cache"].shape[0]
+    bt[1, :] = torch.where(bt[1] >= 0, nb + 20 + torch.arange(
+        bt.shape[1], device=card) % 4, bt[1])
+    b["block_tables"] = bt
+    hk0, hv0 = hk.clone(), hv.clone()
+    kc_ref, vc_ref = b["key_cache"].clone(), b["value_cache"].clone()
+    seg, pos, _ = rpa._token_layout(b["q"].shape[0], bt.shape[0],
+                                    b["cu_seqlens"], b["context_lens"],
+                                    b["num_seqs"])
+    rpa._write_kv(kc_ref, b["k_new"], bt, seg, pos)
+    rpa._write_kv(vc_ref, b["v_new"], bt, seg, pos)
+    before = rpa.launches
+    rpa.ragged_paged_attention(**b, host_key_cache=hk, host_value_cache=hv)
+    torch.cuda.synchronize()
+    assert rpa.launches == before + 1
+    assert torch.equal(b["key_cache"], kc_ref)
+    assert torch.equal(b["value_cache"], vc_ref)
+    assert torch.equal(hk, hk0) and torch.equal(hv, hv0)
+
+
+@pytest.mark.gpu
+def test_tiny_tiered_engine_card_matches_untiered_and_cpu(card):
+    """LlamaConfig.tiny in f32 (TF32 off): a 60-token prompt + 12 new on
+    an 8-block tiered engine (demotes, mirror steps) serves the tokens of
+    a 256-block untiered engine on the card and of the tiered engine on
+    the CPU, from the same weights."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import (EngineConfig, LLMEngine,
+                                          SamplingParams)
+    from paddle_tpu_torch.tools.llama3_8b_tiers import MirrorSteps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompt = [int(t) for t in np.random.RandomState(3).randint(1, 256, 60)]
+    kw = dict(block_size=4, max_num_seqs=4, max_model_len=96,
+              max_batched_tokens=16)
+    got = {}
+    for name, dev, extra in (
+            ("tiered", card, dict(num_blocks=8,
+                                  kv_tiers={"num_host_blocks": 32})),
+            ("untiered", card, dict(num_blocks=256)),
+            ("cpu", torch.device("cpu"),
+             dict(num_blocks=8, kv_tiers={"num_host_blocks": 32}))):
+        model = LlamaForCausalLM(LlamaConfig.tiny(), device=dev)
+        model.init_weights(torch.Generator(device=dev).manual_seed(0))
+        if dev.type == "cpu":
+            model.load_state_dict({k: v.cpu() for k, v in
+                                   got["weights"].items()})
+        else:
+            got.setdefault("weights", model.state_dict())
+        eng = LLMEngine(model, EngineConfig(**kw, **extra))
+        steps = MirrorSteps(eng) if name == "tiered" else None
+        eng.add_request("r", prompt, SamplingParams(max_new_tokens=12))
+        eng.run()
+        got[name] = list(eng.get_request("r").generated)
+        if steps is not None:
+            assert eng.block_manager.num_demotes > 0
+            assert steps.mirror_steps > 0
+    assert got["tiered"] == got["untiered"] == got["cpu"], got
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_a_mirror_it_does_not_take(card):
+    """No fallback for the second pool: a mirror in another dtype, of
+    other pages, on the CPU, or without its value half raises before any
+    launch."""
+    b, hk, hv = _mirror_batch(card, torch.bfloat16, seed=2)
+    before = rpa.launches
+    for bad_k, bad_v in ((hk.float(), hv.float()), (hk[:, :8], hv[:, :8]),
+                         (hk.cpu(), hv.cpu()), (hk, None)):
+        with pytest.raises(ValueError, match="ragged_paged_attention"):
+            rpa.ragged_paged_attention(**b, host_key_cache=bad_k,
+                                       host_value_cache=bad_v)
+    assert rpa.launches == before

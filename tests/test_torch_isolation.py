@@ -68,6 +68,8 @@ _MODULES = [
     "paddle_tpu_torch.distributed.fleet.mp_layers",
     "paddle_tpu_torch.compat_extra",
     "paddle_tpu_torch.tools.layer_api_train",
+    "paddle_tpu_torch.serving.kvtier", "paddle_tpu_torch.serving.kvtier.store",
+    "paddle_tpu_torch.tools.llama3_8b_tiers",
 ]
 
 

@@ -600,8 +600,9 @@ def test_ragged_is_the_default_and_the_bucketed_path_resolves(models):
     (dict(ragged=False, kv_tiers=True), "kv_tiers")])
 def test_invalid_knob_combinations_raise(models, kw, match):
     """As in the reference, at construction. The bucketed path refuses
-    ``tp_degree > 1`` and ``kv_tiers`` (the port refuses both on every
-    path, naming C3 and C1)."""
+    ``tp_degree > 1`` and ``kv_tiers`` (``kv_tiers`` rides the ragged
+    step in both packages; the port refuses ``tp_degree > 1`` on every
+    path, naming C3)."""
     for side, m in _sides(models):
         with pytest.raises(ValueError, match=match):
             side["engine"](m, side["config"](

@@ -220,13 +220,25 @@ def test_nonfinite_guard_aborts_only_the_poisoned_row(models):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("tp_degree", 2, "C3"), ("kv_tiers", True, "C1"),
-    ("tenant_id", "t1", "item 6")])
-def test_unported_configurations_raise(knob, value, item):
+    ("tp_degree", 2, "not ported.*C3"),
+    ("kv_tiers", True, "kv_tiers needs prefix_cache"),
+    ("tenant_id", "t1", "not ported.*item 6")])
+def test_unported_configurations_raise(models, knob, value, item):
     """What the port does not serve yet raises at construction, naming
-    the queue item that brings it."""
+    the queue item that brings it. ``kv_tiers`` is ported: without
+    prefix caching it raises the reference's own error, in both
+    packages."""
+    if knob == "kv_tiers":
+        jm, tm = models
+        for engine, config, m in ((JLLMEngine, JEngineConfig, jm),
+                                  (LLMEngine, EngineConfig, tm)):
+            with pytest.raises(ValueError, match=item):
+                engine(m, config(block_size=4, max_num_seqs=2,
+                                 max_model_len=32, kv_tiers=value,
+                                 prefix_cache=False))
+        return
     cls = SamplingParams if knob == "tenant_id" else EngineConfig
-    with pytest.raises(ValueError, match=f"not ported.*{item}"):
+    with pytest.raises(ValueError, match=item):
         cls(**{knob: value})
 
 
