@@ -275,14 +275,45 @@ non-zero (nothing is caught and passed over):
                host ms of ``apply_moves`` and of ``claim_resume`` (which
                holds the tail restore); the tiered steps run as captured
                graphs (captures only at a bucket's first use).
+24. long_tail — the rest of the manifest and the nn long tail
+               (``tools/long_tail_cases.py``, ``tools/long_tail_sizes.py``,
+               ``tools/ds2_ctc_train.py``; f32, TF32 off). Every case of
+               the vision, long-tail and nn long tail sections on the card
+               against the same case on the CPU: outputs and the gradients
+               of a seeded cotangent at the sweep's tolerances (1e-4 / 1e-5
+               for the ops whose card kernels add in another order), the
+               generator's state equal after each. At published sizes,
+               forward + backward timed (CUDA events) with peak memory, and
+               held against the CPU at a reduced batch (values and
+               gradients within rtol 1e-4 and 1e-4 x the largest CPU
+               magnitude, CTC's gradient 1e-3 x): CTC at DeepSpeech2-on-LibriSpeech sizes (logits
+               [800, 32, 29], labels of 150-250), RNN-T at B 8, T 200, U 50,
+               V 1024, RoIAlign at Mask R-CNN R50-FPN's P2 ([2, 256, 200,
+               336], 1024 boxes, 7 x 7, sampling ratio 2, aligned), DCNv2
+               with its mask ([2, 256, 100, 168], 3 x 3, 256 out),
+               affine_grid + grid_sample at [32, 3, 224, 224], and
+               yolo_loss on YOLOv3's stride-8 head ([8, 255, 76, 76], 50
+               boxes, 80 classes). ``flash_attn_qkvpacked`` at (4, 2048, 3,
+               16, 128), bf16, causal, forward and backward, with K2-K4's
+               counts set to 0 before and read after (1 each, no plain
+               version): bit-identical to ``F.flash_attention`` on the
+               unpacked q/k/v, its gradient packed, and within
+               ``flash_check``; ``flash_attn_varlen_qkvpacked`` bit-identical
+               to ``flash_attn_unpadded`` on the same rows. The DeepSpeech2
+               widths model (``nn.GRU(161, 1024, num_layers=3, direction=
+               "bidirect")``, ``nn.Linear(2048, 29)``, ``nn.CTCLoss``) at
+               batch 32 x 800 frames: 4 AdamW steps, losses finite and
+               falling, step p50 and peak memory; at 1 layer, batch 4, 100
+               frames, card against CPU: loss within rtol 1e-4, every
+               gradient within relative L2 1e-4.
 
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
 (both modes), drain, the watched run and cached generate for the ragged
 kernel, train, spec and naive generate for the flash forward, and
 eager_train and trainstep_scaler (phase 15), fed_train (phase 18),
-tensor_api (phase 20), layer_api (phase 21) and layer_trainstep (phase
-22) for K2-K4, and tiers (phase 23's tiered engines) for K1; on the
+tensor_api (phase 20), layer_api (phase 21), layer_trainstep (phase
+22) and long_tail (phase 24's packed flash wrapper) for K2-K4, and tiers (phase 23's tiered engines) for K1; on the
 paths that replay graphs they are the launches the card ran, the eager
 warm-ups plus captured x replays — error, times, bound, library time;
 ``spec_shapes``, ``generate_shapes`` and ``tiers_shapes`` repeat them
@@ -2416,6 +2447,224 @@ def phase_tiers(dev):
     return res
 
 
+def _scaled_err(got, want):
+    """max |got - want| / max |want| (1 where want is all zero)."""
+    scale = float(np.abs(want).max()) if want.size else 0.0
+    err = float(np.abs(got - want).max()) if want.size else 0.0
+    return err / (scale if scale > 0 else 1.0)
+
+
+def _long_tail_sweep():
+    """Every long-tail case on the card against the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import long_tail_cases as LC
+
+    out, failed = {}, {}
+    for case in LC.CASES:
+        t0 = time.perf_counter()
+        try:
+            paddle.set_device("gpu")
+            got, ggot, sgot = LC.run_case(case, paddle.CUDAPlace(0))
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t0) * 1e3
+            paddle.set_device("cpu")
+            want, gwant, swant = LC.run_case(case, paddle.CPUPlace())
+        except Exception as e:      # recorded; the sweep fails at its end
+            failed[case.id] = [repr(e)[:600]]
+            continue
+        finally:
+            paddle.set_device("gpu")
+        bad, err, gerr = LC.compare(case, (got, ggot, sgot),
+                                    (want, gwant, swant))
+        if bad:
+            failed[case.id] = bad
+        out[case.id] = {"max_abs_err": err, "grad_max_abs_err": gerr,
+                        "card_ms": card_ms}
+    assert not failed, json.dumps(failed)[:20000]
+    return out
+
+
+def _long_tail_sizes(dev):
+    """The ops at published sizes: card time and memory, CPU check at a
+    reduced batch."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import long_tail_sizes as LS
+
+    out, failed = {}, {}
+    for name, spec in LS.WORKLOADS.items():
+        paddle.set_device("gpu")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        full = spec["make"](spec["full"], paddle.CUDAPlace(0))
+        ms = cuda_ms(lambda: LS.forward_backward(full), 3)
+        peak = torch.cuda.max_memory_allocated() - base
+        del full
+        small = spec["make"](spec["check"], paddle.CUDAPlace(0))
+        got = LS.numpy(LS.forward_backward(small))
+        paddle.set_device("cpu")
+        t0 = time.perf_counter()
+        small_cpu = spec["make"](spec["check"], paddle.CPUPlace())
+        want = LS.numpy(LS.forward_backward(small_cpu))
+        cpu_s = time.perf_counter() - t0
+        paddle.set_device("gpu")
+        errs = {}
+        rtol, share = spec.get("tol", LS.TOL)
+        for key in want:
+            a, b = got[key], want[key]
+            scale = float(np.abs(b).max())
+            try:
+                np.testing.assert_allclose(a, b, rtol=rtol,
+                                           atol=share * scale)
+            except AssertionError as e:
+                failed[f"{name} {key}"] = str(e)[:600]
+            errs[key] = _scaled_err(a, b)
+        out[name] = {"full": spec["full"], "check": spec["check"],
+                     "tol": [rtol, share],
+                     "ms_fwd_bwd": ms, "peak_bytes": peak,
+                     "check_err_over_max": errs, "check_cpu_s": cpu_s}
+        del small, small_cpu
+        torch.cuda.empty_cache()
+    assert not failed, json.dumps(failed)
+    return out
+
+
+QKV_PACKED = (4, 2048, 16, 128)     # B, S, H, D: phase 6's training shape
+
+
+def _packed_flash(dev):
+    """``flash_attn_qkvpacked`` through K2-K4 (counted), bit-identical to
+    ``F.flash_attention`` on the unpacked tensors; the varlen wrapper
+    against ``flash_attn_unpadded``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.testing import flash_check
+
+    paddle.set_device("gpu")
+    b, s, h, d = QKV_PACKED
+    gen = torch.Generator(device=dev).manual_seed(24)
+    qkv_d = torch.randn((b, s, 3, h, d), generator=gen, device=dev,
+                        dtype=torch.float32).to(torch.bfloat16)
+    do_d = torch.randn((b, s, h, d), generator=gen, device=dev,
+                       dtype=torch.float32).to(torch.bfloat16)
+    qkv = paddle.to_tensor(qkv_d, stop_gradient=False)
+    for name in fa.launches:          # phase 24's path starts here
+        fa.launches[name] = 0
+    with _PlainCalls() as plain:
+        out, _ = F.flash_attn_qkvpacked(qkv, causal=True)
+        out.backward(paddle.to_tensor(do_d))
+        torch.cuda.synchronize()
+    launches = dict(fa.launches)      # ... and ends here
+    assert launches == {"flash_attention_fwd": 1,
+                        "flash_attention_bwd_dq": 1,
+                        "flash_attention_bwd_dkv": 1}, launches
+    assert not any(plain.calls.values()), plain.calls
+    g = qkv.grad._data
+    assert tuple(g.shape) == (b, s, 3, h, d), g.shape
+    # the same kernels on the unpacked q, k, v
+    parts = [paddle.to_tensor(qkv_d[:, :, i].contiguous(),
+                              stop_gradient=False) for i in range(3)]
+    ref, _ = F.flash_attention(*parts, causal=True)
+    ref.backward(paddle.to_tensor(do_d))
+    identical = bool(torch.equal(out._data, ref._data)) and all(
+        torch.equal(g[:, :, i], parts[i].grad._data) for i in range(3))
+    assert identical
+    q, k, v = (qkv_d[:, :, i].contiguous() for i in range(3))
+    scale = d ** -0.5
+    _, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
+    rep = flash_check.check(q, k, v, do_d, {
+        "o": out._data.detach(), "lse": lse,
+        "dq": g[:, :, 0].contiguous(), "dk": g[:, :, 1].contiguous(),
+        "dv": g[:, :, 2].contiguous()}, scale, True)
+    t_ms = cuda_ms(lambda: F.flash_attn_qkvpacked(qkv, causal=True), 3)
+    # varlen: packed rows of 4 sequences against flash_attn_unpadded
+    lens = [2048, 37, 1000, 513]
+    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    vq = torch.randn((int(cu[-1]), 3, h, d), generator=gen, device=dev,
+                     dtype=torch.float32).to(torch.bfloat16)
+    vt = paddle.to_tensor(vq)
+    cut = paddle.to_tensor(cu)
+    vo, _ = F.flash_attn_varlen_qkvpacked(vt, cut, cut, max(lens),
+                                          max(lens), causal=True)
+    uo, _ = F.flash_attn_unpadded(*(paddle.to_tensor(vq[:, i].contiguous())
+                                    for i in range(3)), cut, cut, max(lens),
+                                  max(lens), scale=scale, causal=True)
+    varlen_identical = bool(torch.equal(vo._data, uo._data))
+    assert varlen_identical
+    return {"shape": [b, s, 3, h, d], "dtype": "bfloat16", "causal": True,
+            "kernel_launches": launches, "plain_calls": plain.calls,
+            "bit_identical_to_flash_attention": identical,
+            "flash_check": {"max_abs_err": rep["max_abs_err"],
+                            "outside_plain_tol": rep["outside_plain_tol"],
+                            "tolerance": rep["tolerance"]},
+            "fwd_ms": t_ms, "varlen_lengths": lens,
+            "varlen_bit_identical_to_unpadded": varlen_identical}
+
+
+def phase_long_tail(dev):
+    """Phase 24: the long tail of the manifest, the nn long tail, the
+    packed flash wrappers and a DeepSpeech2-widths CTC model."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import ds2_ctc_train as D
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"phase": "long_tail"}
+    errors = {}
+
+    def section(name, fn):
+        # every section runs; the phase fails at its end if one did
+        t0 = time.perf_counter()
+        try:
+            res[name] = fn()
+        except Exception as e:
+            errors[name] = repr(e)[:20000]
+        res[name + "_s"] = time.perf_counter() - t0
+
+    def ds2():
+        gc.collect()
+        torch.cuda.empty_cache()
+        paddle.set_device("gpu")
+        torch.cuda.reset_peak_memory_stats()
+        model, loss_fn = D.build(paddle)
+        tr = D.train(paddle, model, loss_fn, D.batch(), 4,
+                     place=paddle.CUDAPlace(0), sync=torch.cuda.synchronize)
+        peak = torch.cuda.max_memory_allocated()
+        del model, loss_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        cc = D.card_against_cpu(paddle)
+        paddle.set_device("gpu")
+        out = {"gru": [D.INPUT, D.HIDDEN, D.LAYERS, "bidirect"],
+               "classes": D.CLASSES, "batch": [D.BATCH, D.FRAMES], **tr,
+               "step_ms_p50": float(np.percentile(tr["step_ms"], 50)),
+               "max_memory_allocated": peak, "card_against_cpu": cc}
+        assert all(np.isfinite(tr["losses"])), out
+        assert tr["losses"][-1] < tr["losses"][0], out
+        assert cc["loss_rel_err"] <= 1e-4, out
+        assert cc["grad_rel_l2_max"] <= 1e-4, out
+        return out
+
+    section("sweep", _long_tail_sweep)
+    res["sweep_cases"] = len(res.get("sweep", {}))
+    section("sizes", lambda: _long_tail_sizes(dev))
+    section("qkvpacked", lambda: _packed_flash(dev))
+    section("ds2", ds2)
+    if errors:
+        emit({**res, "errors": errors})
+        raise AssertionError(f"phase 24 failed: {sorted(errors)}")
+    res["kernel_launches"] = res["qkvpacked"]["kernel_launches"]
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -2454,6 +2703,7 @@ def main():
     la = phase_layer_api(dev)
     lt = phase_layer_trainstep(dev, fe)
     ti = phase_tiers(dev)
+    lg = phase_long_tail(dev)
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
     dr = fl["fwd_only"]["draft_shapes"]
@@ -2490,6 +2740,7 @@ def main():
         by_path[name]["layer_api"] = \
             la["bf16_full_depth"]["kernel_launches"][name]
         by_path[name]["layer_trainstep"] = lt["kernel_launches"][name]
+        by_path[name]["long_tail"] = lg["kernel_launches"][name]
     spec_shapes = {
         "ragged_paged_attention": {
             "max_abs_err": kv["max_abs_err"], "ms": kv["ms"],

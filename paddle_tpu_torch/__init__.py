@@ -8,7 +8,9 @@ engine.py`` -> ``paddle_tpu_torch/serving/engine.py``) and imports
 and autograd on torch's engine: ``backward``, ``grad``, ``PyLayer``);
 the global generator (``seed``, ``get_rng_state``) with the random ops;
 the layer API (``nn.Layer``, its layers and initializers, ``ParamAttr``,
-``save`` / ``load``);
+``save`` / ``load``), the whole of ``nn`` (recurrent, transformer and
+long-tail layers, the CTC and RNN-T losses), ``signal``, ``fft`` and
+``linalg``;
 serving a Llama decoder through the ragged engine step (the ragged paged
 attention kernel written by hand in CUDA for Hopper,
 ``csrc/ragged_paged_attention.cu``); and training it through
@@ -59,6 +61,15 @@ from paddle_tpu_torch import jit  # noqa: F401,E402
 from paddle_tpu_torch import framework  # noqa: F401,E402
 from paddle_tpu_torch.framework.io_utils import load, save  # noqa: F401,E402
 from paddle_tpu_torch.framework.param_attr import ParamAttr  # noqa: F401,E402
+
+# the fft MODULE shadows the registry's 1-D fft op at the top level
+# (paddle.fft is a namespace; paddle.fft.fft the op), as in the JAX package
+import paddle_tpu_torch.fft  # noqa: F401,E402
+import sys as _sys  # noqa: E402
+
+fft = _sys.modules["paddle_tpu_torch.fft"]
+import paddle_tpu_torch.signal  # noqa: F401,E402
+from paddle_tpu_torch import linalg  # noqa: F401,E402
 
 
 def einsum(equation, *operands):

@@ -1,7 +1,8 @@
 """paddle_tpu_torch.nn (port of ``paddle_tpu/nn/``): ``Layer`` and its
 containers, the common, conv/pool, norm, activation and loss layers, the
-initializers, ``nn.utils``, the gradient clips and ``nn.functional``.
-``transformer``, ``rnn`` and ``layers_extra`` come with slice E."""
+transformer and recurrent layers, the long-tail layers of
+``layers_extra``, the initializers, ``nn.utils``, the gradient clips and
+``nn.functional``: every name the JAX package's ``nn`` exports."""
 from paddle_tpu_torch.nn.layer import (  # noqa: F401
     Identity, Layer, LayerDict, LayerList, Parameter, ParameterList,
     Sequential,
@@ -32,9 +33,27 @@ from paddle_tpu_torch.nn.loss import (  # noqa: F401
     CTCLoss, HingeLoss, KLDivLoss, L1Loss, MarginRankingLoss, MSELoss,
     NLLLoss, RNNTLoss, SmoothL1Loss,
 )
+from paddle_tpu_torch.nn.transformer import (  # noqa: F401
+    MultiHeadAttention, Transformer, TransformerDecoder,
+    TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
+)
+from paddle_tpu_torch.nn.rnn import (  # noqa: F401
+    GRU, GRUCell, LSTM, LSTMCell, RNN, SimpleRNN, SimpleRNNCell,
+)
 from paddle_tpu_torch.nn.clip import (  # noqa: F401
     ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
 )
 from paddle_tpu_torch.nn import functional  # noqa: F401
 from paddle_tpu_torch.nn import initializer  # noqa: F401
 from paddle_tpu_torch.nn import utils  # noqa: F401
+from paddle_tpu_torch.nn.layers_extra import (  # noqa: F401,E402
+    AdaptiveAvgPool1D, AdaptiveAvgPool3D, AdaptiveMaxPool1D,
+    AdaptiveMaxPool3D, AvgPool3D, BeamSearchDecoder, BiRNN,
+    ChannelShuffle, Conv1DTranspose, Conv3DTranspose, Fold,
+    FractionalMaxPool2D, FractionalMaxPool3D, GaussianNLLLoss,
+    HingeEmbeddingLoss, HSigmoidLoss, MaxPool3D, MaxUnPool1D,
+    MaxUnPool2D, MaxUnPool3D, MultiLabelSoftMarginLoss, MultiMarginLoss,
+    PixelUnshuffle, PoissonNLLLoss, RNNCellBase, RReLU, SoftMarginLoss,
+    Softmax2D, TripletMarginLoss, TripletMarginWithDistanceLoss,
+    Unflatten, ZeroPad2D, dynamic_decode,
+)

@@ -1,7 +1,6 @@
 """Loss layers (port of ``paddle_tpu/nn/loss.py``), over the port's
-registry ops. ``CTCLoss`` and ``RNNTLoss`` refuse at construction: their
-ops, ``warpctc`` and ``rnnt``, come with the rest of the manifest
-(ROADMAP queue 1, item 9)."""
+registry ops; ``CTCLoss`` and ``RNNTLoss`` over ``F.ctc_loss`` and
+``F.rnnt_loss`` (the ``warpctc`` and ``rnnt`` ops)."""
 from __future__ import annotations
 
 from paddle_tpu_torch import ops
@@ -139,19 +138,36 @@ class CosineEmbeddingLoss(Layer):
                                          reduction=self.reduction)
 
 
-_ITEM_9 = ("{} runs the {} op, which is not ported yet (ROADMAP queue 1, "
-           "item 9: the rest of the manifest)")
-
-
 class CTCLoss(Layer):
-    """Refused: the ``warpctc`` op comes with item 9."""
+    """CTC loss with warp-ctc's semantics (unscaled logits)."""
 
     def __init__(self, blank=0, reduction="mean"):
-        raise NotImplementedError(_ITEM_9.format("CTCLoss", "warpctc"))
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, logits, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        from paddle_tpu_torch.nn import functional as F
+
+        return F.ctc_loss(logits, labels, input_lengths, label_lengths,
+                          blank=self.blank, reduction=self.reduction,
+                          norm_by_times=norm_by_times)
 
 
 class RNNTLoss(Layer):
-    """Refused: the ``rnnt`` op comes with item 9."""
+    """RNN-T loss with warp-transducer's semantics, FastEmit included."""
 
     def __init__(self, blank=0, fastemit_lambda=0.001, reduction="mean"):
-        raise NotImplementedError(_ITEM_9.format("RNNTLoss", "rnnt"))
+        super().__init__()
+        self.blank = blank
+        self.fastemit_lambda = fastemit_lambda
+        self.reduction = reduction
+
+    def forward(self, input, label, input_lengths, label_lengths):
+        from paddle_tpu_torch.nn import functional as F
+
+        return F.rnnt_loss(input, label, input_lengths, label_lengths,
+                           blank=self.blank,
+                           fastemit_lambda=self.fastemit_lambda,
+                           reduction=self.reduction)

@@ -13,8 +13,8 @@ from typing import Dict
 
 # emitter modules must be imported before building the registry
 from paddle_tpu_torch.ops import (  # noqa: F401
-    creation, linalg, logic, manipulation, math, nn_ops, random_ops,
-    spectral,
+    creation, extras, linalg, logic, manipulation, math, nn_extras, nn_ops,
+    random_ops, spectral, vision_ops,
 )
 from paddle_tpu_torch.ops import registry as _registry
 from paddle_tpu_torch.ops.registry import OPS, get_op  # noqa: F401

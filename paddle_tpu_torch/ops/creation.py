@@ -165,3 +165,14 @@ def complex(real, imag):
 @op
 def polar(abs, angle):
     return torch.polar(abs, angle)
+
+
+@op
+def vander(x, n=None, increasing=False):
+    """The Vandermonde matrix; integer inputs keep their dtype with exact
+    integer powers."""
+    cols = x.shape[0] if n is None else int(n)
+    p = torch.arange(cols, dtype=x.dtype, device=x.device)
+    if not increasing:
+        p = p.flip(0)
+    return torch.pow(x[:, None], p[None, :])

@@ -854,3 +854,123 @@ def flash_attention(q, k, v, causal=False):
     """Flash attention on [B, S, H, D]: the hand-written kernels on the
     card, their plain versions on the CPU."""
     return flash_attention_data(q, k, v, causal=causal)
+
+
+# ---------------------------------------------------------------------------
+# sequence losses: CTC and RNN-T, with the JAX package's -1e30 sentinel
+# where no alignment exists
+# ---------------------------------------------------------------------------
+_NEG = -1e30
+
+
+def _lae(terms):
+    """log(sum(exp(terms))) with the JAX package's double where: where
+    every term is at or below the sentinel the result is the sentinel and
+    no gradient reaches a term through an infinite or NaN branch."""
+    m = terms[0]
+    for t in terms[1:]:
+        m = torch.maximum(m, t)
+    all_neg = m <= _NEG
+    m_safe = torch.where(all_neg, torch.zeros_like(m), m)
+    s = torch.exp(terms[0] - m_safe)
+    for t in terms[1:]:
+        s = s + torch.exp(t - m_safe)
+    s_safe = torch.where(all_neg, torch.ones_like(s), s)
+    return torch.where(all_neg, torch.full_like(m, _NEG),
+                       m_safe + torch.log(s_safe))
+
+
+@op
+def warpctc(logits, labels, input_lengths, label_lengths, blank=0,
+            norm_by_times=False):
+    """CTC loss per batch element (warp-ctc's semantics): ``logits`` [T,
+    B, C] unscaled (log-softmax taken here), ``labels`` [B, Lmax],
+    lengths [B] -> [B] losses, through torch's ``ctc_loss`` (the same
+    alpha recursion; its gradient reaches the logits through the
+    log-softmax as the JAX package's does). An alignment is infeasible
+    when a row's frames are fewer than its labels plus their adjacent
+    repeats: there the JAX package's log-domain recursion bottoms out at
+    its -1e30 sentinel, giving a loss of 1e30 and no gradient, and so
+    does this op (torch's gives inf, zeroed with ``zero_infinity``)."""
+    labels = labels.long()
+    in_len = input_lengths.long().to(logits.device)
+    lab_len = label_lengths.long().to(logits.device)
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    loss = F.ctc_loss(lp, labels, in_len, lab_len, blank=blank,
+                      reduction="none", zero_infinity=True)
+    need = lab_len
+    if labels.shape[1] > 1:
+        pos = torch.arange(1, labels.shape[1], device=logits.device)
+        rep = (labels[:, 1:] == labels[:, :-1]) & \
+            (pos[None, :] < lab_len[:, None])
+        need = need + rep.sum(1)
+    loss = torch.where(in_len < need, torch.full_like(loss, -_NEG), loss)
+    if norm_by_times:
+        loss = loss / torch.clamp(in_len.float(), min=1.0)
+    return loss.to(logits.dtype)
+
+
+def _skew(v, D, offset):
+    """v [B, T, W] -> [B, D, W] with out[b, d, u] = v[b, d - u - offset,
+    u], and the mask of the entries whose time index lies in [0, T)."""
+    B, T, W = v.shape
+    d = torch.arange(D, device=v.device)[:, None]
+    u = torch.arange(W, device=v.device)[None, :]
+    t = d - u - offset
+    ok = (t >= 0) & (t < T)
+    idx = torch.clamp(t, 0, T - 1)[None].expand(B, D, W)
+    return torch.gather(v, 1, idx), ok
+
+
+@op
+def rnnt(logits, labels, input_lengths, label_lengths, blank=0,
+         fastemit_lambda=0.0):
+    """RNN-T (transducer) loss per batch element (warp-transducer's
+    semantics): ``logits`` [B, T, U+1, V] unscaled joint outputs,
+    ``labels`` [B, U] -> [B] losses. The forward variable alpha[t, u] =
+    logaddexp(alpha[t-1, u] + blank[t-1, u], alpha[t, u-1] + emit[t, u-1])
+    runs over the anti-diagonals t + u (T + U steps, each cell in
+    parallel), each cell computed by the JAX package's formula from the
+    same two terms, so its row-by-row scan and this order give the same
+    cells. FastEmit scales the gradient of the label emissions by
+    1 + lambda through the value-preserving ``e + lambda (e - stop(e))``."""
+    labels = labels.long()
+    in_len = input_lengths.long().to(logits.device)
+    lab_len = label_lengths.long().to(logits.device)
+    B, T, U1, V = logits.shape
+    U = U1 - 1
+    dev = logits.device
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    blank_lp = lp[..., blank]                               # [B, T, U+1]
+    emit_lp = torch.gather(
+        lp[:, :, :U, :], 3,
+        labels[:, None, :, None].expand(B, T, U, 1))[..., 0]  # [B, T, U]
+    if fastemit_lambda:
+        emit_lp = emit_lp + fastemit_lambda * (emit_lp - emit_lp.detach())
+    D = T + U1 - 1
+    # vertical term into cell (t, u) of diagonal d: blank[t - 1, u]
+    vb, vok = _skew(blank_lp, D, 1)
+    # horizontal term into (t, u), u >= 1: emit[t, u - 1], laid at u
+    eh, hok = _skew(torch.cat([torch.zeros((B, T, 1), device=dev),
+                               emit_lp], dim=2), D, 0)
+    hok = hok & (torch.arange(U1, device=dev) >= 1)[None, :]
+    valid_u = torch.arange(U1, device=dev)[None, :] <= lab_len[:, None]
+    neg = torch.full((), _NEG, device=dev)
+    diag = torch.full((B, U1), _NEG, device=dev)
+    diag = torch.cat([torch.zeros((B, 1), device=dev), diag[:, 1:]], dim=1)
+    pad1 = torch.full((B, 1), _NEG, device=dev)
+    diags = [diag]
+    for d in range(1, D):
+        vert = torch.where(vok[d], diag + vb[:, d], neg)
+        hor = torch.where(hok[d], torch.cat([pad1, diag[:, :-1]], dim=1)
+                          + eh[:, d], neg)
+        cell = torch.cat([vert[:, :1], _lae([vert, hor])[:, 1:]], dim=1)
+        cell = torch.where(valid_u, cell, neg)
+        diag = cell
+        diags.append(diag)
+    alpha = torch.stack(diags, dim=1)                       # [B, D, U+1]
+    t_end = torch.clamp(in_len - 1, min=0)
+    bidx = torch.arange(B, device=dev)
+    alpha_end = alpha[bidx, t_end + lab_len, lab_len]
+    final_blank = blank_lp[bidx, t_end, lab_len]
+    return (-(alpha_end + final_blank)).to(logits.dtype)

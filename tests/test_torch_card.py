@@ -33,7 +33,13 @@ with and without dropout (the device RNG chain). The ragged kernel reads
 a tiered engine's second pool (the host tier's mirror) as its plain
 version does and as one pool holding the same pages does, drops a write
 to a virtual entry, and a tiny tiered engine over a small device pool
-serves the untiered engine's and the CPU's tokens."""
+serves the untiered engine's and the CPU's tokens. The long tail: every
+case of the vision, long-tail and nn long tail sections, and the heavy
+ops at a reduced published size, give the CPU's values and gradients on
+the card; ``flash_attn_qkvpacked`` is ``F.flash_attention`` on the
+slices bit for bit through K2-K4, the varlen wrapper is
+``flash_attn_unpadded``, and the DeepSpeech2-widths GRU + CTC model
+gives the CPU's loss and gradients."""
 import numpy as np
 import pytest
 import torch
@@ -1263,3 +1269,124 @@ def test_kernel_refuses_a_mirror_it_does_not_take(card):
             rpa.ragged_paged_attention(**b, host_key_cache=bad_k,
                                        host_value_cache=bad_v)
     assert rpa.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the long tail (PR 13): every case of the vision, long-tail and nn long
+# tail sections, the ops at reduced published sizes, the packed flash
+# wrappers and the DeepSpeech2-widths model, the card against the CPU
+# ---------------------------------------------------------------------------
+from paddle_tpu_torch.tools import long_tail_cases as _LC  # noqa: E402
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _LC.CASES, ids=[c.id for c in _LC.CASES])
+def test_long_tail_case_on_the_card_matches_the_cpu(card_place, case):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    got, ggot, sgot = _LC.run_case(case, paddle.CUDAPlace(0))
+    place.set_device("cpu")
+    try:
+        want, gwant, swant = _LC.run_case(case, paddle.CPUPlace())
+    finally:
+        place.set_device("gpu")
+    bad, _, _ = _LC.compare(case, (got, ggot, sgot), (want, gwant, swant))
+    assert not bad, bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ctc", "rnnt", "roi_align",
+                                  "deform_conv2d", "grid_sample",
+                                  "yolo_loss"])
+def test_long_tail_op_at_a_reduced_published_size(card_place, name):
+    """``tools/long_tail_sizes.py`` at its CPU-check batch: values and
+    gradients within the workload's tolerance (rtol 1e-4 and 1e-4 x the
+    CPU's largest magnitude; CTC's 1e-3 x)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.tools import long_tail_sizes as LS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = LS.WORKLOADS[name]
+    got = LS.numpy(LS.forward_backward(spec["make"](spec["check"],
+                                                    paddle.CUDAPlace(0))))
+    place.set_device("cpu")
+    try:
+        want = LS.numpy(LS.forward_backward(spec["make"](
+            spec["check"], paddle.CPUPlace())))
+    finally:
+        place.set_device("gpu")
+    rtol, share = spec.get("tol", LS.TOL)
+    for key in want:
+        scale = float(np.abs(want[key]).max())
+        np.testing.assert_allclose(got[key], want[key], rtol=rtol,
+                                   atol=share * scale, err_msg=key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attn_qkvpacked_is_flash_attention_on_the_card(card_place,
+                                                             dtype):
+    """The packed wrapper runs K2-K4 once each and gives, bit for bit,
+    ``F.flash_attention`` on the contiguous slices, its gradient packed."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import functional as F
+
+    rng = np.random.default_rng(13)
+    qkv_np = rng.standard_normal((2, 300, 3, 4, 64)).astype(np.float32)
+    do_np = rng.standard_normal((2, 300, 4, 64)).astype(np.float32)
+    qkv = paddle.to_tensor(qkv_np, dtype=dtype, stop_gradient=False)
+    do = paddle.to_tensor(do_np, dtype=dtype)
+    before = dict(fa.launches)
+    out, _ = F.flash_attn_qkvpacked(qkv, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert {k: fa.launches[k] - before[k] for k in fa.launches} == {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkv": 1}
+    parts = [paddle.to_tensor(qkv._data[:, :, i].detach().contiguous(),
+                              stop_gradient=False) for i in range(3)]
+    ref, _ = F.flash_attention(*parts, causal=True)
+    ref.backward(do)
+    assert torch.equal(out._data, ref._data)
+    g = qkv.grad._data
+    assert tuple(g.shape) == (2, 300, 3, 4, 64)
+    for i in range(3):
+        assert torch.equal(g[:, :, i], parts[i].grad._data)
+
+
+@pytest.mark.gpu
+def test_flash_attn_varlen_qkvpacked_is_unpadded_on_the_card(card_place):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import functional as F
+
+    lens = [130, 7, 64]
+    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    x = np.random.default_rng(3).standard_normal(
+        (int(cu[-1]), 3, 4, 64)).astype(np.float32)
+    qkv = paddle.to_tensor(x, dtype="bfloat16")
+    cut = paddle.to_tensor(cu)
+    out, _ = F.flash_attn_varlen_qkvpacked(qkv, cut, cut, 130, 130,
+                                           causal=True)
+    ref, _ = F.flash_attn_unpadded(
+        *(paddle.to_tensor(x[:, i], dtype="bfloat16") for i in range(3)),
+        cut, cut, 130, 130, scale=64 ** -0.5, causal=True)
+    assert torch.equal(out._data, ref._data)
+
+
+@pytest.mark.gpu
+def test_ds2_widths_model_card_matches_cpu(card_place):
+    """DeepSpeech2's recurrent widths at 1 layer, batch 2, 60 frames:
+    loss within rtol 1e-4, every gradient within relative L2 1e-4."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import ds2_ctc_train as D
+
+    res = D.card_against_cpu(paddle, layers=1, batch_size=2, frames=60,
+                             labels=(10, 20))
+    paddle.set_device("gpu")
+    assert res["loss_rel_err"] <= 1e-4, res
+    assert res["grad_rel_l2_max"] <= 1e-4, res

@@ -70,6 +70,13 @@ _MODULES = [
     "paddle_tpu_torch.tools.layer_api_train",
     "paddle_tpu_torch.serving.kvtier", "paddle_tpu_torch.serving.kvtier.store",
     "paddle_tpu_torch.tools.llama3_8b_tiers",
+    "paddle_tpu_torch.ops.extras", "paddle_tpu_torch.ops.nn_extras",
+    "paddle_tpu_torch.ops.vision_ops", "paddle_tpu_torch.nn.rnn",
+    "paddle_tpu_torch.nn.transformer", "paddle_tpu_torch.nn.layers_extra",
+    "paddle_tpu_torch.nn.functional.extras", "paddle_tpu_torch.signal",
+    "paddle_tpu_torch.fft", "paddle_tpu_torch.linalg",
+    "paddle_tpu_torch.tools.ds2_ctc_train",
+    "paddle_tpu_torch.tools.long_tail_cases",
 ]
 
 

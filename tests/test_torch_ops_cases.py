@@ -66,7 +66,8 @@ _INDEX = {"argmax", "argmin", "argsort", "topk", "nonzero", "unique",
           "searchsorted", "count_nonzero", "numel", "bincount",
           "tril_indices", "triu_indices", "matrix_rank", "arange",
           "lstsq", "sum", "cumsum", "nansum", "where", "randint",
-          "randperm", "multinomial"}
+          "randperm", "multinomial", "kthvalue", "mode",
+          "unique_consecutive", "fractional_max_pool2d"}
 
 
 @pytest.fixture(autouse=True)
@@ -704,6 +705,15 @@ SECTION = "nn: linear / embedding / conv / pool"
 add("embedding", X(lambda r: [ints(r, 0, 6, 2, 3), Bf16(f(r, 6, 4))]),
     tol=BF16_TOL, name="embedding_bf16")
 
+# the vision, long-tail and nn long tail sections: one table, shared with
+# the card's check (chip_smoke.py phase 24), in
+# paddle_tpu_torch/tools/long_tail_cases.py
+from paddle_tpu_torch.tools import long_tail_cases as _lt  # noqa: E402
+
+VISION, LONG_TAIL, NN_TAIL = _lt.VISION, _lt.LONG_TAIL, _lt.NN_TAIL
+for _c in _lt.CASES:
+    SECTION = _c.section
+    add(_c.op, _c.make, grad=_c.grad, post=_c.post, name=_c.id, tol=_c.tol)
 
 
 def _to(P, v, diff):
