@@ -306,6 +306,25 @@ non-zero (nothing is caught and passed over):
                falling, step p50 and peak memory; at 1 layer, batch 4, 100
                frames, card against CPU: loss within rtol 1e-4, every
                gradient within relative L2 1e-4.
+25. tp        — tensor-parallel serving at ``tp_degree=2``
+               (``tools/llama3_8b_tp.py``), both ranks on this one card
+               through the testing hook ``paddle_tpu_torch.testing.
+               tp_hooks.ranks_share_one_device`` (the reference forces
+               host devices the same way; two ranks on one card measure
+               the TP path, not TP speed). K1 at the per-rank shape (16
+               query heads, 4 kv heads, D 128, bf16) on phase 3's mixed
+               batch against its plain version at phase 3's tolerance.
+               At f32 with 2 of the 32 layers, phase 4's workload at
+               tp_degree 1 and 2: token-identical. Then phase 4's model
+               (bf16, full depth, seed 0) and workload at tp_degree=2:
+               the device backend, the weight hand-off's seconds, each
+               rank's peak memory and K1 launches (both ranks' counts set
+               to 0 before the workload and read after), TPOT p50 and
+               tokens/s beside phase 4's (tp_degree=1, captured graphs;
+               the TP step runs uncaptured), and, reported only, the
+               greedy streams' first divergences from phase 4 with both
+               logit rows there (two partial sums round differently
+               from one product in bf16).
 
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
@@ -313,10 +332,11 @@ the main paths — ``launches_by_path`` splits them: serve, spec, swap
 kernel, train, spec and naive generate for the flash forward, and
 eager_train and trainstep_scaler (phase 15), fed_train (phase 18),
 tensor_api (phase 20), layer_api (phase 21), layer_trainstep (phase
-22) and long_tail (phase 24's packed flash wrapper) for K2-K4, and tiers (phase 23's tiered engines) for K1; on the
+22) and long_tail (phase 24's packed flash wrapper) for K2-K4, and tiers (phase 23's tiered engines) and tp (phase 25's
+two ranks, summed) for K1; on the
 paths that replay graphs they are the launches the card ran, the eager
 warm-ups plus captured x replays — error, times, bound, library time;
-``spec_shapes``, ``generate_shapes`` and ``tiers_shapes`` repeat them
+``spec_shapes``, ``generate_shapes``, ``tiers_shapes`` and ``tp_shapes`` repeat them
 at those paths' shapes),
 nvidia-smi's line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -454,11 +474,12 @@ DECODE_LIVE = [(1, c) for c in (512, 1024, 1536, 2048, 2560, 3072, 3584,
 VERIFY_LIVE = [(5, c) for c in (300, 450, 600, 700, 800, 900, 1000, 1100)]
 
 
-def _ragged_batch(dev, gen, live, s_slots, mb, nb, pad_rows):
+def _ragged_batch(dev, gen, live, s_slots, mb, nb, pad_rows, h=32, kh=8):
     """A ragged batch: ``live`` slots of (rows, context) out of
     ``s_slots``, distinct random pages, -1 table entries past each
-    context, ``pad_rows`` padding rows past cu[num_seqs]."""
-    h, kh, d, bs = 32, 8, 128, 16
+    context, ``pad_rows`` padding rows past cu[num_seqs]; ``h`` query
+    and ``kh`` kv heads (default: the 8B's; a TP rank holds a share)."""
+    d, bs = 128, 16
     ns = len(live)
     cu = np.zeros((s_slots + 1,), np.int32)
     cu[1:ns + 1] = np.cumsum([n for n, _ in live])
@@ -712,8 +733,8 @@ def _divergences(serve_rows, serve_tokens, spec_rows, spec_tokens,
         diffs = [float((rows9[q].float() - serve_rows[rid][q].float())
                        .abs().max()) for q in range(len(rows9))]
         res = {"first_divergence": p,
-               "max_abs_diff_equal_prefix": max(diffs[:p or len(diffs)],
-                                                default=None)}
+               "max_abs_diff_equal_prefix": max(
+                   diffs if p is None else diffs[:p], default=None)}
         if p is not None:
             r4, r9 = serve_rows[rid][p], rows9[p]
             res.update({
@@ -2665,6 +2686,104 @@ def phase_long_tail(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving, both ranks on this card
+# ---------------------------------------------------------------------------
+def phase_tp(dev, serve, serve_rows):
+    """Phase 25 (see the module docstring). ``serve`` is phase 4's result
+    (its tokens and times), ``serve_rows`` its greedy logit rows."""
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.tools import llama3_8b_serve
+    from paddle_tpu_torch.tools import llama3_8b_tp as TPC
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev).zero_
+    h, kh = 32 // TPC.TP, 8 // TPC.TP
+    k1 = _ragged_case(_ragged_batch(dev, gen, MIXED_LIVE, 8, 128, 1024, 37,
+                                    h=h, kh=kh), MIXED_LIVE, flush)
+    k1["heads"] = {"query": h, "kv": kh, "head_dim": 128}
+    del flush
+    t0 = time.perf_counter()
+    parity = TPC.f32_parity(dev)
+    parity["seconds"] = time.perf_counter() - t0
+    assert parity["token_identical"], parity
+    assert parity["backend"] == "gloo", parity
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    eng = TPC.engine(TPC.model(dev))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    tp = eng._tp
+    llama3_8b_serve.warm_up(eng)
+    tp.report(reset=True)                 # rank 1's counts set to 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rids, _ = llama3_8b_serve.add_requests(eng)
+    step_ms = []
+    with _GreedyRows(eng, rids[:-1]) as rows:
+        rpa.launches = 0                  # the main path starts here
+        t1 = time.perf_counter()
+        while eng.has_unfinished():
+            t2 = time.perf_counter()
+            eng.step()
+            step_ms.append((time.perf_counter() - t2) * 1e3)
+            rows.after_step()
+            assert len(step_ms) < 1000, "engine failed to converge"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        k1_rank0 = rpa.launches           # the main path ends here
+    (rank1,) = tp.report()
+    steps = eng.metrics.engine_steps
+    layers = eng.model.config.num_hidden_layers
+    # uncaptured: every step launches K1 once a layer on each rank
+    assert k1_rank0 == rank1["k1_launches"] == layers * steps, (
+        k1_rank0, rank1, steps)
+    tokens = {rid: list(eng.get_request(rid).generated) for rid in rids}
+    gen_tokens = sum(len(v) for v in tokens.values())
+    assert gen_tokens == len(rids) * llama3_8b_serve.MAX_NEW_TOKENS
+    for v in tokens.values():
+        assert all(0 <= t < eng.model.config.vocab_size for t in v)
+    m = eng.metrics
+    greedy = rids[:-1]
+    res = {"phase": "tp", "model": "llama3_8b", "dtype": "bfloat16",
+           "tp_degree": TPC.TP,
+           "placement": "both ranks on cuda:0 through the testing hook "
+                        "paddle_tpu_torch.testing.tp_hooks."
+                        "ranks_share_one_device",
+           "device_backend": tp.backend, "handoff_s": tp.handoff_s,
+           "setup_s": setup_s, "k1_per_rank_shape": k1,
+           "f32_parity": parity,
+           "max_memory_allocated": {
+               "rank0": torch.cuda.max_memory_allocated(dev),
+               "rank1": rank1["max_memory_allocated"]},
+           "kernel_launches": {"rank0": k1_rank0,
+                               "rank1": rank1["k1_launches"]},
+           "steps": steps, "step_ms": step_ms, "wall_s": wall,
+           "tokens_per_s": gen_tokens / wall,
+           "tpot_ms_p50": float(np.percentile(m.tpots_s, 50) * 1e3),
+           "ttft_ms_p50": float(np.percentile(m.ttfts_s, 50) * 1e3),
+           "tp1": {"tokens_per_s": serve["tokens_per_s"],
+                   "tpot_ms_p50": serve["tpot_ms_p50"],
+                   "ttft_ms_p50": serve["ttft_ms_p50"]},
+           "note": "two ranks share one card: no TP speed is measured; "
+                   "tp1 is phase 4 (captured graphs), the TP step runs "
+                   "uncaptured",
+           "greedy_equal_to_tp1": sum(
+               tokens[r] == serve["tokens"][r] for r in greedy),
+           "greedy_divergence_rows": _divergences(
+               serve_rows, serve["tokens"], rows.rows,
+               {r: tokens[r] for r in greedy}, names=("tp1", "tp2"))}
+    emit(res)
+    gone = [weakref.ref(x) for x in (eng, eng.model)]
+    procs = list(tp._procs)
+    del eng, tp, rows
+    assert not any(r() for r in gone), "the TP engine outlived its refs"
+    assert not any(p.is_alive() for p in procs), "a TP worker outlived it"
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -2683,7 +2802,7 @@ def main():
     tr = phase_train(dev)
     phase_train_parity(dev)
     sp = phase_spec(dev, s, draft_shape)
-    del s["rows"]
+    serve_rows = s.pop("rows")            # phase 25 compares with them
     phase_spec_parity(dev)
     # phases 11-13: one Llama-3-8B for all three, freed after them
     model = llama3_8b_serve.target_model(dev)
@@ -2704,6 +2823,8 @@ def main():
     lt = phase_layer_trainstep(dev, fe)
     ti = phase_tiers(dev)
     lg = phase_long_tail(dev)
+    tpr = phase_tp(dev, s, serve_rows)
+    del serve_rows
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
     dr = fl["fwd_only"]["draft_shapes"]
@@ -2719,7 +2840,8 @@ def main():
             "watchdog": dn["watchdog"]["kernel_launches"],
             "generate_cached": bk["generate"]["kernel_launches"][
                 "ragged_paged_attention"],
-            "tiers": ti["kernel_launches"]},
+            "tiers": ti["kernel_launches"],
+            "tp": sum(tpr["kernel_launches"].values())},
         "flash_attention_fwd": {
             "train": tr["kernel_launches"]["flash_attention_fwd"],
             "spec": sp["kernel_launches"]["flash_attention_fwd"],
@@ -2802,6 +2924,13 @@ def main():
             row["generate_shapes"] = gen_shapes[row["name"]]
     # K1 at phase 23's first step that read the host tier's mirror
     rows[0]["tiers_shapes"] = ti["over_pool"]["k1_mirror_step"]
+    # K1 at a TP rank's heads (phase 25: 16 query, 4 kv), mixed batch
+    k1tp = tpr["k1_per_rank_shape"]
+    rows[0]["tp_shapes"] = {
+        "heads": k1tp["heads"], "launches_by_rank": tpr["kernel_launches"],
+        **{key: k1tp[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by")},
+        "library_ms": None}
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

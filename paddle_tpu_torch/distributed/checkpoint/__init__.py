@@ -284,10 +284,18 @@ def _to_torch(arr: np.ndarray, logical: str) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr))
 
 
-def load_state_dict(state_dict: Dict, path: str):
+def load_state_dict(state_dict: Dict, path: str, shards: Dict = None):
     """Fill ``state_dict`` from the checkpoint at ``path``: each tensor
     leaf in place (cast to its dtype, on its device), each other leaf
-    replaced (a number keeps its Python type)."""
+    replaced (a number keeps its Python type). ``shards`` maps a tensor
+    leaf's name to ``(layout, index)``: that leaf receives shard
+    ``index`` of the stored global tensor under the
+    :class:`~paddle_tpu_torch.distributed.redistribute.Layout` (the
+    layout is validated against the stored shape, ``ValueError`` on a
+    misfit). A leaf of the shard's shape is filled in place; a leaf of
+    the global shape is rebound to the shard (``tensor.data``), so a
+    model's parameter then holds its shard only."""
+    shards = shards or {}
     if not os.path.isdir(path):
         # a crash between save_state_dict's two commit renames parks the
         # only complete checkpoint at <path>.old: put it back
@@ -316,15 +324,33 @@ def load_state_dict(state_dict: Dict, path: str):
         if tm is None:
             missing.append(name)
             continue
-        shape = tuple(v.shape) if isinstance(v, torch.Tensor) else \
-            tuple(np.shape(v))
-        if tuple(int(s) for s in shape) != tm.global_shape:
+        shape = tuple(int(s) for s in (
+            v.shape if isinstance(v, torch.Tensor) else np.shape(v)))
+        sl = None
+        if name in shards:
+            lay, index = shards[name]
+            lay.validate_shape(tm.global_shape)
+            sl = lay.shard_slices(tm.global_shape, index)
+            if shape not in (lay.local_shape(tm.global_shape),
+                             tm.global_shape):
+                raise ValueError(
+                    f"shape mismatch for {name!r}: shard "
+                    f"{lay.local_shape(tm.global_shape)} of checkpoint "
+                    f"{tm.global_shape} vs target {shape}")
+        elif shape != tm.global_shape:
             raise ValueError(
                 f"shape mismatch for {name!r}: checkpoint "
                 f"{tm.global_shape} vs target {shape}")
         _validate_tensor(name, tm, path)
         full = _to_torch(_assemble(get_npz, tm, name), tm.dtype)
-        if isinstance(v, torch.Tensor):
+        if sl is not None:
+            part = full[sl].to(device=v.device, dtype=v.dtype)
+            with torch.no_grad():
+                if shape == tuple(part.shape):
+                    v.copy_(part)
+                else:
+                    v.data = part.contiguous()
+        elif isinstance(v, torch.Tensor):
             with torch.no_grad():
                 v.copy_(full.to(v.device))
         else:

@@ -1,7 +1,8 @@
 """CheckpointManager: atomic, async, auto-resuming step checkpoints
 (port of the JAX package's ``distributed/checkpoint/manager.py``, one
 process: its barriers are no-ops here, and the gang's barriers, agreed
-restore step and broadcast preemption come with slice D).
+restore step and broadcast preemption come with slice D). A restore's
+``target_layout`` lands each named tensor as this rank's shard.
 
 Commit protocol (per step N, under ``root/``)::
 
@@ -383,10 +384,25 @@ class CheckpointManager:
                     pass  # raced another unlink / transient FS error
 
     # -- restore ---------------------------------------------------------
-    def restore(self, state_dict: Dict, step: Optional[int] = None) -> int:
+    def restore(self, state_dict: Dict, step: Optional[int] = None,
+                target_layout: Optional[Dict] = None,
+                rank: Optional[int] = None) -> int:
         """Fill ``state_dict`` from checkpoint ``step`` (default: newest
         committed): tensors in place on their devices, other leaves
-        replaced (``load_state_dict``). Refuses an uncommitted step."""
+        replaced (``load_state_dict``). Refuses an uncommitted step.
+
+        ``target_layout`` maps flat state-dict names ('/'-joined paths)
+        to :class:`~paddle_tpu_torch.distributed.redistribute.Layout`
+        placements: each such tensor receives this rank's shard of the
+        stored global tensor (``rank``, default: the rank in the default
+        ``torch.distributed`` group, 0 without one), filled in place when
+        it has the shard's shape, rebound to it when it has the global
+        one: a checkpoint written unsharded lands on a TP engine's
+        shards. The JAX package re-places each tensor on its devices
+        before the load (``devices=``); here a process holds one rank.
+        An unknown name raises ``KeyError``, a non-tensor leaf
+        ``TypeError``, a layout that does not tile the stored shape
+        ``ValueError``."""
         from paddle_tpu_torch.distributed.checkpoint import load_state_dict
 
         if step is None:
@@ -399,18 +415,60 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint step {step} at {path!r} has no COMMITTED "
                 f"marker: refusing to restore from a torn save")
-        load_state_dict(state_dict, path)
+        shards = None
+        if target_layout:
+            shards = self._target_shards(state_dict, target_layout, rank)
+        load_state_dict(state_dict, path, shards=shards)
         return int(step)
 
-    def restore_or_initialize(self, state_dict: Dict) -> Optional[int]:
+    @staticmethod
+    def _target_shards(state_dict: Dict, target_layout: Dict,
+                       rank: Optional[int]) -> Dict:
+        """``target_layout`` checked against the state dict, as ``name ->
+        (layout, this rank's shard index)``."""
+        import torch
+
+        from paddle_tpu_torch.distributed.checkpoint import _flatten
+
+        flat = _flatten(state_dict)
+        unknown = [n for n in target_layout if n not in flat]
+        if unknown:
+            raise KeyError(
+                f"target_layout names absent from the state dict: "
+                f"{unknown[:8]}" + ("..." if len(unknown) > 8 else ""))
+        for name in target_layout:
+            if not isinstance(flat[name], torch.Tensor):
+                raise TypeError(
+                    f"target_layout entry {name!r} is not a Tensor "
+                    f"leaf (got {type(flat[name]).__name__})")
+        if rank is None:
+            import torch.distributed as dist
+
+            rank = (dist.get_rank() if dist.is_available()
+                    and dist.is_initialized() else 0)
+        rank = int(rank)
+        out = {}
+        for name, lay in target_layout.items():
+            if lay.size > 1 and not 0 <= rank < lay.size:
+                raise ValueError(
+                    f"target_layout entry {name!r} has {lay.size} shards, "
+                    f"rank {rank} holds none")
+            out[name] = (lay, rank if lay.size > 1 else 0)
+        return out
+
+    def restore_or_initialize(self, state_dict: Dict,
+                              target_layout: Optional[Dict] = None,
+                              rank: Optional[int] = None) -> Optional[int]:
         """Auto-resume: restore the newest committed checkpoint and
         return its step, or return None (leaving ``state_dict``
         untouched) when none exists. Torn/uncommitted directories are
-        skipped, never read."""
+        skipped, never read. ``target_layout`` and ``rank`` shard the
+        restore as in :meth:`restore`."""
         step = self.latest_step()
         if step is None:
             return None
-        return self.restore(state_dict, step)
+        return self.restore(state_dict, step, target_layout=target_layout,
+                            rank=rank)
 
     # -- preemption ------------------------------------------------------
     def install_preemption_handler(self, signals=None):

@@ -149,7 +149,9 @@ def block_multihead_attention(
       cached prefix of ``seq_lens_decoder[b]`` tokens.
 
     ``qkv`` (B, S, 3, H, D) packs q, k and v with H heads per slot (GQA
-    keeps the first KH of the K/V heads); the rows past
+    keeps the first KH of the K/V heads; with ``tp_degree=k`` the first
+    KH/k of each of the k groups of H/k slots, the packing a TP shard's
+    heads keep to themselves); the rows past
     ``seq_lens_this_time`` are padding. The new K/V are written into
     ``key_cache``/``value_cache`` (NB, BS, KH, D) IN PLACE; padding rows
     and positions whose block-table entry is -1 are dropped. Then every
@@ -167,10 +169,6 @@ def block_multihead_attention(
             "pre_value_cache are not applied (the reference does not "
             "apply them either): apply rotary embeddings to qkv before "
             "the call and fold any prefix cache into the caches")
-    if int(tp_degree) != 1:
-        raise NotImplementedError(
-            f"block_multihead_attention(tp_degree={tp_degree}) is not "
-            f"ported yet: tensor parallelism comes with C3")
     kc, vc = key_cache, value_cache
     bt = block_tables.long()
     dec = seq_lens_decoder.reshape(-1).long()
@@ -180,8 +178,14 @@ def block_multihead_attention(
     if block_size is not None and block_size != bs:
         raise ValueError(f"block_size {block_size} != the cache's {bs}")
     q = qkv[:, :, 0]
-    k_new = qkv[:, :, 1, :kh]
-    v_new = qkv[:, :, 2, :kh]
+    tp = max(1, int(tp_degree))
+    if tp > 1:
+        grp = qkv.reshape(b, s, 3, tp, h // tp, d)
+        k_new = grp[:, :, 1, :, :kh // tp].reshape(b, s, kh, d)
+        v_new = grp[:, :, 2, :, :kh // tp].reshape(b, s, kh, d)
+    else:
+        k_new = qkv[:, :, 1, :kh]
+        v_new = qkv[:, :, 2, :kh]
 
     # the new K/V land at [start, start + now): after the cached prefix
     # (decode) or from 0 (prefill); padding rows get position -1

@@ -83,14 +83,18 @@ class StepGraphs:
     returns the kernel launch counts by name as they stand (default: no
     counts), read before and after each capture. ``pool``: a
     ``torch.cuda.graph_pool_handle()`` to share with other
-    :class:`StepGraphs` (default: a new one). :meth:`since` reports what
-    it did."""
+    :class:`StepGraphs` (default: a new one). ``capture=False`` runs
+    ``fn`` eagerly on the card too, on the same static buffers (the
+    tensor-parallel step, whose gloo collectives a graph cannot hold);
+    its launches count as executed. :meth:`since` reports what it did."""
 
     def __init__(self, device, counters: Optional[
-            Callable[[], Dict[str, int]]] = None, pool=None):
+            Callable[[], Dict[str, int]]] = None, pool=None,
+            capture: bool = True):
         self.device = torch.device(device)
         self.on_card = self.device.type == "cuda"
-        if self.on_card and pool is None:
+        self.capture = self.on_card and capture
+        if self.capture and pool is None:
             pool = torch.cuda.graph_pool_handle()
         self.pool = pool
         self._counters = counters or dict
@@ -128,15 +132,20 @@ class StepGraphs:
         if entry is None:
             entry = self._new_entry(arrays)
             self._fill(entry, arrays)
-            if self.on_card:
+            if self.capture:
                 self._capture(key, fn, entry)
             self._entries[key] = entry
             self._replays[key] = 0
         else:
             self._fill(entry, arrays)
-        if self.on_card:
+        if self.capture:
             entry.graph.replay()
             for name, n in self._captured[key].items():
+                self._executed[name] = self._executed.get(name, 0) + n
+        elif self.on_card:
+            before = self._counters()
+            entry.outputs = fn(*entry.inputs)
+            for name, n in _delta(self._counters(), before).items():
                 self._executed[name] = self._executed.get(name, 0) + n
         else:
             entry.outputs = fn(*entry.inputs)

@@ -8,8 +8,11 @@ model's attribute names (``q_proj``, ``gate_proj``, ``embed_tokens``,
 JAX weights across). ``forward`` is the training path: causal flash
 attention (the hand-written kernels on the card), or plain attention
 under an ``attn_mask``; :meth:`LlamaForCausalLM.criterion` is the LM
-loss. Recompute, sequence/context parallelism and tensor parallelism
-are refused at construction. ``forward_ragged_multi`` is the
+loss. Recompute and sequence/context parallelism are refused at
+construction; ``tp_degree`` only groups the bucketed path's GQA packing
+per TP shard (exact at any value, as in the reference), and the
+tensor-parallel serving engine shards the modules themselves
+(:mod:`paddle_tpu_torch.serving.tp`). ``forward_ragged_multi`` is the
 speculative-verify step: the ragged forward with ``lm_head`` on each
 slot's last R packed positions. ``forward_paged`` is the bucketed
 serving step over a padded (B, S) batch
@@ -74,6 +77,8 @@ class LlamaConfig:
     recompute: bool = False
     tie_word_embeddings: bool = False
     dtype: str = "float32"
+    # serving tensor parallelism (LLMEngine tp_degree): forward_paged's
+    # GQA head packing groups heads per TP shard; exact at any value
     tp_degree: int = 1
 
     @staticmethod
@@ -116,11 +121,6 @@ def _check_config(config: LlamaConfig):
             raise NotImplementedError(
                 f"LlamaConfig.{field}=True is not ported yet; it comes with "
                 f"{later}")
-    if config.tp_degree != 1:
-        raise NotImplementedError(
-            f"LlamaConfig.tp_degree={config.tp_degree} is not ported yet; "
-            f"tensor parallelism comes with C3 (serving) and slice D "
-            f"(training)")
 
 
 def rope_apply(q, k, cos, sin):
@@ -220,20 +220,25 @@ class LlamaAttention(nn.Module):
         k = self.k_proj(x).view(b, s, self.n_kv, self.head_dim)
         v = self.v_proj(x).view(b, s, self.n_kv, self.head_dim)
         q, k = _rope_apply_at(q, k, cos, sin)
+        tp = max(1, int(self.config.tp_degree))
         if self.n_kv != self.n_heads:
-            # K/V take the leading n_kv of the H head slots of the packed
-            # (B, S, 3, H, D) stack (the fused-projection layout
-            # block_multihead_attention unpacks)
-            pad = (0, 0, 0, self.n_heads - self.n_kv)
-            k = F_t.pad(k, pad)
-            v = F_t.pad(v, pad)
+            # K/V take the leading n_kv/tp slots of EACH TP head group's
+            # H/tp-wide stripe of the packed (B, S, 3, H, D) stack (the
+            # fused-projection layout block_multihead_attention unpacks
+            # with the same tp_degree); tp=1 is the flat packing
+            hg, kg = self.n_heads // tp, self.n_kv // tp
+            pad = (0, 0, 0, hg - kg)
+            k = F_t.pad(k.reshape(b, s, tp, kg, self.head_dim), pad
+                        ).reshape(b, s, self.n_heads, self.head_dim)
+            v = F_t.pad(v.reshape(b, s, tp, kg, self.head_dim), pad
+                        ).reshape(b, s, self.n_heads, self.head_dim)
         qkv = torch.stack([q, k, v], dim=2)
         out, kc, vc = F.block_multihead_attention(
             qkv, key_cache, value_cache,
             seq_lens_encoder=seq_lens_encoder,
             seq_lens_decoder=seq_lens_decoder,
             seq_lens_this_time=seq_lens_this_time,
-            block_tables=block_tables)
+            block_tables=block_tables, tp_degree=tp)
         out = out.reshape(b, s, self.n_heads * self.head_dim)
         return self.o_proj(out), kc, vc
 

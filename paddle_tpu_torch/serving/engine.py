@@ -79,9 +79,14 @@ engine instead concatenates the mirror onto the cache every step and
 slices the written cache back; the port's caches are updated in place,
 and a per-step concatenation would copy the whole pool each step.
 
-Not ported yet, refused at construction with the item that brings it:
-tensor parallelism (C3). The tier's fleet half (the peer tier, the
-router's offload) comes with C2.
+Tensor parallelism (``tp_degree=k > 1``, the ragged path only) runs k
+processes: this one is rank 0 and keeps every host-side structure, k - 1
+spawned workers hold the other shards of the weights and of the KV
+cache, and each step's attention and MLP partial sums meet in two
+all-reduces a layer (:mod:`paddle_tpu_torch.serving.tp`). At k = 1 none
+of it exists. Refused at k > 1, each naming the ROADMAP item that brings
+it: speculative decoding and ``kv_tiers``. The tier's fleet half (the
+peer tier, the router's offload) comes with C2.
 """
 from __future__ import annotations
 
@@ -96,6 +101,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.dtype import to_torch
+from paddle_tpu_torch.distributed.redistribute import Layout
 from paddle_tpu_torch.jit.trace import StepGraphs
 from paddle_tpu_torch.ops import kernel_launches
 from paddle_tpu_torch.ops.sampling import sample_or_verify
@@ -141,6 +147,10 @@ class EngineConfig:
     block_size: int = 16
     num_blocks: Optional[int] = None
     max_num_seqs: int = 8
+    # tensor parallelism: the weights (attention heads, MLP hidden) and
+    # the paged KV caches (kv-head dim) split over tp_degree processes,
+    # one per card (serving/tp.py); tp_degree=1 is the one-process
+    # engine, bit for bit
     tp_degree: int = 1
     max_batched_tokens: int = 2048
     max_model_len: Optional[int] = None   # default: model max positions
@@ -176,6 +186,8 @@ class EngineConfig:
     def __post_init__(self):
         if self.block_size < 1:
             raise ValueError("block_size must be >= 1")
+        if self.tp_degree < 1:
+            raise ValueError("tp_degree must be >= 1")
         if self.num_blocks is not None and self.num_blocks < 1:
             raise ValueError("num_blocks must be >= 1")
         if self.min_prefill_bucket < 1:
@@ -206,9 +218,12 @@ class EngineConfig:
         # what the port does not serve yet, named with the item that
         # brings it (ROADMAP.md, queue 1)
         later = []
-        if self.tp_degree != 1:
-            later.append(f"tp_degree={self.tp_degree} (C3: tensor-"
-                         f"parallel serving, queue 1 item 5)")
+        if self.tp_degree > 1 and self.draft_model is not None:
+            later.append(f"draft_model at tp_degree={self.tp_degree} "
+                         f"(speculative decoding at TP, queue 1 item 10)")
+        if self.tp_degree > 1 and self.kv_tiers is not None:
+            later.append(f"kv_tiers at tp_degree={self.tp_degree} (tiered "
+                         f"KV at TP, queue 1 item 11)")
         if later:
             raise ValueError("not ported to paddle_tpu_torch yet: "
                              + "; ".join(later))
@@ -255,6 +270,34 @@ def token_buckets(cfg: EngineConfig) -> tuple:
     while buckets[-1] < cap:
         buckets.append(buckets[-1] * 2)
     return tuple(min(b, cap) for b in buckets)
+
+
+# column-parallel projections split their OUTPUT features over tp
+# (attention heads / MLP hidden); row-parallel ones split the INPUT
+# features and their partial sums are all-reduced: the Megatron pairing,
+# the JAX engine's placements. Torch's Linear weights are [out, in] (the
+# JAX package's are [in, out]), so the output features are dim 0.
+_TP_COL_MODULES = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+_TP_ROW_MODULES = ("o_proj", "down_proj")
+
+
+def _tp_param_layout(name: str, ndim: int, tp: int) -> Layout:
+    """TP placement of one named parameter of the Llama: a column-
+    parallel weight splits dim 0 (its bias too), a row-parallel weight
+    dim 1; embeddings, norms, ``lm_head`` and a row-parallel bias stay
+    replicated."""
+    parts = name.split(".")
+    module = parts[-2] if len(parts) >= 2 else ""
+    kind = parts[-1]
+    placements: List[Optional[str]] = [None] * ndim
+    if tp > 1:
+        if module in _TP_COL_MODULES and kind == "weight" and ndim == 2:
+            placements[0] = "tp"
+        elif module in _TP_COL_MODULES and kind == "bias" and ndim == 1:
+            placements[0] = "tp"
+        elif module in _TP_ROW_MODULES and kind == "weight" and ndim == 2:
+            placements[1] = "tp"
+    return Layout((("tp", tp),), placements)
 
 
 def _to_int32(keys: torch.Tensor) -> torch.Tensor:
@@ -410,6 +453,12 @@ class LLMEngine:
     (the kernel)."""
 
     def __init__(self, model, config: Optional[EngineConfig] = None):
+        shard = getattr(model, "_tp_shard", None)
+        if shard is not None:
+            raise ValueError(
+                f"this model holds shard {shard[0]} of {shard[1]} of its "
+                f"weights: it was handed to a tp_degree={shard[1]} engine, "
+                f"which cut it down in place; build a new model")
         self.model = model
         self.cfg = config or EngineConfig()
         mcfg = model.config
@@ -454,6 +503,12 @@ class LLMEngine:
         if not self.cfg.ragged and not hasattr(model, "forward_paged"):
             raise ValueError("the engine needs a model exposing "
                              "forward_ragged or forward_paged")
+        if not self.cfg.ragged and self.cfg.tp_degree > 1:
+            raise ValueError(
+                f"tp_degree={self.cfg.tp_degree} needs the ragged "
+                f"step — the bucketed forward_paged fallback "
+                f"(ragged=False) is degree-1-only; use a model "
+                f"exposing forward_ragged")
         if not self.cfg.ragged and self._tiered:
             raise ValueError(
                 "kv_tiers rides the ragged step (host-tier blocks are "
@@ -499,17 +554,38 @@ class LLMEngine:
                 f"EngineConfig.dtype={self.cfg.dtype!r} with a "
                 f"{model.dtype} model: on the card the ragged attention "
                 f"kernel takes q and the cache in one dtype")
+        # -- tensor parallelism: k ranks, each holding 1/k of the heads,
+        # the MLP width and the caches' kv heads; one Layout describes
+        # the cache's split ((L, NB, BS, KH, D), kv-head dim)
+        tp = int(self.cfg.tp_degree)
+        self.tp_degree = tp
         kh = mcfg.num_key_value_heads
+        if tp > 1:
+            if (mcfg.num_attention_heads % tp or kh % tp
+                    or mcfg.intermediate_size % tp):
+                raise ValueError(
+                    f"tp_degree {tp} must divide num_attention_heads "
+                    f"({mcfg.num_attention_heads}), num_key_value_heads "
+                    f"({kh}) and intermediate_size "
+                    f"({mcfg.intermediate_size})")
+            from paddle_tpu_torch.serving import tp as _tp
+
+            tp_devices = _tp.rank_devices(self.device, tp)
+            # the bucketed path's GQA packing groups heads per shard
+            if getattr(mcfg, "tp_degree", 1) != tp:
+                mcfg.tp_degree = tp
+        self.kv_layout = Layout.tp_sharded(5, 3, tp)
+        self.num_kv_reshards = 0   # cross-degree KV ships land with C2
         hd = mcfg.hidden_size // mcfg.num_attention_heads
         shape = (mcfg.num_hidden_layers, self.cfg.num_blocks,
-                 self.cfg.block_size, kh, hd)
+                 self.cfg.block_size, kh // tp, hd)
         self._kcs = torch.zeros(shape, dtype=cache_dtype, device=self.device)
         self._vcs = torch.zeros(shape, dtype=cache_dtype, device=self.device)
         # host swap pool (L, num_host_blocks, BS, KH, D), allocated once:
         # pinned on the card, so spills and restores are async copies
         if self.cfg.num_host_blocks > 0:
             hshape = (mcfg.num_hidden_layers, self.cfg.num_host_blocks,
-                      self.cfg.block_size, kh, hd)
+                      self.cfg.block_size, kh // tp, hd)
             pin = self.device.type == "cuda"
             self._host_k = torch.zeros(hshape, dtype=cache_dtype,
                                        pin_memory=pin)
@@ -528,9 +604,30 @@ class LLMEngine:
                                     device=self.device)
         else:
             self._htk = self._htv = None
-        self._swapper = _KVSwapper(self._kcs, self._vcs, self._host_k,
-                                   self._host_v)
-        self._graphs = StepGraphs(self.device, counters=kernel_launches)
+        if tp > 1:
+            # the workers start and take their weights now; rank 0's
+            # model keeps only its own shards from here on
+            self._tp = _tp.TPGroup(tp, tp_devices, mcfg, dict(
+                num_blocks=self.cfg.num_blocks,
+                block_size=self.cfg.block_size,
+                num_host_blocks=self.cfg.num_host_blocks,
+                cache_dtype=str(cache_dtype).replace("torch.", "")))
+            weakref.finalize(self, self._tp.close)
+            try:
+                self._tp.hand_off(model, self.param_layouts())
+            except BaseException:
+                self._tp.close()
+                raise
+            self._swapper = _tp.TPSwapper(self._tp, self._kcs, self._vcs,
+                                          self._host_k, self._host_v)
+        else:
+            self._tp = None
+            self._swapper = _KVSwapper(self._kcs, self._vcs, self._host_k,
+                                       self._host_v)
+        # at k > 1 the step runs uncaptured (gloo collectives cannot be
+        # captured in a CUDA graph)
+        self._graphs = StepGraphs(self.device, counters=kernel_launches,
+                                  capture=tp == 1)
 
         self.block_manager = BlockManager(
             self.cfg.num_blocks, self.cfg.block_size,
@@ -697,6 +794,17 @@ class LLMEngine:
         reader here: the port samples on the device only)."""
         if rng_state is not None and rng_state.get("device_key") is not None:
             req.device_key = np.asarray(rng_state["device_key"], np.uint32)
+
+    # -- TP layout surface ------------------------------------------------
+    def param_layouts(self) -> Dict[str, Layout]:
+        """Dotted parameter name -> :class:`~paddle_tpu_torch.distributed.
+        redistribute.Layout` for every parameter of the model under this
+        engine's TP degree (all replicated at tp=1): the ``target_layout``
+        a :meth:`~paddle_tpu_torch.distributed.checkpoint.
+        CheckpointManager.restore` takes to land a checkpoint on this
+        engine's shards."""
+        return {name: _tp_param_layout(name, p.ndim, self.tp_degree)
+                for name, p in self.model.named_parameters()}
 
     def abort_request(self, request_id: str) -> bool:
         found = self.scheduler.abort(request_id, "aborted:user")
@@ -1242,6 +1350,11 @@ class LLMEngine:
         pairs = self.block_manager.take_cow_pairs()
         if not pairs:
             return
+        if self._tp is not None:
+            from paddle_tpu_torch.serving.tp import OP_COW
+
+            self._tp.enqueue(OP_COW, [p[0] for p in pairs],
+                             [p[1] for p in pairs])
         src = torch.as_tensor([p[0] for p in pairs], device=self.device)
         dst = torch.as_tensor([p[1] for p in pairs], device=self.device)
         self._kcs[:, dst] = self._kcs[:, src]
@@ -1318,6 +1431,7 @@ class LLMEngine:
         attempt = 0
         while True:
             eid = 0
+            sent = False
             try:
                 # arm BEFORE anything that can block: a hang may happen
                 # inside the dispatch call itself
@@ -1328,6 +1442,11 @@ class LLMEngine:
                     eid = wd.arm(tag, factor=COMPILE_ALLOWANCE if cold
                                  else 1.0)
                 faults.fire(faults.SERVING_STEP)  # slow/raise/sigterm point
+                if self._tp is not None:
+                    # the workers run their shards of this step; from here
+                    # on a failure leaves the ranks' collectives unpaired
+                    sent = True
+                    self._tp.step(*arrays[:5])
                 with torch.no_grad():
                     packed, _ = self._graphs.run(key, self._device_step,
                                                  arrays)
@@ -1338,8 +1457,13 @@ class LLMEngine:
             except Exception as e:
                 if wd is not None:
                     wd.disarm(eid)
-                if self._donated or attempt >= self.cfg.max_step_retries:
-                    why = ("donated caches make a failed step "
+                if sent:
+                    self._tp.broken = True
+                if sent or self._donated \
+                        or attempt >= self.cfg.max_step_retries:
+                    why = ("a tensor-parallel step that failed after its "
+                           "command went out cannot be retried" if sent
+                           else "donated caches make a failed step "
                            "non-retryable" if self._donated else
                            f"retry budget ({self.cfg.max_step_retries}) "
                            f"exhausted")

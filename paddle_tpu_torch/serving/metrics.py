@@ -8,7 +8,7 @@ Exposed two ways:
 * snapshot — :meth:`ServingMetrics.snapshot` returns one dict.
 
 Copied from the JAX package's ``serving/metrics.py``; the gauges of
-paths not yet ported (fleet, tiers) are left out, and so is the fleet's
+paths not yet ported (the fleet's) are left out, and so is the fleet's
 finish reason.
 
 TTFT (time-to-first-token) and TPOT (time-per-output-token, a.k.a.
@@ -57,6 +57,10 @@ class ServingMetrics:
               # proposal/acceptance traffic and sampled-step count
               "spec_proposed", "spec_accepted", "spec_acceptance_rate",
               "sampled_steps",
+              # TP serving: shipped KV payloads that landed through a
+              # cross-layout redistribute (0 until the fleet's KV ship,
+              # C2, brings cross-degree transfers)
+              "kv_reshards",
               # tiered KV: cross-tier migration traffic, host/peer-tier
               # occupancy, and parked-session resumes (all 0 on an
               # untiered engine; the peer tier comes with C2)
@@ -90,6 +94,7 @@ class ServingMetrics:
         "spec_proposed": lambda eng: eng.num_spec_proposed,
         "spec_accepted": lambda eng: eng.num_spec_accepted,
         "sampled_steps": lambda eng: eng.num_sampled_steps,
+        "kv_reshards": lambda eng: eng.num_kv_reshards,
         # tiered-KV gauges: 0 on an untiered engine
         "kv_tier_demotes": lambda eng: eng.block_manager.num_demotes,
         "kv_tier_promotes": lambda eng: eng.block_manager.num_promotes,

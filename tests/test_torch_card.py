@@ -1390,3 +1390,43 @@ def test_ds2_widths_model_card_matches_cpu(card_place):
     paddle.set_device("gpu")
     assert res["loss_rel_err"] <= 1e-4, res
     assert res["grad_rel_l2_max"] <= 1e-4, res
+
+
+@pytest.mark.gpu
+def test_tp2_engine_on_one_card_serves_the_k1_tokens(card):
+    """Two ranks of a ``tp_degree=2`` engine on this card (the testing
+    hook) serve the tiny Llama in f32 with the k = 1 engine's tokens,
+    greedy and sampled; rank 1 launched K1 once a layer a step."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa_
+    from paddle_tpu_torch.serving import (EngineConfig, LLMEngine,
+                                          SamplingParams)
+    from paddle_tpu_torch.testing import tp_hooks
+
+    rng = np.random.default_rng(14)
+    prompts = [list(map(int, rng.integers(0, 256, size=n)))
+               for n in (5, 19, 33, 8)]
+    tokens = {}
+    for tp in (1, 2):
+        m = LlamaForCausalLM(LlamaConfig.tiny(), device=card).init_weights(
+            torch.Generator(device=card).manual_seed(0))
+        with tp_hooks.ranks_share_one_device():
+            eng = LLMEngine(m, EngineConfig(tp_degree=tp, block_size=4,
+                                            max_num_seqs=4, max_model_len=64))
+        if tp == 2:
+            assert eng._tp.backend == "gloo"
+            eng._tp.report(reset=True)
+            rpa_.launches = 0
+        for i, p in enumerate(prompts):
+            eng.add_request(f"r{i}", p, SamplingParams(
+                max_new_tokens=6, temperature=0.7 if i == 1 else 0.0,
+                seed=5))
+        eng.run()
+        tokens[tp] = [eng.get_request(f"r{i}").generated
+                      for i in range(len(prompts))]
+        if tp == 2:
+            (rank1,) = eng._tp.report()
+            steps = eng.metrics.engine_steps
+            assert rank1["k1_launches"] == rpa_.launches == 2 * steps
+        del eng, m
+    assert tokens[1] == tokens[2]

@@ -77,6 +77,10 @@ _MODULES = [
     "paddle_tpu_torch.fft", "paddle_tpu_torch.linalg",
     "paddle_tpu_torch.tools.ds2_ctc_train",
     "paddle_tpu_torch.tools.long_tail_cases",
+    "paddle_tpu_torch.distributed.redistribute",
+    "paddle_tpu_torch.serving.tp", "paddle_tpu_torch.testing.tp_hooks",
+    "paddle_tpu_torch.testing.gloo_ranks",
+    "paddle_tpu_torch.tools.llama3_8b_tp",
 ]
 
 

@@ -142,14 +142,24 @@ class TestTiersConfig:
                                _ecfg(side, ragged=False, kv_tiers=True))
 
     def test_bucketed_fallback_rejects_tp(self, models):
-        """The reference refuses on the bucketed path; the port refuses
-        ``tp_degree > 1`` on every path (C3)."""
+        """Both packages refuse ``tp_degree > 1`` on the bucketed path,
+        with the reference's words."""
         with pytest.raises(ValueError, match="degree-1"):
             JLLMEngine(models[id(JAX)], _ecfg(JAX, ragged=False,
                                               tp_degree=2))
-        with pytest.raises(ValueError, match="tp_degree"):
+        with pytest.raises(ValueError, match="degree-1"):
             LLMEngine(models[id(TORCH)], _ecfg(TORCH, ragged=False,
                                                tp_degree=2))
+
+    @pytest.mark.parametrize("kw,match", [
+        (dict(kv_tiers=True, tp_degree=2), "item 11"),
+        (dict(kv_tiers={"num_host_blocks": 8}, tp_degree=2), "item 11")])
+    def test_port_refuses_tiers_at_tp(self, kw, match):
+        """The port serves ``kv_tiers`` at one rank only: at k > 1 the
+        config raises, naming the ROADMAP item that brings it (the
+        reference serves it at any degree)."""
+        with pytest.raises(ValueError, match=match):
+            EngineConfig(**kw)
 
     def test_tiers_require_prefix_cache(self, models):
         for side in SIDES:

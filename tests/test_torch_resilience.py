@@ -596,13 +596,12 @@ def test_ragged_is_the_default_and_the_bucketed_path_resolves(models):
 @pytest.mark.parametrize("kw,match", [
     (dict(ragged=True, chunked_prefill=False), "chunked_prefill"),
     (dict(ragged=False, prefix_cache=True), "prefix_cache"),
-    (dict(ragged=False, tp_degree=2), "tp_degree"),
+    (dict(ragged=False, tp_degree=2), "degree-1"),
     (dict(ragged=False, kv_tiers=True), "kv_tiers")])
 def test_invalid_knob_combinations_raise(models, kw, match):
-    """As in the reference, at construction. The bucketed path refuses
-    ``tp_degree > 1`` and ``kv_tiers`` (``kv_tiers`` rides the ragged
-    step in both packages; the port refuses ``tp_degree > 1`` on every
-    path, naming C3)."""
+    """As in the reference, at construction, with its words. The bucketed
+    path refuses ``tp_degree > 1`` and ``kv_tiers`` (both ride the ragged
+    step in both packages)."""
     for side, m in _sides(models):
         with pytest.raises(ValueError, match=match):
             side["engine"](m, side["config"](

@@ -220,7 +220,6 @@ def test_nonfinite_guard_aborts_only_the_poisoned_row(models):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("tp_degree", 2, "not ported.*C3"),
     ("kv_tiers", True, "kv_tiers needs prefix_cache"),
     ("tenant_id", "t1", "not ported.*item 6")])
 def test_unported_configurations_raise(models, knob, value, item):

@@ -371,10 +371,44 @@ def test_attn_mask_branch_matches_jax():
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("field,value", [
     ("recompute", True), ("sequence_parallel", True),
-    ("context_parallel", True), ("tp_degree", 2)])
+    ("context_parallel", True)])
 def test_config_refuses_later_slices(field, value):
     with pytest.raises(NotImplementedError, match="comes with"):
         LlamaForCausalLM(LlamaConfig.tiny(**{field: value}), device="cpu")
+
+
+def test_tp_degree_changes_no_number_in_one_process():
+    """``LlamaConfig(tp_degree=2)`` in one process trains as
+    ``tp_degree=1`` does: the same loss and the same gradient of every
+    parameter, bit for bit (the reference: "exact at any value"); the
+    bucketed serving forward, whose GQA packing it groups per shard,
+    gives the same logits and caches."""
+    rng = np.random.RandomState(3)
+    ids = torch.from_numpy(rng.randint(0, 256, (2, 12)).astype(np.int64))
+    labels = torch.from_numpy(rng.randint(0, 256, (2, 12)).astype(np.int64))
+    got = []
+    for tp in (1, 2):
+        m = LlamaForCausalLM(LlamaConfig.tiny(tp_degree=tp), device="cpu")
+        m.init_weights(torch.Generator().manual_seed(0))
+        loss = m.criterion()(m(ids), labels)
+        loss.backward()
+        grads = {n: p.grad.clone() for n, p in m.named_parameters()}
+        cache = torch.zeros((2, 8, 4, 2, 16))
+        vcache = torch.zeros_like(cache)
+        bt = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+        logits, kc, vc = m.forward_paged(
+            ids[:, :10].int(), cache, vcache, bt,
+            torch.tensor([10, 7], dtype=torch.int32),
+            torch.zeros(2, dtype=torch.int32),
+            torch.tensor([10, 7], dtype=torch.int32))
+        got.append((loss.detach(), grads, logits, kc, vc))
+    (l1, g1, o1, k1, v1), (l2, g2, o2, k2, v2) = got
+    assert torch.equal(l1, l2)
+    assert g1.keys() == g2.keys()
+    for n in g1:
+        assert torch.equal(g1[n], g2[n]), n
+    for a, b in ((o1, o2), (k1, k2), (v1, v2)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("kw,match", [
