@@ -325,6 +325,26 @@ non-zero (nothing is caught and passed over):
                greedy streams' first divergences from phase 4 with both
                logit rows there (two partial sums round differently
                from one product in bf16).
+26. fleet     — the serving fleet (``paddle_tpu_torch.serving.fleet``,
+               ``tools/llama3_8b_fleet.py``), phase 4's engine settings
+               with zero drain grace and phase 4's workload. (a) f32 with
+               2 of the 32 layers: a two-replica ``FleetRouter`` over
+               ``InProcessReplica``s of one model, a prefill/decode pair
+               with the KV shipped, and two replicas with the first
+               drained after one router step: each 8 of 8 token-identical
+               to one engine, every request finished once. (b) Phase 4's
+               model (bf16, full depth) behind a prefill and a decode
+               replica: ships, bytes, each ship's export (gather) and
+               import (scatter) host ms, client TTFT and TPOT p50 beside
+               phase 4's, K1 launches per replica, peak memory, and,
+               reported only, the greedy streams against phase 4's; K1 at
+               the decode replica's first step after an import against
+               its plain version (phase 3's tolerance). (c) Two worker
+               processes (``ReplicaSupervisor``, prefill and decode) over
+               4 of the 32 layers in f32, the KV shipped worker to worker
+               over loopback TCP, the decode worker SIGKILLed mid-run:
+               8 of 8 token-identical to one engine, every request
+               finished once; worker start-up s and peer ship MB/s.
 
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
@@ -332,12 +352,12 @@ the main paths — ``launches_by_path`` splits them: serve, spec, swap
 kernel, train, spec and naive generate for the flash forward, and
 eager_train and trainstep_scaler (phase 15), fed_train (phase 18),
 tensor_api (phase 20), layer_api (phase 21), layer_trainstep (phase
-22) and long_tail (phase 24's packed flash wrapper) for K2-K4, and tiers (phase 23's tiered engines) and tp (phase 25's
-two ranks, summed) for K1; on the
+22) and long_tail (phase 24's packed flash wrapper) for K2-K4, and tiers (phase 23's tiered engines), tp (phase 25's
+two ranks, summed) and fleet (phase 26 (b)'s two replicas) for K1; on the
 paths that replay graphs they are the launches the card ran, the eager
 warm-ups plus captured x replays — error, times, bound, library time;
-``spec_shapes``, ``generate_shapes``, ``tiers_shapes`` and ``tp_shapes`` repeat them
-at those paths' shapes),
+``spec_shapes``, ``generate_shapes``, ``tiers_shapes``, ``tp_shapes`` and
+``fleet_shapes`` repeat them at those paths' shapes),
 nvidia-smi's line, and last ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -2402,6 +2422,61 @@ def _tiers_k1(dev, eng, arrays, flush):
     return res
 
 
+def _step_k1(dev, eng, arrays, flush):
+    """K1 at one recorded step's tables (``arrays``: bt, cu, ctx,
+    num_seqs) on an untiered engine's layer-0 cache with random queries:
+    against the plain version (the ``round_to`` form in the kernel's
+    splits); the kernel's time and the plain version's."""
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.testing import flash_check
+
+    bt, cu, ctx, ns = (torch.from_numpy(a).to(dev) for a in arrays)
+    ns = ns.reshape(1)
+    mcfg = eng.model.config
+    h, d = mcfg.num_attention_heads, mcfg.hidden_size // \
+        mcfg.num_attention_heads
+    kh = mcfg.num_key_value_heads
+    t_total = int(eng._ragged_T)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    q = torch.randn((t_total, h, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    kc, vc = eng._kcs[0], eng._vcs[0]
+    scale = d ** -0.5
+    idx = (bt, cu, ctx, ns)
+    out = rpa._ragged_attend_cuda(q, kc, vc, *idx, scale)
+    split, nsplit = rpa.kernel_split(q, kc, bt)
+    ref = rpa._ragged_attend_ref(q, kc, vc, *idx, scale,
+                                 out_dtype=torch.float32,
+                                 round_to=torch.bfloat16, split=split)
+    torch.cuda.synchronize()
+    n = int(ns[0])
+    live = int(cu[n])
+    assert torch.all(out[live:] == 0)
+    max_abs_err = float((out[:live].float() - ref[:live]).abs().max())
+    torch.testing.assert_close(out[:live].float(), ref[:live],
+                               **flash_check.TOL[torch.bfloat16])
+    ms = cuda_ms(lambda: rpa._ragged_attend_cuda(q, kc, vc, *idx, scale),
+                 20, flush=flush)
+    plain_ms = cuda_ms(lambda: rpa._ragged_attend_ref(
+        q, kc, vc, *idx, scale, round_to=torch.bfloat16, split=split), 3,
+        flush=flush)
+    cu_h, ctx_h = cu.tolist(), ctx.tolist()
+    rows = [cu_h[i + 1] - cu_h[i] for i in range(n)]
+    contexts = ctx_h[:n]
+    esz = q.element_size()
+    nbytes = (live * h * d * esz + t_total * h * d * esz
+              + 2 * sum(contexts) * kh * d * esz)
+    flops = 0
+    for r, c in zip(rows, contexts):
+        flops += 4 * h * d * int(np.arange(c - r + 1, c + 1).sum())
+    return {"rows": rows, "contexts": contexts, "t_bucket": t_total,
+            "split": split, "nsplit": nsplit, "max_abs_err": max_abs_err,
+            "tolerance": "flash_check.TOL[bfloat16] vs the f32 plain "
+                         "version's round_to=bfloat16 form",
+            "ms": ms, "plain_ms": plain_ms, **_bound(nbytes, flops),
+            "library_ms": None}
+
+
 def phase_tiers(dev):
     """Phase 23: tiered KV serving at Llama-3-8B: a request past the
     device pool, and parked sessions resumed."""
@@ -2784,6 +2859,89 @@ def phase_tp(dev, serve, serve_rows):
     return res
 
 
+def phase_fleet(dev, serve):
+    """Phase 26 (see the module docstring). ``serve`` is phase 4's result
+    (its tokens and times)."""
+    import gc
+
+    from paddle_tpu_torch.tools import llama3_8b_fleet as FL
+    from paddle_tpu_torch.tools import llama3_8b_serve
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (a) f32, 2 of 32 layers: three fleets against one engine
+    t0 = time.perf_counter()
+    with _PlainCalls() as plain:
+        ident = FL.f32_identity(FL.model(dev, "float32", FL.PARITY_LAYERS))
+    for name, r in ident.items():
+        assert r["tokens_identical"] == r["requests"] == 8, (name, r)
+        assert r["finished_once"] and r["finish"] == {"length": 8}, r
+    assert ident["prefill_decode"]["kv_ship_requests"] == 8, ident
+    assert ident["prefill_decode"]["tokens_recomputed"] == 0, ident
+    assert ident["drain"]["drained"] == ["a"], ident
+    assert ident["drain"]["handoffs"] >= 1, ident
+    ident["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) bf16, full depth: the prefill/decode fleet on phase 4's model
+    t0 = time.perf_counter()
+    model = llama3_8b_serve.target_model(dev)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev).zero_
+    with _PlainCalls() as plain2:
+        dg = FL.disagg(model)
+    r = dg["result"]
+    assert r["finished_once"], r
+    assert r["ships"] == llama3_8b_serve.NUM_REQUESTS, r
+    assert r["recompute_fallbacks"] == 0 and r["tokens_recomputed"] == 0, r
+    assert all(n > 0 for n in r["k1_launches"].values()), r
+    assert not any(plain.calls.values()) and \
+        not any(plain2.calls.values()), (plain.calls, plain2.calls)
+    first = dg["first_after_import"].first
+    assert first is not None
+    dec = dg["replicas"][1].engine
+    k1 = _step_k1(dev, dec, first, flush)
+    tokens = r.pop("tokens")
+    greedy = [f"r{i}" for i in range(llama3_8b_serve.NUM_REQUESTS - 1)]
+    r["greedy_equal_to_serve"] = sum(
+        tokens[g] == serve["tokens"][g] for g in greedy)
+    # reported, not asserted: the decode replica's batches differ from
+    # phase 4's, so its bf16 sums round differently at near-ties
+    r["greedy_first_divergence"] = {
+        g: next((i for i, (x, y) in enumerate(zip(tokens[g],
+                                                  serve["tokens"][g]))
+                 if x != y), None) for g in greedy}
+    r["serve"] = {k: serve[k] for k in ("ttft_ms_p50", "tpot_ms_p50",
+                                        "tokens_per_s")}
+    r["tokens_per_s"] = r["generated_tokens"] / r["wall_s"]
+    r["k1_first_after_import"] = k1
+    r["seconds"] = time.perf_counter() - t0
+    gone = _freed(model, dec)
+    del dg, dec, model, flush
+    gc.collect()
+    assert not any(g() for g in gone), "the 8B fleet outlived its refs"
+    torch.cuda.empty_cache()
+
+    # (c) two worker processes over 4 of 32 layers in f32
+    t0 = time.perf_counter()
+    wk = FL.workers(FL.model(dev, "float32", FL.WORKER_LAYERS))
+    assert wk["tokens_identical"] == wk["requests"] == 8, wk
+    assert wk["finished_once"] and wk["finish"] == {"length": 8}, wk
+    assert wk["victim_sigkilled"] and wk["replicas_dead"] == 1, wk
+    assert wk["workers_exited"], wk
+    assert wk["peer"]["ships"] >= 1 and wk["peer"]["relay_bytes"] == 0, wk
+    assert wk["tickets_issued"] == sum(wk["ticket_outcomes"].values()), wk
+    wk["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    res = {"phase": "fleet", "model": "llama3_8b", "engine": FL.ENGINE,
+           "f32_identity": ident, "disagg_bf16": r, "workers": wk,
+           "kernel_launches": sum(r["k1_launches"].values()),
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -2825,6 +2983,7 @@ def main():
     lg = phase_long_tail(dev)
     tpr = phase_tp(dev, s, serve_rows)
     del serve_rows
+    flt = phase_fleet(dev, s)
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
     dr = fl["fwd_only"]["draft_shapes"]
@@ -2841,7 +3000,8 @@ def main():
             "generate_cached": bk["generate"]["kernel_launches"][
                 "ragged_paged_attention"],
             "tiers": ti["kernel_launches"],
-            "tp": sum(tpr["kernel_launches"].values())},
+            "tp": sum(tpr["kernel_launches"].values()),
+            "fleet": flt["kernel_launches"]},
         "flash_attention_fwd": {
             "train": tr["kernel_launches"]["flash_attention_fwd"],
             "spec": sp["kernel_launches"]["flash_attention_fwd"],
@@ -2931,6 +3091,8 @@ def main():
         **{key: k1tp[key] for key in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by")},
         "library_ms": None}
+    # K1 at phase 26's decode replica's first step after an import
+    rows[0]["fleet_shapes"] = flt["disagg_bf16"]["k1_first_after_import"]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -42,8 +42,8 @@ num_blocks``; the tiered engine step hands the ragged attention the host
 tier's device mirror as a second pool, so virtual entries are directly
 attendable — a running request's context can exceed the device pool.
 The prefix trie spans tiers by registering virtual ids in the same
-``_prefix_index``/``_block_key`` maps, so ``match_prefix`` and
-``commit_prefix`` are tier-blind. ``demote_*``
+``_prefix_index``/``_block_key`` maps, so ``match_prefix``,
+``commit_prefix`` and hash advertisement are tier-blind. ``demote_*``
 moves cold fully-committed content device->host (table entries turn
 virtual, device blocks free); ``promote_blocks`` moves it back. Byte
 copies are NOT performed here: every migration appends to an ORDERED
@@ -57,11 +57,12 @@ frontier are demote-eligible, and the capped-write block of a prefix
 hit that lands on a virtual entry is promote-copied first (the
 cross-tier analogue of COW).
 
-Left out until the fleet (C2): the prefix advertisement
-(``prefix_digest``, ``prefix_blocks_by_hash`` and the hash maps behind
-them) and the KV ship (``export_blocks``, ``import_blocks``).
-:func:`prefix_chain_hashes` stays: a session record names its chain by
-it. :meth:`trim` is the speculative-decode rollback."""
+The fleet's half: every registered chain key also carries a content
+chain hash (:func:`prefix_chain_hashes`, stable across processes and
+across the two packages), advertised by :meth:`prefix_digest` and
+resolved back by :meth:`prefix_blocks_by_hash`; :meth:`export_blocks` /
+:meth:`import_blocks` name the blocks of a KV ship. :meth:`trim` is the
+speculative-decode rollback."""
 from __future__ import annotations
 
 import hashlib
@@ -129,9 +130,12 @@ class BlockManager:
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.enable_prefix_cache = enable_prefix_cache
-        # the layout of the paged caches these block ids index, opaque
-        # here: allocation is layout-agnostic (a block id covers
-        # block_size tokens however its bytes are framed)
+        # the Layout of the paged caches these block ids index (TP
+        # serving shards the kv-head dim; None = unsharded). Allocation
+        # is layout-agnostic — a block id covers block_size tokens
+        # regardless of how its bytes are framed — but the KV-ship
+        # import gate below uses it to reject wire payloads whose
+        # layout cannot possibly reshard onto this cache.
         self.kv_layout = kv_layout
         # free list: pop() takes the HOT (right) end — recently freed,
         # never-cached blocks; cached-free blocks park at the COLD (left)
@@ -147,6 +151,18 @@ class BlockManager:
         self._prefix_index: Dict[tuple, int] = {}
         self._block_key: Dict[int, tuple] = {}
         self._cow_pairs: List[Tuple[int, int]] = []
+        # fleet advertisement layer: every registered chain key also
+        # carries a content chain HASH (stable across processes, unlike
+        # the tuple key which is only meaningful locally). `_hash_key`
+        # is the inverse used to resolve an incoming ship/export request
+        # by hash; `_hash_tokens` caches covered-token counts for the
+        # digest. `_trie_rev` bumps on any registration change so the
+        # heartbeat-rate digest is computed at most once per change.
+        self._key_hash: Dict[tuple, str] = {}
+        self._hash_key: Dict[str, tuple] = {}
+        self._hash_tokens: Dict[str, int] = {}
+        self._trie_rev = 0
+        self._digest_cache: Optional[Tuple[tuple, dict]] = None
         # observability (engine surfaces these through ServingMetrics)
         self.num_prefix_hits = 0
         self.num_prefix_hit_tokens = 0
@@ -230,6 +246,11 @@ class BlockManager:
         key = self._block_key.pop(entry, None)
         if key is not None and self._prefix_index.get(key) == entry:
             self._prefix_index.pop(key)
+            h = self._key_hash.pop(key, None)
+            if h is not None and self._hash_key.get(h) == key:
+                self._hash_key.pop(h)
+                self._hash_tokens.pop(h, None)
+            self._trie_rev += 1
 
     def _move_registration(self, src_entry: int, dst_entry: int):
         """Re-point a trie registration at the id the content moved to
@@ -240,6 +261,7 @@ class BlockManager:
         self._block_key[dst_entry] = key
         if self._prefix_index.get(key) == src_entry:
             self._prefix_index[key] = dst_entry
+        self._trie_rev += 1
 
     def _claim(self) -> int:
         """Pop a free block, dropping any stale prefix registration (this
@@ -494,9 +516,12 @@ class BlockManager:
         bs = self.block_size
         limit = min(covered, len(tokens))
         key: Optional[tuple] = None
+        chash: Optional[str] = None
         idx = 0
         while (idx + 1) * bs <= limit:
-            key = (key, tuple(tokens[idx * bs:(idx + 1) * bs]))
+            part = tuple(tokens[idx * bs:(idx + 1) * bs])
+            key = (key, part)
+            chash = _fold_hash(chash, part)
             b = table[idx]
             if key in self._prefix_index:
                 # someone committed this prefix first; keep their block
@@ -505,13 +530,71 @@ class BlockManager:
             if b not in self._block_key:
                 self._prefix_index[key] = b
                 self._block_key[b] = key
+                self._key_hash[key] = chash
+                self._hash_key[chash] = key
+                self._hash_tokens[chash] = (idx + 1) * bs
+                self._trie_rev += 1
             idx += 1
 
     @property
     def num_uncached_free_blocks(self) -> int:
-        """Free blocks holding NO registered prefix content — the device
-        headroom the tier's ``balance`` keeps."""
+        """Free blocks holding NO registered prefix content — the room a
+        proactive prefix import may consume without evicting anything
+        the cache already holds (and the device headroom the tier's
+        ``balance`` keeps)."""
         return sum(1 for b in self._free if b not in self._block_key)
+
+    # -- fleet prefix advertisement ---------------------------------------
+    def prefix_digest(self, max_entries: int = 128) -> dict:
+        """Bounded advertisement of the committed prefix trie, shaped
+        for heartbeat meta: ``{"bs": block_size, "n": total_entries,
+        "h": {chain_hash: covered_tokens}}``. Entries are kept
+        SHALLOW-first (fewest covered tokens) when capped — shallow
+        chains (shared system prompts) are the broadly useful ones, and
+        keeping every ancestor of a kept entry means a router walking
+        the chain front-to-back never breaks early on a capped-out
+        middle link. Cached per trie revision, so heartbeat-rate calls
+        are O(1) between registration changes."""
+        ck = (self._trie_rev, int(max_entries))
+        if self._digest_cache is not None \
+                and self._digest_cache[0] == ck:
+            return self._digest_cache[1]
+        items = sorted(self._hash_tokens.items(),
+                       key=lambda kv: (kv[1], kv[0]))
+        digest = {"bs": self.block_size, "n": len(items),
+                  "h": dict(items[:max_entries])}
+        self._digest_cache = (ck, digest)
+        return digest
+
+    def prefix_blocks_by_hash(
+            self, chain_hash: str,
+    ) -> Optional[Tuple[List[int], List[int]]]:
+        """Resolve an advertised chain hash back to ``(tokens,
+        blocks)`` — the full token content and the device blocks of the
+        registered chain it names. Returns None when the hash is
+        unknown or any link of the chain has since been evicted (the
+        caller treats that as a plain miss; advertisement staleness is
+        expected, never an error). Read-only."""
+        key = self._hash_key.get(chain_hash)
+        if key is None:
+            return None
+        parts: List[tuple] = []
+        k: Optional[tuple] = key
+        while k is not None:
+            k, part = k
+            parts.append(part)
+        parts.reverse()
+        tokens: List[int] = []
+        blocks: List[int] = []
+        k = None
+        for part in parts:
+            k = (k, part)
+            b = self._prefix_index.get(k)
+            if b is None:
+                return None   # ancestor evicted since registration
+            blocks.append(b)
+            tokens.extend(part)
+        return tokens, blocks
 
     # -- allocation ------------------------------------------------------
     def allocate(self, request_id: str, num_tokens: int,
@@ -692,6 +775,64 @@ class BlockManager:
             self._cow(request_id, i)
         for _ in range(max(need, 0)):
             table.append(self._claim())
+        return list(table)
+
+    # -- fleet KV-ship ----------------------------------------------------
+    def export_blocks(self, request_id: str, num_tokens: int) -> List[int]:
+        """The leading blocks of the request's table that cover its first
+        ``num_tokens`` committed tokens — the device gather list for a
+        fleet KV-ship. Read-only: refcounts and the prefix trie are
+        untouched (the source keeps ownership until it releases; shared
+        prefix blocks export fine, the peer receives a private copy)."""
+        table = self._tables.get(request_id)
+        if table is None:
+            raise KeyError(f"request {request_id!r} holds no block table")
+        need = self.blocks_needed(num_tokens)
+        if need > len(table):
+            raise ValueError(
+                f"request {request_id!r}: table covers {len(table)} "
+                f"block(s), {need} needed for {num_tokens} tokens")
+        return list(table[:need])
+
+    def import_blocks(self, request_id: str, num_tokens: int,
+                      src_layout=None) -> List[int]:
+        """Claim fresh device blocks to receive a shipped KV payload
+        covering ``num_tokens`` tokens (fleet KV-ship import side). Every
+        block is private (refcount 1) and starts unregistered — shipped
+        content only becomes prefix-discoverable through the normal
+        :meth:`commit_prefix` after the engine scatters the bytes, so a
+        block is never shared before its K/V exists on device. Raises
+        :class:`NoFreeBlocksError` when the pool cannot take the payload
+        (the router falls back to recompute).
+
+        ``src_layout`` is the wire payload's Layout (per-shard frames
+        from the exporter's TP mesh). The block COUNT is layout-
+        invariant — frames partition the kv-head dim, not tokens — but
+        a payload whose layout has the wrong rank for this cache can
+        never land, so it is refused here, before any block is claimed
+        (a ValueError the router treats as a clean ladder fall)."""
+        if request_id in self._tables:
+            raise ValueError(
+                f"request {request_id!r} already holds a block table — "
+                f"free() it before importing")
+        if (src_layout is not None and self.kv_layout is not None
+                and src_layout.ndim != self.kv_layout.ndim):
+            raise ValueError(
+                f"request {request_id!r}: shipped payload layout has "
+                f"rank {src_layout.ndim}, cache layout has rank "
+                f"{self.kv_layout.ndim} — cannot reshard")
+        need = self.blocks_needed(num_tokens)
+        if need < 1:
+            raise ValueError(
+                f"request {request_id!r}: nothing to import for "
+                f"{num_tokens} tokens")
+        if need > len(self._free):
+            raise NoFreeBlocksError(
+                f"request {request_id!r}: {need} block(s) needed to "
+                f"import {num_tokens} shipped tokens, "
+                f"{len(self._free)} free")
+        table = [self._claim() for _ in range(need)]
+        self._tables[request_id] = table
         return list(table)
 
     def trim(self, request_id: str, num_tokens: int) -> int:
@@ -887,6 +1028,15 @@ class BlockManager:
         for key, b in self._prefix_index.items():
             assert self._block_key.get(b) == key, \
                 f"trie drift: block {b} does not map back to its key"
+        # advertisement maps ride the trie exactly: every registered key
+        # has a hash, every hash maps back, token counts track hashes
+        assert set(self._key_hash) == set(self._prefix_index), \
+            "key-hash map drifted from the prefix index"
+        for h, k in self._hash_key.items():
+            assert self._key_hash.get(k) == h, \
+                f"hash map drift: {h} does not map back to its key"
+        assert set(self._hash_tokens) == set(self._hash_key), \
+            "hash token-count map drifted from the hash map"
         assert not self._cow_pairs, \
             "pending COW pairs not drained before invariant check"
         assert not self._tier_moves, \

@@ -85,8 +85,22 @@ spawned workers hold the other shards of the weights and of the KV
 cache, and each step's attention and MLP partial sums meet in two
 all-reduces a layer (:mod:`paddle_tpu_torch.serving.tp`). At k = 1 none
 of it exists. Refused at k > 1, each naming the ROADMAP item that brings
-it: speculative decoding and ``kv_tiers``. The tier's fleet half (the
-peer tier, the router's offload) comes with C2.
+it: speculative decoding and ``kv_tiers``.
+
+The fleet's half (:mod:`paddle_tpu_torch.serving.fleet` drives it):
+:meth:`LLMEngine.export_kv` / :meth:`LLMEngine.import_kv` move a
+request's committed KV between replicas and :meth:`LLMEngine.
+export_prefix` / :meth:`LLMEngine.import_prefix` a cached prefix, in
+the JAX package's wire format — ``meta`` (shape, dtype name, layout
+stanza, crc32) and the payload: K shard frames then V shard frames, in
+mesh order, each the raw C-order bytes of the (L, n, BS, KH, D) gather
+(bf16 as its 2-byte words: numpy has no bfloat16), so a payload crosses
+between the two packages unchanged. An import lands in the existing
+caches in place. A drain's sweep parks each running request's table
+for a post-abort ``export_kv`` (the router's block-transfer hand-off).
+At ``tp_degree > 1`` the fleet's KV and prefix ships raise (queue 1
+item 14); a payload framed in k shards lands in a k = 1 engine through
+:func:`~paddle_tpu_torch.distributed.redistribute.redistribute_host`.
 """
 from __future__ import annotations
 
@@ -94,6 +108,7 @@ import itertools
 import threading
 import time
 import weakref
+import zlib
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -101,11 +116,15 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.dtype import to_torch
-from paddle_tpu_torch.distributed.redistribute import Layout
+from paddle_tpu_torch.distributed.redistribute import (
+    Layout, redistribute_host,
+)
 from paddle_tpu_torch.jit.trace import StepGraphs
 from paddle_tpu_torch.ops import kernel_launches
 from paddle_tpu_torch.ops.sampling import sample_or_verify
-from paddle_tpu_torch.serving.block_manager import BlockManager, cdiv
+from paddle_tpu_torch.serving.block_manager import (
+    BlockManager, NoFreeBlocksError, cdiv,
+)
 from paddle_tpu_torch.serving.kvtier import KVTiersConfig, TieredKVStore
 from paddle_tpu_torch.serving.metrics import ServingMetrics
 from paddle_tpu_torch.serving.request import (
@@ -300,6 +319,31 @@ def _tp_param_layout(name: str, ndim: int, tp: int) -> Layout:
     return Layout((("tp", tp),), placements)
 
 
+# numpy has no bfloat16: a bf16 cache crosses the wire as its raw 2-byte
+# words, the bytes the JAX package's ml_dtypes arrays hold
+_WIRE_WORDS = {"float32": np.float32, "float16": np.float16,
+               "bfloat16": np.int16}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """The numpy-style name of a torch dtype (``"bfloat16"``) — what the
+    JAX package's ``str(array.dtype)`` writes into a ship's meta."""
+    return str(dtype).replace("torch.", "")
+
+
+def _wire_words(t: torch.Tensor) -> np.ndarray:
+    """A host tensor's bytes as a numpy array (bf16 as int16 words)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.numpy()
+
+
+def _from_wire(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`_wire_words`."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.view(dtype) if dtype == torch.bfloat16 else t
+
+
 def _to_int32(keys: torch.Tensor) -> torch.Tensor:
     """uint32 values held in int64 -> the same bits as int32."""
     return torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys).to(torch.int32)
@@ -336,9 +380,10 @@ class _KVSwapper:
     win. ``copy_in`` fences, then writes the device caches IN PLACE
     (``index_copy_`` from pinned memory): the captured graphs hold the
     caches' addresses. The tier's demotes and promotes go through the
-    same two halves (:meth:`spill`, :meth:`restore`), and :meth:`gather`
-    reads blocks of either tier to the host. The fleet's ``scatter``
-    comes with C2."""
+    same two halves (:meth:`spill`, :meth:`restore`), :meth:`gather`
+    reads blocks of either tier to the host (a fleet export), and
+    :meth:`scatter` writes shipped bytes into device blocks in place (a
+    fleet import)."""
 
     def __init__(self, kcs, vcs, host_k, host_v):
         self._kcs, self._vcs = kcs, vcs
@@ -411,11 +456,12 @@ class _KVSwapper:
                 src = pool.index_select(1, hidx)
             cache.index_copy_(1, didx, src)
 
-    def gather(self, table: List[int], num_blocks: int):
+    def gather(self, table: List[int]):
         """Host copies ``(K, V)``, each (L, len(table), BS, KH, D), of the
-        blocks a tiered table names: a device block through one
-        device-to-host copy, a virtual entry (``>= num_blocks``) from the
+        blocks a table names: a device block through one device-to-host
+        copy, a virtual entry (``>=`` the device pool's size) from the
         host pool, read after :meth:`fence`."""
+        num_blocks = self._kcs.shape[1]
         self.fence()
         dev_pos = [(i, b) for i, b in enumerate(table) if b < num_blocks]
         host_pos = [(i, b - num_blocks) for i, b in enumerate(table)
@@ -435,6 +481,17 @@ class _KVSwapper:
                     1, torch.as_tensor([s for _, s in host_pos]))
             out.append(got)
         return tuple(out)
+
+    def scatter(self, dev_blocks: List[int], k: torch.Tensor,
+                v: torch.Tensor):
+        """Write shipped KV (host tensors, each (L, len(dev_blocks), BS,
+        KH, D) in the caches' dtype) into freshly claimed device blocks,
+        IN PLACE — the ``restore`` write, sourced from wire bytes
+        instead of the host pool."""
+        didx = torch.as_tensor(dev_blocks, dtype=torch.long,
+                               device=self._kcs.device)
+        for cache, src in ((self._kcs, k), (self._vcs, v)):
+            cache.index_copy_(1, didx, src.to(cache.device))
 
 
 class LLMEngine:
@@ -575,7 +632,10 @@ class LLMEngine:
             if getattr(mcfg, "tp_degree", 1) != tp:
                 mcfg.tp_degree = tp
         self.kv_layout = Layout.tp_sharded(5, 3, tp)
-        self.num_kv_reshards = 0   # cross-degree KV ships land with C2
+        # KV ships that arrived in a DIFFERENT layout than this engine's
+        # caches and were resharded through redistribute_host (a
+        # k-sharded payload landing at k = 1; serving/kv_reshards)
+        self.num_kv_reshards = 0
         hd = mcfg.hidden_size // mcfg.num_attention_heads
         shape = (mcfg.num_hidden_layers, self.cfg.num_blocks,
                  self.cfg.block_size, kh // tp, hd)
@@ -611,7 +671,7 @@ class LLMEngine:
                 num_blocks=self.cfg.num_blocks,
                 block_size=self.cfg.block_size,
                 num_host_blocks=self.cfg.num_host_blocks,
-                cache_dtype=str(cache_dtype).replace("torch.", "")))
+                cache_dtype=_dtype_name(cache_dtype)))
             weakref.finalize(self, self._tp.close)
             try:
                 self._tp.hand_off(model, self.param_layouts())
@@ -694,6 +754,23 @@ class LLMEngine:
         # speculative-decode lifetime counters (serving/spec_* gauges)
         self.num_spec_proposed = 0
         self.num_spec_accepted = 0
+        # requests admitted mid-context with peer-computed KV (fleet
+        # KV-ship import side; serving/continuation_admits gauge)
+        self.num_continuation_admits = 0
+        # proactive prefix ships (no request attached): whole cached
+        # prefixes exported to / imported from peer replicas
+        # (serving/prefix_{exports,imports} gauges)
+        self.num_prefix_exports = 0
+        self.num_prefix_imports = 0
+        self._prefix_import_seq = itertools.count()
+        # drain-parked KV snapshots: request_id -> (covered tokens,
+        # device table) captured the instant a drain sweep aborts a
+        # running request. The blocks go back to the free list with the
+        # abort, but a drained engine dispatches no further steps, so
+        # the device bytes stay intact for a post-abort export_kv — the
+        # router's block-transfer drain hand-off reads them from here
+        # after the structured abort went out.
+        self._handoff_kv: Dict[str, tuple] = {}
         # lifetime counters (survive reset_metrics; serving/* gauges)
         self.num_expired = 0
         self.num_rejected = 0
@@ -883,12 +960,21 @@ class LLMEngine:
         """Terminal sweep of every live request (running, waiting AND
         swapped) — the grace-budget-expired / step-failed path. All
         blocks and host slots are reclaimed; each request gets a
-        structured output. (The reference also parks a drained request's
-        blocks for the fleet's KV hand-off, which comes with C2.)"""
+        structured output. A drain parks each running request's table
+        snapshot first, for the fleet's block-transfer hand-off."""
         outs = []
         live = (list(self.scheduler.running) + list(self.scheduler.waiting)
                 + list(self.scheduler.swapped))
         for r in live:
+            if reason == "aborted:drain" and r.num_cached > 0 \
+                    and self.block_manager.has_table(r.request_id):
+                # park the table snapshot BEFORE the abort frees it: the
+                # router's drain hand-off exports these bytes after the
+                # structured abort lands
+                self._handoff_kv[r.request_id] = (
+                    r.num_cached,
+                    self.block_manager.export_blocks(r.request_id,
+                                                     r.num_cached))
             self.scheduler.abort(r.request_id, reason)
             if reason == "aborted:drain":
                 self.num_drain_aborted += 1
@@ -942,6 +1028,7 @@ class LLMEngine:
             raise ValueError(
                 f"request {request_id!r} is {req.status.value}, not "
                 f"finished — abort_request() cancels in-flight requests")
+        self._handoff_kv.pop(request_id, None)
         return self._requests.pop(request_id)
 
     def reset_metrics(self) -> ServingMetrics:
@@ -954,6 +1041,309 @@ class LLMEngine:
 
     def has_unfinished(self) -> bool:
         return self.scheduler.has_unfinished()
+
+    # -- fleet KV-ship ---------------------------------------------------
+    def _require_one_rank(self, what: str) -> None:
+        if self.tp_degree > 1:
+            raise ValueError(
+                f"{what} at tp_degree={self.tp_degree} is not ported to "
+                f"paddle_tpu_torch yet (the fleet at TP, queue 1 item 14)")
+
+    def _wire_src_layout(self, meta: dict, global_shape) -> Layout:
+        """The layout a shipped KV payload's frames are in. Absent
+        stanza = the flat format (one replicated frame). A malformed or
+        non-fitting layout is a clean ``ValueError`` rejection, same as
+        any geometry mismatch."""
+        lm = meta.get("layout")
+        if lm is None:
+            return Layout.tp_sharded(len(global_shape), 3, 1)
+        try:
+            src = Layout.from_meta(lm)
+            src.validate_shape(global_shape)
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(
+                f"shipped KV layout {lm!r} does not fit shape "
+                f"{list(global_shape)}: {e}") from e
+        return src
+
+    def _land_wire(self, payload: bytes, offset: int, src_layout: Layout,
+                   global_shape) -> torch.Tensor:
+        """Parse per-shard wire frames and land them as one global host
+        tensor in this engine's cache orientation and dtype. A payload
+        framed in k shards (an exporter at tp_degree k) reassembles on
+        the host through ``redistribute_host``."""
+        words = np.dtype(_WIRE_WORDS[_dtype_name(self._kcs.dtype)])
+        local = src_layout.local_shape(global_shape)
+        n = int(np.prod(local))
+        frames = [np.frombuffer(payload, dtype=words,
+                                offset=offset + i * n * words.itemsize,
+                                count=n).reshape(local)
+                  for i in range(src_layout.size)]
+        if src_layout != self.kv_layout:
+            frames = redistribute_host(frames, src_layout, self.kv_layout,
+                                       global_shape)
+        return _from_wire(self.kv_layout.assemble(frames, global_shape),
+                          self._kcs.dtype)
+
+    def _pack_wire(self, table: List[int]):
+        """The ship of ``table``'s blocks: (shape, payload, k_bytes) —
+        K shard frames then V shard frames, in mesh order."""
+        if self._kvtier is not None:
+            self._kvtier.apply_moves()
+        k, v = self._swapper.gather(table)
+        k_bytes = b"".join(s.tobytes()
+                           for s in self.kv_layout.shards(_wire_words(k)))
+        payload = k_bytes + b"".join(
+            s.tobytes() for s in self.kv_layout.shards(_wire_words(v)))
+        return list(k.shape), payload, len(k_bytes)
+
+    def _check_wire(self, meta: dict, payload: bytes, nblocks: int,
+                    what: str) -> tuple:
+        """The import refusals the router relies on, each a
+        ``ValueError``: shape, dtype, byte count, checksum. Returns
+        (global shape, K bytes, source layout)."""
+        L, _, BS, KH, D = self._kcs.shape
+        want_shape = [L, nblocks, BS, KH, D]
+        if list(meta.get("shape", ())) != want_shape or \
+                int(meta.get("blocks", -1)) != nblocks:
+            raise ValueError(
+                f"{what}: shipped KV shape {meta.get('shape')} != "
+                f"expected {want_shape}")
+        dt = _dtype_name(self._kcs.dtype)
+        if str(meta.get("dtype")) != dt:
+            raise ValueError(
+                f"{what}: shipped dtype {meta.get('dtype')} != cache "
+                f"dtype {dt}")
+        k_bytes = int(meta.get("k_bytes", -1))
+        want_bytes = (int(np.prod(want_shape))
+                      * np.dtype(_WIRE_WORDS[dt]).itemsize)
+        if k_bytes != want_bytes or len(payload) != 2 * want_bytes:
+            raise ValueError(
+                f"{what}: shipped payload {len(payload)}B (k={k_bytes}) "
+                f"!= 2x{want_bytes}B")
+        if zlib.crc32(payload) & 0xFFFFFFFF != int(meta.get("crc32", -1)):
+            raise ValueError(
+                f"{what}: shipped KV failed its checksum — payload "
+                f"corrupt, refusing the import")
+        return want_shape, k_bytes, self._wire_src_layout(meta, want_shape)
+
+    def _scatter_wire(self, table: List[int], payload: bytes,
+                      k_bytes: int, src_layout: Layout, shape) -> None:
+        # the fault point stands in for a device OOM / transfer error
+        # between block allocation and the write
+        faults.fire(faults.SERVING_KV_SCATTER)
+        k = self._land_wire(payload, 0, src_layout, shape)
+        v = self._land_wire(payload, k_bytes, src_layout, shape)
+        self._swapper.scatter(table, k, v)
+
+    def export_kv(self, request_id: str):
+        """Package the request's committed KV for a fleet KV-ship:
+        ``(meta, payload)`` where ``payload`` is the K bytes followed by
+        the V bytes of the ``(L, nblocks, BS, KH, D)`` gather, or
+        ``None`` when there is nothing worth shipping (no committed
+        tokens, no device table). Sources either a live request's table
+        or the drain-parked snapshot of one a drain sweep already
+        aborted. Read-only and idempotent — safe under RPC retry."""
+        self._require_one_rank("export_kv")
+        covered, table = 0, None
+        req = self._requests.get(request_id)
+        if req is not None and req.num_cached > 0 \
+                and self.block_manager.has_table(request_id):
+            covered = req.num_cached
+            table = self.block_manager.export_blocks(request_id, covered)
+        else:
+            parked = self._handoff_kv.get(request_id)
+            if parked is not None:
+                covered, table = parked
+        if not table or covered <= 0:
+            return None
+        shape, payload, k_bytes = self._pack_wire(table)
+        meta = {
+            "tokens_covered": int(covered),
+            "blocks": len(table),
+            "block_size": int(self.cfg.block_size),
+            "shape": shape,
+            "dtype": _dtype_name(self._kcs.dtype),
+            "k_bytes": k_bytes,
+            "layout": self.kv_layout.to_meta(),
+            "crc32": zlib.crc32(payload) & 0xFFFFFFFF,
+        }
+        return meta, payload
+
+    def import_kv(self, request_id: str, prompt_ids: Sequence[int],
+                  sampling: Optional[SamplingParams] = None,
+                  callback: Optional[Callable] = None, *,
+                  meta: dict, payload: bytes, rng_state=None) -> str:
+        """Admit a request whose leading KV was computed on a peer
+        replica (fleet KV-ship import side): claim fresh blocks, write
+        the shipped bytes into them in place, and enter the scheduler
+        RUNNING with ``num_cached`` pre-set — ``_schedule_mixed`` then
+        continues it as an ordinary mid-context continuation row,
+        recomputing nothing. Every clean rejection (geometry, dtype,
+        byte count or checksum mismatch, draining, cache full, duplicate
+        id) raises ``ValueError`` so the transport never mistakes it for
+        replica death and the router can fall back to recompute; nothing
+        stays allocated unless admission fully succeeds."""
+        self._require_one_rank("import_kv")
+        if not self.cfg.chunked_prefill:
+            raise ValueError(
+                "KV import needs chunked prefill (the imported request "
+                "resumes as a mid-context continuation row)")
+        if self._draining:
+            raise ValueError("engine is draining")
+        if request_id in self._requests:
+            raise ValueError(f"duplicate request id {request_id!r}")
+        sampling = sampling or SamplingParams()
+        prompt_ids = [int(t) for t in prompt_ids]
+        total = len(prompt_ids) + sampling.max_new_tokens
+        if total > self.cfg.max_model_len:
+            raise ValueError(
+                f"request {request_id!r}: prompt ({len(prompt_ids)}) + "
+                f"max_new_tokens ({sampling.max_new_tokens}) = {total} "
+                f"exceeds max_model_len {self.cfg.max_model_len}")
+        covered = int(meta.get("tokens_covered", 0))
+        if not 0 < covered < len(prompt_ids):
+            raise ValueError(
+                f"request {request_id!r}: shipped coverage {covered} "
+                f"outside (0, {len(prompt_ids)}) — at least one prompt "
+                f"token must remain to compute")
+        if int(meta.get("block_size", -1)) != self.cfg.block_size:
+            raise ValueError(
+                f"request {request_id!r}: shipped block_size "
+                f"{meta.get('block_size')} != {self.cfg.block_size}")
+        shape, k_bytes, src_layout = self._check_wire(
+            meta, payload, cdiv(covered, self.cfg.block_size),
+            f"request {request_id!r}")
+        req = Request(request_id=request_id, prompt_ids=prompt_ids,
+                      sampling=sampling, callback=callback)
+        self._apply_rng_state(req, rng_state)
+        try:
+            table = self.block_manager.import_blocks(
+                request_id, covered, src_layout=src_layout)
+        except NoFreeBlocksError as e:
+            raise ValueError(str(e)) from e
+        try:
+            self._scatter_wire(table, payload, k_bytes, src_layout, shape)
+        except Exception as e:
+            # blocks are claimed but nothing is registered yet: a
+            # scatter fault must not leak them
+            self.block_manager.free(request_id)
+            raise ValueError(
+                f"request {request_id!r}: KV scatter failed after "
+                f"block allocation ({e}); blocks freed") from e
+        if src_layout != self.kv_layout:
+            self.num_kv_reshards += 1
+        req.num_cached = covered
+        self._requests[request_id] = req
+        self.scheduler.add_continuation(req)
+        if self.cfg.prefix_cache:
+            # shipped prompt blocks are fully written now — register
+            # them so peers of THIS replica prefix-hit on them too
+            self.block_manager.commit_prefix(request_id, prompt_ids,
+                                             covered)
+        self.num_continuation_admits += 1
+        return request_id
+
+    # -- fleet prefix cache ----------------------------------------------
+    def prefix_digest(self) -> Optional[dict]:
+        """Bounded advertisement of this engine's committed prefix trie
+        (chain hashes + covered token counts) for heartbeat meta; None
+        when prefix caching is off. Read-only, cached per trie change."""
+        if not self.cfg.prefix_cache:
+            return None
+        return self.block_manager.prefix_digest()
+
+    def export_prefix(self, chain_hash: str):
+        """Package one advertised cached prefix for a proactive fleet
+        ship: ``(meta, payload)`` exactly like :meth:`export_kv` but
+        addressed by content chain hash instead of request id, with the
+        full token content in the meta (the importer commits by token
+        content, so a hash collision can only waste a ship, never
+        corrupt). Returns ``None`` when the hash is unknown or its chain
+        was partially evicted since advertisement — staleness is a miss,
+        not an error. Read-only and idempotent (RPC-retryable)."""
+        self._require_one_rank("export_prefix")
+        if not self.cfg.prefix_cache:
+            return None
+        resolved = self.block_manager.prefix_blocks_by_hash(chain_hash)
+        if resolved is None:
+            return None
+        tokens, table = resolved
+        shape, payload, k_bytes = self._pack_wire(table)
+        meta = {
+            "chain_hash": chain_hash,
+            "tokens": [int(t) for t in tokens],
+            "blocks": len(table),
+            "block_size": int(self.cfg.block_size),
+            "shape": shape,
+            "dtype": _dtype_name(self._kcs.dtype),
+            "k_bytes": k_bytes,
+            "layout": self.kv_layout.to_meta(),
+            "crc32": zlib.crc32(payload) & 0xFFFFFFFF,
+        }
+        self.num_prefix_exports += 1
+        return meta, payload
+
+    def import_prefix(self, *, meta: dict, payload: bytes) -> int:
+        """Commit a shipped prefix into the local trie with NO request
+        attached: claim fresh blocks under a synthetic id, write the
+        bytes in place, register them by token content, then free the
+        synthetic id — the blocks land cached-free at the cold end of
+        the free list, refcounted and evictable exactly like locally
+        computed prefixes. Returns the token count committed; 0 when the
+        prefix is already cached at least as deep (idempotent under RPC
+        retry). Clean rejections raise ``ValueError`` (never replica
+        death): geometry/checksum mismatch, draining, or a pool whose
+        free headroom is all REGISTERED content — a proactive ship must
+        never evict resident cache to make room for speculative bytes."""
+        self._require_one_rank("import_prefix")
+        if not self.cfg.prefix_cache:
+            raise ValueError("prefix import needs prefix caching on")
+        if self._draining:
+            raise ValueError("engine is draining")
+        tokens = [int(t) for t in meta.get("tokens", ())]
+        covered = len(tokens)
+        bs = self.cfg.block_size
+        if int(meta.get("block_size", -1)) != bs:
+            raise ValueError(
+                f"shipped prefix block_size {meta.get('block_size')} "
+                f"!= {bs}")
+        if covered <= 0 or covered % bs != 0:
+            raise ValueError(
+                f"shipped prefix covers {covered} tokens — must be a "
+                f"positive multiple of block_size {bs}")
+        nblocks = covered // bs
+        shape, k_bytes, src_layout = self._check_wire(
+            meta, payload, nblocks, "shipped prefix")
+        if self.block_manager.match_prefix(tokens) >= covered:
+            return 0
+        if nblocks > self.block_manager.num_uncached_free_blocks:
+            raise ValueError(
+                f"{nblocks} block(s) needed for a proactive prefix "
+                f"import, only "
+                f"{self.block_manager.num_uncached_free_blocks} "
+                f"uncached-free — refusing to evict resident cache")
+        rid = f"__prefix_import__{next(self._prefix_import_seq)}"
+        try:
+            table = self.block_manager.import_blocks(
+                rid, covered, src_layout=src_layout)
+        except NoFreeBlocksError as e:
+            raise ValueError(str(e)) from e
+        try:
+            # same partial-failure discipline as import_kv: a scatter
+            # fault after allocation frees the synthetic claim whole
+            self._scatter_wire(table, payload, k_bytes, src_layout, shape)
+            self.block_manager.commit_prefix(rid, tokens, covered)
+        except Exception as e:
+            self.block_manager.free(rid)
+            raise ValueError(
+                f"prefix import scatter failed after block allocation "
+                f"({e}); blocks freed") from e
+        self.block_manager.free(rid)
+        if src_layout != self.kv_layout:
+            self.num_kv_reshards += 1
+        self.num_prefix_imports += 1
+        return covered
 
     # -- tiered sessions (park / resume) ----------------------------------
     def _require_tiers(self) -> TieredKVStore:
@@ -1013,8 +1403,9 @@ class LLMEngine:
     def drop_session(self, session_id: str, *,
                      to_peer: bool = False) -> bool:
         """Forget a captured session; ``to_peer=True`` additionally
-        evicts its local chain (an offload hand-off; the peer tier comes
-        with C2). True when the session existed."""
+        evicts its local chain (an offload hand-off: the peer's copy is
+        authoritative now) and counts its blocks in the peer tier. True
+        when the session existed."""
         if self._kvtier is None:
             return False
         return self._kvtier.drop(session_id, to_peer=to_peer)
@@ -1023,7 +1414,7 @@ class LLMEngine:
                       covered: int, *,
                       tenant: Optional[str] = None) -> bool:
         """Register a session whose chain this engine's trie already
-        holds (the fleet's offload lands it, C2) as resumable. False
+        holds (the fleet's offload landed it) as resumable. False
         when the chain does not match the local trie — the adopter stays
         cold, harmlessly."""
         if self._kvtier is None:

@@ -35,9 +35,11 @@ one schedule round a block or slot freed by one move and reclaimed by a
 later one ends with the later writer's bytes, as the allocator's event
 order says.
 
-The JAX package's peer tier (the fleet router's offload of parked
-sessions to another replica) comes with the fleet (C2): ``peer_blocks``
-stays 0, and ``drop(to_peer=True)`` only evicts the local chain.
+The third tier is a peer's cache reached through the fleet router
+(:mod:`paddle_tpu_torch.serving.fleet`): past ``host_watermark`` the
+router ships a parked session's chain to a peer replica, which adopts
+it; ``drop(to_peer=True)`` then evicts the local chain and counts its
+blocks in ``peer_blocks``.
 """
 from __future__ import annotations
 
@@ -67,8 +69,7 @@ class KVTiersConfig:
                                competes with admissions for headroom).
     ``host_watermark``       — host-pool occupancy in [0, 1] past which
                                the fleet router offloads parked
-                               sessions to a peer's pool (reported in
-                               ``stats``; the router comes with C2).
+                               sessions to a peer's pool.
     ``max_sessions``         — bounded session registry; the oldest
                                record drops first (its chain stays
                                behind as ordinary evictable cache).
@@ -121,8 +122,9 @@ class SessionRecord:
     tail_k: Optional[torch.Tensor] = None
     tail_v: Optional[torch.Tensor] = None
     tenant: Optional[str] = None
-    chain_hash: Optional[str] = None   # full-block chain id
+    chain_hash: Optional[str] = None   # full-block chain id (offload)
     parked: bool = False
+    remote_blocks: int = 0             # blocks offloaded to a peer tier
 
     def summary(self) -> dict:
         return {"session_id": self.session_id,
@@ -265,8 +267,7 @@ class TieredKVStore:
                 # pending moves land first: their bytes may still be on
                 # the device side of a copy
                 self.apply_moves()
-                tail_k, tail_v = eng._swapper.gather([table[idx]],
-                                                     bm.num_blocks)
+                tail_k, tail_v = eng._swapper.gather([table[idx]])
         full = (covered // bs) * bs
         chain_hash = (prefix_chain_hashes(tokens[:full], bs)[-1]
                       if full >= bs else None)
@@ -356,7 +357,7 @@ class TieredKVStore:
     def adopt(self, session_id: str, tokens: Sequence[int],
               covered: int, *, tenant: Optional[str] = None) -> bool:
         """Register a session whose chain the trie already holds (the
-        fleet's offload ships it in, C2): the record just names the
+        fleet's offload ships it in): the record just names the
         blocks. Coverage clamps to what the trie actually matches; False
         when nothing matches (the adopter stays cold, harmlessly)."""
         tokens = [int(t) for t in tokens]
@@ -375,14 +376,16 @@ class TieredKVStore:
 
     def drop(self, session_id: str, *, to_peer: bool = False) -> bool:
         """Forget a session. ``to_peer=True`` marks an offload: the
-        local chain is evicted from the trie (a peer's copy would now be
-        authoritative; the peer tier itself comes with C2, so nothing is
-        counted on it)."""
+        local chain is evicted from the trie (the peer's copy is now
+        authoritative) and the blocks count toward the peer-tier
+        gauge."""
         rec = self.sessions.pop(session_id, None)
         if rec is None:
             return False
         if to_peer:
-            self._eng.block_manager.evict_chain(rec.tokens, rec.covered)
+            bm = self._eng.block_manager
+            dropped = bm.evict_chain(rec.tokens, rec.covered)
+            self.peer_blocks += dropped
         return True
 
     # -- observability ----------------------------------------------------

@@ -7,9 +7,7 @@ Exposed two ways:
   reports ``serving/<name>``;
 * snapshot — :meth:`ServingMetrics.snapshot` returns one dict.
 
-Copied from the JAX package's ``serving/metrics.py``; the gauges of
-paths not yet ported (the fleet's) are left out, and so is the fleet's
-finish reason.
+Copied from the JAX package's ``serving/metrics.py``.
 
 TTFT (time-to-first-token) and TPOT (time-per-output-token, a.k.a.
 inter-token latency) follow the standard serving definitions: TTFT is
@@ -57,13 +55,19 @@ class ServingMetrics:
               # proposal/acceptance traffic and sampled-step count
               "spec_proposed", "spec_accepted", "spec_acceptance_rate",
               "sampled_steps",
-              # TP serving: shipped KV payloads that landed through a
-              # cross-layout redistribute (0 until the fleet's KV ship,
-              # C2, brings cross-degree transfers)
-              "kv_reshards",
+              # disaggregated serving: requests admitted mid-context
+              # with shipped KV instead of recompute
+              "continuation_admits",
+              # fleet-global prefix cache: whole cached prefixes shipped
+              # to/from peer replicas, no request attached
+              "prefix_exports", "prefix_imports",
+              # shipped KV payloads that landed through a cross-layout
+              # redistribute, and ship continuations the mixed scheduler
+              # resumed mid-context
+              "kv_reshards", "continuation_resumes",
               # tiered KV: cross-tier migration traffic, host/peer-tier
               # occupancy, and parked-session resumes (all 0 on an
-              # untiered engine; the peer tier comes with C2)
+              # untiered engine)
               "kv_tier_demotes", "kv_tier_promotes",
               "kv_tier_host_blocks_used", "kv_tier_peer_blocks_used",
               "kv_tier_park_resumes")
@@ -94,7 +98,12 @@ class ServingMetrics:
         "spec_proposed": lambda eng: eng.num_spec_proposed,
         "spec_accepted": lambda eng: eng.num_spec_accepted,
         "sampled_steps": lambda eng: eng.num_sampled_steps,
+        "continuation_admits": lambda eng: eng.num_continuation_admits,
+        "prefix_exports": lambda eng: eng.num_prefix_exports,
+        "prefix_imports": lambda eng: eng.num_prefix_imports,
         "kv_reshards": lambda eng: eng.num_kv_reshards,
+        "continuation_resumes":
+            lambda eng: eng.scheduler.num_continuation_resumes,
         # tiered-KV gauges: 0 on an untiered engine
         "kv_tier_demotes": lambda eng: eng.block_manager.num_demotes,
         "kv_tier_promotes": lambda eng: eng.block_manager.num_promotes,

@@ -37,8 +37,10 @@ class SamplingParams:
     ``seed`` fixes the request's sampling stream; without it the stream
     derives from the request id.
 
-    ``tenant_id`` names the traffic source for the fleet router's
-    fairness; the port has no fleet yet, so only the default is taken."""
+    ``tenant_id`` names the traffic source for fleet-level fairness:
+    the multi-replica router (``paddle_tpu_torch.serving.fleet``) runs
+    weighted deficit-round-robin across tenants so one tenant's burst
+    cannot starve the others. A single engine ignores it."""
 
     max_new_tokens: int = 32
     temperature: float = 0.0
@@ -59,11 +61,6 @@ class SamplingParams:
             raise ValueError("top_k must be >= 0")
         if self.deadline_ms is not None and self.deadline_ms <= 0:
             raise ValueError("deadline_ms must be > 0")
-        if self.tenant_id != "default":
-            raise ValueError(
-                f"tenant_id={self.tenant_id!r} is not ported to "
-                f"paddle_tpu_torch yet: tenants come with the fleet "
-                f"(queue 1 item 6)")
 
 
 class RequestStatus(Enum):
@@ -82,9 +79,11 @@ class RequestStatus(Enum):
 #   "aborted:drain"     engine drained (SIGTERM/preemption) before it ran
 #   "aborted:nonfinite" its logits went NaN/Inf (batch peers continue)
 #   "aborted:error"     engine step failed past the retry budget
-# (the JAX package's fleet-lease reason comes with the fleet, C2)
+#   "fenced"            lease lost to another router; the local copy is
+#                       dropped without emitting (the adopter finishes it)
 FINISH_REASONS = ("stop", "length", "expired", "rejected", "aborted:user",
-                  "aborted:drain", "aborted:nonfinite", "aborted:error")
+                  "aborted:drain", "aborted:nonfinite", "aborted:error",
+                  "fenced")
 
 
 @dataclass

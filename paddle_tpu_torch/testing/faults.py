@@ -1,6 +1,6 @@
 """Fault-injection harness (copied from the JAX package's
-``testing/faults.py``: the serving points, the checkpoint commit
-protocol's points and ``tear_file``).
+``testing/faults.py``: the serving and fleet points, the checkpoint
+commit protocol's points and ``tear_file``).
 
 Production code calls :func:`fire` at named fault points. With no
 faults installed the call is a dict lookup on an empty dict, so the
@@ -16,7 +16,18 @@ environment variable. Spec grammar (specs separated by ``;``)::
     serving.step:sleep:0.5@2           sleep at the third step
     serving.nan_logits:flag:r1*1       poison request r1's logits once
 
-``@skip`` ignores the first N hits; ``*times`` fires at most N times.
+``@skip`` ignores the first N hits; ``*times`` fires at most N times
+(the router's per-step points ``fleet.kill_replica`` /
+``fleet.drain_replica`` / ``fleet.slow_replica`` / ``fleet.worker_kill``
+count steps; the transport's ``fleet.rpc_delay`` / ``fleet.rpc_drop``
+fire once per RPC attempt; the peer data plane's
+``fleet.peer_connect_fail`` / ``fleet.peer_send_drop`` /
+``fleet.peer_frame_corrupt`` / ``fleet.peer_stall`` once per
+``peer_push``; ``serving.kv_scatter`` fires inside the engine's KV and
+prefix imports between block allocation and the scatter. The replicated
+control plane's three points are KEYED — the consumer passes ``key=`` to
+:func:`check`: ``fleet.router_kill:flag:<router_id>``,
+``fleet.lease_expire:flag:<rid>`` and ``fleet.lease_steal:flag[:<rid>]``).
 Actions: ``crash`` (``os._exit(FAULT_EXIT)``), ``raise`` (``OSError``),
 ``sleep:<seconds>``, ``touch:<path>``, ``sigterm``, and ``flag`` (no
 side effect of its own: the production code QUERIES it via
@@ -34,7 +45,14 @@ from typing import Dict, List, Optional
 __all__ = [
     "FAULT_EXIT", "FAULT_POINTS", "Fault", "FaultInjector", "fire",
     "check", "install", "clear", "injected", "active_injector",
-    "tear_file", "SERVING_FORCE_OOM", "SERVING_STEP", "SERVING_NAN_LOGITS",
+    "tear_file", "SERVING_FORCE_OOM", "SERVING_KV_SCATTER", "SERVING_STEP",
+    "SERVING_NAN_LOGITS", "FLEET_PEER_CONNECT_FAIL", "FLEET_PEER_STALL",
+    "FLEET_PEER_SEND_DROP", "FLEET_PEER_FRAME_CORRUPT",
+    "FLEET_RPC_DELAY", "FLEET_RPC_DROP", "FLEET_KILL_REPLICA",
+    "FLEET_DRAIN_REPLICA", "FLEET_SLOW_REPLICA", "FLEET_WORKER_KILL",
+    "FLEET_ROUTER_KILL", "FLEET_LEASE_STEAL", "FLEET_LEASE_EXPIRE",
+    "FLEET_PREFIX_SHIP_DROP", "FLEET_PREFIX_SHIP_CORRUPT",
+    "FLEET_KV_SHIP_DELAY", "FLEET_KV_SHIP_DROP", "FLEET_KV_SHIP_CORRUPT",
     "CKPT_BEFORE_COMMIT", "CKPT_BEFORE_MARKER", "CKPT_COMMITTED",
     "CKPT_DATA_WRITTEN",
 ]
@@ -44,8 +62,34 @@ __all__ = [
 # points compose as f-strings LED by the constant:
 # ``f"{faults.SERVING_FORCE_OOM}.{request_id}"``.
 SERVING_FORCE_OOM = "serving.force_oom"        # keyed: .<request_id>
+SERVING_KV_SCATTER = "serving.kv_scatter"
 SERVING_STEP = "serving.step"
 SERVING_NAN_LOGITS = "serving.nan_logits"
+
+# fleet transport + peer data plane (per RPC / per push)
+FLEET_PEER_CONNECT_FAIL = "fleet.peer_connect_fail"
+FLEET_PEER_STALL = "fleet.peer_stall"
+FLEET_PEER_SEND_DROP = "fleet.peer_send_drop"
+FLEET_PEER_FRAME_CORRUPT = "fleet.peer_frame_corrupt"
+FLEET_RPC_DELAY = "fleet.rpc_delay"
+FLEET_RPC_DROP = "fleet.rpc_drop"
+
+# fleet router (per-step chaos + replicated control plane; the last
+# three are KEYED — see ``check(key=...)``)
+FLEET_KILL_REPLICA = "fleet.kill_replica"
+FLEET_DRAIN_REPLICA = "fleet.drain_replica"
+FLEET_SLOW_REPLICA = "fleet.slow_replica"
+FLEET_WORKER_KILL = "fleet.worker_kill"
+FLEET_ROUTER_KILL = "fleet.router_kill"
+FLEET_LEASE_STEAL = "fleet.lease_steal"
+FLEET_LEASE_EXPIRE = "fleet.lease_expire"
+
+# KV / prefix ship path
+FLEET_PREFIX_SHIP_DROP = "fleet.prefix_ship_drop"
+FLEET_PREFIX_SHIP_CORRUPT = "fleet.prefix_ship_corrupt"
+FLEET_KV_SHIP_DELAY = "fleet.kv_ship_delay"
+FLEET_KV_SHIP_DROP = "fleet.kv_ship_drop"
+FLEET_KV_SHIP_CORRUPT = "fleet.kv_ship_corrupt"
 
 # checkpoint commit protocol
 CKPT_BEFORE_COMMIT = "ckpt.before_commit"
@@ -53,10 +97,17 @@ CKPT_BEFORE_MARKER = "ckpt.before_marker"
 CKPT_COMMITTED = "ckpt.committed"
 CKPT_DATA_WRITTEN = "ckpt.data_written"
 
-FAULT_POINTS = frozenset({SERVING_FORCE_OOM, SERVING_STEP,
-                          SERVING_NAN_LOGITS, CKPT_BEFORE_COMMIT,
-                          CKPT_BEFORE_MARKER, CKPT_COMMITTED,
-                          CKPT_DATA_WRITTEN})
+FAULT_POINTS = frozenset({
+    SERVING_FORCE_OOM, SERVING_KV_SCATTER, SERVING_STEP,
+    SERVING_NAN_LOGITS, FLEET_PEER_CONNECT_FAIL, FLEET_PEER_STALL,
+    FLEET_PEER_SEND_DROP, FLEET_PEER_FRAME_CORRUPT, FLEET_RPC_DELAY,
+    FLEET_RPC_DROP, FLEET_KILL_REPLICA, FLEET_DRAIN_REPLICA,
+    FLEET_SLOW_REPLICA, FLEET_WORKER_KILL, FLEET_ROUTER_KILL,
+    FLEET_LEASE_STEAL, FLEET_LEASE_EXPIRE, FLEET_PREFIX_SHIP_DROP,
+    FLEET_PREFIX_SHIP_CORRUPT, FLEET_KV_SHIP_DELAY, FLEET_KV_SHIP_DROP,
+    FLEET_KV_SHIP_CORRUPT, CKPT_BEFORE_COMMIT, CKPT_BEFORE_MARKER,
+    CKPT_COMMITTED, CKPT_DATA_WRITTEN,
+})
 
 # exit code for the "crash" action: distinct from every code the runtime
 # uses (watchdog 6, gang-abort 7, launch re-form 75) so tests can assert

@@ -20,7 +20,7 @@ from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
 
 __all__ = ["NUM_REQUESTS", "MAX_NEW_TOKENS", "ENGINE", "target_model",
-           "warm_up", "build_engine", "add_requests"]
+           "warm_up", "build_engine", "workload", "add_requests"]
 
 NUM_REQUESTS = 8
 MAX_NEW_TOKENS = 32
@@ -56,17 +56,23 @@ def build_engine(device) -> LLMEngine:
     return warm_up(LLMEngine(target_model(device), EngineConfig(**ENGINE)))
 
 
-def add_requests(eng: LLMEngine) -> Tuple[List[str], np.ndarray]:
-    """Queue the workload; returns the request ids and prompt lengths."""
-    vocab = eng.model.config.vocab_size
+def workload(vocab: int) -> List[Tuple[str, List[int], SamplingParams]]:
+    """The workload's requests: (request id, prompt, sampling)."""
     rng = np.random.default_rng(0)
     lens = rng.integers(128, 1025, size=NUM_REQUESTS)
-    rids = []
+    out = []
     for i, n in enumerate(lens):
         sp = (SamplingParams(max_new_tokens=MAX_NEW_TOKENS, temperature=0.8,
                              top_k=50)
               if i == NUM_REQUESTS - 1
               else SamplingParams(max_new_tokens=MAX_NEW_TOKENS))
         prompt = list(map(int, rng.integers(0, vocab, size=int(n))))
-        rids.append(eng.add_request(f"r{i}", prompt, sp))
-    return rids, lens
+        out.append((f"r{i}", prompt, sp))
+    return out
+
+
+def add_requests(eng: LLMEngine) -> Tuple[List[str], np.ndarray]:
+    """Queue the workload; returns the request ids and prompt lengths."""
+    work = workload(eng.model.config.vocab_size)
+    rids = [eng.add_request(rid, prompt, sp) for rid, prompt, sp in work]
+    return rids, np.asarray([len(p) for _, p, _ in work])

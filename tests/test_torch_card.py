@@ -1430,3 +1430,108 @@ def test_tp2_engine_on_one_card_serves_the_k1_tokens(card):
             assert rank1["k1_launches"] == rpa_.launches == 2 * steps
         del eng, m
     assert tokens[1] == tokens[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_ship_round_trip_lands_in_place_and_graphs_replay(card, dtype):
+    """The fleet's KV ship on the card: a request prefilled by engine A
+    is exported (``export_kv``) and imported (``import_kv``) by engine B,
+    whose step graphs were captured before: the shipped blocks equal A's
+    bit for bit, B's caches are the same tensors at the same addresses,
+    B re-exports the same message, and B's decode steps replay its
+    captured graphs (no new capture) to A's tokens."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import (EngineConfig, LLMEngine,
+                                          SamplingParams)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = LlamaForCausalLM(LlamaConfig.tiny(dtype=dtype), device=card)
+    m.init_weights(torch.Generator(device=card).manual_seed(0))
+    kw = dict(block_size=4, max_num_seqs=4, max_model_len=64)
+    prompt = [int(t) for t in np.random.RandomState(8).randint(1, 256, 22)]
+    sp = SamplingParams(max_new_tokens=8)
+    a = LLMEngine(m, EngineConfig(**kw))
+    a.add_request("x", prompt, sp)
+    a.run()
+    want = list(a.get_request("x").generated)
+    a.release_request("x")
+
+    b = LLMEngine(m, EngineConfig(**kw))
+    b.add_request("warm", prompt, sp)       # captures b's buckets
+    b.run()
+    b.release_request("warm")
+    ptrs = (b._kcs.data_ptr(), b._vcs.data_ptr())
+    caches = (b._kcs, b._vcs)
+
+    a.add_request("x", prompt, sp)
+    a.step()                                # prefill + the first token
+    first = list(a.get_request("x").generated)
+    meta, payload = a.export_kv("x")
+    b.import_kv("x", prompt + first, sampling=SamplingParams(
+        max_new_tokens=7), meta=meta, payload=payload,
+        rng_state={"device_key": [int(k) for k in
+                                  a.get_request("x").device_key]})
+    torch.cuda.synchronize()
+    assert (b._kcs.data_ptr(), b._vcs.data_ptr()) == ptrs
+    assert b._kcs is caches[0] and b._vcs is caches[1]
+    n = meta["tokens_covered"]
+    ta = a.block_manager.export_blocks("x", n)
+    tb = b.block_manager.export_blocks("x", n)
+    assert torch.equal(b._kcs[:, tb], a._kcs[:, ta])
+    assert torch.equal(b._vcs[:, tb], a._vcs[:, ta])
+    assert b.export_kv("x") == (meta, payload)
+    assert meta["dtype"] == dtype
+    snap = b._graphs.snapshot()
+    b.run()
+    window = b._graphs.since(snap)
+    assert window["captures"] == 0, window
+    assert sum(window["replays"].values()) > 0, window
+    assert first + list(b.get_request("x").generated) == want
+
+
+@pytest.mark.gpu
+def test_tiny_two_replica_fleet_on_the_card_serves_one_engines_tokens(card):
+    """``LlamaConfig.tiny`` in f32 (TF32 off) on the card: a two-replica
+    ``FleetRouter`` over one model (two engines, each with its own graphs
+    and caches), and a prefill/decode pair with KV ship, serve one
+    engine's greedy and sampled tokens; every request finishes once."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import (EngineConfig, LLMEngine,
+                                          SamplingParams)
+    from paddle_tpu_torch.serving.fleet import (FleetConfig, FleetRouter,
+                                                InProcessReplica)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = LlamaForCausalLM(LlamaConfig.tiny(), device=card)
+    m.init_weights(torch.Generator(device=card).manual_seed(0))
+    kw = dict(block_size=4, max_num_seqs=4, max_model_len=64,
+              drain_grace_s=0.0)
+    rng = np.random.default_rng(17)
+    work = [(f"f{i}", list(map(int, rng.integers(1, 256, size=n))),
+             SamplingParams(max_new_tokens=8, temperature=0.8 if i % 2
+                            else 0.0, top_p=0.9))
+            for i, n in enumerate((7, 18, 11, 29, 4))]
+    ref = LLMEngine(m, EngineConfig(**kw))
+    for rid, p, sp in work:
+        ref.add_request(rid, p, sp)
+    ref.run()
+    want = {rid: list(ref.get_request(rid).generated) for rid, _, _ in work}
+    for roles in (None, {"a": "prefill", "b": "decode"}):
+        reps = [InProcessReplica(m, EngineConfig(**kw), replica_id=r)
+                for r in ("a", "b")]
+        router = FleetRouter(reps, FleetConfig(roles=roles))
+        for rid, p, sp in work:
+            router.add_request(rid, p, sp)
+        outs = []
+        while router.has_unfinished():
+            outs.extend(router.step())
+            assert len(outs) < 1000
+        finals = [o.request_id for o in outs if o.finished]
+        assert sorted(finals) == sorted(want)
+        got = {rid: list(router.get_request(rid).generated) for rid in want}
+        assert got == want, roles
+        if roles:
+            snap = router.snapshot()
+            assert snap["fleet_kv_ship_requests"] == len(work)
+            assert snap["fleet_tokens_recomputed"] == 0

@@ -81,6 +81,20 @@ _MODULES = [
     "paddle_tpu_torch.serving.tp", "paddle_tpu_torch.testing.tp_hooks",
     "paddle_tpu_torch.testing.gloo_ranks",
     "paddle_tpu_torch.tools.llama3_8b_tp",
+    "paddle_tpu_torch.distributed.store",
+    "paddle_tpu_torch.distributed.replica_registry",
+    "paddle_tpu_torch.serving.fleet", "paddle_tpu_torch.serving.fleet.lease",
+    "paddle_tpu_torch.serving.fleet.tenant",
+    "paddle_tpu_torch.serving.fleet.metrics",
+    "paddle_tpu_torch.serving.fleet.replica",
+    "paddle_tpu_torch.serving.fleet.router",
+    "paddle_tpu_torch.serving.fleet.controller",
+    "paddle_tpu_torch.serving.fleet.sim",
+    "paddle_tpu_torch.serving.fleet.transport",
+    "paddle_tpu_torch.serving.fleet.worker",
+    "paddle_tpu_torch.serving.fleet.supervisor",
+    "paddle_tpu_torch.testing.fleet_models",
+    "paddle_tpu_torch.tools.llama3_8b_fleet",
 ]
 
 

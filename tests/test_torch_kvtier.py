@@ -8,8 +8,12 @@ ledgers, tables and counters compared exactly (``TestTierMechanics``), a
 request whose context exceeds the device pool (``TestOverPool``) and
 session park / resume (``TestParkResume``), greedy and sampled tokens
 identical across the packages and to an unconstrained engine. The
-fleet's classes (``TestFleetSessions``, ``TestMigrationStorm``) wait for
-the fleet (C2).
+fleet's classes (``TestFleetSessions``: holder affinity, the watermark
+offload to a peer, a dead holder; ``TestMigrationStorm``) run on the
+port through ``test_torch_fleet.ported`` (every JAX-package name bound
+to the port's; the tiny Llama carries the JAX package's weights), their
+tokens held against the port's single engine, which the classes above
+hold against the JAX package's.
 
 Then the ragged attention's second pool: the port's plain version with
 the host tier's mirror against the JAX package's ``_ragged_attend_ref``
@@ -588,7 +592,7 @@ class TestParkResume:
 
 def test_drop_and_adopt_sessions(models):
     """``drop_session`` forgets a record (``to_peer`` also evicts the
-    local chain; the port counts no peer blocks until C2);
+    local chain and counts its blocks in the peer tier);
     ``adopt_session`` names a chain the trie holds as resumable."""
     prompt = _prompt(12, 16)
     got = []
@@ -605,9 +609,10 @@ def test_drop_and_adopt_sessions(models):
         assert eng.drop_session("b")
         adopted = eng.adopt_session("c", other, 12)
         got.append((evicted, adopted, eng.session_info("c"),
+                    eng.tier_stats()["peer_blocks"],
                     eng.block_manager.host_tier_stats()))
-    assert got[0][:3] == got[1][:3]
-    assert got[0][0] == 0 and got[0][1]
+    assert got[0][:4] == got[1][:4]
+    assert got[0][0] == 0 and got[0][1] and got[0][3] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -746,3 +751,13 @@ def test_rng_state_hand_off_takes_the_device_key(models):
         _run(eng)
         got.append((turn1, list(eng.get_request("b").generated)))
     assert got[0] == got[1]
+
+
+# ---------------------------------------------------------------------------
+# the fleet's classes of tests/test_kvtier.py, on the port
+# ---------------------------------------------------------------------------
+import test_kvtier  # noqa: E402
+from test_torch_fleet import _one_torch_thread, export  # noqa: E402,F401
+
+_FLEET = export(test_kvtier, globals(),
+                only=("TestFleetSessions", "TestMigrationStorm"))

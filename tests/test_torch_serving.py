@@ -221,12 +221,14 @@ def test_nonfinite_guard_aborts_only_the_poisoned_row(models):
 
 @pytest.mark.parametrize("knob,value,item", [
     ("kv_tiers", True, "kv_tiers needs prefix_cache"),
-    ("tenant_id", "t1", "not ported.*item 6")])
+    ("fleet_tp_degree", 2, "not ported.*item 14")])
 def test_unported_configurations_raise(models, knob, value, item):
     """What the port does not serve yet raises at construction, naming
-    the queue item that brings it. ``kv_tiers`` is ported: without
-    prefix caching it raises the reference's own error, in both
-    packages."""
+    the queue item that brings it: a fleet replica at ``tp_degree > 1``
+    (its KV and prefix ships), refused before the engine starts its
+    ranks. ``kv_tiers`` is ported: without prefix caching it raises the
+    reference's own error, in both packages. (``tenant_id`` is taken
+    since the fleet is ported.)"""
     if knob == "kv_tiers":
         jm, tm = models
         for engine, config, m in ((JLLMEngine, JEngineConfig, jm),
@@ -236,9 +238,13 @@ def test_unported_configurations_raise(models, knob, value, item):
                                  max_model_len=32, kv_tiers=value,
                                  prefix_cache=False))
         return
-    cls = SamplingParams if knob == "tenant_id" else EngineConfig
+    from paddle_tpu_torch.serving.fleet import InProcessReplica
+
+    assert SamplingParams(tenant_id="t1").tenant_id == "t1"
     with pytest.raises(ValueError, match=item):
-        cls(**{knob: value})
+        InProcessReplica(models[1], EngineConfig(
+            tp_degree=value, block_size=4, max_num_seqs=2,
+            max_model_len=32))
 
 
 @pytest.mark.parametrize("knob,value", [
