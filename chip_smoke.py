@@ -345,6 +345,37 @@ non-zero (nothing is caught and passed over):
                over loopback TCP, the decode worker SIGKILLed mid-run:
                8 of 8 token-identical to one engine, every request
                finished once; worker start-up s and peer ship MB/s.
+27. tp_serving_features — what the fleet, the tiers and speculative
+               decoding bring at ``tp_degree=2`` (``tools/llama3_8b_tp.
+               py``), both ranks on this card through the testing hook as
+               in phase 25. (a) f32 with 2 of the 32 layers, each case
+               token-identical to one rank on the same weights: phase 4's
+               workload exported mid-decode by a tp 1 engine and imported
+               by a tp 2 one, then the other way round (every ship a
+               reshard, one prompt token computed a request); a tp 1
+               replica drained into a tp 2 peer behind a ``FleetRouter``,
+               clean (0 tokens recomputed) and under one
+               ``serving.kv_scatter`` fault (a recompute fallback); phase
+               23's over-pool request (3000 + 32 tokens on 64 device +
+               512 host blocks) at tp 2 against an untiered tp 1 engine;
+               phase 4's prompts with 16 new tokens (cut for the run's
+               time) through a tp 2 spec engine whose draft is its
+               target (4 drafts a row) against tp 1, with equal draft
+               counters. (b) bf16, full depth, each 8B engine built after
+               the last one is dropped: phase 26 (b)'s prefill/decode
+               pair with the decode replica at tp 2 (ships, bytes,
+               export / import / gather / scatter ms, client TTFT and
+               TPOT p50 beside phase 26's, K1 per rank); phase 23's
+               over-pool request at tp 2 against an untiered tp 2 engine
+               (identical tokens; demotes, mirror steps, K1 per rank);
+               phase 9's draft over a tp 2 target (draft ms, acceptance,
+               TPOT beside phase 9's; K1 per rank, K2 on rank 0 only);
+               the greedy streams against phase 4's, with the logit rows
+               where they leave it (spec). K1 at a rank's heads (16 / 4)
+               against its plain version at phase 3's tolerance: with the
+               mirror as its second pool at the tiered engine's first
+               mirror step, and at the spec engine's first verify step.
+               Peak memory per rank for each.
 
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
@@ -353,13 +384,17 @@ kernel, train, spec and naive generate for the flash forward, and
 eager_train and trainstep_scaler (phase 15), fed_train (phase 18),
 tensor_api (phase 20), layer_api (phase 21), layer_trainstep (phase
 22) and long_tail (phase 24's packed flash wrapper) for K2-K4, and tiers (phase 23's tiered engines), tp (phase 25's
-two ranks, summed) and fleet (phase 26 (b)'s two replicas) for K1; on the
+two ranks, summed), fleet (phase 26 (b)'s two replicas) and tp_disagg,
+tp_tiers, tp_spec (phase 27 (b)'s paths, every rank) for K1, tp_spec
+for K2; on the
 paths that replay graphs they are the launches the card ran, the eager
 warm-ups plus captured x replays — error, times, bound, library time;
-``spec_shapes``, ``generate_shapes``, ``tiers_shapes``, ``tp_shapes`` and
-``fleet_shapes`` repeat them at those paths' shapes),
+``spec_shapes``, ``generate_shapes``, ``tiers_shapes``, ``tp_shapes``,
+``fleet_shapes``, ``tp_tiers_shapes`` and ``tp_spec_shapes`` repeat them
+at those paths' shapes),
 nvidia-smi's line, and last ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import os
 import re
@@ -2352,6 +2387,13 @@ def phase_layer_trainstep(dev, fe):
     return res
 
 
+def _rank_heads(eng):
+    """(query heads, kv heads, head_dim) of one rank of ``eng``: the
+    model's at tp_degree 1, a k-th of the heads at tp_degree k."""
+    attn = eng.model.llama.layers[0].self_attn
+    return attn.n_heads, int(eng._kcs.shape[3]), int(eng._kcs.shape[4])
+
+
 def _tiers_k1(dev, eng, arrays, flush):
     """K1 at one tiered step's tables (``arrays``: bt, cu, ctx,
     num_seqs of a step whose table names the host tier), on the tiered
@@ -2363,10 +2405,7 @@ def _tiers_k1(dev, eng, arrays, flush):
 
     bt, cu, ctx, ns = (torch.from_numpy(a).to(dev) for a in arrays)
     ns = ns.reshape(1)
-    mcfg = eng.model.config
-    h, d = mcfg.num_attention_heads, mcfg.hidden_size // \
-        mcfg.num_attention_heads
-    kh = mcfg.num_key_value_heads
+    h, kh, d = _rank_heads(eng)
     t_total = int(eng._ragged_T)
     gen = torch.Generator(device=dev).manual_seed(23)
     q = torch.randn((t_total, h, d), generator=gen, device=dev,
@@ -2432,10 +2471,7 @@ def _step_k1(dev, eng, arrays, flush):
 
     bt, cu, ctx, ns = (torch.from_numpy(a).to(dev) for a in arrays)
     ns = ns.reshape(1)
-    mcfg = eng.model.config
-    h, d = mcfg.num_attention_heads, mcfg.hidden_size // \
-        mcfg.num_attention_heads
-    kh = mcfg.num_key_value_heads
+    h, kh, d = _rank_heads(eng)
     t_total = int(eng._ragged_T)
     gen = torch.Generator(device=dev).manual_seed(26)
     q = torch.randn((t_total, h, d), generator=gen, device=dev,
@@ -2942,6 +2978,305 @@ def phase_fleet(dev, serve):
     return res
 
 
+class _FirstVerifyStep:
+    """Keeps the index arrays ``(bt, cu, ctx, num_seqs)`` of the engine's
+    first ragged step that verifies drafts (a row of 1 + d tokens
+    mid-context)."""
+
+    def __init__(self, eng):
+        self.first = None
+        self._eng = eng
+        inner = eng._dispatch
+
+        def dispatch(reqs, key, arrays):
+            if self.first is None and any(r.draft_tokens for r in reqs):
+                self.first = tuple(np.array(a) for a in arrays[1:5])
+            return inner(reqs, key, arrays)
+
+        eng._dispatch = dispatch
+
+    def close(self):
+        self._eng.__dict__.pop("_dispatch", None)
+        self._eng = None
+
+
+def _tp_f32_cases(dev):
+    """Phase 27 (a): f32 at 2 of the 32 layers, each case token-identical
+    to one rank on the same weights."""
+    from paddle_tpu_torch.tools import llama3_8b_tiers as TT
+    from paddle_tpu_torch.tools import llama3_8b_tp as TPC
+
+    t0 = time.perf_counter()
+    with _PlainCalls() as plain:
+        ships = TPC.ships_and_handoff(dev)
+    n = len(ships["tp1_to_tp2"]["export_ms"])
+    for name in ("tp1_to_tp2", "tp2_to_tp1", "handoff_clean",
+                 "handoff_fault"):
+        r = ships[name]
+        assert r["tokens_identical"] == r["requests"] == n, (name, r)
+    for name in ("tp1_to_tp2", "tp2_to_tp1"):
+        r = ships[name]
+        # every ship a reshard, one prompt token computed a request
+        assert r["reshards"] == r["ships"] == n, (name, r)
+        assert r["computed_prompt_tokens"] == n, (name, r)
+    for name in ("handoff_clean", "handoff_fault"):
+        r = ships[name]
+        assert r["finished_once"] and r["finish"] == {"length": n}, r
+        assert r["ships"] >= 1 and r["reshards"] == r["ships"], r
+    clean, fault = ships["handoff_clean"], ships["handoff_fault"]
+    assert clean["tokens_recomputed"] == 0, clean
+    assert clean["recompute_fallbacks"] == 0, clean
+    assert fault["recompute_fallbacks"] >= 1, fault
+    assert ships["workers_exited"], ships
+    ships["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    op = TT.over_pool(TPC.model(dev, "float32", TPC.PARITY_LAYERS),
+                      tp=TPC.TP, reference=(TPC.model(
+                          dev, "float32", TPC.PARITY_LAYERS), 1))
+    tiers = op["result"]
+    assert tiers["tokens_identical"], tiers
+    assert tiers["new_tokens"] == TT.MAX_NEW_TOKENS, tiers
+    assert tiers["num_demotes"] > 0 and tiers["mirror_steps"] > 0, tiers
+    tiers["seconds"] = time.perf_counter() - t0
+    del op
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with _PlainCalls() as plain2:
+        spec = TPC.spec_parity(dev)
+    assert spec["token_identical"], spec
+    assert spec["tp2"]["draft_is_a_copy"], spec
+    for key in ("proposed", "accepted"):
+        assert spec["tp1"][key] == spec["tp2"][key], spec
+    assert spec["tp2"]["accepted"] > 0, spec      # draft = target
+    spec["seconds"] = time.perf_counter() - t0
+    assert not any(plain.calls.values()) and \
+        not any(plain2.calls.values()), (plain.calls, plain2.calls)
+    torch.cuda.empty_cache()
+    return {"ships": ships, "tiers": tiers, "spec": spec}
+
+
+def _rank_counts(eng, window, reports) -> dict:
+    """K1 and K2 launches by rank over a path: rank 0's from its step
+    window (``executed_launches``), the workers' from ``reports``."""
+    ex = window["executed_launches"]
+    return {"rank0": {"k1": ex.get("ragged_paged_attention", 0),
+                      "k2": ex.get("flash_attention_fwd", 0)},
+            **{f"rank{w['rank']}": {"k1": w["k1_launches"],
+                                    "k2": w["k2_launches"]}
+               for w in reports}}
+
+
+def phase_tp_features(dev, serve, serve_rows, fleet, spec9):
+    """Phase 27 (see the module docstring). ``serve`` is phase 4's result
+    (its tokens and times) and ``serve_rows`` its greedy logit rows;
+    ``fleet`` and ``spec9`` are phases 26 and 9's, beside which the tp 2
+    numbers are reported (None: not reported, when the phase runs
+    alone)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.tools import llama3_8b_fleet as FL
+    from paddle_tpu_torch.tools import llama3_8b_serve
+    from paddle_tpu_torch.tools import llama3_8b_tiers as TT
+    from paddle_tpu_torch.tools import llama3_8b_tp as TPC
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = _tp_f32_cases(dev)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev).zero_
+    greedy = [f"r{i}" for i in range(llama3_8b_serve.NUM_REQUESTS - 1)]
+    peaks = {}
+
+    # (b) bf16, full depth: the prefill/decode pair, decode at tp 2
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = llama3_8b_serve.target_model(dev)
+    with _PlainCalls() as plain:
+        dg = FL.disagg(model, decode=(llama3_8b_serve.target_model(dev),
+                                      TPC.TP))
+    d = dg["result"]
+    assert d["finished_once"], d
+    assert d["ships"] == llama3_8b_serve.NUM_REQUESTS, d
+    assert d["recompute_fallbacks"] == 0 and d["tokens_recomputed"] == 0, d
+    k1d = d["k1_launches_by_rank"]
+    assert k1d["decode"][0] == k1d["decode"][1] > 0, k1d
+    tokens = d.pop("tokens")
+    d["greedy_equal_to_serve"] = sum(tokens[g] == serve["tokens"][g]
+                                     for g in greedy)
+    d["greedy_first_divergence"] = {
+        g: next((i for i, (x, y) in enumerate(zip(tokens[g],
+                                                  serve["tokens"][g]))
+                 if x != y), None) for g in greedy}
+    d["tokens_per_s"] = d["generated_tokens"] / d["wall_s"]
+    d["fleet_tp1"] = fleet and {k: fleet["disagg_bf16"][k] for k in (
+        "ttft_ms_p50", "tpot_ms_p50", "tokens_per_s", "export_ms_p50",
+        "import_ms_p50", "gather_ms_p50", "scatter_ms_p50")}
+    d["serve"] = {k: serve[k] for k in ("ttft_ms_p50", "tpot_ms_p50",
+                                        "tokens_per_s")}
+    d["seconds"] = time.perf_counter() - t0
+    peaks["disagg"] = {"rank0": torch.cuda.max_memory_allocated(dev),
+                       "rank1": d["worker_max_memory_allocated"]["decode"]}
+    procs = list(dg["replicas"][1].engine._tp._procs)
+    gone = _freed(model, dg["replicas"][1].engine)
+    del dg, model
+    gc.collect()
+    assert not any(g() for g in gone), "the tp 2 fleet outlived its refs"
+    assert not any(p.is_alive() for p in procs), "a TP worker outlived it"
+    torch.cuda.empty_cache()
+
+    # the tiers: 3000 + 32 tokens on 64 device + 512 host blocks at tp 2
+    # against an untiered tp 2 engine (the same bf16 sums: identical)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _PlainCalls() as plain2:
+        op = TT.over_pool(llama3_8b_serve.target_model(dev), tp=TPC.TP,
+                          reference=(llama3_8b_serve.target_model(dev),
+                                     TPC.TP))
+    ti = op["result"]
+    eng = op["engine"]
+    assert ti["finish_reason"] == "length", ti
+    assert ti["tokens_identical"], ti
+    assert ti["num_demotes"] > 0 and ti["mirror_steps"] > 0, ti
+    assert op["mirror"].first is not None
+    (w1,) = eng._tp.report()
+    ti["kernel_launches"] = _rank_counts(eng, op["window"], [w1])
+    assert ti["kernel_launches"]["rank0"]["k1"] == w1["k1_launches"] > 0, ti
+    ti["k1_mirror_step"] = _tiers_k1(dev, eng, op["mirror"].first, flush)
+    ti["seconds"] = time.perf_counter() - t0
+    peaks["tiers"] = {"rank0": torch.cuda.max_memory_allocated(dev),
+                      "rank1": w1["max_memory_allocated"]}
+    procs = list(eng._tp._procs) + list(op["untiered"]._tp._procs)
+    gone = _freed(eng, op["untiered"])
+    del op, eng
+    gc.collect()
+    assert not any(g() for g in gone), "the tiered engines outlived refs"
+    assert not any(p.is_alive() for p in procs), "a TP worker outlived it"
+    torch.cuda.empty_cache()
+
+    # spec: phase 9's Llama-3.2-1B-width draft over a tp 2 target
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = TPC.spec_engine(dev)
+    setup_s = time.perf_counter() - t0
+    spec = eng._spec
+    k = eng.cfg.num_spec_tokens
+    rids, _ = llama3_8b_serve.add_requests(eng)
+    propose, draft_ms = spec.propose, []
+
+    def timed_propose(lists):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = propose(lists)
+        torch.cuda.synchronize()
+        draft_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    spec.propose = timed_propose
+    verify = _FirstVerifyStep(eng)
+    eng._tp.report(reset=True)            # rank 1's counts set to 0
+    tsnap, dsnap = eng._graphs.snapshot(), spec.graphs.snapshot()
+    with _PlainCalls() as plain3, _GreedyRows(
+            eng, greedy, stop=serve["tokens"]) as rows:
+        t1 = time.perf_counter()
+        step_ms = []
+        while eng.has_unfinished():
+            t2 = time.perf_counter()
+            eng.step()
+            step_ms.append((time.perf_counter() - t2) * 1e3)
+            rows.after_step()
+            assert len(step_ms) < 1000, "engine failed to converge"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    (w1,) = eng._tp.report()
+    verify.close()
+    twin, dwin = eng._graphs.since(tsnap), spec.graphs.since(dsnap)
+    counts = _rank_counts(eng, twin, [w1])
+    counts["rank0"]["k2"] = dwin["executed_launches"].get(
+        "flash_attention_fwd", 0)
+    steps = eng.metrics.engine_steps
+    layers = eng.model.config.num_hidden_layers
+    dlayers = spec.model.config.num_hidden_layers
+    # uncaptured target: K1 once a layer a step on each rank; the draft
+    # (captured, rank 0 only): K2 once a layer and forward in each replay
+    # (executed: the replays and the new buckets' warm-ups)
+    assert counts["rank0"]["k1"] == counts["rank1"]["k1"] == \
+        layers * steps, (counts, steps)
+    k2_replayed = dwin["replayed_launches"].get("flash_attention_fwd", 0)
+    assert k2_replayed == dlayers * k * len(draft_ms) > 0, (counts, dwin)
+    assert counts["rank1"]["k2"] == 0, counts
+    assert verify.first is not None
+    tokens = {rid: list(eng.get_request(rid).generated) for rid in rids}
+    for rid in rids:
+        r = eng.get_request(rid)
+        assert r.finish_reason == "length", (rid, r.finish_reason)
+        assert len(r.generated) == llama3_8b_serve.MAX_NEW_TOKENS
+    assert eng.block_manager.num_free_blocks == eng.cfg.num_blocks
+    m = eng.metrics
+    sp = {"setup_s": setup_s, "handoff_s": eng._tp.handoff_s,
+          "num_spec_tokens": k, "steps": steps, "step_ms": step_ms,
+          "wall_s": wall,
+          "tokens_per_s": sum(len(v) for v in tokens.values()) / wall,
+          "ttft_ms_p50": float(np.percentile(m.ttfts_s, 50) * 1e3),
+          "tpot_ms_p50": float(np.percentile(m.tpots_s, 50) * 1e3),
+          "spec_proposed": eng.num_spec_proposed,
+          "spec_accepted": eng.num_spec_accepted,
+          "spec_acceptance_rate": eng.spec_acceptance_rate,
+          "proposals": len(draft_ms),
+          "draft_ms_p50": float(np.percentile(draft_ms, 50)),
+          "draft_captures": dwin["captures"],
+          "k2_replayed": k2_replayed,
+          "kernel_launches": counts,
+          "spec_tp1": spec9 and {key: spec9[key] for key in (
+              "tpot_ms_p50", "draft_ms_p50", "spec_acceptance_rate",
+              "tokens_per_s")},
+          "greedy_equal_to_serve": sum(tokens[g] == serve["tokens"][g]
+                                       for g in greedy),
+          "greedy_divergence_rows": _divergences(
+              serve_rows, serve["tokens"], rows.rows,
+              {g: tokens[g] for g in greedy}, names=("tp1", "tp2"))}
+    sp["k1_verify_step"] = _step_k1(dev, eng, verify.first, flush)
+    peaks["spec"] = {"rank0": torch.cuda.max_memory_allocated(dev),
+                     "rank1": w1["max_memory_allocated"]}
+    assert not any(any(c.calls.values()) for c in (plain, plain2, plain3)), \
+        (plain.calls, plain2.calls, plain3.calls)
+    del spec.propose
+    procs = list(eng._tp._procs)
+    gone = [weakref.ref(x) for x in (eng, eng.model, spec, spec.model)]
+    del eng, spec, propose, timed_propose, rows, verify, flush
+    gc.collect()
+    assert not any(g() for g in gone), "the spec engine outlived its refs"
+    assert not any(p.is_alive() for p in procs), "a TP worker outlived it"
+    torch.cuda.empty_cache()
+    by_path = {"disagg": {"prefill": {"rank0": {
+                   "k1": k1d["prefill"][0], "k2": 0}},
+                          "decode": {f"rank{i}": {"k1": n, "k2": 0}
+                                     for i, n in enumerate(k1d["decode"])}},
+               "tiers": ti["kernel_launches"],
+               "spec": sp["kernel_launches"]}
+    res = {"phase": "tp_serving_features", "model": "llama3_8b",
+           "tp_degree": TPC.TP,
+           "placement": "both ranks on cuda:0 through the testing hook "
+                        "paddle_tpu_torch.testing.tp_hooks."
+                        "ranks_share_one_device",
+           "f32": f32, "disagg_bf16": d, "tiers_bf16": ti, "spec_bf16": sp,
+           "max_memory_allocated": peaks, "kernel_launches": by_path,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
+def _launch_sum(counts: dict, kernel: str) -> int:
+    """The launches of ``kernel`` ("k1" or "k2") in a nested count by
+    replica and rank."""
+    if kernel in counts:
+        return counts[kernel]
+    return sum(_launch_sum(c, kernel) for c in counts.values())
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -2982,8 +3317,9 @@ def main():
     ti = phase_tiers(dev)
     lg = phase_long_tail(dev)
     tpr = phase_tp(dev, s, serve_rows)
-    del serve_rows
     flt = phase_fleet(dev, s)
+    tpf = phase_tp_features(dev, s, serve_rows, flt, sp)
+    del serve_rows
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
     dr = fl["fwd_only"]["draft_shapes"]
@@ -3001,10 +3337,13 @@ def main():
                 "ragged_paged_attention"],
             "tiers": ti["kernel_launches"],
             "tp": sum(tpr["kernel_launches"].values()),
-            "fleet": flt["kernel_launches"]},
+            "fleet": flt["kernel_launches"],
+            **{f"tp_{name}": _launch_sum(counts, "k1")
+               for name, counts in tpf["kernel_launches"].items()}},
         "flash_attention_fwd": {
             "train": tr["kernel_launches"]["flash_attention_fwd"],
             "spec": sp["kernel_launches"]["flash_attention_fwd"],
+            "tp_spec": _launch_sum(tpf["kernel_launches"]["spec"], "k2"),
             "generate_naive": bk["generate"]["kernel_launches"][
                 "flash_attention_fwd"]},
         "flash_attention_bwd_dq": {
@@ -3093,6 +3432,15 @@ def main():
         "library_ms": None}
     # K1 at phase 26's decode replica's first step after an import
     rows[0]["fleet_shapes"] = flt["disagg_bf16"]["k1_first_after_import"]
+    # K1 at a TP rank's heads (phase 27: 16 query, 4 kv) with the host
+    # tier's mirror as its second pool, and at the spec verify rows;
+    # each path's launches by rank
+    rows[0]["tp_tiers_shapes"] = {
+        **tpf["tiers_bf16"]["k1_mirror_step"],
+        "launches_by_rank": tpf["kernel_launches"]["tiers"]}
+    rows[0]["tp_spec_shapes"] = {
+        **tpf["spec_bf16"]["k1_verify_step"],
+        "launches_by_rank": tpf["kernel_launches"]["spec"]}
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

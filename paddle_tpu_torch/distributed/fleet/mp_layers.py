@@ -5,8 +5,8 @@ On one card each layer computes what its unsharded counterpart does, with
 the JAX package's parameter shapes and initializers (``XavierNormal``
 weights, ``Constant(0)`` biases), so their keys and draws match.
 ``mark_placements`` and ``sharding_constraint`` are no-ops. A model-parallel
-group of more than one rank is refused: sharded layers come with C3
-(ROADMAP queue 1, item 5).
+group of more than one rank is refused: sharded training layers come with
+slice D (ROADMAP queue 1, distributed training).
 """
 from __future__ import annotations
 
@@ -24,8 +24,8 @@ def _check_degree(mp_group):
     if n > 1:
         raise NotImplementedError(
             f"model-parallel degree {n}: the port's tensor-parallel layers "
-            "run at degree 1; sharded layers come with C3 (ROADMAP queue "
-            "1, item 5)")
+            "run at degree 1; sharded training layers come with slice D "
+            "(ROADMAP queue 1, distributed training)")
 
 
 def mark_placements(param, *placements_by_axis, mesh=None, **named):

@@ -559,9 +559,11 @@ class LlamaForCausalLM(nn.Module):
         KV-cache serving engine (token-identical to the naive loop for
         greedy decoding); default: the engine for greedy decoding, the
         naive full-recompute loop otherwise. ``use_cache=False`` forces
-        the naive loop, which draws sampled tokens from the JAX package's
-        global generator: not ported yet (queue 1 item 7, A1's
-        ``core/generator.py``), so it is refused. The cached path keeps
+        the naive loop, which samples with one ``threefry.categorical``
+        draw a token over the batch's last logits divided by the
+        temperature, its key the global generator's next key (``core/
+        generator.py``), as the JAX package's ``jax.random.categorical``
+        draws. The cached path keeps
         its engine on the model for the next call; the model and that
         engine refer to each other, so call :meth:`close` when done to
         free both without the cycle collector."""

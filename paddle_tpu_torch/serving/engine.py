@@ -84,8 +84,11 @@ processes: this one is rank 0 and keeps every host-side structure, k - 1
 spawned workers hold the other shards of the weights and of the KV
 cache, and each step's attention and MLP partial sums meet in two
 all-reduces a layer (:mod:`paddle_tpu_torch.serving.tp`). At k = 1 none
-of it exists. Refused at k > 1, each naming the ROADMAP item that brings
-it: speculative decoding and ``kv_tiers``.
+of it exists. Every knob of the ragged path serves at k > 1: the tiers
+(each rank keeps its shard of the host pool and of the mirror, and the
+tier moves go to every rank through the TP command queue), speculative
+decoding (the draft runs whole on rank 0, the verify rows go through the
+k-rank step) and the fleet's ships below.
 
 The fleet's half (:mod:`paddle_tpu_torch.serving.fleet` drives it):
 :meth:`LLMEngine.export_kv` / :meth:`LLMEngine.import_kv` move a
@@ -98,12 +101,15 @@ mesh order, each the raw C-order bytes of the (L, n, BS, KH, D) gather
 between the two packages unchanged. An import lands in the existing
 caches in place. A drain's sweep parks each running request's table
 for a post-abort ``export_kv`` (the router's block-transfer hand-off).
-At ``tp_degree > 1`` the fleet's KV and prefix ships raise (queue 1
-item 14); a payload framed in k shards lands in a k = 1 engine through
-:func:`~paddle_tpu_torch.distributed.redistribute.redistribute_host`.
+At ``tp_degree = k`` the payload's frame r is rank r's shard (gathered
+through the TP command queue); an import in this engine's layout
+scatters frame r to rank r, one in another layout (an exporter of
+another degree) reshards through :func:`~paddle_tpu_torch.distributed.
+redistribute.redistribute_host` first and counts in ``num_kv_reshards``.
 """
 from __future__ import annotations
 
+import copy
 import itertools
 import threading
 import time
@@ -234,18 +240,6 @@ class EngineConfig:
             raise ValueError(
                 "speculative decoding takes BOTH draft_model and "
                 "num_spec_tokens >= 1, or neither")
-        # what the port does not serve yet, named with the item that
-        # brings it (ROADMAP.md, queue 1)
-        later = []
-        if self.tp_degree > 1 and self.draft_model is not None:
-            later.append(f"draft_model at tp_degree={self.tp_degree} "
-                         f"(speculative decoding at TP, queue 1 item 10)")
-        if self.tp_degree > 1 and self.kv_tiers is not None:
-            later.append(f"kv_tiers at tp_degree={self.tp_degree} (tiered "
-                         f"KV at TP, queue 1 item 11)")
-        if later:
-            raise ValueError("not ported to paddle_tpu_torch yet: "
-                             + "; ".join(later))
         # max_num_seqs / max_batched_tokens validate in SchedulerConfig
 
 
@@ -379,15 +373,17 @@ class _KVSwapper:
     temporary). Insertion order makes a reused host slot's last writer
     win. ``copy_in`` fences, then writes the device caches IN PLACE
     (``index_copy_`` from pinned memory): the captured graphs hold the
-    caches' addresses. The tier's demotes and promotes go through the
-    same two halves (:meth:`spill`, :meth:`restore`), :meth:`gather`
-    reads blocks of either tier to the host (a fleet export), and
-    :meth:`scatter` writes shipped bytes into device blocks in place (a
-    fleet import)."""
+    caches' addresses. The tier's demotes (:meth:`demote`: the host
+    tier's device mirror ``htk`` / ``htv``, then a spill) and promotes
+    (:meth:`restore`) go through the same halves, :meth:`gather` reads
+    blocks of either tier to the host (a fleet export, a session tail),
+    and :meth:`scatter` writes host bytes into device blocks in place (a
+    fleet import, a resumed tail)."""
 
-    def __init__(self, kcs, vcs, host_k, host_v):
+    def __init__(self, kcs, vcs, host_k, host_v, htk=None, htv=None):
         self._kcs, self._vcs = kcs, vcs
         self._host_k, self._host_v = host_k, host_v
+        self._htk, self._htv = htk, htv
         self._on_card = kcs.device.type == "cuda"
         # request_id -> (host slot ids, K staging, V staging, event)
         self._pending: Dict[str, tuple] = {}
@@ -421,6 +417,24 @@ class _KVSwapper:
             done = torch.cuda.Event()
             done.record()
         self._pending[key] = (list(host_slots), *staged, done)
+
+    def mirror(self, dev_blocks: List[int], host_slots: List[int]):
+        """Copy device blocks into the host tier's device mirror (one
+        device-side ``index_copy_``, stream-ordered before the next step,
+        so a demoted block is attendable the same iteration)."""
+        didx = torch.as_tensor(dev_blocks, dtype=torch.long,
+                               device=self._kcs.device)
+        sidx = torch.as_tensor(host_slots, dtype=torch.long,
+                               device=self._kcs.device)
+        for cache, mirror in ((self._kcs, self._htk),
+                              (self._vcs, self._htv)):
+            mirror.index_copy_(1, sidx, cache.index_select(1, didx))
+
+    def demote(self, key, dev_blocks: List[int], host_slots: List[int]):
+        """A tier demote: the mirror copy, then the spill into the host
+        pool (the swap source of truth) under ``key``."""
+        self.mirror(dev_blocks, host_slots)
+        self.spill(key, dev_blocks, host_slots)
 
     def fence(self):
         """Land every in-flight spill in the host pool (blocking). Runs
@@ -654,16 +668,22 @@ class LLMEngine:
         else:
             self._host_k = self._host_v = None
         # tiered: the host tier's device mirror, the ragged attention's
-        # second pool, allocated once (the captured graphs hold it)
+        # second pool, allocated once (the captured graphs hold it); at
+        # k > 1 each rank holds its kv heads of it
         if self._tiered:
             mshape = (mcfg.num_hidden_layers, self.cfg.num_host_blocks,
-                      self.cfg.block_size, kh, hd)
+                      self.cfg.block_size, kh // tp, hd)
             self._htk = torch.zeros(mshape, dtype=cache_dtype,
                                     device=self.device)
             self._htv = torch.zeros(mshape, dtype=cache_dtype,
                                     device=self.device)
         else:
             self._htk = self._htv = None
+        # the draft runs whole on rank 0: a draft that IS the target
+        # model takes a copy before the hand-off cuts the target down
+        self._draft = self.cfg.draft_model
+        if tp > 1 and self._draft is model:
+            self._draft = copy.deepcopy(model)
         if tp > 1:
             # the workers start and take their weights now; rank 0's
             # model keeps only its own shards from here on
@@ -671,6 +691,7 @@ class LLMEngine:
                 num_blocks=self.cfg.num_blocks,
                 block_size=self.cfg.block_size,
                 num_host_blocks=self.cfg.num_host_blocks,
+                tiered=self._tiered,
                 cache_dtype=_dtype_name(cache_dtype)))
             weakref.finalize(self, self._tp.close)
             try:
@@ -679,11 +700,12 @@ class LLMEngine:
                 self._tp.close()
                 raise
             self._swapper = _tp.TPSwapper(self._tp, self._kcs, self._vcs,
-                                          self._host_k, self._host_v)
+                                          self._host_k, self._host_v,
+                                          self._htk, self._htv)
         else:
             self._tp = None
             self._swapper = _KVSwapper(self._kcs, self._vcs, self._host_k,
-                                       self._host_v)
+                                       self._host_v, self._htk, self._htv)
         # at k > 1 the step runs uncaptured (gloo collectives cannot be
         # captured in a CUDA graph)
         self._graphs = StepGraphs(self.device, counters=kernel_launches,
@@ -718,7 +740,7 @@ class LLMEngine:
                     "speculative decoding rides the ragged step (verify "
                     "rows are mid-context multi-token rows) — it cannot "
                     "run with ragged=False")
-            draft = self.cfg.draft_model
+            draft = self._draft
             dcfg = getattr(draft, "config", None)
             dv = getattr(dcfg, "vocab_size", None)
             if dv != mcfg.vocab_size:
@@ -1043,12 +1065,6 @@ class LLMEngine:
         return self.scheduler.has_unfinished()
 
     # -- fleet KV-ship ---------------------------------------------------
-    def _require_one_rank(self, what: str) -> None:
-        if self.tp_degree > 1:
-            raise ValueError(
-                f"{what} at tp_degree={self.tp_degree} is not ported to "
-                f"paddle_tpu_torch yet (the fleet at TP, queue 1 item 14)")
-
     def _wire_src_layout(self, meta: dict, global_shape) -> Layout:
         """The layout a shipped KV payload's frames are in. Absent
         stanza = the flat format (one replicated frame). A malformed or
@@ -1068,10 +1084,12 @@ class LLMEngine:
 
     def _land_wire(self, payload: bytes, offset: int, src_layout: Layout,
                    global_shape) -> torch.Tensor:
-        """Parse per-shard wire frames and land them as one global host
-        tensor in this engine's cache orientation and dtype. A payload
-        framed in k shards (an exporter at tp_degree k) reassembles on
-        the host through ``redistribute_host``."""
+        """Parse per-shard wire frames and land them as this engine's
+        frames stacked by rank, (k, L, n, BS, KH/k, D), host tensors in
+        the caches' dtype: frame r is rank r's shard. A payload in this
+        engine's layout lands as it is; one in another layout (an
+        exporter at another tp_degree) reshards on the host through
+        ``redistribute_host``."""
         words = np.dtype(_WIRE_WORDS[_dtype_name(self._kcs.dtype)])
         local = src_layout.local_shape(global_shape)
         n = int(np.prod(local))
@@ -1082,20 +1100,21 @@ class LLMEngine:
         if src_layout != self.kv_layout:
             frames = redistribute_host(frames, src_layout, self.kv_layout,
                                        global_shape)
-        return _from_wire(self.kv_layout.assemble(frames, global_shape),
-                          self._kcs.dtype)
+        return _from_wire(np.stack(frames), self._kcs.dtype)
 
     def _pack_wire(self, table: List[int]):
-        """The ship of ``table``'s blocks: (shape, payload, k_bytes) —
-        K shard frames then V shard frames, in mesh order."""
+        """The ship of ``table``'s blocks: (global shape, payload,
+        k_bytes) — K shard frames then V shard frames, in mesh order;
+        at k > 1 frame r is rank r's gathered shard, as it is."""
         if self._kvtier is not None:
             self._kvtier.apply_moves()
         k, v = self._swapper.gather(table)
-        k_bytes = b"".join(s.tobytes()
-                           for s in self.kv_layout.shards(_wire_words(k)))
-        payload = k_bytes + b"".join(
-            s.tobytes() for s in self.kv_layout.shards(_wire_words(v)))
-        return list(k.shape), payload, len(k_bytes)
+        if self._tp is None:
+            k, v = k[None], v[None]      # one rank: one frame
+        k_bytes = b"".join(_wire_words(f).tobytes() for f in k)
+        payload = k_bytes + b"".join(_wire_words(f).tobytes() for f in v)
+        L, n, BS, kh, D = k.shape[1:]
+        return [L, n, BS, kh * k.shape[0], D], payload, len(k_bytes)
 
     def _check_wire(self, meta: dict, payload: bytes, nblocks: int,
                     what: str) -> tuple:
@@ -1103,7 +1122,7 @@ class LLMEngine:
         ``ValueError``: shape, dtype, byte count, checksum. Returns
         (global shape, K bytes, source layout)."""
         L, _, BS, KH, D = self._kcs.shape
-        want_shape = [L, nblocks, BS, KH, D]
+        want_shape = [L, nblocks, BS, KH * self.tp_degree, D]
         if list(meta.get("shape", ())) != want_shape or \
                 int(meta.get("blocks", -1)) != nblocks:
             raise ValueError(
@@ -1134,6 +1153,8 @@ class LLMEngine:
         faults.fire(faults.SERVING_KV_SCATTER)
         k = self._land_wire(payload, 0, src_layout, shape)
         v = self._land_wire(payload, k_bytes, src_layout, shape)
+        if self._tp is None:
+            k, v = k[0], v[0]
         self._swapper.scatter(table, k, v)
 
     def export_kv(self, request_id: str):
@@ -1144,7 +1165,6 @@ class LLMEngine:
         tokens, no device table). Sources either a live request's table
         or the drain-parked snapshot of one a drain sweep already
         aborted. Read-only and idempotent — safe under RPC retry."""
-        self._require_one_rank("export_kv")
         covered, table = 0, None
         req = self._requests.get(request_id)
         if req is not None and req.num_cached > 0 \
@@ -1183,8 +1203,9 @@ class LLMEngine:
         byte count or checksum mismatch, draining, cache full, duplicate
         id) raises ``ValueError`` so the transport never mistakes it for
         replica death and the router can fall back to recompute; nothing
-        stays allocated unless admission fully succeeds."""
-        self._require_one_rank("import_kv")
+        stays allocated unless admission fully succeeds. At k > 1 a
+        scatter that a failed rank breaks raises the group's error as it
+        is (the group is broken: no refusal)."""
         if not self.cfg.chunked_prefill:
             raise ValueError(
                 "KV import needs chunked prefill (the imported request "
@@ -1228,6 +1249,8 @@ class LLMEngine:
             # blocks are claimed but nothing is registered yet: a
             # scatter fault must not leak them
             self.block_manager.free(request_id)
+            if self._tp is not None and self._tp.broken:
+                raise        # a rank failed: not a refusal
             raise ValueError(
                 f"request {request_id!r}: KV scatter failed after "
                 f"block allocation ({e}); blocks freed") from e
@@ -1262,7 +1285,6 @@ class LLMEngine:
         corrupt). Returns ``None`` when the hash is unknown or its chain
         was partially evicted since advertisement — staleness is a miss,
         not an error. Read-only and idempotent (RPC-retryable)."""
-        self._require_one_rank("export_prefix")
         if not self.cfg.prefix_cache:
             return None
         resolved = self.block_manager.prefix_blocks_by_hash(chain_hash)
@@ -1295,8 +1317,8 @@ class LLMEngine:
         retry). Clean rejections raise ``ValueError`` (never replica
         death): geometry/checksum mismatch, draining, or a pool whose
         free headroom is all REGISTERED content — a proactive ship must
-        never evict resident cache to make room for speculative bytes."""
-        self._require_one_rank("import_prefix")
+        never evict resident cache to make room for speculative bytes.
+        A failed rank's error is raised as it is, as in ``import_kv``."""
         if not self.cfg.prefix_cache:
             raise ValueError("prefix import needs prefix caching on")
         if self._draining:
@@ -1336,6 +1358,8 @@ class LLMEngine:
             self.block_manager.commit_prefix(rid, tokens, covered)
         except Exception as e:
             self.block_manager.free(rid)
+            if self._tp is not None and self._tp.broken:
+                raise        # a rank failed: not a refusal
             raise ValueError(
                 f"prefix import scatter failed after block allocation "
                 f"({e}); blocks freed") from e

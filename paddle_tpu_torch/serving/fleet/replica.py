@@ -253,17 +253,14 @@ class InProcessReplica(ReplicaHandle):
     THIS replica its own preemption signal — fleet tests drain one
     replica of a pair by calling ``monitor.request()``; a real
     deployment shares the process-global monitor across co-resident
-    replicas (SIGTERM preempts the host, not one engine)."""
+    replicas (SIGTERM preempts the host, not one engine). At
+    ``tp_degree`` k > 1 the engine starts its k - 1 worker ranks with
+    the replica and shuts them down when it goes; its ships carry k
+    frames."""
 
     def __init__(self, model, config: Optional[EngineConfig] = None,
                  replica_id: Optional[str] = None, monitor=None,
                  role: Optional[str] = None):
-        if config is not None and config.tp_degree > 1:
-            # refused before the engine spawns its ranks
-            raise ValueError(
-                f"a fleet replica at tp_degree={config.tp_degree} is not "
-                f"ported to paddle_tpu_torch yet: its KV and prefix ships "
-                f"(the fleet at TP, queue 1 item 14)")
         self.replica_id = replica_id or f"replica-{id(self):x}"
         self.engine = LLMEngine(model, config)
         self.alive = True

@@ -1,5 +1,5 @@
 """TieredKVStore — policy and byte movement for the device/host KV
-hierarchy (port of ``paddle_tpu/serving/kvtier/store.py``, one card).
+hierarchy (port of ``paddle_tpu/serving/kvtier/store.py``).
 
 The :class:`~paddle_tpu_torch.serving.block_manager.BlockManager` owns the
 *mechanism*: virtual block ids, the ordered ``_tier_moves`` ledger,
@@ -27,6 +27,12 @@ actual bytes:
   chain off-device between turns, and ``claim_resume`` re-shares it —
   walking the ladder down to plain recompute when the chain was partly
   or wholly evicted, never losing or duplicating a block.
+
+Every byte move goes through the engine's swapper, so at ``tp_degree``
+k > 1 it reaches every rank: demotes, promotes and mirror copies queue
+for the workers in the order rank 0 runs them (ahead of the step that
+reads them), a session tail is gathered from and scattered back to all
+k ranks, framed per rank as the JAX package frames it.
 
 Ordering contract: swap-out spills and demote copies queue in the
 swapper in record order and land (``fence``) before the host pool is
@@ -114,7 +120,9 @@ class KVTiersConfig:
 class SessionRecord:
     """One parked (or park-eligible) multi-turn session: the full token
     chain whose KV survives the request, plus the partial tail block's
-    bytes that the trie cannot hold, as host tensors (L, 1, BS, KH, D)."""
+    bytes that the trie cannot hold, as host tensors: (L, 1, BS, KH, D)
+    at one rank, framed per rank at ``tp_degree`` k > 1, (k, L, 1, BS,
+    KH/k, D) (the JAX package's ``tail_k`` layout)."""
 
     session_id: str
     tokens: List[int]
@@ -186,20 +194,15 @@ class TieredKVStore:
                 if last[p[1]] == k]
 
     def _demote_bytes(self, run: List[tuple]) -> None:
-        eng = self._eng
         pairs = self._dedupe_last([(dev, slot) for _, dev, slot in run])
-        devs = [d for d, _ in pairs]
-        slots = [s for _, s in pairs]
-        didx = torch.as_tensor(devs, dtype=torch.long, device=eng.device)
-        sidx = torch.as_tensor(slots, dtype=torch.long, device=eng.device)
         # the device mirror the tiered step reads as its second pool —
-        # updated incrementally, never re-uploaded wholesale
-        for cache, mirror in ((eng._kcs, eng._htk), (eng._vcs, eng._htv)):
-            mirror.index_copy_(1, sidx, cache.index_select(1, didx))
-        # and the host pool, the swap source of truth: one async copy,
-        # landed by the swapper's next fence
+        # updated incrementally, never re-uploaded wholesale — and the
+        # host pool, the swap source of truth: one async copy, landed by
+        # the swapper's next fence
         self._spills += 1
-        eng._swapper.spill(("tier", self._spills), devs, slots)
+        self._eng._swapper.demote(("tier", self._spills),
+                                  [d for d, _ in pairs],
+                                  [s for _, s in pairs])
 
     def _promote_bytes(self, run: List[tuple]) -> None:
         pairs = self._dedupe_last([(slot, dev) for _, slot, dev in run])
@@ -339,10 +342,7 @@ class TieredKVStore:
             self.num_resume_recomputes += 1
         elif tail_block is not None:
             try:
-                idx = torch.as_tensor([tail_block], dtype=torch.long,
-                                      device=eng.device)
-                eng._kcs.index_copy_(1, idx, rec.tail_k.to(eng.device))
-                eng._vcs.index_copy_(1, idx, rec.tail_v.to(eng.device))
+                eng._swapper.scatter([tail_block], rec.tail_k, rec.tail_v)
             except Exception:
                 # a failed tail restore must not strand the resumed
                 # claim: free the whole chain before the error

@@ -44,9 +44,21 @@ EngineConfig(tp_degree=k))`` with k > 1 runs k processes:
   copy-on-write copies and the host-swap spills and restores are queued
   in the order rank 0 runs them and go out ahead of the next step
   (:meth:`TPGroup.flush`), so a worker that died fails that step;
-* **host swap.** Each rank spills its own cache shard to its own host
-  pool, (L, NHB, BS, KH/k, D): rank r's pool is frame r of the JAX
-  engine's (tp, L, NHB, BS, KH/tp, D) pool;
+* **host swap and the tiers.** Each rank spills its own cache shard to
+  its own host pool, (L, NHB, BS, KH/k, D): rank r's pool is frame r of
+  the JAX engine's (tp, L, NHB, BS, KH/tp, D) pool. A tiered engine's
+  ranks each keep their shard of the host tier's device mirror, (L, NHB,
+  BS, KH/k, D), which their step hands to the ragged attention as its
+  second pool; a demote's mirror copy is queued like a spill;
+* **gather and scatter.** A fleet ship or a session tail moves one
+  request's blocks between the ranks' caches and rank 0's host: a gather
+  brings every rank's shard of the named blocks to rank 0 (frame r =
+  rank r's, the JAX engine's per-shard wire frame), a scatter sends rank
+  r its frame and the rank writes it into its cache in place (the
+  captured graphs and the kernel hold the caches' addresses), then
+  answers, so a rank that died fails the scatter itself. Both go out
+  after the queued operations, in order, and rank 0 runs its own share
+  while the workers run theirs;
 * **failure.** An error in any command marks the group broken: the step
   fails with ``EngineStepError`` without retry (the ranks' collectives
   no longer pair), and every later command raises at once. A rank that
@@ -63,6 +75,7 @@ be captured in a CUDA graph (capture under NCCL is queued in ROADMAP).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import multiprocessing as mp
 import os
@@ -87,9 +100,14 @@ __all__ = ["TPGroup", "TPSwapper", "GROUP_TIMEOUT_S", "rank_devices",
 
 # seconds a collective (or the start-up rendezvous) waits for a rank
 GROUP_TIMEOUT_S = 120.0
+# loopback connections of the host group: the weight hand-off spreads its
+# sends over them by tag (one connection's loop thread bounds its rate),
+# the commands use the first; at most 2 x HOST_LANES shards a rank are in
+# flight
+HOST_LANES = 4
 
-OP_STEP, OP_COW, OP_SPILL, OP_RESTORE, OP_REPORT, OP_POOLS, OP_SHUTDOWN = \
-    range(1, 8)
+(OP_STEP, OP_COW, OP_SPILL, OP_RESTORE, OP_REPORT, OP_POOLS, OP_SHUTDOWN,
+ OP_MIRROR, OP_GATHER, OP_SCATTER) = range(1, 11)
 _HDR = 8          # int64 header: opcode, up to 6 sizes, payload length
 
 
@@ -152,15 +170,15 @@ def _groups(store_dir: str, rank: int, k: int, backend: str,
     store = dist.FileStore(os.path.join(store_dir, "store"), k)
     store.set_timeout(td)
 
-    def gloo(prefix):
+    def gloo(prefix, lanes=1):
         opts = dist.ProcessGroupGloo._Options()
         opts._timeout = td
         opts._devices = [dist.ProcessGroupGloo.create_device(
-            hostname="127.0.0.1")]
+            hostname="127.0.0.1") for _ in range(lanes)]
         return dist.ProcessGroupGloo(dist.PrefixStore(prefix, store), rank,
                                      k, opts)
 
-    host = gloo("host")
+    host = gloo("host", HOST_LANES)
     if backend == "gloo":
         dev = gloo("dev")
     else:
@@ -247,19 +265,24 @@ class TPGroup:
     def hand_off(self, model, layouts: Dict[str, Layout]) -> None:
         """Send each worker its shard of every decoder parameter (the
         ``llama.*`` ones, in ``named_parameters`` order, over the host
-        group), then cut ``model`` down to rank 0's shards in place and
-        hook the all-reduces in."""
+        group, parameter i on lane i % HOST_LANES), then cut ``model`` down
+        to rank 0's shards in place and hook the all-reduces in."""
         t0 = time.perf_counter()
-        for name, p in model.llama.named_parameters():
+        sends = collections.deque()
+        for i, (name, p) in enumerate(model.llama.named_parameters()):
             lay = layouts["llama." + name]
             full = p.detach()
             for r in range(1, self.k):
-                shard = full[lay.shard_slices(full.shape, r)]
-                self.host.send([_bytes(shard.contiguous().cpu())], r,
-                               0).wait()
+                buf = full[lay.shard_slices(full.shape, r)].contiguous().cpu()
+                sends.append((buf, self.host.send([_bytes(buf)], r,
+                                                  i % HOST_LANES)))
+                if len(sends) > 2 * HOST_LANES * (self.k - 1):
+                    sends.popleft()[1].wait()
             if not lay.is_replicated:
                 _set_param(model.llama, name, full[lay.shard_slices(
                     full.shape, 0)].clone())
+        while sends:
+            sends.popleft()[1].wait()
         shard_layers(model.llama.layers, self.k, self.all_reduce)
         model._tp_shard = (0, self.k)
         if model.device.type == "cuda":
@@ -320,16 +343,18 @@ class TPGroup:
             raise
 
     def report(self, reset: bool = False) -> List[dict]:
-        """Each worker's K1 launches (its wrapper's count) and peak device
-        memory, ranks 1..k-1; ``reset`` zeroes both after reading."""
+        """Each worker's K1 and K2 launches (its wrappers' counts) and
+        peak device memory, ranks 1..k-1; ``reset`` zeroes them after
+        reading."""
         self.flush()
         self._send(OP_REPORT, (int(reset),), ())
         out = []
         for r in range(1, self.k):
-            got = torch.zeros((2,), dtype=torch.int64)
+            got = torch.zeros((3,), dtype=torch.int64)
             self.host.recv([got], r, 0).wait()
             out.append({"rank": r, "k1_launches": int(got[0]),
-                        "max_memory_allocated": int(got[1])})
+                        "k2_launches": int(got[1]),
+                        "max_memory_allocated": int(got[2])})
         return out
 
     def host_pools(self, own_k: torch.Tensor, own_v: torch.Tensor):
@@ -345,6 +370,45 @@ class TPGroup:
                 self.host.recv([_bytes(buf)], r, 0).wait()
                 dst.append(buf)
         return torch.stack(ks), torch.stack(vs)
+
+    def gather(self, table: Sequence[int], own):
+        """Every rank's shard of the blocks ``table`` names, stacked by
+        rank on the host: (K, V), each (k, L, n, BS, KH/k, D). Rank 0's
+        comes from ``own()``, run while the workers gather theirs."""
+        self.flush()
+        try:
+            self._send(OP_GATHER, (len(table),), (table,))
+            k0, v0 = own()
+            ks, vs = [k0], [v0]
+            for r in range(1, self.k):
+                for dst in (ks, vs):
+                    buf = torch.empty_like(k0)
+                    self.host.recv([_bytes(buf)], r, 0).wait()
+                    dst.append(buf)
+        except BaseException:
+            self.broken = True
+            raise
+        return torch.stack(ks), torch.stack(vs)
+
+    def scatter(self, blocks: Sequence[int], k: torch.Tensor,
+                v: torch.Tensor, own):
+        """Write frame r of ``k`` / ``v`` (each (k, L, n, BS, KH/k, D), on
+        the host) into rank r's cache blocks ``blocks``, in place; rank
+        0's through ``own(k[0], v[0])``. Returns once every worker has
+        answered that its write is done."""
+        self.flush()
+        try:
+            self._send(OP_SCATTER, (len(blocks),), (blocks,))
+            for r in range(1, self.k):
+                for t in (k[r], v[r]):
+                    self.host.send([_bytes(t.contiguous())], r, 0).wait()
+            own(k[0], v[0])
+            for r in range(1, self.k):
+                self.host.recv([torch.zeros((1,), dtype=torch.int64)], r,
+                               0).wait()
+        except BaseException:
+            self.broken = True
+            raise
 
     def close(self):
         """Shut the workers down (best effort), join them, kill what is
@@ -370,9 +434,11 @@ class TPGroup:
 
 
 class TPSwapper(_KVSwapper):
-    """Rank 0's host-swap mover at k > 1: each spill and restore runs on
-    rank 0's shard and is queued for the workers, which run it on
-    theirs."""
+    """Rank 0's block mover at k > 1: each spill, restore and mirror copy
+    runs on rank 0's shard and is queued for the workers, which run it on
+    theirs; :meth:`gather` and :meth:`scatter` cover all k ranks at once
+    and take and give the blocks as frames stacked by rank, (k, L, n, BS,
+    KH/k, D)."""
 
     def __init__(self, group: TPGroup, *tensors):
         super().__init__(*tensors)
@@ -386,13 +452,28 @@ class TPSwapper(_KVSwapper):
         self._group.enqueue(OP_RESTORE, host_slots, dev_blocks)
         super().restore(host_slots, dev_blocks)
 
+    def mirror(self, dev_blocks: List[int], host_slots: List[int]):
+        self._group.enqueue(OP_MIRROR, dev_blocks, host_slots)
+        super().mirror(dev_blocks, host_slots)
+
+    def gather(self, table: List[int]):
+        return self._group.gather(
+            table, lambda: _KVSwapper.gather(self, table))
+
+    def scatter(self, dev_blocks: List[int], k: torch.Tensor,
+                v: torch.Tensor):
+        self._group.scatter(
+            dev_blocks, k, v,
+            lambda k0, v0: _KVSwapper.scatter(self, dev_blocks, k0, v0))
+
 
 # ---------------------------------------------------------------------------
 # the workers
 # ---------------------------------------------------------------------------
 class _Worker:
     """Rank r > 0: a skeleton of the decoder with rank r's weights, its
-    cache shard and host pool, and the receive-and-run loop."""
+    cache shard, host pool and (tiered) mirror shard, and the
+    receive-and-run loop."""
 
     def __init__(self, rank: int, k: int, device: torch.device, host, dev,
                  cfg_dict: dict, geo: dict):
@@ -405,11 +486,23 @@ class _Worker:
         cfg = LlamaConfig(**cfg_dict)
         dtype = to_torch(cfg.dtype)
         model = LlamaModel(cfg, device="meta", dtype=dtype)
-        for name, p in list(model.named_parameters()):
+        recvs = collections.deque()
+
+        def land():
+            name, buf, work = recvs.popleft()
+            work.wait()
+            _set_param(model, name, buf.to(device))
+
+        # rank 0's order and lanes (TPGroup.hand_off)
+        for i, (name, p) in enumerate(list(model.named_parameters())):
             lay = _tp_param_layout("llama." + name, p.ndim, k)
             buf = torch.empty(lay.local_shape(tuple(p.shape)), dtype=dtype)
-            host.recv([_bytes(buf)], 0, 0).wait()
-            _set_param(model, name, buf.to(device))
+            recvs.append((name, buf, host.recv([_bytes(buf)], 0,
+                                               i % HOST_LANES)))
+            if len(recvs) > 2 * HOST_LANES:
+                land()
+        while recvs:
+            land()
         cos, sin = _rope_tables(cfg.max_position_embeddings,
                                 cfg.hidden_size // cfg.num_attention_heads,
                                 cfg.rope_theta, device=device)
@@ -431,8 +524,14 @@ class _Worker:
                                       pin_memory=pin)
         else:
             self.host_k = self.host_v = None
+        if geo["tiered"]:
+            mshape = (shape[0], geo["num_host_blocks"]) + shape[2:]
+            self.htk = torch.zeros(mshape, dtype=cache_dtype, device=device)
+            self.htv = torch.zeros(mshape, dtype=cache_dtype, device=device)
+        else:
+            self.htk = self.htv = None
         self.swapper = _KVSwapper(self.kcs, self.vcs, self.host_k,
-                                  self.host_v)
+                                  self.host_v, self.htk, self.htv)
 
     def _recv(self):
         hdr = torch.zeros((_HDR,), dtype=torch.int64)
@@ -451,6 +550,7 @@ class _Worker:
         return out
 
     def serve(self):
+        from paddle_tpu_torch.ops import flash_attention as fa
         from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
         dev = self.device
@@ -464,7 +564,8 @@ class _Worker:
                     payload.to(dev), (t, s * mb, s + 1, s, 1))
                 with torch.no_grad():
                     self.model.forward_ragged(ids, self.kcs, self.vcs,
-                                              bt.view(s, mb), cu, ctx, nseq)
+                                              bt.view(s, mb), cu, ctx, nseq,
+                                              self.htk, self.htv)
             elif op == OP_COW:
                 src, dst = (x.to(dev).long() for x in
                             self._split(payload, sizes[:2]))
@@ -477,17 +578,36 @@ class _Worker:
             elif op == OP_RESTORE:
                 slots, blocks = self._split(payload, sizes[:2])
                 self.swapper.restore(slots.tolist(), blocks.tolist())
+            elif op == OP_MIRROR:
+                blocks, slots = self._split(payload, sizes[:2])
+                self.swapper.mirror(blocks.tolist(), slots.tolist())
+            elif op == OP_GATHER:
+                for t in self.swapper.gather(payload.tolist()):
+                    self.host.send([_bytes(t)], 0, 0).wait()
+            elif op == OP_SCATTER:
+                frames = []
+                for _ in range(2):
+                    buf = torch.empty(
+                        (self.kcs.shape[0], sizes[0]) + self.kcs.shape[2:],
+                        dtype=self.kcs.dtype)
+                    self.host.recv([_bytes(buf)], 0, 0).wait()
+                    frames.append(buf)
+                self.swapper.scatter(payload.tolist(), *frames)
+                self.host.send([torch.ones((1,), dtype=torch.int64)], 0,
+                               0).wait()
             elif op == OP_REPORT:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                     peak = torch.cuda.max_memory_allocated(dev)
                 else:
                     peak = 0
-                got = torch.as_tensor([rpa.launches, peak],
-                                      dtype=torch.int64)
+                got = torch.as_tensor(
+                    [rpa.launches, fa.launches["flash_attention_fwd"], peak],
+                    dtype=torch.int64)
                 self.host.send([got], 0, 0).wait()
                 if sizes[0]:
                     rpa.launches = 0
+                    fa.launches["flash_attention_fwd"] = 0
                     if dev.type == "cuda":
                         torch.cuda.reset_peak_memory_stats(dev)
             elif op == OP_POOLS:

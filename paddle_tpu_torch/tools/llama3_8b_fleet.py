@@ -258,15 +258,23 @@ class FirstAfterImport:
         eng._dispatch = dispatch
 
 
-def disagg(m: LlamaForCausalLM) -> dict:
+def disagg(m: LlamaForCausalLM, decode=None) -> dict:
     """Phase 4's model and workload behind a prefill and a decode
-    replica. Returns the result, the replicas (the caller frees them)
-    and the decode replica's first post-import step."""
+    replica; ``decode``: the decode replica's (model, tp_degree)
+    (default ``m`` at one rank; at k > 1 its ranks share ``m``'s card,
+    and each rank's K1 launches are counted). Returns the result, the
+    replicas (the caller frees them) and the decode replica's first
+    post-import step."""
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.testing import tp_hooks
 
-    reps = [InProcessReplica(m, EngineConfig(**ENGINE), replica_id=r,
-                             role=role)
-            for r, role in (("prefill", "prefill"), ("decode", "decode"))]
+    dec_model, dec_tp = decode or (m, 1)
+    reps = [InProcessReplica(m, EngineConfig(**ENGINE), replica_id="prefill",
+                             role="prefill")]
+    with tp_hooks.ranks_share_one_device():
+        reps.append(InProcessReplica(
+            dec_model, EngineConfig(**ENGINE, tp_degree=dec_tp),
+            replica_id="decode", role="decode"))
     for r in reps:
         llama3_8b_serve.warm_up(r.engine)
     pre, dec = (r.engine for r in reps)
@@ -279,6 +287,9 @@ def disagg(m: LlamaForCausalLM) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     clock: Dict[str, list] = {}
+    for r in reps:
+        if r.engine._tp is not None:
+            r.engine._tp.report(reset=True)     # ranks 1.. from 0
     rpa.launches = 0                      # the main path starts here
     t0 = time.perf_counter()
     outs = _drive(router, work, clock=clock)
@@ -289,6 +300,12 @@ def disagg(m: LlamaForCausalLM) -> dict:
                for r in reps}
     k1 = {name: w["executed_launches"].get("ragged_paged_attention", 0)
           for name, w in windows.items()}
+    # per rank: rank 0's from its window, the workers' from their count
+    ranks = {r.replica_id: r.engine._tp.report() for r in reps
+             if r.engine._tp is not None}
+    k1_by_rank = {name: [n] + [w["k1_launches"]
+                               for w in ranks.get(name, ())]
+                  for name, n in k1.items()}
     snap = router.snapshot()
     tokens = _tokens_of(router, rids)
     exports = times["prefill"].ms["export_kv"]
@@ -314,12 +331,17 @@ def disagg(m: LlamaForCausalLM) -> dict:
         "export_bytes": times["prefill"].bytes,
         "frame_cap_tokens": cap,
         "prompts_past_frame_cap": sum(len(p) > cap for _, p, _ in work),
-        "k1_launches": k1, "k1_wrapper_launches": wrapped,
+        "k1_launches": k1, "k1_launches_by_rank": k1_by_rank,
+        "k1_wrapper_launches": wrapped,
+        "decode_tp_degree": dec_tp,
         "captures": {n: w["captures"] for n, w in windows.items()},
         "replays": {n: sum(w["replays"].values())
                     for n, w in windows.items()},
         "steps": {r.replica_id: r.engine.metrics.engine_steps for r in reps},
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "worker_max_memory_allocated": {
+            name: [w["max_memory_allocated"] for w in ws]
+            for name, ws in ranks.items()},
         "tokens": tokens}
     return {"result": res, "replicas": reps, "router": router,
             "first_after_import": first}

@@ -21,6 +21,13 @@ on the pools), so their bf16 tokens can be compared bit for bit.
   bytes turn 1 left; and the turn-2 prompts served cold by an untiered
   engine.
 
+:func:`over_pool` takes a tensor-parallel degree (``chip_smoke.py``
+phase 27): a tiered engine at ``tp_degree`` k > 1 puts its ranks on the
+model's card (:func:`paddle_tpu_torch.testing.tp_hooks.
+ranks_share_one_device`) and cuts its model down to rank 0's shards, so
+the untiered engine it is held against then takes a model of its own
+(the same seed, the same weights).
+
 Run alone on the card::
 
     python -m paddle_tpu_torch.tools.llama3_8b_tiers
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.serving import EngineConfig, LLMEngine, SamplingParams
+from paddle_tpu_torch.testing import tp_hooks
 
 __all__ = ["ENGINE", "PROMPT_LEN", "MAX_NEW_TOKENS", "tiered_engine",
            "untiered_engine", "MirrorSteps", "HostTimes", "over_pool",
@@ -53,15 +61,18 @@ SESSION_BLOCKS = 512
 SESSION_HOST_BLOCKS = 1024
 
 
-def tiered_engine(model, num_blocks: int, host_blocks: int) -> LLMEngine:
-    return LLMEngine(model, EngineConfig(
-        **ENGINE, num_blocks=num_blocks,
-        kv_tiers={"num_host_blocks": host_blocks}))
+def tiered_engine(model, num_blocks: int, host_blocks: int,
+                  tp: int = 1) -> LLMEngine:
+    with tp_hooks.ranks_share_one_device():
+        return LLMEngine(model, EngineConfig(
+            **ENGINE, num_blocks=num_blocks, tp_degree=tp,
+            kv_tiers={"num_host_blocks": host_blocks}))
 
 
-def untiered_engine(model) -> LLMEngine:
-    return LLMEngine(model, EngineConfig(**ENGINE,
-                                         num_blocks=UNTIERED_BLOCKS))
+def untiered_engine(model, tp: int = 1) -> LLMEngine:
+    with tp_hooks.ranks_share_one_device():
+        return LLMEngine(model, EngineConfig(
+            **ENGINE, num_blocks=UNTIERED_BLOCKS, tp_degree=tp))
 
 
 class MirrorSteps:
@@ -134,16 +145,18 @@ def _serve(eng: LLMEngine, max_steps: int = 4000) -> float:
     return time.perf_counter() - t0
 
 
-def over_pool(model) -> dict:
-    """The 3000-token request on the 64-block tiered engine and on the
-    1024-block untiered one. Returns both engines (the caller frees
-    them), the tokens, the tier's counters, the mirror steps and the host
-    times."""
+def over_pool(model, tp: int = 1, reference=None) -> dict:
+    """The 3000-token request on the 64-block tiered engine at
+    ``tp_degree`` ``tp`` and on the 1024-block untiered one over
+    ``reference`` (a (model, tp_degree) pair; default ``model`` at one
+    rank). Returns both engines (the caller frees them), the tokens, the
+    tier's counters, the mirror steps and the host times."""
     vocab = model.config.vocab_size
     rng = np.random.default_rng(0)
     prompt = [int(t) for t in rng.integers(1, vocab, size=PROMPT_LEN)]
     sp = SamplingParams(max_new_tokens=MAX_NEW_TOKENS)
-    eng = tiered_engine(model, OVER_POOL_BLOCKS, OVER_POOL_HOST_BLOCKS)
+    ref_model, ref_tp = reference or (model, 1)
+    eng = tiered_engine(model, OVER_POOL_BLOCKS, OVER_POOL_HOST_BLOCKS, tp)
     mirror = MirrorSteps(eng)
     times = HostTimes(eng)
     snap = eng._graphs.snapshot()
@@ -152,7 +165,7 @@ def over_pool(model) -> dict:
     window = eng._graphs.since(snap)
     req = eng.get_request("long")
     eng.block_manager.check_invariants()
-    ref = untiered_engine(model)
+    ref = untiered_engine(ref_model, ref_tp)
     ref.add_request("long", prompt, sampling=sp)
     ref_wall = _serve(ref)
     got, want = list(req.generated), list(ref.get_request("long").generated)
@@ -161,6 +174,7 @@ def over_pool(model) -> dict:
             "window": window,
             "result": {
                 "prompt_len": PROMPT_LEN, "new_tokens": len(got),
+                "tp_degree": tp, "untiered_tp_degree": ref_tp,
                 "finish_reason": req.finish_reason,
                 "device_blocks": OVER_POOL_BLOCKS,
                 "host_blocks": OVER_POOL_HOST_BLOCKS,

@@ -1131,11 +1131,12 @@ def test_layer_trainstep_replay_is_bitwise_the_eager_step(card, dropout):
     assert stats["captures"] == 1 and list(stats["replays"].values()) == [3]
 
 
-def _mirror_batch(card, dtype, seed=0, nhb=24):
-    """``_batch`` (bs 16, GQA 32/8, D 128) with each live slot's blocks
-    below its first written block moved to a second pool: the entries
-    become virtual (``nb + slot``) and the device copies are zeroed."""
-    b = _batch(card, dtype, 32, 8, 128, 16, seed=seed)
+def _mirror_batch(card, dtype, seed=0, nhb=24, h=32, kh=8):
+    """``_batch`` (bs 16, GQA ``h``/``kh``, D 128) with each live slot's
+    blocks below its first written block moved to a second pool: the
+    entries become virtual (``nb + slot``) and the device copies are
+    zeroed."""
+    b = _batch(card, dtype, h, kh, 128, 16, seed=seed)
     nb = b["key_cache"].shape[0]
     hk = torch.zeros((nhb,) + tuple(b["key_cache"].shape[1:]), dtype=dtype,
                      device=card)
@@ -1171,6 +1172,41 @@ def test_kernel_reads_the_second_pool(card, dtype):
     scale = q.shape[-1] ** -0.5
     out, kc, vc = rpa.ragged_paged_attention(
         **b, scale=scale, host_key_cache=hk, host_value_cache=hv)
+    idx = (b["block_tables"], b["cu_seqlens"], b["context_lens"],
+           b["num_seqs"])
+    split, _ = rpa.kernel_split(q, kc, b["block_tables"])
+    tc = dtype == torch.bfloat16
+    ref = rpa._ragged_attend_ref(q, kc, vc, *idx, scale,
+                                 out_dtype=torch.float32,
+                                 round_to=dtype if tc else None,
+                                 split=split, hkc=hk, hvc=hv)
+    one = rpa._ragged_attend_cuda(q, torch.cat([kc, hk]),
+                                  torch.cat([vc, hv]), *idx, scale)
+    torch.cuda.synchronize()
+    live = int(b["cu_seqlens"][int(b["num_seqs"][0])])
+    assert torch.all(out[live:] == 0)
+    torch.testing.assert_close(out[:live].float(), ref[:live],
+                               **flash_check.TOL[dtype])
+    assert torch.equal(out, one)
+    assert (b["block_tables"] >= nb).sum() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_reads_the_second_pool_at_rank_heads(card, dtype):
+    """K1 with the host tier's mirror at a ``tp_degree=2`` rank's heads of
+    Llama-3-8B (16 query, 4 kv, D 128): against the plain version with
+    the mirror at ``flash_check.TOL`` (bf16: its ``round_to`` form in the
+    kernel's splits), and bit for bit against one pool holding the same
+    pages."""
+    b, hk, hv = _mirror_batch(card, dtype, seed=3, h=16, kh=4)
+    q, nb = b["q"], b["key_cache"].shape[0]
+    assert q.shape[1] == 16 and b["key_cache"].shape[2] == 4
+    scale = q.shape[-1] ** -0.5
+    before = rpa.launches
+    out, kc, vc = rpa.ragged_paged_attention(
+        **b, scale=scale, host_key_cache=hk, host_value_cache=hv)
+    assert rpa.launches == before + 1
     idx = (b["block_tables"], b["cu_seqlens"], b["context_lens"],
            b["num_seqs"])
     split, _ = rpa.kernel_split(q, kc, b["block_tables"])
@@ -1488,6 +1524,153 @@ def test_kv_ship_round_trip_lands_in_place_and_graphs_replay(card, dtype):
     assert window["captures"] == 0, window
     assert sum(window["replays"].values()) > 0, window
     assert first + list(b.get_request("x").generated) == want
+
+
+def _tiny_tp_engine(card, tp, seed=0, **kw):
+    """``LlamaConfig.tiny`` in f32 (TF32 off) from ``seed`` behind an
+    engine at ``tp_degree=tp``, every rank on this card."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import EngineConfig, LLMEngine
+    from paddle_tpu_torch.testing import tp_hooks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = LlamaForCausalLM(LlamaConfig.tiny(), device=card).init_weights(
+        torch.Generator(device=card).manual_seed(seed))
+    if kw.get("draft_model") == "target":
+        kw["draft_model"] = m
+    kw.setdefault("block_size", 4)
+    kw.setdefault("max_num_seqs", 4)
+    kw.setdefault("max_model_len", 64)
+    with tp_hooks.ranks_share_one_device():
+        return LLMEngine(m, EngineConfig(tp_degree=tp, **kw))
+
+
+@pytest.mark.gpu
+def test_tp2_kv_import_on_one_card_writes_in_place(card):
+    """A KV ship from a k = 1 engine into a ``tp_degree=2`` engine on this
+    card: rank 0's caches stay the same tensors at the same addresses,
+    the importer's re-export (a gather from both ranks' caches) holds
+    the exporter's bytes split by kv heads bit for bit, and the steps
+    after the import give the exporter's tokens."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    prompt = [int(t) for t in np.random.RandomState(8).randint(1, 256, 22)]
+    sp = SamplingParams(max_new_tokens=8)
+    a = _tiny_tp_engine(card, 1)
+    a.add_request("x", prompt, sp)
+    a.run()
+    want = list(a.get_request("x").generated)
+    a.release_request("x")
+    b = _tiny_tp_engine(card, 2)
+    b.add_request("warm", prompt[:9], sp)
+    b.run()
+    b.release_request("warm")
+    ptrs = (b._kcs.data_ptr(), b._vcs.data_ptr())
+    caches = (b._kcs, b._vcs)
+    a.add_request("x", prompt, sp)
+    a.step()
+    first = list(a.get_request("x").generated)
+    meta, payload = a.export_kv("x")
+    b.import_kv("x", prompt + first, sampling=SamplingParams(
+        max_new_tokens=7), meta=meta, payload=payload,
+        rng_state={"device_key": [int(k) for k in
+                                  a.get_request("x").device_key]})
+    torch.cuda.synchronize()
+    assert b.num_kv_reshards == 1
+    assert (b._kcs.data_ptr(), b._vcs.data_ptr()) == ptrs
+    assert b._kcs is caches[0] and b._vcs is caches[1]
+    bmeta, bpayload = b.export_kv("x")
+    assert bmeta["layout"]["mesh_axes"] == [["tp", 2]]
+    assert bmeta["shape"] == meta["shape"]
+    L, n, bs, kh, d = meta["shape"]
+    frames = np.frombuffer(bpayload, np.float32).reshape(2, 2, L, n, bs,
+                                                         kh // 2, d)
+    ta = a.block_manager.export_blocks("x", meta["tokens_covered"])
+    for j, cache in enumerate((a._kcs, a._vcs)):
+        full = cache[:, ta].cpu().numpy()
+        for r in range(2):
+            np.testing.assert_array_equal(
+                frames[j, r], full[:, :, :, r * kh // 2:(r + 1) * kh // 2])
+    b.run()
+    assert first + list(b.get_request("x").generated) == want
+
+
+@pytest.mark.gpu
+def test_tp2_tiers_and_sessions_on_one_card_serve_the_k1_tokens(card):
+    """A ``tp_degree=2`` tiered engine on this card (8 device blocks, 32
+    host blocks; each rank's mirror its K1 second pool): a 62-token
+    prompt + 12 new demotes, reads the mirror, and serves the k = 1
+    tiered engine's tokens; the finished request parked and resumed with
+    a longer prompt reuses its whole chain (its tail framed per rank)
+    and serves the k = 1 engine's turn 2."""
+    from paddle_tpu_torch.serving import SamplingParams
+    from paddle_tpu_torch.tools.llama3_8b_tiers import MirrorSteps
+
+    prompt = [int(t) for t in np.random.RandomState(3).randint(1, 256, 62)]
+    sp = SamplingParams(max_new_tokens=12)
+    got = {}
+    for tp in (1, 2):
+        eng = _tiny_tp_engine(card, tp, max_model_len=96,
+                              max_batched_tokens=16, num_blocks=8,
+                              kv_tiers={"num_host_blocks": 32})
+        steps = MirrorSteps(eng)
+        eng.add_request("r", prompt, sp)
+        eng.run()
+        turn1 = list(eng.get_request("r").generated)
+        assert eng.block_manager.num_demotes > 0 and steps.mirror_steps > 0
+        eng.release_request("r")
+        info = eng.park_session("r")
+        tail = eng._kvtier.sessions["r"].tail_k
+        assert tuple(tail.shape) == ((2, 2, 1, 4, 1, 16) if tp == 2
+                                     else (2, 1, 4, 2, 16))
+        hit = eng.resume_session("r2", "r", prompt + turn1 + [5, 6, 7],
+                                 sampling=SamplingParams(max_new_tokens=6))
+        assert hit == info["tokens_covered"]
+        eng.run()
+        assert eng._kvtier.num_resume_recomputed_tokens == 0
+        eng.block_manager.check_invariants()
+        got[tp] = (turn1, list(eng.get_request("r2").generated))
+        del eng, steps
+    assert got[1] == got[2], got
+
+
+@pytest.mark.gpu
+def test_tp2_spec_on_one_card_serves_the_k1_tokens(card):
+    """A ``tp_degree=2`` speculative engine on this card whose draft is
+    its target (copied whole to rank 0 before the hand-off; the draft's
+    forwards captured, K2): greedy and sampled tokens and the draft
+    counters equal the k = 1 spec engine's; rank 1 launched K1 once a
+    layer a step and no K2."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(21)
+    prompts = [list(map(int, rng.integers(0, 256, size=n)))
+               for n in (5, 19, 33, 8)]
+    got = {}
+    for tp in (1, 2):
+        eng = _tiny_tp_engine(card, tp, draft_model="target",
+                              num_spec_tokens=3)
+        if tp == 2:
+            eng._tp.report(reset=True)
+            snap = eng._spec.graphs.snapshot()
+        for i, p in enumerate(prompts):
+            eng.add_request(f"s{i}", p, SamplingParams(
+                max_new_tokens=8, temperature=0.7 if i == 1 else 0.0,
+                seed=5))
+        eng.run()
+        got[tp] = ([eng.get_request(f"s{i}").generated
+                    for i in range(len(prompts))],
+                   eng.num_spec_proposed, eng.num_spec_accepted)
+        if tp == 2:
+            (rank1,) = eng._tp.report()
+            assert rank1["k1_launches"] == 2 * eng.metrics.engine_steps
+            assert rank1["k2_launches"] == 0
+            win = eng._spec.graphs.since(snap)
+            assert win["executed_launches"]["flash_attention_fwd"] > 0
+            assert eng._spec.model is not eng.model
+        del eng
+    assert got[1] == got[2], got
+    assert got[2][2] > 0
 
 
 @pytest.mark.gpu

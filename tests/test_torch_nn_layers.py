@@ -7,8 +7,8 @@ agree at rtol 1e-5 / atol 1e-5 (1e-4 for the conv, pool, resampling and
 norm layers, whose torch and XLA reductions add in another order). Both
 packages are seeded alike, so the dropout layers draw the same masks.
 Also: ``nn.utils`` (clips, vector round trip, weight and spectral norm),
-the degree-1 tensor-parallel layers, and the refusals that name C3 (a
-model-parallel degree above 1)."""
+the degree-1 tensor-parallel layers, and the refusals that name slice D
+(a model-parallel degree above 1)."""
 import zlib
 
 import numpy as np
@@ -326,7 +326,7 @@ def test_refusals_name_the_item_that_brings_them():
                       (fleet.RowParallelLinear, (4, 4)),
                       (fleet.VocabParallelEmbedding, (8, 4)),
                       (fleet.ParallelCrossEntropy, ())):
-        with pytest.raises(NotImplementedError, match="C3"):
+        with pytest.raises(NotImplementedError, match="slice D"):
             cls(*args, mp_group=Group())
     w = tpaddle.to_tensor(np.ones([2], np.float32))
     assert fleet.mark_placements(w) is w

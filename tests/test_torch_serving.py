@@ -220,31 +220,19 @@ def test_nonfinite_guard_aborts_only_the_poisoned_row(models):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("kv_tiers", True, "kv_tiers needs prefix_cache"),
-    ("fleet_tp_degree", 2, "not ported.*item 14")])
+    ("kv_tiers", True, "kv_tiers needs prefix_cache")])
 def test_unported_configurations_raise(models, knob, value, item):
-    """What the port does not serve yet raises at construction, naming
-    the queue item that brings it: a fleet replica at ``tp_degree > 1``
-    (its KV and prefix ships), refused before the engine starts its
-    ranks. ``kv_tiers`` is ported: without prefix caching it raises the
-    reference's own error, in both packages. (``tenant_id`` is taken
-    since the fleet is ported.)"""
-    if knob == "kv_tiers":
-        jm, tm = models
-        for engine, config, m in ((JLLMEngine, JEngineConfig, jm),
-                                  (LLMEngine, EngineConfig, tm)):
-            with pytest.raises(ValueError, match=item):
-                engine(m, config(block_size=4, max_num_seqs=2,
-                                 max_model_len=32, kv_tiers=value,
-                                 prefix_cache=False))
-        return
-    from paddle_tpu_torch.serving.fleet import InProcessReplica
-
+    """Every serving configuration is ported; what is left raises the
+    reference's own error, in both packages: ``kv_tiers`` without prefix
+    caching. (``tenant_id`` is taken since the fleet is ported.)"""
     assert SamplingParams(tenant_id="t1").tenant_id == "t1"
-    with pytest.raises(ValueError, match=item):
-        InProcessReplica(models[1], EngineConfig(
-            tp_degree=value, block_size=4, max_num_seqs=2,
-            max_model_len=32))
+    jm, tm = models
+    for engine, config, m in ((JLLMEngine, JEngineConfig, jm),
+                              (LLMEngine, EngineConfig, tm)):
+        with pytest.raises(ValueError, match=item):
+            engine(m, config(block_size=4, max_num_seqs=2,
+                             max_model_len=32, **{knob: value},
+                             prefix_cache=False))
 
 
 @pytest.mark.parametrize("knob,value", [

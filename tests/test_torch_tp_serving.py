@@ -446,17 +446,25 @@ def test_a_killed_worker_fails_the_step_and_leaves_no_process(tp2,
 
 def test_no_process_outlives_its_engine(tp2, jax_state):
     """An engine dropped without a close: its finalizer shuts the worker
-    down; refusals at k > 1 raise before any process starts."""
+    down, also a speculative engine's (its draft whole on rank 0); a
+    refusal at k > 1 raises before any process starts."""
     eng = LLMEngine(_port_model(jax_state), _ecfg(2))
     procs = list(eng._tp._procs)
     assert all(p.is_alive() for p in procs)
     del eng
     gc.collect()
     assert not any(p.is_alive() for p in procs)
+    spec = LLMEngine(_port_model(jax_state),
+                     _ecfg(2, draft_model=_port_model(jax_state),
+                           num_spec_tokens=2))
+    procs = list(spec._tp._procs)
+    assert len(procs) == 1 and procs[0].is_alive()
+    assert spec._spec is not None
+    del spec
+    gc.collect()
+    assert not any(p.is_alive() for p in procs)
     with pytest.raises(ValueError, match="must divide"):
         LLMEngine(_port_model(jax_state), _ecfg(3))
-    with pytest.raises(ValueError, match="item 10"):
-        _ecfg(2, draft_model=object(), num_spec_tokens=2)
     assert _tp_children() == tp2[0]._tp._procs
 
 
