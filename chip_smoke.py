@@ -361,8 +361,10 @@ non-zero (nothing is caught and passed over):
                phase 4's prompts with 16 new tokens (cut for the run's
                time) through a tp 2 spec engine whose draft is its
                target (4 drafts a row) against tp 1, with equal draft
-               counters. (b) bf16, full depth, each 8B engine built after
-               the last one is dropped: phase 26 (b)'s prefill/decode
+               counters. (b) bf16 at 8 of the 32 layers (widths not
+               cut; ``TP_FEATURES_LAYERS``, cut for the run's time
+               beside phase 28), each 8B engine built after the last
+               one is dropped: phase 26 (b)'s prefill/decode
                pair with the decode replica at tp 2 (ships, bytes,
                export / import / gather / scatter ms, client TTFT and
                TPOT p50 beside phase 26's, K1 per rank); phase 23's
@@ -376,6 +378,33 @@ non-zero (nothing is caught and passed over):
                mirror as its second pool at the tiered engine's first
                mirror step, and at the spec engine's first verify step.
                Peak memory per rank for each.
+28. hybrid_train — hybrid-parallel training over torch.distributed
+               (``tools/gpt_1b_hybrid_train.py``): one world of 4 ranks
+               started by ``distributed.spawn``, all on this card through
+               the testing hook (gloo through the host), kept up for
+               every case. (a) f32 at bench_gpt_1b widths with 2 of its
+               16 layers, batch 4 x 2048, three AdamW steps per case: dp
+               2, mp 2, dp 2 x mp 2, with SP, ZeRO 1, 2 and 3 at dp 2,
+               eager DataParallel at dp 2, dp 2 x mp 2 with ZeRO 1 and
+               recompute (two 2-rank cases at once, on ranks 0-1 and
+               2-3), each against a one-rank TrainStep
+               of the same model and batches (losses rtol 1e-4; every
+               rank's shards against the same slices: the elements
+               outside rtol 2e-3 / atol 2e-5 counted, and each
+               parameter shard held to the AdamW bound of
+               tests/test_torch_train.py, its largest |diff| within
+               2.5e-4); each rank's
+               optimizer state is the reckoned share;
+               peaks per rank. (b) bf16 at full width and depth, dp 2 x
+               mp 2, ZeRO 1, SP: one warm-up and three timed steps; each
+               step's loss within 0.02 nats of phase 7's at that step,
+               falling; K2-K4 launched 16 times a step on each rank; the
+               step p50, the collectives' host ms a step, rank 0's
+               device-phase breakdown of one more step, peaks per rank.
+               Not a speed figure: four ranks share one card over gloo.
+               K2-K4 at a rank's shape (B 2, S 2048, H 8, D 128, bf16)
+               against their plain versions (``flash_check``), timed,
+               with bounds.
 
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
@@ -386,12 +415,12 @@ tensor_api (phase 20), layer_api (phase 21), layer_trainstep (phase
 22) and long_tail (phase 24's packed flash wrapper) for K2-K4, and tiers (phase 23's tiered engines), tp (phase 25's
 two ranks, summed), fleet (phase 26 (b)'s two replicas) and tp_disagg,
 tp_tiers, tp_spec (phase 27 (b)'s paths, every rank) for K1, tp_spec
-for K2; on the
+for K2, hybrid_train (phase 28 (b)'s four ranks, summed) for K2-K4; on the
 paths that replay graphs they are the launches the card ran, the eager
 warm-ups plus captured x replays — error, times, bound, library time;
 ``spec_shapes``, ``generate_shapes``, ``tiers_shapes``, ``tp_shapes``,
-``fleet_shapes``, ``tp_tiers_shapes`` and ``tp_spec_shapes`` repeat them
-at those paths' shapes),
+``fleet_shapes``, ``tp_tiers_shapes``, ``tp_spec_shapes`` and
+``hybrid_rank_shapes`` repeat them at those paths' shapes),
 nvidia-smi's line, and last ``{"ok": true, "device": {...}}``.
 """
 import gc
@@ -1036,39 +1065,57 @@ def phase_flash(dev, draft_shape):
             continue
         if name != "train_shapes":
             continue
-        bargs = (q, k, v, do, lse, delta, scale, causal)
-        ms = {"fwd": cuda_ms(lambda: fa._flash_fwd_cuda(*args), 10, flush),
-              "dq": cuda_ms(lambda: fa._flash_bwd_dq_cuda(*bargs), 10,
-                            flush),
-              "dkv": cuda_ms(lambda: fa._flash_bwd_dkv_cuda(*bargs), 10,
-                             flush),
-              "plain_fwd": cuda_ms(lambda: fa._flash_fwd_ref(
-                  *args, round_to=dtype), 3, flush),
-              "plain_bwd": cuda_ms(lambda: fa._flash_bwd_ref(
-                  q, k, v, o, lse, do, scale, causal, round_to=dtype), 3,
-                  flush)}
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                      for x in (q, k, v))
-        dot = do.transpose(1, 2).contiguous()
-        with torch.no_grad():
-            ms["sdpa_fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), 10, flush)
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        ms["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), 10, flush)
-        res["ms"] = ms
-        res["bounds"] = {
-            "fwd": _bound(esz * (2 * n_q + 2 * n_k) + stats, 4 * d * pairs),
-            "dq": _bound(esz * (3 * n_q + 2 * n_k) + 2 * stats,
-                         6 * d * pairs),
-            "dkv": _bound(esz * (2 * n_q + 4 * n_k) + 2 * stats,
-                          8 * d * pairs)}
-        res["tflops"] = {key: bd["flops"] / (ms[key] * 1e-3) / 1e12
-                         for key, bd in res["bounds"].items()}
-        res["bound_share"] = {key: bd["bound_ms"] / ms[key]
-                              for key, bd in res["bounds"].items()}
+        res.update(_flash_train_times(q, k, v, do, o, lse, delta, scale,
+                                      causal, flush))
     emit(res)
     return res
+
+
+def _flash_train_times(q, k, v, do, o, lse, delta, scale, causal, flush):
+    """The training kernels (forward, dQ, dK/dV) timed at the inputs'
+    shape (CUDA events, L2 flushed before each launch), their plain
+    versions' and SDPA's forward and backward, the bounds, TFLOP/s and
+    the share of the bound reached."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    dtype = q.dtype
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    args = (q, k, v, scale, causal)
+    bargs = (q, k, v, do, lse, delta, scale, causal)
+    ms = {"fwd": cuda_ms(lambda: fa._flash_fwd_cuda(*args), 10, flush),
+          "dq": cuda_ms(lambda: fa._flash_bwd_dq_cuda(*bargs), 10, flush),
+          "dkv": cuda_ms(lambda: fa._flash_bwd_dkv_cuda(*bargs), 10,
+                         flush),
+          "plain_fwd": cuda_ms(lambda: fa._flash_fwd_ref(
+              *args, round_to=dtype), 3, flush),
+          "plain_bwd": cuda_ms(lambda: fa._flash_bwd_ref(
+              q, k, v, o, lse, do, scale, causal, round_to=dtype), 3,
+              flush)}
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        ms["sdpa_fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 10, flush)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    ms["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10, flush)
+    pairs = _visible_pairs(sq, sk, causal) * b * h
+    esz, n_q, n_k = q.element_size(), q.numel(), k.numel()
+    stats = 4 * b * h * sq                  # lse or delta, f32
+    bounds = {
+        "fwd": _bound(esz * (2 * n_q + 2 * n_k) + stats, 4 * d * pairs),
+        "dq": _bound(esz * (3 * n_q + 2 * n_k) + 2 * stats, 6 * d * pairs),
+        "dkv": _bound(esz * (2 * n_q + 4 * n_k) + 2 * stats,
+                      8 * d * pairs)}
+    return {"ms": ms, "bounds": bounds,
+            "tflops": {key: bd["flops"] / (ms[key] * 1e-3) / 1e12
+                       for key, bd in bounds.items()},
+            "bound_share": {key: bd["bound_ms"] / ms[key]
+                            for key, bd in bounds.items()}}
 
 
 def phase_train(dev):
@@ -3070,6 +3117,12 @@ def _rank_counts(eng, window, reports) -> dict:
                for w in reports}}
 
 
+# phase 27 (b)'s depth: its bf16 8B engines run this many of the 32
+# layers (widths not cut), so that chip_smoke.py keeps its time with
+# phase 28 beside it
+TP_FEATURES_LAYERS = 8
+
+
 def phase_tp_features(dev, serve, serve_rows, fleet, spec9):
     """Phase 27 (see the module docstring). ``serve`` is phase 4's result
     (its tokens and times) and ``serve_rows`` its greedy logit rows;
@@ -3091,13 +3144,14 @@ def phase_tp_features(dev, serve, serve_rows, fleet, spec9):
     greedy = [f"r{i}" for i in range(llama3_8b_serve.NUM_REQUESTS - 1)]
     peaks = {}
 
-    # (b) bf16, full depth: the prefill/decode pair, decode at tp 2
+    # (b) bf16 at TP_FEATURES_LAYERS of the 32 layers: the prefill/decode
+    # pair, decode at tp 2
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    model = llama3_8b_serve.target_model(dev)
+    model = llama3_8b_serve.target_model(dev, TP_FEATURES_LAYERS)
     with _PlainCalls() as plain:
-        dg = FL.disagg(model, decode=(llama3_8b_serve.target_model(dev),
-                                      TPC.TP))
+        dg = FL.disagg(model, decode=(llama3_8b_serve.target_model(
+            dev, TP_FEATURES_LAYERS), TPC.TP))
     d = dg["result"]
     assert d["finished_once"], d
     assert d["ships"] == llama3_8b_serve.NUM_REQUESTS, d
@@ -3133,9 +3187,10 @@ def phase_tp_features(dev, serve, serve_rows, fleet, spec9):
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     with _PlainCalls() as plain2:
-        op = TT.over_pool(llama3_8b_serve.target_model(dev), tp=TPC.TP,
-                          reference=(llama3_8b_serve.target_model(dev),
-                                     TPC.TP))
+        op = TT.over_pool(
+            llama3_8b_serve.target_model(dev, TP_FEATURES_LAYERS),
+            tp=TPC.TP, reference=(llama3_8b_serve.target_model(
+                dev, TP_FEATURES_LAYERS), TPC.TP))
     ti = op["result"]
     eng = op["engine"]
     assert ti["finish_reason"] == "length", ti
@@ -3160,7 +3215,7 @@ def phase_tp_features(dev, serve, serve_rows, fleet, spec9):
     # spec: phase 9's Llama-3.2-1B-width draft over a tp 2 target
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    eng = TPC.spec_engine(dev)
+    eng = TPC.spec_engine(dev, layers=TP_FEATURES_LAYERS)
     setup_s = time.perf_counter() - t0
     spec = eng._spec
     k = eng.cfg.num_spec_tokens
@@ -3277,6 +3332,131 @@ def _launch_sum(counts: dict, kernel: str) -> int:
     return sum(_launch_sum(c, kernel) for c in counts.values())
 
 
+HYBRID_NATS = 0.02     # phase 28 (b)'s losses against phase 7's
+
+
+def _per_param(params_per_rank) -> dict:
+    """Phase 28 (a)'s readings by parameter over a case's ranks: the
+    largest |diff|, and the elements beyond the AdamW noise level and
+    outside rtol / atol, of how many (summed over the ranks' shards)."""
+    out = {}
+    for c in params_per_rank:
+        for name, r in c["per_param"].items():
+            o = out.setdefault(name, {"max_abs_err": 0.0, "beyond_noise": 0,
+                                      "outside_rtol_atol": 0,
+                                      "elements": 0})
+            o["max_abs_err"] = max(o["max_abs_err"], r["max_abs_err"])
+            for k in ("beyond_noise", "outside_rtol_atol", "elements"):
+                o[k] += r[k]
+    return out
+
+
+def phase_hybrid_train(dev, train):
+    """Phase 28 (see the module docstring). ``train`` is phase 7's result
+    (its losses)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.testing import flash_check
+    from paddle_tpu_torch.tools import gpt_1b_hybrid_train as H
+
+    # K2-K4 at a rank's heads: B 4 / dp 2, H 16 / mp 2
+    gen = torch.Generator(device=dev).manual_seed(28)
+    b, s, h, d = 2, 2048, 8, 128
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
+    delta = fa._delta(o, do)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, True)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, True)
+    torch.cuda.synchronize()
+    rep = flash_check.check(q, k, v, do, {"o": o, "lse": lse, "dq": dq,
+                                          "dk": dk, "dv": dv}, scale, True)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev).zero_
+    kern = {"shape": [b, s, s, h, d], "dtype": "bfloat16",
+            "max_abs_err": rep["max_abs_err"],
+            "tolerance": str(rep["tolerance"]),
+            **_flash_train_times(q, k, v, do, o, lse, delta, scale, True,
+                                 flush)}
+    del q, k, v, do, o, lse, delta, dq, dk, dv, flush
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out = H.run(timeout_s=540.0)
+    seconds = time.perf_counter() - t0
+    ranks = out["ranks"]
+    assert out["alive_after"] == [], out["alive_after"]
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0", r
+    names = [c[0] for c in H.CASES]
+    cases = {}
+    for name in names:
+        per_rank = [r["cases"][name] for r in ranks if name in r["cases"]]
+        cases[name] = {
+            "ranks": len(per_rank), "losses": per_rank[0]["losses"],
+            "losses_ok": all(c["losses_ok"] for c in per_rank),
+            "params_per_rank": [
+                {k: v for k, v in c["params"].items() if k != "per_param"}
+                for c in per_rank],
+            "per_param": _per_param([c["params"] for c in per_rank]),
+            "step_s_per_rank": [c["step_s"] for c in per_rank],
+            **({"slot_bytes_per_rank": [c["slot_bytes"] for c in per_rank],
+                "max_memory_allocated_per_rank": [
+                    c["max_memory_allocated"] for c in per_rank]}
+               if "slot_bytes" in per_rank[0] else {})}
+    full = [r["full"] for r in ranks]
+    ref = train["losses"][:1 + H.TIMED_STEPS]
+    res = {"phase": "hybrid_train", "world": H.WORLD,
+           "placement": "all ranks on cuda:0 through the testing hook "
+                        "paddle_tpu_torch.testing.tp_hooks."
+                        "ranks_share_one_device (gloo through the host)",
+           "seconds": seconds, "reference_losses_f32":
+               ranks[0]["reference_losses"], "f32_cases": cases,
+           "bf16_full": {
+               "model": "gpt_1b (bench.py bench_gpt_1b), 16 layers",
+               "mesh": "dp 2 x mp 2", "sharding_stage": 1,
+               "sequence_parallel": True,
+               "losses": full[0]["losses"], "phase7_losses": ref,
+               "max_loss_diff_nats": max(abs(a - b_) for a, b_ in zip(
+                   full[0]["losses"], ref)),
+               "step_ms_per_rank": [f["step_ms"] for f in full],
+               "step_ms_p50": max(f["step_ms_p50"] for f in full),
+               "collective_host_ms_per_step": [
+                   f["collective_host_ms_per_step"] for f in full],
+               "collective_calls_per_step":
+                   full[0]["collective_calls_per_step"],
+               "collective_bytes_per_step": [
+                   f["collective_bytes_per_step"] for f in full],
+               "device_phases_rank0": full[0]["device_phases_one_step"],
+               "max_memory_allocated_per_rank": [
+                   f["max_memory_allocated"] for f in full],
+               "local_params_per_rank": [f["local_params"] for f in full],
+               "slot_bytes_per_rank": [f["slot_bytes"] for f in full],
+               "setup_s": max(f["setup_s"] for f in full),
+               "kernel_launches_per_rank": [f["kernel_launches"]
+                                            for f in full]},
+           "k2_k4_rank_shape": kern,
+           "note": "four ranks share one card over gloo through the host: "
+                   "no parallel speed is measured"}
+    emit(res)
+    # the checks, after the numbers are out
+    for name in names:
+        per_rank = [r["cases"][name] for r in ranks if name in r["cases"]]
+        for c in per_rank:
+            assert c["losses_ok"] and c["params"]["within_adam_bound"], (
+                name, c)
+            if "slot_bytes" in c:
+                assert c["slot_bytes"] == c["reckoned_slot_bytes"], (name, c)
+    for f in full:
+        assert f["losses"] == full[0]["losses"], [x["losses"] for x in full]
+        diffs = [abs(a - b_) for a, b_ in zip(f["losses"], ref)]
+        assert max(diffs) <= HYBRID_NATS, (f["losses"], ref)
+        assert f["losses"][-1] < f["losses"][0], f["losses"]
+        want = train["layers"] * H.TIMED_STEPS
+        assert all(n == want for n in f["kernel_launches"].values()), (
+            f["kernel_launches"], want)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -3320,6 +3500,7 @@ def main():
     flt = phase_fleet(dev, s)
     tpf = phase_tp_features(dev, s, serve_rows, flt, sp)
     del serve_rows
+    hyb = phase_hybrid_train(dev, tr)
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
     dr = fl["fwd_only"]["draft_shapes"]
@@ -3362,6 +3543,8 @@ def main():
             la["bf16_full_depth"]["kernel_launches"][name]
         by_path[name]["layer_trainstep"] = lt["kernel_launches"][name]
         by_path[name]["long_tail"] = lg["kernel_launches"][name]
+        by_path[name]["hybrid_train"] = sum(
+            n[name] for n in hyb["bf16_full"]["kernel_launches_per_rank"])
     spec_shapes = {
         "ragged_paged_attention": {
             "max_abs_err": kv["max_abs_err"], "ms": kv["ms"],
@@ -3430,6 +3613,23 @@ def main():
         **{key: k1tp[key] for key in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by")},
         "library_ms": None}
+    # K2-K4 at a hybrid-parallel rank's heads (phase 28: B 2, H 8)
+    hk = hyb["k2_k4_rank_shape"]
+    for row, key, err in ((rows[1], "fwd", hk["max_abs_err"]["o"]),
+                          (rows[2], "dq", hk["max_abs_err"]["dq"]),
+                          (rows[3], "dkv", max(hk["max_abs_err"]["dk"],
+                                               hk["max_abs_err"]["dv"]))):
+        row["hybrid_rank_shapes"] = {
+            "shape": hk["shape"], "max_abs_err": err, "ms": hk["ms"][key],
+            "plain_ms": hk["ms"]["plain_fwd" if key == "fwd"
+                                 else "plain_bwd"],
+            "bound_ms": hk["bounds"][key]["bound_ms"],
+            "bound_by": hk["bounds"][key]["bound_by"],
+            "library_ms": hk["ms"]["sdpa_fwd" if key == "fwd"
+                                   else "sdpa_bwd"],
+            "launches_by_rank": [
+                n[row["name"]] for n in
+                hyb["bf16_full"]["kernel_launches_per_rank"]]}
     # K1 at phase 26's decode replica's first step after an import
     rows[0]["fleet_shapes"] = flt["disagg_bf16"]["k1_first_after_import"]
     # K1 at a TP rank's heads (phase 27: 16 query, 4 kv) with the host

@@ -18,7 +18,8 @@ from paddle_tpu_torch.ops import threefry
 __all__ = [
     "Generator", "default_generator", "seed", "get_rng_state",
     "set_rng_state", "RNGStatesTracker", "get_rng_tracker", "rng_state",
-    "active_key", "wrap_replay", "device_key_stream",
+    "active_key", "wrap_replay", "device_key_stream", "batch_view",
+    "current_batch_view",
 ]
 
 
@@ -99,6 +100,30 @@ def device_key_stream(root):
         yield _key_stream
     finally:
         _key_stream = prev
+
+
+_batch_view = None
+
+
+@contextlib.contextmanager
+def batch_view(dim: int, n: int, index: int):
+    """Inside, a draw over a tensor whose dim ``dim`` is one of ``n``
+    equal shares of a batch (share ``index``) takes that share of the
+    draw over the whole batch: a data-parallel rank draws its slice of
+    the mask one process of the whole batch would draw
+    (``distributed.ParallelTrainStep``)."""
+    global _batch_view
+    prev = _batch_view
+    _batch_view = (int(dim), int(n), int(index))
+    try:
+        yield
+    finally:
+        _batch_view = prev
+
+
+def current_batch_view():
+    """``(dim, n, index)`` of the active :func:`batch_view`, or None."""
+    return _batch_view
 
 
 def seed(s: int) -> Generator:

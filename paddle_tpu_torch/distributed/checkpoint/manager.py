@@ -1,7 +1,7 @@
 """CheckpointManager: atomic, async, auto-resuming step checkpoints
 (port of the JAX package's ``distributed/checkpoint/manager.py``, one
 process: its barriers are no-ops here, and the gang's barriers, agreed
-restore step and broadcast preemption come with slice D). A restore's
+restore step and broadcast preemption come with slice D4). A restore's
 ``target_layout`` lands each named tensor as this rank's shard.
 
 Commit protocol (per step N, under ``root/``)::

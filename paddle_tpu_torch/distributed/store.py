@@ -9,10 +9,12 @@ registry, the worker heartbeats); ``TCPStore`` is a socket server and
 its clients.
 
 The JAX package's ``Store`` wraps jax's coordination service; its torch
-counterpart is the process group's store, which comes with the
-distributed runtime (slice D). Until then ``Store()`` raises naming
-slice D, and :func:`current_store` takes the ``PADDLE_STORE_DIR``
-FileStore.
+counterpart here wraps the store of the default process group, so it
+works once :func:`~paddle_tpu_torch.distributed.env.init_parallel_env`
+(or the caller's own ``init_process_group``) has joined a world, and
+raises naming ``init_parallel_env`` before. :func:`current_store` takes
+it, else the ``PADDLE_STORE_DIR`` FileStore. ``FileStore.barrier``
+without ``world_size`` takes the world's size, likewise.
 """
 from __future__ import annotations
 
@@ -24,15 +26,86 @@ __all__ = ["Store", "FileStore", "TCPStore", "current_store"]
 
 
 class Store:
-    """The distributed runtime's store (the JAX package's ``Store`` over
-    jax's coordination service). Not ported yet: the torch counterpart
-    is the process group's store, which comes with slice D."""
+    """TCPStore-shaped API over the default process group's store (the
+    JAX package's ``Store`` over jax's coordination service). Keys live
+    under ``prefix``; :meth:`list` reads an index of the keys set through
+    this API, kept in the store with an atomic counter."""
 
     def __init__(self, prefix: str = "paddle_store"):
-        raise RuntimeError(
-            "Store needs the distributed runtime, which is not ported to "
-            "paddle_tpu_torch yet (slice D); use FileStore, TCPStore, or "
-            "set PADDLE_STORE_DIR for current_store()")
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                "Store requires an initialized distributed runtime (call "
+                "paddle_tpu_torch.distributed.init_parallel_env first)")
+        self._c = dist.distributed_c10d._get_default_store()
+        self._prefix = prefix
+
+    def _k(self, key: str) -> str:
+        return f"{self._prefix}/{key}"
+
+    def _wait(self, keys, timeout: float):
+        from datetime import timedelta
+
+        self._c.wait([self._k(k) for k in keys], timedelta(seconds=timeout))
+
+    def set(self, key: str, value) -> None:
+        if isinstance(value, str):
+            value = value.encode()
+        if not self._c.check([self._k(key)]):
+            n = self._c.add(self._k("__index__/n"), 1)
+            self._c.set(self._k(f"__index__/{n}"), key)
+        self._c.set(self._k(key), value)
+
+    def get(self, key: str, timeout: float = 300.0) -> bytes:
+        try:
+            self._wait([key], timeout)
+        except Exception as e:   # c10d raises its own error on timeout
+            raise TimeoutError(
+                f"store key {key!r} not set within {timeout}s") from e
+        return bytes(self._c.get(self._k(key)))
+
+    def try_get(self, key: str) -> Optional[bytes]:
+        if not self._c.check([self._k(key)]):
+            return None
+        return bytes(self._c.get(self._k(key)))
+
+    def delete(self, key: str) -> None:
+        self._c.delete_key(self._k(key))
+
+    def list(self, prefix: str = "") -> List[str]:
+        n = self._c.add(self._k("__index__/n"), 0)
+        keys = []
+        for i in range(1, n + 1):
+            k = self.try_get(f"__index__/{i}")
+            if k is None:
+                continue
+            k = k.decode()
+            if k.startswith(prefix) and k not in keys and \
+                    self._c.check([self._k(k)]):
+                keys.append(k)
+        return keys
+
+    def add(self, key: str, amount: int = 1) -> int:
+        """Atomic counter (TCPStore::add)."""
+        return int(self._c.add(self._k(key), int(amount)))
+
+    def wait(self, keys, timeout: float = 300.0) -> None:
+        if isinstance(keys, str):
+            keys = [keys]
+        self._wait(keys, timeout)
+
+    def barrier(self, name: str = "barrier", timeout: float = 300.0,
+                process_ids=None) -> None:
+        """Wait until every rank of the world (or the ``process_ids``
+        given) has reached this barrier."""
+        import torch.distributed as dist
+
+        n = dist.get_world_size() if process_ids is None \
+            else len(process_ids)
+        if self.add(f"{name}/enter", 1) == n:
+            self.set(f"{name}/done", b"1")
+        self.get(f"{name}/done", timeout=timeout)
 
 
 class FileStore:
@@ -107,9 +180,14 @@ class FileStore:
     def barrier(self, name: str = "barrier", timeout: float = 300.0,
                 world_size: Optional[int] = None, rank: int = 0) -> None:
         if world_size is None:
-            raise ValueError(
-                "FileStore.barrier needs world_size: the distributed "
-                "runtime's world size comes with slice D")
+            import torch.distributed as dist
+
+            if not (dist.is_available() and dist.is_initialized()):
+                raise ValueError(
+                    "FileStore.barrier needs world_size, or the world's "
+                    "size after paddle_tpu_torch.distributed."
+                    "init_parallel_env")
+            world_size = dist.get_world_size()
         n = self.add(f"{name}/enter", 1)
         deadline = time.time() + timeout
         while n < world_size:
@@ -127,8 +205,8 @@ _store: Optional[object] = None
 
 
 def current_store():
-    """Process-wide default store: the distributed runtime's Store (slice
-    D; it raises until then), else a FileStore under PADDLE_STORE_DIR."""
+    """Process-wide default store: the distributed runtime's Store once a
+    world is initialized, else a FileStore under PADDLE_STORE_DIR."""
     global _store
     if _store is None:
         try:

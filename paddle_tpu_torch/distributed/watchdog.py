@@ -27,7 +27,7 @@ Process-local only. The gang-store record that broadcasts an abort or a
 preemption notice to the other ranks of a training gang
 (``broadcast_abort=True``, ``on_remote_abort``), and the flag-driven
 process-wide watchdog (:func:`default_watchdog`, :func:`arm_step`,
-:func:`attach_step`, :func:`watch_step`) come with slice D (distributed
+:func:`attach_step`, :func:`watch_step`) come with slice D4 (distributed
 training) and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
@@ -47,7 +47,7 @@ __all__ = ["StepWatchdog", "COMPILE_ALLOWANCE", "PreemptionMonitor",
 
 _SLICE_D = ("is not ported to paddle_tpu_torch yet: the gang-store abort "
             "broadcast and the process-wide step watchdog come with "
-            "slice D (distributed training)")
+            "slice D4 (the gang half of distributed training)")
 
 # a key's first step on the card also warms up and captures its graph:
 # slow, not hung, so its deadline stretches by this factor
@@ -105,11 +105,11 @@ class StepWatchdog:
                  on_remote_abort: Optional[Callable] = None,
                  broadcast_abort: bool = False):
         """``timeout`` in seconds (None or 0: off; the reference's
-        flag-driven default is slice D's);
+        flag-driven default is slice D4's);
         ``on_timeout(expired)`` gets the expired ``(tag, deadline,
         event)`` entries. The reference's default ``broadcast_abort=True``
         and ``on_remote_abort`` belong to a training gang and are refused
-        (slice D)."""
+        (slice D4)."""
         if broadcast_abort:
             raise NotImplementedError(f"StepWatchdog(broadcast_abort=True) "
                                       f"{_SLICE_D}")

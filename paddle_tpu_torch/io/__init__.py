@@ -441,7 +441,7 @@ class DataLoader:
         if prefetch_mesh is not None or prefetch_placements is not None:
             raise NotImplementedError(
                 "DataLoader(prefetch_mesh=, prefetch_placements=) is not "
-                "ported yet; mesh placement comes with slice D")
+                "ported yet; mesh placement comes with slice D2")
         self.dataset = dataset
         self.device = resolve_device(places)
         self.collate_fn = collate_fn or default_collate_fn

@@ -27,7 +27,7 @@ through untouched, as on the plain loader path. A numpy array of an
 extended float dtype (ml_dtypes' ``bfloat16``, known by its dtype name)
 lands as a torch tensor of that dtype. Dtypes are kept as they come:
 torch has 64-bit integers, where the JAX package canonicalises int64 to
-int32. ``mesh``/``placements`` (sharded placement) come with slice D.
+int32. ``mesh``/``placements`` (sharded placement) come with slice D2.
 """
 from __future__ import annotations
 
@@ -97,7 +97,7 @@ class DevicePrefetcher:
         if mesh is not None or placements is not None:
             raise NotImplementedError(
                 "DevicePrefetcher(mesh=, placements=) is not ported yet; "
-                "mesh placement comes with slice D")
+                "mesh placement comes with slice D2")
         self._loader = loader
         self._depth = depth
         self._coalesce = coalesce

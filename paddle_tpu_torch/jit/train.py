@@ -60,8 +60,11 @@ key once more, in call order, and the generator's counter does not move.
 Every mask is a pure device function of the chain, so ``run_steps(k)``
 draws the masks of k ``__call__``s.
 
-Refused at construction: ``sharding`` (slice D), and
-``accumulate_steps > 1``, which the JAX step accepts and never reads.
+Refused at construction: ``sharding`` and ``accumulate_steps > 1``,
+which the JAX step accepts and never reads (sharded training is
+:class:`paddle_tpu_torch.distributed.ParallelTrainStep`, which shares
+this step's body through the hooks ``_place``, ``_forward``, ``_sync``,
+``_agree``, ``_clip``, ``_update`` and ``_new_slots``).
 The JAX step's SOT graph-break path has nothing to port: eager PyTorch
 runs data-dependent Python as it is.
 """
@@ -131,8 +134,9 @@ class TrainStep:
                  donate: bool = True, skip_nonfinite: bool = False):
         if sharding is not None:
             raise NotImplementedError(
-                "TrainStep(sharding) is not ported yet; it comes with "
-                "slice D")
+                f"TrainStep(sharding={sharding!r}) is refused: the JAX "
+                f"package's TrainStep stores the argument and never reads "
+                f"it; sharded training is distributed.ParallelTrainStep")
         if accumulate_steps > 1:
             raise NotImplementedError(
                 f"TrainStep(accumulate_steps={accumulate_steps}) is "
@@ -167,7 +171,7 @@ class TrainStep:
             optimizer._model_names.setdefault(id(p), name)
         for p in self._params:   # slots up front, as the JAX step does
             if id(p) not in optimizer._slots:
-                optimizer._slots[id(p)] = optimizer._init_slots_mp(p)
+                optimizer._slots[id(p)] = self._new_slots(p)
         self._device = self._params[0].device
         # the device carry, written only in place (captured graphs hold
         # these addresses): the applied step (bias correction), the
@@ -237,10 +241,46 @@ class TrainStep:
         self._chain.copy_(pair[0])
         wrap = Tensor._from_data if self._is_layer else (lambda d: d)
         with gen.device_key_stream(pair[1]):
-            out = self._model(*map(wrap, datas[:n_inputs]))
+            out = self._forward(*map(wrap, datas[:n_inputs]))
         outs = out if isinstance(out, tuple) else (out,)
         loss = self._loss_fn(*outs, *map(wrap, datas[n_inputs:]))
         return loss._data if isinstance(loss, Tensor) else loss
+
+    # -- what a sharded step (distributed.ParallelTrainStep) overrides -------
+    def _new_slots(self, p) -> dict:
+        """A trainable parameter's optimizer slots."""
+        return self._opt._init_slots_mp(p)
+
+    def _place(self, batch, lead: int = 0) -> List[torch.Tensor]:
+        """The batch as tensors on the model's device (``lead``: the
+        leading dims before the batch dim, 1 for a stack of
+        microbatches)."""
+        return [_as_data(b).to(self._device, non_blocking=True)
+                for b in batch]
+
+    def _captures(self) -> bool:
+        """Whether ``run_steps`` captures its steps (on the card)."""
+        return self._device.type == "cuda"
+
+    def _forward(self, *inputs):
+        return self._model(*inputs)
+
+    def _sync(self, grads, loss):
+        """The gradients and the loss the update sees (one rank: as
+        they are)."""
+        return grads, loss
+
+    def _agree(self, flag: torch.Tensor) -> torch.Tensor:
+        """A 0-dim bool every rank takes alike (one rank: as it is)."""
+        return flag
+
+    def _clip(self, grads):
+        clip_fn = getattr(self._opt._grad_clip, "clip_fn", None)
+        return grads if clip_fn is None else clip_fn(grads)
+
+    def _update(self, grads, step, skip, inplace: bool):
+        self._opt._apply(self._params, grads, self._lr, step, skip=skip,
+                         cast_grads=False, inplace=inplace)
 
     @torch.no_grad()
     def _thread_buffers(self, rollback):
@@ -268,24 +308,22 @@ class TrainStep:
                  for p in self._params]
         for p in self._params:
             p.grad = None
-        loss = loss.detach()
+        grads, loss = self._sync(grads, loss.detach())
 
         step = self._step + 1
         found_inf = new_state = None
         if state is not None:
             grads, found_inf = _amp.scaler_unscale_and_check(grads, state)
+            found_inf = self._agree(found_inf)
             new_state = _amp.scaler_update_state(self._scaler, state,
                                                  found_inf)
-        nonfinite = (nonfinite_any(loss, grads) if self._skip_nonfinite
-                     else None)
-        clip_fn = getattr(self._opt._grad_clip, "clip_fn", None)
-        if clip_fn is not None:
-            grads = clip_fn(grads)
+        nonfinite = (self._agree(nonfinite_any(loss, grads))
+                     if self._skip_nonfinite else None)
+        grads = self._clip(grads)
         skip = found_inf
         if nonfinite is not None:
             skip = nonfinite if skip is None else skip | nonfinite
-        self._opt._apply(self._params, grads, self._lr, step, skip=skip,
-                         cast_grads=False, inplace=inplace)
+        self._update(grads, step, skip, inplace)
         if nonfinite is not None:
             # only the guard rolls the step and the buffers back; a
             # found_inf skip and the scaler's schedule are never rolled
@@ -304,8 +342,7 @@ class TrainStep:
 
     def __call__(self, *batch, n_model_inputs: Optional[int] = None):
         n_inputs = 1 if n_model_inputs is None else n_model_inputs
-        datas = [_as_data(b).to(self._device, non_blocking=True)
-                 for b in batch]
+        datas = self._place(batch)
         self._adopt()
         self._sync_step_carry()
         self._opt._step_count += 1
@@ -339,7 +376,7 @@ class TrainStep:
                 raise ValueError(
                     f"run_steps(stacked=True) needs a leading dim of {k} "
                     f"on every batch array; got shapes {bad}")
-        datas = [d.to(self._device, non_blocking=True) for d in datas]
+        datas = self._place(datas, lead=1 if stacked else 0)
         self._adopt()
         self._sync_step_carry()
         self._sync_lr()
@@ -347,7 +384,7 @@ class TrainStep:
         def micro(i):
             return [d[i] for d in datas] if stacked else datas
 
-        if self._device.type == "cuda":
+        if self._captures():
             losses = self._replay(k, micro, n_inputs, stacked)
         else:
             losses = torch.stack([self._body(micro(i), n_inputs,

@@ -8,11 +8,28 @@ model's attribute names (``q_proj``, ``gate_proj``, ``embed_tokens``,
 JAX weights across). ``forward`` is the training path: causal flash
 attention (the hand-written kernels on the card), or plain attention
 under an ``attn_mask``; :meth:`LlamaForCausalLM.criterion` is the LM
-loss. Recompute and sequence/context parallelism are refused at
-construction; ``tp_degree`` only groups the bucketed path's GQA packing
-per TP shard (exact at any value, as in the reference), and the
-tensor-parallel serving engine shards the modules themselves
-(:mod:`paddle_tpu_torch.serving.tp`). ``forward_ragged_multi`` is the
+loss.
+
+Hybrid-parallel training (``distributed.ParallelTrainStep``): the
+parameters carry the JAX model's placement hints in torch's ``[out,
+in]`` dims (q, k, v, gate and up column-parallel, ``Shard(0)``; o and
+down row-parallel, ``Shard(1)``; the embedding vocab-parallel and
+``lm_head`` column-parallel over the vocabulary, both ``Shard(0)``).
+``shard_model_parameters`` cuts them and binds the modules to the mp
+group (``_bind_mp``): the attention then runs on its rank's H/k query
+and KH/k kv heads, each block's input and output take the Megatron pair,
+the embedding is a masked lookup plus an all-reduce, and the logits are
+the rank's shard of the vocabulary, which the criterion reads with the
+vocab-parallel cross entropy. With ``sequence_parallel`` the activations
+between the blocks are split along the sequence over mp (all-gathered
+entering a block, reduce-scattered leaving it) and the norms' weights
+are tagged for the gradient sum over mp. ``recompute`` recomputes each
+decoder layer in the backward. Context parallelism is refused (slice
+D3). ``tp_degree`` only groups the bucketed path's GQA packing per TP
+shard (exact at any value, as in the reference), and the
+tensor-parallel serving engine shards the modules itself
+(:mod:`paddle_tpu_torch.serving.tp`), with the embedding and the head
+replicated. ``forward_ragged_multi`` is the
 speculative-verify step: the ragged forward with ``lm_head`` on each
 slot's last R packed positions. ``forward_paged`` is the bucketed
 serving step over a padded (B, S) batch
@@ -33,6 +50,8 @@ from torch import nn
 
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.dtype import to_torch
+from paddle_tpu_torch.distributed import communication as comm
+from paddle_tpu_torch.distributed.mesh import Shard
 from paddle_tpu_torch.incubate.nn import functional as F
 from paddle_tpu_torch.ops.nn_ops import (flash_attention, rms_norm,
                                          scaled_dot_product_attention,
@@ -59,6 +78,51 @@ class _RMSNorm(nn.Module):
 
     def forward(self, x):
         return rms_norm(x, self.weight, epsilon=self.epsilon)
+
+
+def _hint(param, dim: int, linear: bool = False):
+    """The JAX model's placement hint: ``param`` split over mp on
+    ``dim``. A Linear weight is stored transposed from the JAX model's
+    ``[in, out]``: ``_dim_order`` names its dims in the JAX order, which a
+    ZeRO stage searches for the dim it slices (so each rank holds the
+    JAX step's slice)."""
+    param._placement_hints = {"mp": Shard(dim)}
+    if linear:
+        param._dim_order = (1, 0)
+
+
+def _tp_enter(x, group, sp: bool):
+    """A block's input: all-gathered along the sequence under SP, else the
+    Megatron ``f`` (identity forward, all-reduce backward)."""
+    if group is None:
+        return x
+    return comm.all_gather_along(x, group, 1) if sp \
+        else comm.copy_to_group(x, group)
+
+
+def _tp_exit(x, group, sp: bool):
+    """A block's partial-sum output: reduce-scattered onto the sequence
+    under SP, else all-reduced (Megatron ``g``)."""
+    if group is None:
+        return x
+    return comm.reduce_scatter_along(x, group, 1) if sp \
+        else comm.reduce_from_group(x, group)
+
+
+class _VocabEmbedding(nn.Embedding):
+    """``nn.Embedding`` that, bound to an mp group, looks up the rank's
+    shard of the vocabulary and all-reduces (vocab-parallel)."""
+
+    _mp = None
+
+    def forward(self, input):
+        if self._mp is None:
+            return super().forward(input)
+        from paddle_tpu_torch.distributed.fleet.mp_layers import (
+            vocab_parallel_embedding)
+
+        return vocab_parallel_embedding(input, self.weight, self._mp)
+
 
 @dataclass
 class LlamaConfig:
@@ -107,11 +171,9 @@ def _rope_tables(seq_len, head_dim, theta, device=None):
     return emb.cos(), emb.sin()
 
 
-# what this slice refuses, and the slice of the port that brings it
+# what the port refuses, and the slice of the port that brings it
 _NOT_YET = (
-    ("recompute", "slice D (distributed/fleet/recompute.py)"),
-    ("sequence_parallel", "slice D (fleet/utils/sequence_parallel_utils.py)"),
-    ("context_parallel", "slice D (ops/ring_attention.py)"),
+    ("context_parallel", "slice D3 (ops/ring_attention.py)"),
 )
 
 
@@ -165,11 +227,33 @@ class LlamaAttention(nn.Module):
         self.k_proj = nn.Linear(h, self.n_kv * self.head_dim, **kw)
         self.v_proj = nn.Linear(h, self.n_kv * self.head_dim, **kw)
         self.o_proj = nn.Linear(h, h, **kw)
+        for lin in (self.q_proj, self.k_proj, self.v_proj):
+            _hint(lin.weight, 0, linear=True)
+        _hint(self.o_proj.weight, 1, linear=True)
+        self._mp = None
+
+    def _bind_mp(self, group):
+        """Run on this rank's share of the heads of ``group``'s k ranks
+        (the weights are cut by the caller). The shares come from the
+        config, so binding again to the same group changes nothing."""
+        k = group.nranks
+        heads = {}
+        for what in ("num_attention_heads", "num_key_value_heads"):
+            n = getattr(self.config, what)
+            if n % k:
+                raise ValueError(f"{what} ({n}) must be divisible by the "
+                                 f"model-parallel degree ({k})")
+            heads[what] = n // k
+        self.n_heads = heads["num_attention_heads"]
+        self.n_kv = heads["num_key_value_heads"]
+        self._mp = group
 
     def forward(self, x, cos, sin, attn_mask=None):
         """Training attention over (b, s, h) activations; ``cos``/``sin``
         the (s, D) rope tables. KV heads are repeated up to the query
         heads before attention."""
+        sp = self.config.sequence_parallel
+        x = _tp_enter(x, self._mp, sp)
         b, s, _ = x.shape
         q = self.q_proj(x).view(b, s, self.n_heads, self.head_dim)
         k = self.k_proj(x).view(b, s, self.n_kv, self.head_dim)
@@ -184,7 +268,8 @@ class LlamaAttention(nn.Module):
         else:
             out = scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None)
-        return self.o_proj(out.reshape(b, s, self.n_heads * self.head_dim))
+        out = self.o_proj(out.reshape(b, s, self.n_heads * self.head_dim))
+        return _tp_exit(out, self._mp, sp)
 
     def forward_ragged(self, x, cos, sin, key_cache, value_cache,
                        block_tables, cu_seqlens, context_lens, num_seqs,
@@ -251,10 +336,21 @@ class LlamaMLP(nn.Module):
         self.gate_proj = nn.Linear(h, m, **kw)
         self.up_proj = nn.Linear(h, m, **kw)
         self.down_proj = nn.Linear(m, h, **kw)
+        _hint(self.gate_proj.weight, 0, linear=True)
+        _hint(self.up_proj.weight, 0, linear=True)
+        _hint(self.down_proj.weight, 1, linear=True)
+        self.sequence_parallel = config.sequence_parallel
+        self._mp = None
+
+    def _bind_mp(self, group):
+        self._mp = group
 
     def forward(self, x):
+        sp = self.sequence_parallel
+        x = _tp_enter(x, self._mp, sp)
         # swiglu
-        return self.down_proj(F_t.silu(self.gate_proj(x)) * self.up_proj(x))
+        out = self.down_proj(F_t.silu(self.gate_proj(x)) * self.up_proj(x))
+        return _tp_exit(out, self._mp, sp)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -268,6 +364,10 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = _RMSNorm(config.hidden_size,
                                                 config.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(config, **kw)
+        if config.sequence_parallel:
+            # they see the rank's slice of the sequence
+            self.input_layernorm.weight.sequence_parallel = True
+            self.post_attention_layernorm.weight.sequence_parallel = True
 
     def forward(self, x, cos, sin, attn_mask=None):
         """One decoder block; ``cos``/``sin`` the (s, D) rope tables (the
@@ -312,12 +412,16 @@ class LlamaModel(nn.Module):
         _check_config(config)
         self.config = config
         kw = dict(device=device, dtype=dtype)
-        self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size, **kw)
+        self.embed_tokens = _VocabEmbedding(config.vocab_size,
+                                            config.hidden_size, **kw)
+        _hint(self.embed_tokens.weight, 0)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, **kw)
              for _ in range(config.num_hidden_layers)])
         self.norm = _RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
+        if config.sequence_parallel:
+            self.norm.weight.sequence_parallel = True
+        self._mp = None
         head_dim = config.hidden_size // config.num_attention_heads
         cos, sin = _rope_tables(config.max_position_embeddings, head_dim,
                                 config.rope_theta, device=device)
@@ -333,9 +437,25 @@ class LlamaModel(nn.Module):
                              f"{self.rope_cos.shape[0]}")
         cos, sin = self.rope_cos[:s], self.rope_sin[:s]
         x = self.embed_tokens(input_ids.long())
+        if self._mp is not None and self.config.sequence_parallel:
+            x = comm.split_along(x, self._mp, 1)
+        recompute = self.config.recompute and self.training and \
+            torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, cos, sin, attn_mask)
+            if recompute:
+                from paddle_tpu_torch.distributed.fleet.recompute import (
+                    recompute as _recompute)
+
+                x = _recompute(layer, x, cos, sin, attn_mask)
+            else:
+                x = layer(x, cos, sin, attn_mask)
         return self.norm(x)
+
+    def _bind_mp(self, group):
+        """The embedding's vocabulary is sharded over ``group``; under
+        SP the blocks run on the rank's slice of the sequence."""
+        self._mp = group
+        self.embed_tokens._mp = group
 
     @torch.no_grad()
     def forward_ragged(self, input_ids, key_caches, value_caches,
@@ -414,8 +534,19 @@ class LlamaPretrainingCriterion(nn.Module):
     def __init__(self, config: LlamaConfig = None):
         super().__init__()
         self.ignore_index = -100
+        self.vocab_size = None if config is None else config.vocab_size
 
     def forward(self, logits, labels):
+        from paddle_tpu_torch.distributed.engine import mp_group
+        from paddle_tpu_torch.distributed.fleet.mp_layers import (
+            parallel_cross_entropy)
+
+        g = mp_group()
+        if g is not None and logits.shape[-1] != self.vocab_size:
+            # inside a ParallelTrainStep over mp: the logits are this
+            # rank's shard of the vocabulary
+            return parallel_cross_entropy(logits, labels, g,
+                                          self.ignore_index).mean()
         return softmax_with_cross_entropy(
             logits, labels, ignore_index=self.ignore_index).mean()
 
@@ -453,8 +584,14 @@ class LlamaForCausalLM(nn.Module):
         self.llama = LlamaModel(config, device=dev, dtype=dtype)
         self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
                                  bias=False, device=dev, dtype=dtype)
+        _hint(self.lm_head.weight, 0, linear=True)
         if config.tie_word_embeddings:
             self.lm_head.weight = self.llama.embed_tokens.weight
+        self._mp = None
+
+    def _bind_mp(self, group):
+        """``lm_head`` gives this rank's shard of the vocabulary."""
+        self._mp = group
 
     @property
     def device(self) -> torch.device:
@@ -465,8 +602,11 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head.weight.dtype
 
     def forward(self, input_ids, attn_mask=None):
-        """(b, s) token ids -> (b, s, vocab) logits."""
-        return self.lm_head(self.llama(input_ids, attn_mask))
+        """(b, s) token ids -> (b, s, vocab) logits (bound to an mp group:
+        this rank's shard of the vocabulary)."""
+        h = _tp_enter(self.llama(input_ids, attn_mask), self._mp,
+                      self.config.sequence_parallel)
+        return self.lm_head(h)
 
     @staticmethod
     def criterion(config=None):

@@ -6,8 +6,16 @@ data after each training call, keeping the Tensor objects. ``RMSNorm``
 here is the Tensor API's layer; the port's Llama keeps a
 ``torch.nn.Module`` of its own (``models/llama.py``). ``rms_norm`` is the
 raw function that module calls.
+
+Cross-replica statistics: inside ``distributed.ParallelTrainStep`` both
+BatchNorm and SyncBatchNorm take their batch statistics over the step's
+batch axes (:func:`batch_stats_group`), as the JAX step's BatchNorm sees
+the whole global batch; outside it SyncBatchNorm takes them over the
+world when one is initialized, and BatchNorm over the rank's own batch.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -21,6 +29,43 @@ __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "SyncBatchNorm", "LayerNorm", "RMSNorm", "GroupNorm",
            "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D",
            "LocalResponseNorm", "SpectralNorm"]
+
+
+_stats = {"group": None}
+
+
+@contextlib.contextmanager
+def batch_stats_group(group):
+    """Inside, BatchNorm layers in training take their statistics over
+    ``group`` (a :class:`~paddle_tpu_torch.distributed.communication.
+    Group` of data-parallel ranks, each with an equal share)."""
+    prev = _stats["group"]
+    _stats["group"] = group
+    try:
+        yield
+    finally:
+        _stats["group"] = prev
+
+
+def _synced_batch_norm(x, weight, bias, epsilon, group):
+    """Training batch norm over channel dim 1 with the mean and the
+    (biased) variance of the whole batch the ranks of ``group`` hold in
+    equal shares: the sums are all-reduced forward and backward. Returns
+    (out, mean, var) as torch tensors."""
+    from paddle_tpu_torch.distributed.communication import all_reduce_both
+
+    axes = tuple(i for i in range(x.dim()) if i != 1)
+    count = (x.numel() // x.shape[1]) * group.nranks
+    bshape = [1, -1] + [1] * (x.dim() - 2)
+    mean = all_reduce_both(x.sum(dim=axes), group) / count
+    d = x - mean.reshape(bshape)
+    var = all_reduce_both((d * d).sum(dim=axes), group) / count
+    out = d * torch.rsqrt(var + epsilon).reshape(bshape)
+    if weight is not None:
+        out = out * weight.reshape(bshape)
+    if bias is not None:
+        out = out + bias.reshape(bshape)
+    return out, mean, var
 
 
 class _BatchNormBase(Layer):
@@ -48,11 +93,26 @@ class _BatchNormBase(Layer):
         self.register_buffer("_variance", Tensor(
             init.Constant(1.0)([num_features], self._dtype)))
 
+    def _stats_group(self):
+        """The group the batch statistics are taken over, or None."""
+        return _stats["group"]
+
     def forward(self, x):
         training = self.training and not self.use_global_stats
-        out, mean, var = ops.batch_norm(
-            x, self._mean, self._variance, self.weight, self.bias,
-            training=training, momentum=self.momentum, epsilon=self.epsilon)
+        group = self._stats_group() if training else None
+        if group is not None and group.nranks > 1:
+            out, mean, var = (Tensor._from_data(
+                t, stop_gradient=not t.requires_grad) for t in
+                _synced_batch_norm(
+                    x._data, None if self.weight is None
+                    else self.weight._data,
+                    None if self.bias is None else self.bias._data,
+                    self.epsilon, group))
+        else:
+            out, mean, var = ops.batch_norm(
+                x, self._mean, self._variance, self.weight, self.bias,
+                training=training, momentum=self.momentum,
+                epsilon=self.epsilon)
         if training:
             from paddle_tpu_torch.autograd import no_grad
 
@@ -86,8 +146,18 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Cross-replica BN; on one card the same as BatchNorm (the
-    cross-replica statistics come with slice D)."""
+    """Cross-replica BN: the statistics of the whole batch over the
+    ParallelTrainStep's batch axes, else over the initialized world (on
+    one rank, BatchNorm's)."""
+
+    def _stats_group(self):
+        group = _stats["group"]
+        if group is None:
+            from paddle_tpu_torch.distributed import communication as comm
+
+            if comm._world_up():
+                group = comm.get_group(0)
+        return group
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

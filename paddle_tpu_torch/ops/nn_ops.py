@@ -770,7 +770,9 @@ def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
 def dropout(x, p=0.5, training=True, mode="upscale_in_train", axis=None):
     """One key from the global generator per call in training with
     ``p > 0`` (none otherwise): the keep mask is an f32 uniform below
-    ``1 - p`` over ``x``'s shape (1 on the axes ``axis`` leaves out)."""
+    ``1 - p`` over ``x``'s shape (1 on the axes ``axis`` leaves out); in a
+    :func:`~paddle_tpu_torch.core.generator.batch_view`, the share's
+    slice of the mask over the whole batch."""
     if not training or p == 0.0:
         # downscale_in_infer trains with out = x * mask (no upscale), so
         # inference compensates by (1 - p)
@@ -783,7 +785,17 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train", axis=None):
         axes = [axis] if isinstance(axis, int) else list(axis)
         shape = [s if i in axes else 1 for i, s in enumerate(shape)]
     keep = 1.0 - p
-    mask = bernoulli_bits(key, keep, shape, x.device)
+    view = gen.current_batch_view()
+    if view is not None and len(shape) > view[0] and shape[view[0]] > 1:
+        # one data-parallel share of a batch: its slice of the whole
+        # batch's mask
+        d, n, i = view
+        whole = list(shape)
+        whole[d] *= n
+        mask = bernoulli_bits(key, keep, whole, x.device).narrow(
+            d, i * shape[d], shape[d])
+    else:
+        mask = bernoulli_bits(key, keep, shape, x.device)
     if mode == "upscale_in_train":
         return torch.where(mask, x / _scalar(keep, x), _scalar(0.0, x))
     return torch.where(mask, x, _scalar(0.0, x))

@@ -31,7 +31,8 @@ parameter with an automatic name), so a state dict of one package loads
 into the other (``models.convert.optimizer_state_from_jax``).
 ``learning_rate`` may be an :class:`~paddle_tpu_torch.optimizer.lr.
 LRScheduler`. Not ported: the ASP n:m masks (``incubate/asp``) and the
-ZeRO slot placement (``_slot_shard_fn``, slice D).
+ZeRO slot placement of the semi-auto API (``_slot_shard_fn``, slice D2);
+``distributed.ParallelTrainStep`` shards its own slots.
 """
 from __future__ import annotations
 
@@ -154,6 +155,18 @@ class Optimizer:
     # set per parameter before each _rule call (False where
     # apply_decay_param_fun / exclude_from_weight_decay_fn excludes it)
     _current_decay_enabled = True
+    # set per parameter by _apply(norm_reduce=): a squared norm over the
+    # slice a rule sees -> the whole parameter's
+    _current_norm_reduce = None
+
+    def _norm(self, x):
+        """The L2 norm of the parameter ``x`` is a slice of (the whole
+        parameter's under ``_apply(norm_reduce=)``)."""
+        reduce = self._current_norm_reduce
+        if reduce is None:
+            return torch.linalg.vector_norm(x)
+        return reduce(torch.linalg.vector_norm(x, dtype=torch.float32)
+                      .square()).sqrt()
 
     def _decay_enabled(self, param) -> bool:
         return True
@@ -199,7 +212,7 @@ class Optimizer:
     # -- in-place application ----------------------------------------------
     @torch.no_grad()
     def _apply(self, params, grads, lr, step, skip=None, cast_grads=True,
-               inplace=True):
+               inplace=True, targets=None, norm_reduce=None):
         """One update of ``params`` from ``grads`` (same order), in place
         by default. ``lr`` and ``step`` (the bias-correction step) are numbers or
         0-dim tensors; where the 0-dim bool tensor ``skip`` is True,
@@ -209,17 +222,29 @@ class Optimizer:
         as it is). ``inplace=False`` binds the new values as new tensors
         instead (``p.data`` and the slot entries), so a tensor taken from
         a parameter or slot before the update keeps its values (the JAX
-        step's ``donate=False``)."""
-        for p, g in zip(params, grads):
+        step's ``donate=False``). ``targets`` (one per parameter, in
+        place only) are the tensors the rule updates in the parameters'
+        stead, with the parameters' slots and names: a ZeRO step updates
+        the slice of each parameter that its slots cover, and
+        ``norm_reduce`` (one per parameter, or None) turns a squared norm
+        over the slice into the whole parameter's, for a rule that reads
+        a norm (``Lamb``'s trust ratio)."""
+        if targets is None:
+            targets = params
+        elif not inplace:
+            raise ValueError("_apply(targets=) updates in place")
+        for i, (p, t, g) in enumerate(zip(params, targets, grads)):
+            self._current_norm_reduce = None if norm_reduce is None \
+                else norm_reduce[i]
             slots = self._slots.get(id(p))
             if slots is None:
-                slots = self._slots[id(p)] = self._init_slots_mp(p)
+                slots = self._slots[id(p)] = self._init_slots_mp(t)
             if cast_grads and g.dtype != p.dtype:
                 g = g.to(p.dtype)
             self._current_decay_enabled = self._decay_enabled(p)
-            new_p, new_slots = self._rule_mp(p.detach(), g, slots, lr, step)
+            new_p, new_slots = self._rule_mp(t.detach(), g, slots, lr, step)
             self._current_decay_enabled = True
-            for key, old, new in [(None, p, new_p)] + [
+            for key, old, new in [(None, t, new_p)] + [
                     (k, slots[k], v) for k, v in new_slots.items()]:
                 if new is old:
                     continue
@@ -230,6 +255,7 @@ class Optimizer:
                     p.data = val
                 else:
                     slots[key] = val
+        self._current_norm_reduce = None
 
     # -- eager step --------------------------------------------------------
     @torch.no_grad()
@@ -562,8 +588,8 @@ class Lamb(Optimizer):
         wd = (float(self._weight_decay)
               if self._weight_decay and self._current_decay_enabled else 0.0)
         r = r + wd * p
-        w_norm = torch.linalg.vector_norm(p)
-        r_norm = torch.linalg.vector_norm(r)
+        w_norm = self._norm(p)
+        r_norm = self._norm(r)
         ratio = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                             torch.ones_like(w_norm))
         return p - lr * ratio * r, {"moment1": m, "moment2": v}

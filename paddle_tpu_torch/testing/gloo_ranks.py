@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import multiprocessing as mp
 import os
+import pickle
 import queue
 import shutil
 import sys
@@ -24,27 +25,107 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-__all__ = ["run", "redistribute_cases", "tp_restore"]
+__all__ = ["run", "start", "World", "redistribute_cases", "tp_restore"]
 
 
-def _entry(fn, rank, world, store_dir, args, timeout_s, out):
+def _entry(fn, rank, world, store_dir, timeout_s, out):
+    import pickle
+
     import torch.distributed as dist
 
     code = 0
     try:
+        with open(os.path.join(store_dir, "args.pkl"), "rb") as f:
+            args = pickle.load(f)
         torch.set_num_threads(1)
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
         store = dist.FileStore(os.path.join(store_dir, "store"), world)
         dist.init_process_group("gloo", store=store, rank=rank,
                                 world_size=world,
                                 timeout=timedelta(seconds=timeout_s))
-        out.put((rank, None, fn(rank, world, *args)))
-        dist.destroy_process_group()
+        res = (rank, None, fn(rank, world, *args))
     except BaseException:
-        out.put((rank, traceback.format_exc(), None))
+        res = (rank, traceback.format_exc(), None)
         code = 1
+    # the queue's feeder thread must have written the result before the
+    # world is torn down (a broken world may not tear down) and the
+    # process ends
+    out.put(res)
+    out.close()
+    out.join_thread()
     sys.stderr.flush()
+    if code == 0:
+        dist.destroy_process_group()
     os._exit(code)
+
+
+class World:
+    """A started world of ranks (:func:`start`); :meth:`results` waits
+    for them."""
+
+    def __init__(self, fn: Callable, world: int, args, timeout_s: float):
+        ctx = mp.get_context("spawn")
+        self._world = world
+        self._timeout = timeout_s
+        self._out = ctx.Queue()
+        self._dir = tempfile.mkdtemp(prefix="gloo-ranks-")
+        # the arguments go through a file: a large payload on a rank's
+        # start-up pipe would hold this process until the rank has
+        # imported what unpickling it needs
+        with open(os.path.join(self._dir, "args.pkl"), "wb") as f:
+            pickle.dump(args, f)
+        self._procs = [ctx.Process(target=_entry, daemon=True,
+                                   args=(fn, r, world, self._dir,
+                                         timeout_s, self._out))
+                       for r in range(world)]
+        try:
+            for p in self._procs:
+                p.start()
+        except BaseException:
+            self._reap()
+            raise
+
+    def results(self, ranks=None) -> List:
+        """``[fn(0, ...), ..., fn(world - 1, ...)]`` (or the results of
+        ``ranks`` alone, in their order); raises with a rank's traceback
+        if one failed, or after the timeout; leaves no process behind."""
+        want = list(range(self._world)) if ranks is None else list(ranks)
+        try:
+            got = {}
+            while len(got) < len(want):
+                try:
+                    rank, err, res = self._out.get(timeout=self._timeout)
+                except queue.Empty:
+                    raise TimeoutError(
+                        f"{self._world} gloo ranks: {sorted(got)} answered "
+                        f"within {self._timeout} s") from None
+                if err is not None:
+                    raise RuntimeError(f"gloo rank {rank} failed:\n{err}")
+                got[rank] = res
+            return [got[r] for r in want]
+        finally:
+            self._reap()
+
+    def alive(self) -> List[int]:
+        """The ranks whose process still runs."""
+        return [r for r, p in enumerate(self._procs) if p.is_alive()]
+
+    def _reap(self):
+        for p in self._procs:
+            if p.pid is None:
+                continue
+            p.join(10.0)
+            if p.exitcode is None:
+                p.kill()
+                p.join(10.0)
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+
+def start(fn: Callable, world: int, *args, timeout_s: float = 120.0
+          ) -> World:
+    """Start ``fn(rank, world, *args)`` on ``world`` ranks and return at
+    once (the caller works meanwhile, then calls ``results()``)."""
+    return World(fn, world, args, timeout_s)
 
 
 def run(fn: Callable, world: int, *args, timeout_s: float = 120.0
@@ -53,34 +134,7 @@ def run(fn: Callable, world: int, *args, timeout_s: float = 120.0
     run in its own process of a ``world``-rank gloo group. Raises with a
     rank's traceback if one failed, or after ``timeout_s``; leaves no
     process behind."""
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    store_dir = tempfile.mkdtemp(prefix="gloo-ranks-")
-    procs = [ctx.Process(target=_entry, daemon=True,
-                         args=(fn, r, world, store_dir, args, timeout_s, out))
-             for r in range(world)]
-    try:
-        for p in procs:
-            p.start()
-        got = {}
-        while len(got) < world:
-            try:
-                rank, err, res = out.get(timeout=timeout_s)
-            except queue.Empty:
-                raise TimeoutError(
-                    f"{world} gloo ranks: {sorted(got)} answered within "
-                    f"{timeout_s} s") from None
-            if err is not None:
-                raise RuntimeError(f"gloo rank {rank} failed:\n{err}")
-            got[rank] = res
-        return [got[r] for r in range(world)]
-    finally:
-        for p in procs:
-            p.join(10.0)
-            if p.exitcode is None:
-                p.kill()
-                p.join(10.0)
-        shutil.rmtree(store_dir, ignore_errors=True)
+    return start(fn, world, *args, timeout_s=timeout_s).results()
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +147,10 @@ def redistribute_cases(rank: int, world: int, cases) -> dict:
     :func:`~paddle_tpu_torch.distributed.redistribute.redistribute`.
     Returns this rank's ``dst`` shards and the transfer stats of the
     cases."""
-    from paddle_tpu_torch.distributed import redistribute as rd
+    import importlib
+
+    # the package exports the function under the module's name
+    rd = importlib.import_module("paddle_tpu_torch.distributed.redistribute")
 
     rd.reset_stats()
     shards = []

@@ -17,28 +17,44 @@ its speed::
         eng = LLMEngine(model, EngineConfig(tp_degree=2))
 
 On the CPU every rank runs on the CPU whatever the hook says.
+
+The hook also holds for the training ranks of
+:mod:`paddle_tpu_torch.distributed`: while it is active,
+``init_parallel_env`` puts every rank on the first card and picks gloo.
+A process spawned inside the hook inherits it through the environment
+variable :data:`ENV`, so ranks started by a driving script inside
+``with ranks_share_one_device():`` all share the card.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 
-__all__ = ["ranks_share_one_device", "shared_device"]
+__all__ = ["ranks_share_one_device", "shared_device", "ENV"]
+
+# set to "1" while the hook is active: spawned processes inherit it
+ENV = "PADDLE_TORCH_RANKS_SHARE_DEVICE"
 
 _state = {"shared": False}
 
 
 @contextlib.contextmanager
 def ranks_share_one_device():
-    """Place every rank of a TP engine built inside on the model's
-    device."""
-    prev = _state["shared"]
+    """Place every rank of a TP engine, or of a training world, built
+    inside on the model's device (the first card)."""
+    prev, prev_env = _state["shared"], os.environ.get(ENV)
     _state["shared"] = True
+    os.environ[ENV] = "1"
     try:
         yield
     finally:
         _state["shared"] = prev
+        if prev_env is None:
+            os.environ.pop(ENV, None)
+        else:
+            os.environ[ENV] = prev_env
 
 
 def shared_device() -> bool:
-    return _state["shared"]
+    return _state["shared"] or os.environ.get(ENV) == "1"
 

@@ -30,10 +30,13 @@ ENGINE = dict(block_size=16, max_num_seqs=8, max_model_len=2048,
               max_batched_tokens=2048)
 
 
-def target_model(device) -> LlamaForCausalLM:
-    """Llama-3-8B in bf16 on ``device``, random weights from seed 0."""
-    model = LlamaForCausalLM(LlamaConfig.llama3_8b(dtype="bfloat16"),
-                             device=device)
+def target_model(device, layers: int = None) -> LlamaForCausalLM:
+    """Llama-3-8B in bf16 on ``device``, random weights from seed 0
+    (``layers``: the first that many of its 32 layers, a cut depth)."""
+    cfg = LlamaConfig.llama3_8b(dtype="bfloat16")
+    if layers is not None:
+        cfg.num_hidden_layers = layers
+    model = LlamaForCausalLM(cfg, device=device)
     return model.init_weights(torch.Generator(device=device).manual_seed(0))
 
 

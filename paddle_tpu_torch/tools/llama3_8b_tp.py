@@ -296,12 +296,13 @@ def spec_parity(device, layers: int = PARITY_LAYERS,
                for tp, r in out.items()}}
 
 
-def spec_engine(device, tp: int = TP) -> LLMEngine:
+def spec_engine(device, tp: int = TP, layers: int = None) -> LLMEngine:
     """Phase 9's configuration (phase 4's bf16 target, the
     Llama-3.2-1B-width draft proposing ``NUM_SPEC_TOKENS``) with the
-    target at ``tp_degree=tp``, every rank on ``device``, warmed up by a
-    request long enough to verify one draft."""
-    eng = engine(llama3_8b_serve.target_model(device), tp,
+    target at ``tp_degree=tp`` (``layers``: its depth cut to that many),
+    every rank on ``device``, warmed up by a request long enough to
+    verify one draft."""
+    eng = engine(llama3_8b_serve.target_model(device, layers), tp,
                  draft_model=llama3_8b_spec_serve.draft_model(device),
                  num_spec_tokens=llama3_8b_spec_serve.NUM_SPEC_TOKENS)
     return llama3_8b_serve.warm_up(

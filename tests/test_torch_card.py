@@ -1718,3 +1718,83 @@ def test_tiny_two_replica_fleet_on_the_card_serves_one_engines_tokens(card):
             snap = router.snapshot()
             assert snap["fleet_kv_ship_requests"] == len(work)
             assert snap["fleet_tokens_recomputed"] == 0
+
+
+# ---------------------------------------------------------------------------
+# hybrid-parallel training (slice D1): ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+# a small Llama (head_dim 64: the flash kernels' tensor-core route) and
+# batch for phase 28's machinery at card-test size
+HYBRID_TINY = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                   num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=4, max_position_embeddings=128,
+                   batch=(4, 128))
+
+
+@pytest.fixture(scope="module")
+def hybrid_run():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.tools import gpt_1b_hybrid_train as H
+
+    return H.run(parts=("a",), timeout_s=300.0, shrink=HYBRID_TINY)
+
+
+@pytest.mark.gpu
+def test_hybrid_dp_mp_steps_on_one_card_match_one_rank(hybrid_run):
+    """Four gloo ranks on the card (dp 2, mp 2, dp 2 x mp 2 with and
+    without SP, eager DataParallel): each case's losses and parameter
+    shards match a one-rank TrainStep on the card (losses rtol 1e-4, the
+    parameters at the AdamW bound of phase 28); no rank outlives the
+    run."""
+    assert hybrid_run["alive_after"] == []
+    for r in hybrid_run["ranks"]:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        for name in ("dp2", "mp2", "dp2_mp2", "dp2_mp2_sp",
+                     "data_parallel_dp2"):
+            c = r["cases"].get(name)
+            if c is not None:
+                assert c["losses_ok"], (name, c)
+                assert c["params"]["within_adam_bound"], (name, c)
+
+
+@pytest.mark.gpu
+def test_hybrid_zero3_step_on_one_card_matches_stage0(hybrid_run):
+    """ZeRO 1-3 at dp 2 give the stage-0 losses and parameters; each
+    rank's optimizer state is the reckoned share."""
+    base = hybrid_run["ranks"][0]["cases"]["dp2"]
+    seen = set()
+    for r in hybrid_run["ranks"]:
+        for name in ("zero1_dp2", "zero2_dp2", "zero3_dp2"):
+            c = r["cases"].get(name)
+            if c is None:
+                continue
+            seen.add(name)
+            assert c["losses_ok"], (name, c)
+            assert c["params"]["within_adam_bound"], (name, c)
+            np.testing.assert_allclose(c["losses"], base["losses"],
+                                       rtol=1e-4)
+            assert c["slot_bytes"] == c["reckoned_slot_bytes"], (name, c)
+    assert seen == {"zero1_dp2", "zero2_dp2", "zero3_dp2"}
+    assert hybrid_run["ranks"][0]["cases"]["zero3_dp2"]["slot_bytes"] * 2 \
+        == base["slot_bytes"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,d", [(2, 256, 8, 128), (1, 128, 2, 64)])
+def test_flash_kernels_at_a_hybrid_rank_heads(card, b, s, h, d):
+    """K2-K4 at a data- and model-parallel rank's share of a batch and of
+    the heads (bf16, causal) hold their plain versions (flash_check)."""
+    gen = torch.Generator(device=card).manual_seed(28)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=card)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    before = dict(fa.launches)
+    o, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
+    delta = fa._delta(o, do)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, True)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, True)
+    torch.cuda.synchronize()
+    assert all(fa.launches[n] == before[n] + 1 for n in fa.launches)
+    flash_check.check(q, k, v, do, {"o": o, "lse": lse, "dq": dq, "dk": dk,
+                                    "dv": dv}, scale, True)

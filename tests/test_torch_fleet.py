@@ -20,7 +20,7 @@ ticket buckets, per-tenant dispatch counts, per-replica flags; the
 wall-clock fields left out) must be equal; the tiny-Llama fleets
 serve greedy and sampled tokens identical to the JAX package's fleet;
 and the stores under the registry (``FileStore``, ``TCPStore``) answer
-alike, with ``Store`` refused until slice D.
+alike; ``Store`` works once ``init_parallel_env`` has joined a world.
 """
 import ast
 import functools
@@ -473,14 +473,19 @@ def test_stores_answer_like_the_reference(kind, tmp_path):
 
 
 def test_the_runtime_store_waits_for_slice_d(tmp_path, monkeypatch):
-    """``Store`` (the process group's store) raises naming slice D;
-    ``current_store`` then takes the ``PADDLE_STORE_DIR`` FileStore, as
-    the reference does without a coordination service."""
+    """Before ``init_parallel_env`` the runtime ``Store`` (the default
+    process group's store) and ``FileStore.barrier`` without
+    ``world_size`` raise naming it, and ``current_store`` takes the
+    ``PADDLE_STORE_DIR`` FileStore, as the reference does without a
+    coordination service. After it (a one-rank world here) ``Store``
+    sets, gets, counts, lists and passes a barrier, and
+    ``FileStore.barrier`` takes the world's size."""
+    import paddle_tpu_torch.distributed as tdist
     from paddle_tpu_torch.distributed import store as tstore
 
-    with pytest.raises(RuntimeError, match="slice D"):
+    with pytest.raises(RuntimeError, match="init_parallel_env"):
         tstore.Store()
-    with pytest.raises(ValueError, match="slice D"):
+    with pytest.raises(ValueError, match="init_parallel_env"):
         tstore.FileStore(str(tmp_path / "b")).barrier("x")
     monkeypatch.setattr(tstore, "_store", None)
     monkeypatch.setenv("PADDLE_STORE_DIR", str(tmp_path / "s"))
@@ -488,3 +493,26 @@ def test_the_runtime_store_waits_for_slice_d(tmp_path, monkeypatch):
     assert isinstance(st, tstore.FileStore)
     st.set("k", "v")
     assert tstore.current_store().try_get("k") == b"v"
+
+    for var in ("PADDLE_TRAINERS_NUM", "WORLD_SIZE", "PADDLE_TRAINER_ID",
+                "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    tdist.init_parallel_env()
+    try:
+        rs = tstore.Store(prefix="t")
+        rs.set("a/1", "x")
+        rs.set("a/2", b"y")
+        assert rs.get("a/1") == b"x" and rs.try_get("a/2") == b"y"
+        assert rs.try_get("missing") is None
+        assert rs.add("n", 2) == 2 and rs.add("n", 3) == 5
+        assert sorted(rs.list("a/")) == ["a/1", "a/2"]
+        rs.delete("a/1")
+        assert rs.list("a/") == ["a/2"]
+        rs.barrier("b")
+        with pytest.raises(TimeoutError):
+            rs.get("never", timeout=0.2)
+        tstore.FileStore(str(tmp_path / "b")).barrier("x", timeout=5.0)
+        monkeypatch.setattr(tstore, "_store", None)
+        assert isinstance(tstore.current_store(), tstore.Store)
+    finally:
+        tdist.destroy_process_group()

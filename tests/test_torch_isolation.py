@@ -95,6 +95,19 @@ _MODULES = [
     "paddle_tpu_torch.serving.fleet.supervisor",
     "paddle_tpu_torch.testing.fleet_models",
     "paddle_tpu_torch.tools.llama3_8b_fleet",
+    "paddle_tpu_torch.distributed.env", "paddle_tpu_torch.distributed.mesh",
+    "paddle_tpu_torch.distributed.communication",
+    "paddle_tpu_torch.distributed.compat",
+    "paddle_tpu_torch.distributed.topology",
+    "paddle_tpu_torch.distributed.engine",
+    "paddle_tpu_torch.distributed.parallel_wrapper",
+    "paddle_tpu_torch.distributed.fleet.facade",
+    "paddle_tpu_torch.distributed.fleet.recompute",
+    "paddle_tpu_torch.distributed.fleet.utils",
+    "paddle_tpu_torch.distributed.fleet.utils.sequence_parallel_utils",
+    "paddle_tpu_torch.distributed.fleet.utils.hybrid_parallel_util",
+    "paddle_tpu_torch.testing.hybrid_ranks",
+    "paddle_tpu_torch.tools.gpt_1b_hybrid_train",
 ]
 
 

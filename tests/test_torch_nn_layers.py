@@ -7,8 +7,8 @@ agree at rtol 1e-5 / atol 1e-5 (1e-4 for the conv, pool, resampling and
 norm layers, whose torch and XLA reductions add in another order). Both
 packages are seeded alike, so the dropout layers draw the same masks.
 Also: ``nn.utils`` (clips, vector round trip, weight and spectral norm),
-the degree-1 tensor-parallel layers, and the refusals that name slice D
-(a model-parallel degree above 1)."""
+the degree-1 tensor-parallel layers, and the same layers at degree 2 on
+two gloo ranks."""
 import zlib
 
 import numpy as np
@@ -317,17 +317,86 @@ def test_nn_utils_match_the_reference():
 
 
 def test_refusals_name_the_item_that_brings_them():
-    from paddle_tpu_torch.distributed import fleet
+    """The tensor-parallel layers refuse nothing at degree 2 any more: on
+    two gloo ranks, each cut to its shard by ``shard_model_parameters``,
+    they give the unsharded layer's output, input gradient and (each
+    rank its slice of) the weight gradients, and the vocab-parallel cross
+    entropy gives the whole vocabulary's. ``mark_placements`` records the
+    hints; ``sharding_constraint`` is the identity."""
+    import torch
 
-    class Group:
-        nranks = 2
+    from paddle_tpu_torch.distributed import Shard, fleet
+    from paddle_tpu_torch.testing import gloo_ranks, hybrid_ranks
 
-    for cls, args in ((fleet.ColumnParallelLinear, (4, 4)),
-                      (fleet.RowParallelLinear, (4, 4)),
-                      (fleet.VocabParallelEmbedding, (8, 4)),
-                      (fleet.ParallelCrossEntropy, ())):
-        with pytest.raises(NotImplementedError, match="slice D"):
-            cls(*args, mp_group=Group())
+    rng = np.random.RandomState(0)
+    f = np.float32
+    weights = {
+        "column": {"weight": rng.randn(8, 12).astype(f),
+                   "bias": rng.randn(12).astype(f)},
+        "row8": {"weight": rng.randn(8, 6).astype(f),
+                 "bias": rng.randn(6).astype(f)},
+        "row12": {"weight": rng.randn(12, 6).astype(f),
+                  "bias": rng.randn(6).astype(f)},
+        "row_in": rng.randn(3, 12).astype(f),
+        "embedding": {"weight": rng.randn(16, 6).astype(f)},
+        "logits": rng.randn(3, 5, 10).astype(f)}
+    x = rng.randn(3, 8).astype(f)
+    ids = rng.randint(0, 16, (3, 4)).astype(np.int64)
+    labels = rng.randint(0, 10, (3, 5)).astype(np.int64)
+    labels[0, 0] = -100
+    got = gloo_ranks.run(hybrid_ranks.mp_layers, 2, weights, x, ids,
+                         labels, timeout_s=120)
+
+    def dense(fn, inp, params):
+        ts = {k: torch.tensor(v, requires_grad=True)
+              for k, v in params.items()}
+        xt = torch.tensor(inp, requires_grad=inp.dtype.kind == "f")
+        out = fn(xt, ts)
+        (out * out).sum().backward()
+        return (out.detach().numpy(), {k: t.grad.numpy()
+                                       for k, t in ts.items()},
+                None if xt.grad is None else xt.grad.numpy())
+
+    lin = lambda xt, ts: xt @ ts["weight"] + ts["bias"]
+    # (dense run, the output's split dim, each parameter's split dim)
+    column, row = {"weight": 1, "bias": 0}, {"weight": 0, "bias": None}
+    want = {
+        "column_gather0": (dense(lin, x, weights["column"]), -1, column),
+        "column_gather1": (dense(lin, x, weights["column"]), None, column),
+        "row_parallel0": (dense(lin, x, weights["row8"]), None, row),
+        "row_parallel1": (dense(lin, weights["row_in"], weights["row12"]),
+                          None, row),
+        "vocab_embedding": (dense(
+            lambda xt, ts: ts["weight"][xt], ids, weights["embedding"]),
+            None, {"weight": 0})}
+    for name, ((out, grads, xg), out_dim, splits) in want.items():
+        for rank, res in enumerate(got):
+            r = res[name]
+            o = out if out_dim is None else np.split(out, 2, out_dim)[rank]
+            np.testing.assert_allclose(r["out"], o, rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+            for pn, g in grads.items():
+                split = splits[pn]
+                gg = g if split is None else np.split(g, 2, split)[rank]
+                np.testing.assert_allclose(r["grads"][pn], gg, rtol=1e-4,
+                                           atol=1e-4, err_msg=(name, pn))
+            if xg is not None and name != "row_parallel1":
+                np.testing.assert_allclose(r["x_grad"], xg, rtol=1e-4,
+                                           atol=1e-4, err_msg=name)
+    lt = torch.tensor(weights["logits"], requires_grad=True)
+    lab = torch.tensor(labels)
+    ce = torch.nn.functional.cross_entropy(
+        lt.reshape(-1, 10), lab.reshape(-1), ignore_index=-100,
+        reduction="none").reshape(3, 5, 1)
+    ce.sum().backward()
+    for rank, res in enumerate(got):
+        r = res["cross_entropy"]
+        np.testing.assert_allclose(r["out"], ce.detach().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(
+            r["x_grad"], np.split(lt.grad.numpy(), 2, -1)[rank],
+            rtol=1e-5, atol=1e-6)
     w = tpaddle.to_tensor(np.ones([2], np.float32))
-    assert fleet.mark_placements(w) is w
+    assert fleet.mark_placements(w, mp=Shard(0)) is w
+    assert w._placement_hints == {"mp": Shard(0)}
     assert fleet.sharding_constraint(w, {0: "mp"}) is w

@@ -21,12 +21,12 @@ import pytest
 import torch
 
 import test_redistribute
-from paddle_tpu_torch.distributed import redistribute as trd
 from paddle_tpu_torch.testing import gloo_ranks
 
-# the JAX package's distributed/__init__ exports the function under the
+# both packages' distributed/__init__ export the function under the
 # module's name
 jrd = importlib.import_module("paddle_tpu.distributed.redistribute")
+trd = importlib.import_module("paddle_tpu_torch.distributed.redistribute")
 
 _PORT = {name: getattr(trd, name) for name in (
     "Layout", "get_stats", "redistribute_host", "reset_stats",

@@ -369,9 +369,7 @@ def test_attn_mask_branch_matches_jax():
 # --------------------------------------------------------------------------
 # what this slice refuses
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("field,value", [
-    ("recompute", True), ("sequence_parallel", True),
-    ("context_parallel", True)])
+@pytest.mark.parametrize("field,value", [("context_parallel", True)])
 def test_config_refuses_later_slices(field, value):
     with pytest.raises(NotImplementedError, match="comes with"):
         LlamaForCausalLM(LlamaConfig.tiny(**{field: value}), device="cpu")
@@ -412,11 +410,12 @@ def test_tp_degree_changes_no_number_in_one_process():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(sharding="dp"), "comes with slice D"),
+    (dict(sharding="dp"), "never reads it"),
     (dict(accumulate_steps=2), "never reads it")])
 def test_trainstep_refuses_later_slices(kw, match):
-    """``sharding`` comes with slice D; ``accumulate_steps > 1`` is refused
-    by design: the JAX TrainStep accepts it and never reads it."""
+    """``sharding`` and ``accumulate_steps > 1`` are refused by design:
+    the JAX TrainStep accepts them and never reads them (sharded training
+    is ``distributed.ParallelTrainStep``)."""
     m = torch.nn.Linear(2, 2)
     with pytest.raises(NotImplementedError, match=match):
         TrainStep(m, _mse, AdamW(parameters=m.parameters()), **kw)
