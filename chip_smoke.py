@@ -406,6 +406,32 @@ non-zero (nothing is caught and passed over):
                against their plain versions (``flash_check``), timed,
                with bounds.
 
+29. pipeline_train — pipeline-parallel training over torch.distributed
+               (``tools/gpt_1b_pipe_train.py``): one world of 4 ranks, all
+               on this card through the testing hook (gloo through the
+               host), kept up for every case, each rank building only
+               its stage of LlamaForCausalLMPipe from the seed-0 model.
+               (a) f32 at bench_gpt_1b widths with 8 of its 16 layers,
+               batch 4 x 2048, three AdamW steps per case: pp 4 "1f1b"
+               M 4, pp 2 "1f1b" M 4 (two chunks), dp 2 x pp 2, pp 2 x
+               mp 2, pp 4 "gpipe", "zero_bubble" and "interleave" V 2,
+               each against a one-rank TrainStep of LlamaForCausalLM
+               with the same weights and batch (losses rtol 1e-4; each
+               rank's parameter shards at phase 28's AdamW bound); the
+               pre/post parameters hold 1/S of their elements, the slots
+               the reckoned bytes; peaks per rank. (b) bf16 at full
+               width and depth, pp 4, "1f1b", M 4, pre/post sliced over
+               pp, remat: one warm-up and three timed steps; each step's
+               loss within 0.02 nats of phase 7's at that step, falling;
+               K2 launched 32 times a step on each rank (4 layers x 4
+               microbatches, and again in the recompute), K3 and K4 16;
+               the step p50, the P2P and collective host ms a step, rank
+               0's device-phase breakdown of one more step, peaks per
+               rank. Not a speed figure: four ranks share one card over
+               gloo. K2-K4 at a pp rank's microbatch (B 1, S 2048, H 16,
+               D 128, bf16) against their plain versions
+               (``flash_check``), timed, with bounds.
+
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
 (both modes), drain, the watched run and cached generate for the ragged
@@ -415,12 +441,14 @@ tensor_api (phase 20), layer_api (phase 21), layer_trainstep (phase
 22) and long_tail (phase 24's packed flash wrapper) for K2-K4, and tiers (phase 23's tiered engines), tp (phase 25's
 two ranks, summed), fleet (phase 26 (b)'s two replicas) and tp_disagg,
 tp_tiers, tp_spec (phase 27 (b)'s paths, every rank) for K1, tp_spec
-for K2, hybrid_train (phase 28 (b)'s four ranks, summed) for K2-K4; on the
+for K2, hybrid_train (phase 28 (b)'s four ranks, summed) and
+pipeline_train (phase 29 (b)'s four ranks, summed) for K2-K4; on the
 paths that replay graphs they are the launches the card ran, the eager
 warm-ups plus captured x replays — error, times, bound, library time;
 ``spec_shapes``, ``generate_shapes``, ``tiers_shapes``, ``tp_shapes``,
-``fleet_shapes``, ``tp_tiers_shapes``, ``tp_spec_shapes`` and
-``hybrid_rank_shapes`` repeat them at those paths' shapes),
+``fleet_shapes``, ``tp_tiers_shapes``, ``tp_spec_shapes``,
+``hybrid_rank_shapes`` and ``pipeline_rank_shapes`` repeat them at
+those paths' shapes),
 nvidia-smi's line, and last ``{"ok": true, "device": {...}}``.
 """
 import gc
@@ -3457,6 +3485,134 @@ def phase_hybrid_train(dev, train):
     return res
 
 
+PIPE_NATS = 0.02       # phase 29 (b)'s losses against phase 7's
+
+
+def phase_pipeline_train(dev, train):
+    """Phase 29 (see the module docstring). ``train`` is phase 7's result
+    (its losses)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.testing import flash_check
+    from paddle_tpu_torch.tools import gpt_1b_pipe_train as P
+
+    # K2-K4 at a pp rank's microbatch: B 4 / M 4, all 16 heads
+    gen = torch.Generator(device=dev).manual_seed(29)
+    b, s, h, d = 1, 2048, 16, 128
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa._flash_fwd_cuda(q, k, v, scale, True)
+    delta = fa._delta(o, do)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, True)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, True)
+    torch.cuda.synchronize()
+    rep = flash_check.check(q, k, v, do, {"o": o, "lse": lse, "dq": dq,
+                                          "dk": dk, "dv": dv}, scale, True)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev).zero_
+    kern = {"shape": [b, s, s, h, d], "dtype": "bfloat16",
+            "max_abs_err": rep["max_abs_err"],
+            "tolerance": str(rep["tolerance"]),
+            **_flash_train_times(q, k, v, do, o, lse, delta, scale, True,
+                                 flush)}
+    del q, k, v, do, o, lse, delta, dq, dk, dv, flush
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out = P.run(timeout_s=540.0)
+    seconds = time.perf_counter() - t0
+    ranks = out["ranks"]
+    assert out["alive_after"] == [], out["alive_after"]
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0", r
+    names = [c[0] for c in P.CASES]
+    cases = {}
+    for name in names:
+        per_rank = [r["cases"][name] for r in ranks if name in r["cases"]]
+        cases[name] = {
+            "ranks": len(per_rank), "losses": per_rank[0]["losses"],
+            "losses_ok": all(c["losses_ok"] for c in per_rank),
+            "params_per_rank": [
+                {k: v for k, v in c["params"].items() if k != "per_param"}
+                for c in per_rank],
+            "per_param": _per_param([c["params"] for c in per_rank]),
+            "layers_per_rank": [c["owned"] for c in per_rank],
+            "pre_post_one_over_s": all(c["pre_post_one_over_s"]
+                                       for c in per_rank),
+            "pre_post_shares_rank0": per_rank[0]["pre_post_shares"],
+            "param_bytes_per_rank": [c["param_bytes"] for c in per_rank],
+            "slot_bytes_per_rank": [c["slot_bytes"] for c in per_rank],
+            "bubble_fraction": per_rank[0]["bubble_fraction"],
+            "step_s_per_rank": [c["step_s"] for c in per_rank],
+            "max_memory_allocated_per_rank": [
+                c["max_memory_allocated"] for c in per_rank]}
+    full = [r["full"] for r in ranks]
+    ref = train["losses"][:1 + P.TIMED_STEPS]
+    want = {"flash_attention_fwd": 2 * 4 * 4 * P.TIMED_STEPS,
+            "flash_attention_bwd_dq": 4 * 4 * P.TIMED_STEPS,
+            "flash_attention_bwd_dkv": 4 * 4 * P.TIMED_STEPS}
+    res = {"phase": "pipeline_train", "world": P.WORLD,
+           "placement": "all ranks on cuda:0 through the testing hook "
+                        "paddle_tpu_torch.testing.tp_hooks."
+                        "ranks_share_one_device (gloo through the host)",
+           "seconds": seconds, "f32_layers": P.F32_LAYERS,
+           "reference_losses_f32": ranks[0]["reference_losses"],
+           "f32_cases": cases,
+           "bf16_full": {
+               "model": "gpt_1b (bench.py bench_gpt_1b) as "
+                        "LlamaForCausalLMPipe, 16 layers",
+               "mesh": "pp 4", "schedule": "1f1b", "n_microbatches": 4,
+               "shard_pre_post": True, "remat_body": True,
+               "bubble_fraction": full[0]["bubble_fraction"],
+               "losses": full[0]["losses"], "phase7_losses": ref,
+               "max_loss_diff_nats": max(abs(a - b_) for a, b_ in zip(
+                   full[0]["losses"], ref)),
+               "layers_per_rank": [f["layers_owned"] for f in full],
+               "step_ms_per_rank": [f["step_ms"] for f in full],
+               "step_ms_p50": max(f["step_ms_p50"] for f in full),
+               "p2p_host_ms_per_step": [f["p2p_host_ms_per_step"]
+                                        for f in full],
+               "p2p_calls_per_step": [f["p2p_calls_per_step"]
+                                      for f in full],
+               "p2p_bytes_per_step": [f["p2p_bytes_per_step"]
+                                      for f in full],
+               "collective_host_ms_per_step": [
+                   f["collective_host_ms_per_step"] for f in full],
+               "collective_calls_per_step":
+                   full[0]["collective_calls_per_step"],
+               "collective_bytes_per_step": [
+                   f["collective_bytes_per_step"] for f in full],
+               "device_phases_rank0": full[0]["device_phases_one_step"],
+               "max_memory_allocated_per_rank": [
+                   f["max_memory_allocated"] for f in full],
+               "local_params_per_rank": [f["local_params"] for f in full],
+               "param_bytes_per_rank": [f["param_bytes"] for f in full],
+               "slot_bytes_per_rank": [f["slot_bytes"] for f in full],
+               "setup_s": max(f["setup_s"] for f in full),
+               "kernel_launches_per_rank": [f["kernel_launches"]
+                                            for f in full],
+               "reckoned_launches_per_rank": want},
+           "k2_k4_rank_shape": kern,
+           "note": "four ranks share one card over gloo through the host: "
+                   "no pipeline speed is measured"}
+    emit(res)
+    # the checks, after the numbers are out
+    for name in names:
+        for c in [r["cases"][name] for r in ranks if name in r["cases"]]:
+            assert c["losses_ok"] and c["params"]["within_adam_bound"], (
+                name, c["losses"], {k: v for k, v in c["params"].items()
+                                    if k != "per_param"})
+            assert c["pre_post_one_over_s"], (name, c["pre_post_shares"])
+            assert c["slot_bytes"] == c["reckoned_slot_bytes"], (
+                name, c["slot_bytes"], c["reckoned_slot_bytes"])
+    for f in full:
+        assert f["losses"] == full[0]["losses"], [x["losses"] for x in full]
+        diffs = [abs(a - b_) for a, b_ in zip(f["losses"], ref)]
+        assert max(diffs) <= PIPE_NATS, (f["losses"], ref)
+        assert f["losses"][-1] < f["losses"][0], f["losses"]
+        assert f["kernel_launches"] == want, (f["kernel_launches"], want)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -3501,6 +3657,7 @@ def main():
     tpf = phase_tp_features(dev, s, serve_rows, flt, sp)
     del serve_rows
     hyb = phase_hybrid_train(dev, tr)
+    ppl = phase_pipeline_train(dev, tr)
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
     dr = fl["fwd_only"]["draft_shapes"]
@@ -3545,6 +3702,8 @@ def main():
         by_path[name]["long_tail"] = lg["kernel_launches"][name]
         by_path[name]["hybrid_train"] = sum(
             n[name] for n in hyb["bf16_full"]["kernel_launches_per_rank"])
+        by_path[name]["pipeline_train"] = sum(
+            n[name] for n in ppl["bf16_full"]["kernel_launches_per_rank"])
     spec_shapes = {
         "ragged_paged_attention": {
             "max_abs_err": kv["max_abs_err"], "ms": kv["ms"],
@@ -3630,6 +3789,23 @@ def main():
             "launches_by_rank": [
                 n[row["name"]] for n in
                 hyb["bf16_full"]["kernel_launches_per_rank"]]}
+    # K2-K4 at a pipeline rank's microbatch (phase 29: B 1, H 16)
+    pk = ppl["k2_k4_rank_shape"]
+    for row, key, err in ((rows[1], "fwd", pk["max_abs_err"]["o"]),
+                          (rows[2], "dq", pk["max_abs_err"]["dq"]),
+                          (rows[3], "dkv", max(pk["max_abs_err"]["dk"],
+                                               pk["max_abs_err"]["dv"]))):
+        row["pipeline_rank_shapes"] = {
+            "shape": pk["shape"], "max_abs_err": err, "ms": pk["ms"][key],
+            "plain_ms": pk["ms"]["plain_fwd" if key == "fwd"
+                                 else "plain_bwd"],
+            "bound_ms": pk["bounds"][key]["bound_ms"],
+            "bound_by": pk["bounds"][key]["bound_by"],
+            "library_ms": pk["ms"]["sdpa_fwd" if key == "fwd"
+                                   else "sdpa_bwd"],
+            "launches_by_rank": [
+                n[row["name"]] for n in
+                ppl["bf16_full"]["kernel_launches_per_rank"]]}
     # K1 at phase 26's decode replica's first step after an import
     rows[0]["fleet_shapes"] = flt["disagg_bf16"]["k1_first_after_import"]
     # K1 at a TP rank's heads (phase 27: 16 query, 4 kv) with the host

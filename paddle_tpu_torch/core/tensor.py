@@ -36,6 +36,12 @@ _DIFF_DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64,
                 torch.complex64, torch.complex128)
 
 
+def _global(d: torch.Tensor) -> torch.Tensor:
+    """A DistTensor's global value (its DTensor gathered); any other
+    tensor as it is."""
+    return d.full_tensor() if type(d).__name__ == "DTensor" else d
+
+
 class Tensor:
     __slots__ = ("_data", "_stop_gradient", "_grad_wrap", "name",
                  "persistable", "_placements", "_process_mesh",
@@ -194,13 +200,13 @@ class Tensor:
         return self
 
     def numpy(self):
-        d = self._data.detach().resolve_conj()
+        d = _global(self._data.detach()).resolve_conj()
         if d.dtype == torch.bfloat16:
             d = d.float()
         return d.cpu().numpy()
 
     def item(self):
-        return self._data.detach().item()
+        return _global(self._data.detach()).item()
 
     def tolist(self):
         return self.numpy().tolist()

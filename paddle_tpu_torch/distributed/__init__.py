@@ -5,14 +5,15 @@ One process per rank: :func:`init_parallel_env` joins the world (NCCL
 with a card per rank, gloo on the CPU or when the ranks share a card), a
 :class:`ProcessMesh` names the ranks' grid, and
 :class:`ParallelTrainStep` trains a model at dp x mp with ZeRO stages
-1-3, sequence parallelism and recompute. The collectives, the topology,
-the fleet facade, ``DataParallel``, the stores, the checkpoints and the
-layout algebra (``redistribute``) are here too.
+1-3, sequence parallelism and recompute; ``fleet.pp_engine.
+PipelineTrainStep`` adds the pipeline (``fleet.pipeline_parallel``).
+The collectives, the topology, the fleet facade, ``DataParallel``, the
+stores, the checkpoints, the layout algebra (``redistribute``) and the
+semi-auto API (``api.py``: ``shard_tensor``, ``reshard``,
+``shard_optimizer``, ``DistModel``, ...) are here too.
 
 Not ported yet, each raising with the part of the port that brings it:
-the semi-auto API of ``api.py`` (``shard_tensor``, ``reshard``,
-``shard_optimizer``, ``DistModel``, ...) and pipeline parallelism (slice
-D2); the launcher ``launch`` and ``io`` (slice D4).
+the launcher ``launch`` and ``io`` (slice D4).
 """
 from paddle_tpu_torch.distributed.env import (  # noqa: F401
     ParallelEnv, get_rank, get_world_size, init_parallel_env, is_initialized,
@@ -52,6 +53,14 @@ from paddle_tpu_torch.distributed.compat import (  # noqa: F401
 )
 
 
+from paddle_tpu_torch.distributed.api import (  # noqa: F401
+    DistModel, ShardDataloader, ShardingStage1, ShardingStage2,
+    ShardingStage3, dtensor_from_local, dtensor_to_local, reshard,
+    shard_dataloader, shard_layer, shard_optimizer, shard_tensor, to_static,
+    unshard_dtensor,
+)
+
+
 def _waits(name: str, part: str):
     def refused(*args, **kwargs):
         raise NotImplementedError(
@@ -77,15 +86,6 @@ class _Waiting:
         _waits(f"{self._name}.{attr}", self._part)()
 
 
-# the semi-auto API (api.py) comes with slice D2
-for _name in ("dtensor_from_local", "dtensor_to_local", "reshard",
-              "shard_dataloader", "shard_layer", "shard_optimizer",
-              "shard_tensor", "to_static", "unshard_dtensor"):
-    globals()[_name] = _waits(_name, "D2 (api.py, the semi-auto API)")
-for _name in ("DistModel", "ShardDataloader", "ShardingStage1",
-              "ShardingStage2", "ShardingStage3"):
-    globals()[_name] = _Waiting(_name, "D2 (api.py, the semi-auto API)")
 # the launcher and distributed io come with slice D4
 launch = _Waiting("launch", "D4 (launch/, with elastic)")
 io = _Waiting("io", "D4 (distributed/io.py)")
-del _name

@@ -204,30 +204,40 @@ _GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast", "all_gather",
 
 # host-side accounting of the collectives this process ran: calls, wall
 # seconds inside them (waiting for the other ranks included) and the
-# bytes of this rank's input
-_stats = {"calls": 0, "seconds": 0.0, "bytes": 0}
+# bytes of this rank's input; the pipeline's batched point-to-point
+# exchanges apart, under ``p2p_``
+_ZERO = {"calls": 0, "seconds": 0.0, "bytes": 0, "p2p_calls": 0,
+         "p2p_seconds": 0.0, "p2p_bytes": 0}
+_stats = dict(_ZERO)
 
 
 def stats(reset: bool = False) -> dict:
     """This process's collective calls, the host seconds spent in them and
-    their input bytes since the last reset."""
+    their input bytes since the last reset, and the same of its
+    pipeline point-to-point exchanges (``p2p_calls``, ``p2p_seconds``,
+    ``p2p_bytes``: the bytes it sent)."""
     out = dict(_stats)
     if reset:
-        _stats.update(calls=0, seconds=0.0, bytes=0)
+        _stats.update(_ZERO)
     return out
 
 
 class _timed:
-    def __init__(self, nbytes: int):
+    def __init__(self, nbytes: int, prefix: str = ""):
         self._n = nbytes
+        self._p = prefix
 
     def __enter__(self):
         self._t0 = time.perf_counter()
 
     def __exit__(self, *exc):
-        _stats["calls"] += 1
-        _stats["seconds"] += time.perf_counter() - self._t0
-        _stats["bytes"] += self._n
+        _stats[self._p + "calls"] += 1
+        _stats[self._p + "seconds"] += time.perf_counter() - self._t0
+        _stats[self._p + "bytes"] += self._n
+
+
+def _timed_p2p(nbytes: int) -> _timed:
+    return _timed(nbytes, "p2p_")
 
 
 def _staged(g: Group, t: torch.Tensor, op: str) -> bool:

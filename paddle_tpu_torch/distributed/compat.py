@@ -195,9 +195,11 @@ def shard_scaler(scaler):
 
 
 def dtensor_from_fn(fn, mesh, placements, *args, **kwargs):
-    raise NotImplementedError(
-        "dtensor_from_fn builds a distributed tensor of the semi-auto API "
-        "(api.py's shard_tensor), which comes with slice D2")
+    """Build a tensor by calling ``fn`` then shard it (reference
+    dtensor_from_fn, auto_parallel/api.py)."""
+    from paddle_tpu_torch.distributed.api import shard_tensor
+
+    return shard_tensor(fn(*args, **kwargs), mesh, placements)
 
 
 # ---------------------------------------------------------------------------

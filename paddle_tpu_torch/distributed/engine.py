@@ -365,6 +365,46 @@ class _Zero3:
                                                          cls._unpack)
 
 
+def _is_share(b, mesh: ProcessMesh, axes: Sequence[str], dim: int) -> bool:
+    """``b`` is a DistTensor on ``mesh`` sharded on ``dim`` over exactly
+    the batch ``axes`` and whole over the other axes (mesh-placed
+    prefetch): its block is this rank's contiguous share of the batch."""
+    pls = getattr(b, "_placements", None)
+    if pls is None or not axes or \
+            getattr(b, "_process_mesh", None) != mesh:
+        return False
+    on = {n for n, p in zip(mesh.dim_names, pls) if p.is_shard()}
+    return on == set(axes) and all(
+        pls[mesh.dim_names.index(a)].get_dim() == dim for a in axes)
+
+
+def _count_weight(loss_fn, label, group, n: int
+                  ) -> Optional[torch.Tensor]:
+    """A loss that is a mean over the labels it does not ignore (a cross
+    entropy or NLL loss layer on hard labels, reduction "mean") divides
+    by this rank's count of them, and the whole batch's by the count over
+    ``group`` (``n`` ranks): the factor that makes the ranks' mean of
+    their losses the whole batch's loss. None for any other loss."""
+    ignore = getattr(loss_fn, "ignore_index", None)
+    if group is None or ignore is None or getattr(
+            loss_fn, "reduction", None) != "mean" or getattr(
+            loss_fn, "soft_label", False):
+        return None
+    label = _tensor(label)
+    valid = label != ignore
+    w = getattr(loss_fn, "weight", None)
+    if w is None:
+        cnt, least = valid.sum(dtype=torch.float32), 1.0
+    else:
+        w = _tensor(w).to(label.device, torch.float32)
+        cnt = torch.where(valid, w[torch.where(valid, label, 0).long()],
+                          0.0).sum()
+        least = 1e-12
+    tot = cnt.reshape(1).clone()
+    comm.all_reduce_(tot, comm.ReduceOp.SUM, group)
+    return cnt.clamp(min=least) * n / tot[0].clamp(min=least)
+
+
 # ---------------------------------------------------------------------------
 # fused collectives over lists of tensors
 # ---------------------------------------------------------------------------
@@ -503,6 +543,13 @@ class ParallelTrainStep(TrainStep):
         d = lead + self._config.batch_dim
         out = []
         for b in batch:
+            if _is_share(b, self._mesh, self._batch_axes,
+                         self._config.batch_dim):
+                # a DistTensor placed over the batch axes (mesh-placed
+                # prefetch): its block is this rank's share already
+                out.append(b._data.to_local().to(self._device,
+                                                 non_blocking=True))
+                continue
             x = _as_data(b)
             if self._batch_n > 1 and x.dim() > d:
                 if x.shape[d] % self._batch_n:
@@ -541,6 +588,13 @@ class ParallelTrainStep(TrainStep):
         # the backward runs inside too: a recompute replays the forward
         with self._context():
             return super()._body(datas, n_inputs, inplace)
+
+    def _loss(self, datas, n_inputs: int):
+        loss = super()._loss(datas, n_inputs)
+        w = _count_weight(self._loss_fn, datas[n_inputs], self._bgroup,
+                          self._batch_n) \
+            if self._batch_n > 1 and len(datas) > n_inputs else None
+        return loss if w is None else loss * w
 
     def _forward(self, *inputs):
         if self._config.remat:

@@ -1,7 +1,7 @@
 """Fleet: the hybrid-parallel training facade (port of
 ``paddle_tpu/distributed/fleet/``): the tensor-parallel layers, the
-facade, recompute and the utils. Pipeline parallelism comes with slice
-D2."""
+facade, recompute, the utils and pipeline parallelism
+(``pipeline_parallel``, ``pp_engine``)."""
 from paddle_tpu_torch.distributed.fleet.mp_layers import (  # noqa: F401
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
     VocabParallelEmbedding, mark_placements, sharding_constraint,

@@ -7,8 +7,8 @@ base/distributed_strategy.py (DistributedStrategy over
 distributed_strategy.proto's 33 messages — here a plain config object with
 the same field names).
 
-Pipeline parallelism (a ``PipelineLayer`` at pp > 1) comes with slice D2
-and is refused here; every other model is returned as it is, marked with
+A ``PipelineLayer`` at pp > 1 comes back as a ``PipelineParallel`` (the
+pipeline runner); every other model is returned as it is, marked with
 the hybrid group (the parallel step shards it).
 """
 from __future__ import annotations
@@ -93,15 +93,16 @@ class _Fleet:
     def distributed_model(self, model):
         """Select the parallel wrapper (reference model.py:140-170): the
         model marked with the hcg; tensor parallelism and ZeRO come from
-        ``ParallelTrainStep``. A pipeline (pp > 1) is refused: it comes
-        with slice D2."""
+        ``ParallelTrainStep``, and a ``PipelineLayer`` at pp > 1 is
+        wrapped in ``PipelineParallel``."""
         hcg = self.get_hybrid_communicate_group()
-        if hcg.get_pipe_parallel_world_size() > 1:
-            raise NotImplementedError(
-                "fleet.distributed_model at pp_degree > 1: pipeline "
-                "parallelism (PipelineLayer, PipelineParallel) is not "
-                "ported yet; it comes with slice D2")
         model._hcg = hcg
+        from paddle_tpu_torch.distributed.fleet.pipeline_parallel import (
+            PipelineLayer, PipelineParallel)
+
+        if hcg.get_pipe_parallel_world_size() > 1 and isinstance(
+                model, PipelineLayer):
+            return PipelineParallel(model, hcg, self._strategy)
         return model
 
     def distributed_optimizer(self, optimizer, strategy=None):

@@ -438,10 +438,6 @@ class DataLoader:
         if prefetch_factor < 1:
             raise ValueError(
                 f"prefetch_factor must be >= 1, got {prefetch_factor}")
-        if prefetch_mesh is not None or prefetch_placements is not None:
-            raise NotImplementedError(
-                "DataLoader(prefetch_mesh=, prefetch_placements=) is not "
-                "ported yet; mesh placement comes with slice D2")
         self.dataset = dataset
         self.device = resolve_device(places)
         self.collate_fn = collate_fn or default_collate_fn
@@ -451,6 +447,8 @@ class DataLoader:
         self.use_shared_memory = use_shared_memory
         self.use_device_prefetch = use_device_prefetch
         self.device_prefetch_depth = device_prefetch_depth
+        self.prefetch_mesh = prefetch_mesh
+        self.prefetch_placements = prefetch_placements
         self.worker_init_fn = worker_init_fn
         self.transport = None
         self.prefetcher = None
@@ -520,7 +518,9 @@ class DataLoader:
             else:
                 batches = self._raw_iter(self._host_collate())
             self.prefetcher = DevicePrefetcher(
-                batches, depth=self.device_prefetch_depth, device=self.device)
+                batches, depth=self.device_prefetch_depth, device=self.device,
+                mesh=self.prefetch_mesh,
+                placements=self.prefetch_placements)
             yield from self.prefetcher
             return
         if self.num_workers > 0:

@@ -27,7 +27,18 @@ through untouched, as on the plain loader path. A numpy array of an
 extended float dtype (ml_dtypes' ``bfloat16``, known by its dtype name)
 lands as a torch tensor of that dtype. Dtypes are kept as they come:
 torch has 64-bit integers, where the JAX package canonicalises int64 to
-int32. ``mesh``/``placements`` (sharded placement) come with slice D2.
+int32.
+
+``mesh`` + ``placements`` (one per mesh dim) land each array leaf as a
+DistTensor of the semi-auto API (``distributed/api.py``): every rank
+takes the same global batch from its loader, copies only its own block
+of each leaf to its device, and wraps it as a DTensor over the mesh
+with those placements (no communication). A placement that shards a dim
+the leaf lacks (a 1-D label under ``Shard(1)``) degrades to
+``Replicate`` for that leaf, and a leaf the mesh does not divide (the
+tail batch of ``drop_last=False``) lands whole, replicated. The blocks
+still coalesce: one copy per dtype per batch, replicated leaves
+included.
 """
 from __future__ import annotations
 
@@ -94,14 +105,19 @@ class DevicePrefetcher:
                  coalesce: bool = True):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
-        if mesh is not None or placements is not None:
-            raise NotImplementedError(
-                "DevicePrefetcher(mesh=, placements=) is not ported yet; "
-                "mesh placement comes with slice D2")
+        if (mesh is None) != (placements is None):
+            raise ValueError("mesh and placements must be given together")
         self._loader = loader
         self._depth = depth
         self._coalesce = coalesce
         self._device = resolve_device(device)
+        self._mesh = mesh
+        if mesh is not None:
+            from paddle_tpu_torch.distributed.api import (
+                _normalize_placements, device_mesh)
+
+            self._placements = _normalize_placements(mesh, placements)
+            device_mesh(mesh, self._device.type)   # on every rank, now
         self.batches = 0      # batches staged
         self.transfers = 0    # staged copies (one per dtype per batch)
 
@@ -114,8 +130,13 @@ class DevicePrefetcher:
         build = _flatten(batch, leaves)
         out = list(leaves)
         groups = {}
+        placed = {}     # leaf index -> (global shape, placements)
         for i, leaf in enumerate(leaves):
             h = _to_host(leaf, self._device)
+            if h is not None and self._mesh is not None:
+                pls = self._placements_for(h)
+                placed[i] = (tuple(h.shape), pls)
+                h = self._block(h, pls)
             if h is None or h.device == self._device and \
                     self._device.type == "cuda":
                 continue            # not an array, or on the card already
@@ -141,6 +162,8 @@ class DevicePrefetcher:
             self.transfers += 1
             for (i, h), part in zip(members, dev.split(sizes)):
                 out[i] = part.view(h.shape)
+        for i, (shape, pls) in placed.items():
+            out[i] = self._dist(out[i], shape, pls)
         event = None
         if on_card:
             event = torch.cuda.Event()
@@ -148,6 +171,48 @@ class DevicePrefetcher:
             event.synchronize()   # the pinned buffers may go now
         self.batches += 1
         return build(iter(out)), bufs, event
+
+    # -- mesh placement --------------------------------------------------
+    def _placements_for(self, h):
+        """A leaf's placements: out-of-rank Shards replicated, and all
+        replicated when a Shard does not divide the leaf (a tail
+        batch)."""
+        from paddle_tpu_torch.distributed.mesh import Replicate, Shard
+
+        pls = []
+        for p in self._placements:
+            d = p.dim + h.dim() if isinstance(p, Shard) and p.dim < 0 \
+                else getattr(p, "dim", None)
+            pls.append(Shard(d) if isinstance(p, Shard) and
+                       0 <= d < h.dim() else Replicate())
+        for mesh_dim, p in enumerate(pls):
+            if isinstance(p, Shard) and \
+                    h.shape[p.dim] % self._mesh.shape[mesh_dim]:
+                return [Replicate() for _ in pls]
+        return pls
+
+    def _block(self, h, pls):
+        from paddle_tpu_torch.distributed.api import _local_of
+
+        return _local_of(h, self._mesh, pls).contiguous()
+
+    def _dist(self, local, shape, pls):
+        """This rank's block as a DistTensor of the global ``shape``."""
+        from torch.distributed.tensor import DTensor
+
+        from paddle_tpu_torch.core.tensor import Tensor
+        from paddle_tpu_torch.distributed.api import (_torch_placements,
+                                                      device_mesh)
+
+        stride = torch.empty(shape, device="meta").stride()
+        dt = DTensor.from_local(local, device_mesh(self._mesh,
+                                                   self._device.type),
+                                _torch_placements(pls), run_check=False,
+                                shape=torch.Size(shape), stride=stride)
+        t = Tensor._from_data(dt)
+        t._process_mesh = self._mesh
+        t._placements = list(pls)
+        return t
 
     def __iter__(self):
         q: "queue.Queue" = queue.Queue(maxsize=self._depth)

@@ -8,7 +8,8 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["llama_state_from_jax", "optimizer_slots_from_jax",
+__all__ = ["llama_state_from_jax", "llama_pipe_state_from_jax",
+           "llama_pipe_state_from_causal_lm", "optimizer_slots_from_jax",
            "optimizer_state_from_jax", "layer_state_from_jax"]
 
 
@@ -123,3 +124,53 @@ def layer_state_from_jax(np_state: Mapping[str, np.ndarray], rng_state
     weights and draw the same next keys."""
     state = {name: _to_tensor(value) for name, value in np_state.items()}
     return state, (int(rng_state[0]), int(rng_state[1]))
+
+
+def llama_pipe_state_from_jax(np_state: Mapping[str, np.ndarray],
+                              body_layers=None) -> Dict[str, torch.Tensor]:
+    """Turn the JAX ``LlamaForCausalLMPipe``'s ``state_dict()`` (values as
+    numpy: ``pre_layers.0.weight``, ``body_layers.<k>.*`` for each of the
+    L layers, ``post_layers.0.*``) into the state of a port rank's stage
+    of :func:`paddle_tpu_torch.models.llama.LlamaForCausalLMPipe`: the
+    same names, the Linear weights turned to torch's ``[out, in]``, and
+    of the body only the layers in ``body_layers`` (all when None), the
+    layers a rank's ``PipelineLayer`` holds."""
+    keep = None if body_layers is None else {int(k) for k in body_layers}
+    out = {}
+    for name, value in np_state.items():
+        if name.startswith("body_layers.") and keep is not None and \
+                int(name.split(".")[1]) not in keep:
+            continue
+        arr = np.asarray(value)
+        if name.endswith("_proj.weight") or name.endswith("lm_head.weight"):
+            arr = arr.T
+        out[name] = _to_tensor(arr)
+    return out
+
+
+def llama_pipe_state_from_causal_lm(state: Mapping[str, torch.Tensor],
+                                    body_layers=None
+                                    ) -> Dict[str, torch.Tensor]:
+    """The port ``LlamaForCausalLM``'s state dict as the state of a
+    ``LlamaForCausalLMPipe`` stage (the same tensors, renamed): the
+    embedding is ``pre_layers.0.weight``, layer k ``body_layers.<k>``
+    (only those in ``body_layers`` when given), the final norm and the
+    head ``post_layers.0.*``. A tied model's head is the embedding and
+    is left out."""
+    keep = None if body_layers is None else {int(k) for k in body_layers}
+    out = {}
+    for name, t in state.items():
+        if name == "llama.embed_tokens.weight":
+            out["pre_layers.0.weight"] = t
+        elif name.startswith("llama.layers."):
+            k, rest = name[len("llama.layers."):].split(".", 1)
+            if keep is None or int(k) in keep:
+                out[f"body_layers.{k}.{rest}"] = t
+        elif name == "llama.norm.weight":
+            out["post_layers.0.norm.weight"] = t
+        elif name == "lm_head.weight":
+            if t is not state.get("llama.embed_tokens.weight"):
+                out["post_layers.0.lm_head.weight"] = t
+        else:
+            raise KeyError(f"no Pipe parameter for {name!r}")
+    return out

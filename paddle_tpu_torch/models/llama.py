@@ -59,7 +59,8 @@ from paddle_tpu_torch.ops.nn_ops import (flash_attention, rms_norm,
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP",
-           "LlamaPretrainingCriterion", "generate_engine_config"]
+           "LlamaPretrainingCriterion", "LlamaForCausalLMPipe",
+           "generate_engine_config"]
 
 
 
@@ -772,3 +773,131 @@ class LlamaForCausalLM(nn.Module):
         full = np.concatenate([ids, np.asarray(generated, np.int64)],
                               axis=1)
         return torch.from_numpy(full).to(self.device, ids_t.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the pipeline-parallel Llama
+# ---------------------------------------------------------------------------
+class _PipeDecoderLayer(LlamaDecoderLayer):
+    """A decoder layer that takes the activations alone (the pipeline
+    body's contract) and slices its own rope tables, as the JAX layer
+    does. The tables are plain attributes, not buffers: the body holds
+    parameters only."""
+
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+        super().__init__(config, device=device, dtype=dtype)
+        head_dim = config.hidden_size // config.num_attention_heads
+        self.rope_cos, self.rope_sin = _rope_tables(
+            config.max_position_embeddings, head_dim, config.rope_theta,
+            device=device)
+
+    def forward(self, x, attn_mask=None):
+        # under SP x holds this rank's slice of the sequence
+        s = x.shape[1] * (self.self_attn._mp.nranks
+                          if self.self_attn._mp is not None
+                          and self.config.sequence_parallel else 1)
+        return super().forward(x, self.rope_cos[:s], self.rope_sin[:s],
+                               attn_mask)
+
+
+class _PipeEmbed(nn.Module):
+    """The pre section: the (vocab-parallel) embedding; ``weight`` is the
+    table, the name a tied head shares."""
+
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = _VocabEmbedding(config.vocab_size,
+                                            config.hidden_size,
+                                            device=device, dtype=dtype)
+        _hint(self.embed_tokens.weight, 0)
+        self.weight = self.embed_tokens.weight
+        self._mp = None
+
+    def _bind_mp(self, group):
+        self._mp = group
+        self.embed_tokens._mp = group
+
+    def forward(self, input_ids):
+        x = self.embed_tokens(input_ids.long())
+        if self._mp is not None and self.config.sequence_parallel:
+            x = comm.split_along(x, self._mp, 1)
+        return x
+
+
+class _PipeHead(nn.Module):
+    """The post section: the final norm and ``lm_head`` (bound to an mp
+    group: this rank's shard of the vocabulary)."""
+
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        self.norm = _RMSNorm(config.hidden_size, config.rms_norm_eps,
+                             device=device, dtype=dtype)
+        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+                                 bias=False, device=device, dtype=dtype)
+        _hint(self.lm_head.weight, 0, linear=True)
+        self._mp = None
+
+    def _bind_mp(self, group):
+        self._mp = group
+
+    def forward(self, x):
+        return self.lm_head(_tp_enter(self.norm(x), self._mp,
+                                      self.config.sequence_parallel))
+
+
+class _PipeTiedHead(nn.Module):
+    """The tied post section: the final norm, then ``x @ E^T`` with the
+    embedding table ``weight`` (a 1-row placeholder until the
+    ``SharedLayerDesc`` rebinds it to the embedding's)."""
+
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        self.norm = _RMSNorm(config.hidden_size, config.rms_norm_eps,
+                             device=device, dtype=dtype)
+        self.weight = nn.Parameter(torch.empty(
+            1, config.hidden_size, device=device, dtype=dtype))
+        self._mp = None
+
+    def _bind_mp(self, group):
+        self._mp = group
+
+    def forward(self, x):
+        h = _tp_enter(self.norm(x), self._mp, self.config.sequence_parallel)
+        return F_t.linear(h, self.weight)
+
+
+def LlamaForCausalLMPipe(config: LlamaConfig, num_stages: int, device=None,
+                         **pipeline_kw):
+    """The pipeline-parallel Llama (port of the JAX package's
+    ``LlamaForCausalLMPipe``): the embedding as the pre section, the
+    decoder layers as the homogeneous body, the final norm and the head
+    as the post section, ``LlamaPretrainingCriterion`` as ``loss_fn``.
+    With ``tie_word_embeddings`` the head computes ``x @ E^T`` on the
+    embedding's table through a ``SharedLayerDesc``. Every module is
+    built on ``device`` (the card unless ``device="cpu"``) in
+    ``config.dtype``, with PyTorch's default initialisation; the
+    weights of a JAX Pipe load through
+    :func:`paddle_tpu_torch.models.convert.llama_pipe_state_from_jax`.
+    ``pipeline_kw`` go to ``PipelineLayer`` (``stage_id``,
+    ``topology``, ``num_virtual_pipeline_stages``)."""
+    from paddle_tpu_torch.distributed.fleet.pipeline_parallel import (
+        LayerDesc, PipelineLayer, SharedLayerDesc)
+
+    _check_config(config)
+    kw = dict(device=resolve_device(device), dtype=to_torch(config.dtype))
+    body = [LayerDesc(_PipeDecoderLayer, config, **kw)
+            for _ in range(config.num_hidden_layers)]
+    if config.tie_word_embeddings:
+        layers = [SharedLayerDesc("embed", _PipeEmbed, None, "weight",
+                                  config, **kw)] + body + \
+                 [SharedLayerDesc("embed", _PipeTiedHead, None, "weight",
+                                  config, **kw)]
+    else:
+        layers = [_PipeEmbed(config, **kw)] + body + \
+                 [_PipeHead(config, **kw)]
+    return PipelineLayer(layers=layers, num_stages=num_stages,
+                         loss_fn=LlamaPretrainingCriterion(config),
+                         **pipeline_kw)

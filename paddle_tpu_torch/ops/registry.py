@@ -113,6 +113,23 @@ def _unwrap(v):
     return v
 
 
+# (run, tag) of the semi-auto API once a DistTensor exists
+# (``distributed/api.py``): ``run(compute, arguments)`` computes an op
+# whose operands hold a DTensor, ``tag(outputs)`` gives its output
+# Tensors their mesh and placements
+_DIST_HOOK = None
+
+
+def _any_dtensor(values) -> bool:
+    for v in values:
+        if isinstance(v, (list, tuple)):
+            if _any_dtensor(v):
+                return True
+        elif type(v).__name__ == "DTensor":
+            return True
+    return False
+
+
 def make_api(opdef: OpDef) -> Callable:
     """Build the eager wrapper for one op."""
 
@@ -196,18 +213,24 @@ def make_api(opdef: OpDef) -> Callable:
 
         grad_on = any_grad and torch.is_grad_enabled()
         want_grad = diff and grad_on
-        if grad_on and not diff:
-            with torch.no_grad():
-                out = run_emitter(arguments)
-        else:
-            out = run_emitter(arguments)
 
+        def compute():
+            if grad_on and not diff:
+                with torch.no_grad():
+                    return run_emitter(arguments)
+            return run_emitter(arguments)
+
+        dist = _DIST_HOOK if _DIST_HOOK is not None and \
+            _any_dtensor(arguments.values()) else None
+        out = compute() if dist is None else dist[0](compute, arguments)
         multi = isinstance(out, (tuple, list))
         outs = list(out) if multi else [out]
         if flags.flag("check_nan_inf"):
             _check_nan_inf(name, outs)
         sg = not want_grad
         out_tensors = [Tensor._from_data(o, stop_gradient=sg) for o in outs]
+        if dist is not None:
+            dist[1](out_tensors)
         return tuple(out_tensors) if multi else out_tensors[0]
 
     api.__name__ = name

@@ -30,9 +30,12 @@ as a pair, else ``param_<position>`` (the JAX package's key for a
 parameter with an automatic name), so a state dict of one package loads
 into the other (``models.convert.optimizer_state_from_jax``).
 ``learning_rate`` may be an :class:`~paddle_tpu_torch.optimizer.lr.
-LRScheduler`. Not ported: the ASP n:m masks (``incubate/asp``) and the
-ZeRO slot placement of the semi-auto API (``_slot_shard_fn``, slice D2);
-``distributed.ParallelTrainStep`` shards its own slots.
+LRScheduler`. The semi-auto API's ``shard_optimizer`` sets
+``_slot_shard_fn``: every slot :meth:`Optimizer._init_slots_mp` makes
+(for every step path) goes through it, and a parameter whose slots are
+DistTensors is updated on their slices (its new value gathered back
+when the parameter itself is whole). Not ported: the ASP n:m masks
+(``incubate/asp``).
 """
 from __future__ import annotations
 
@@ -64,6 +67,25 @@ def _as_tensor(value, device) -> torch.Tensor:
         return torch.from_numpy(arr.view(np.uint16)).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)
+
+
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
+def _dist(slot_values, t) -> bool:
+    return _is_dtensor(t) or any(_is_dtensor(v) for v in slot_values)
+
+
+def _replicating(on: bool):
+    """Plain tensors join DistTensor operands replicated (``on``)."""
+    import contextlib
+
+    if not on:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
 
 
 class Optimizer:
@@ -190,8 +212,12 @@ class Optimizer:
                 master = p.detach().float()
                 slots = self._init_slots(master)
                 slots["master_weight"] = master
-                return slots
-            return self._init_slots(p.detach())
+            else:
+                slots = self._init_slots(p.detach())
+            shard = getattr(self, "_slot_shard_fn", None)
+            if shard is not None:
+                slots = {k: shard(k, p, v) for k, v in slots.items()}
+            return slots
 
     def _rule_mp(self, p, g, slots, lr, step):
         """dtype-stable _rule: new values keep their stored dtypes, and
@@ -242,20 +268,40 @@ class Optimizer:
             if cast_grads and g.dtype != p.dtype:
                 g = g.to(p.dtype)
             self._current_decay_enabled = self._decay_enabled(p)
-            new_p, new_slots = self._rule_mp(t.detach(), g, slots, lr, step)
+            dist = _dist(slots.values(), t)
+            if dist:
+                new_p, new_slots = self._dist_rule(t, g, slots, lr, step)
+            else:
+                new_p, new_slots = self._rule_mp(t.detach(), g, slots, lr,
+                                                 step)
             self._current_decay_enabled = True
-            for key, old, new in [(None, t, new_p)] + [
-                    (k, slots[k], v) for k, v in new_slots.items()]:
-                if new is old:
-                    continue
-                val = new if skip is None else torch.where(skip, old, new)
-                if inplace:
-                    old.copy_(val)
-                elif key is None:
-                    p.data = val
-                else:
-                    slots[key] = val
+            with _replicating(dist):
+                for key, old, new in [(None, t, new_p)] + [
+                        (k, slots[k], v) for k, v in new_slots.items()]:
+                    if new is old:
+                        continue
+                    val = new if skip is None else \
+                        torch.where(skip, old, new)
+                    if inplace:
+                        old.copy_(val)
+                    elif key is None:
+                        p.data = val
+                    else:
+                        slots[key] = val
         self._current_norm_reduce = None
+
+    def _dist_rule(self, t, g, slots, lr, step):
+        """The rule where a slot or the parameter is a DistTensor (the
+        semi-auto API): plain operands join replicated, and a whole
+        parameter gets its new value gathered from the slices."""
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+
+        with implicit_replication():
+            new_p, new_slots = self._rule_mp(t.detach(), g, slots, lr, step)
+        if _is_dtensor(new_p) and not _is_dtensor(t):
+            new_p = new_p.full_tensor()
+        return new_p, new_slots
 
     # -- eager step --------------------------------------------------------
     @torch.no_grad()

@@ -130,6 +130,8 @@ def _loss_fn(case):
         return nn.MSELoss()
     if kind == "mse_sum":
         return nn.MSELoss(reduction="sum")
+    if kind == "ce":
+        return nn.CrossEntropyLoss()
     if kind == "pce":
         ce = fleet.ParallelCrossEntropy()
         return lambda logits, labels: ops.mean(ce(logits, labels))

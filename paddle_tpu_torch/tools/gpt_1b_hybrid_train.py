@@ -166,13 +166,14 @@ def _batch(dev):
     return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
 
 
-def _reference(dev, x, y):
-    """The one-rank TrainStep of part (a): losses and the final
-    parameters (kept on the device for the comparisons)."""
+def _reference(dev, x, y, layers: int = F32_LAYERS):
+    """The one-rank TrainStep of part (a) at ``layers`` layers: losses
+    and the final parameters (kept on the device for the
+    comparisons)."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import AdamW
 
-    model = _model(dev, F32_LAYERS, "float32")
+    model = _model(dev, layers, "float32")
     step = TrainStep(model, model.criterion(model.config),
                      AdamW(learning_rate=LR, parameters=model.parameters()))
     losses = [float(step(x, y)) for _ in range(STEPS)]

@@ -76,6 +76,8 @@ def _loss(kind):
         return nn.MSELoss()
     if kind == "mse_sum":
         return nn.MSELoss(reduction="sum")
+    if kind == "ce":
+        return nn.CrossEntropyLoss()
     if kind == "pce":
         ce = fleet.ParallelCrossEntropy()
         return lambda logits, labels: paddle.mean(ce(logits, labels))

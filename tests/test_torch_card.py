@@ -1798,3 +1798,52 @@ def test_flash_kernels_at_a_hybrid_rank_heads(card, b, s, h, d):
     assert all(fa.launches[n] == before[n] + 1 for n in fa.launches)
     flash_check.check(q, k, v, do, {"o": o, "lse": lse, "dq": dq, "dk": dk,
                                     "dv": dv}, scale, True)
+
+
+# ---------------------------------------------------------------------------
+# pipeline-parallel training (slice D2): two ranks sharing the card
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def pipe_pairs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.testing import pipeline_ranks
+
+    return pipeline_ranks.card_pairs()
+
+
+@pytest.mark.gpu
+def test_pipeline_pp2_f32_on_one_card_matches_one_rank(pipe_pairs):
+    """pp 2 of the Llama Pipe on the card (gloo through the host) against
+    the one-rank TrainStep of the same model and batch: losses rtol
+    1e-4, each stage parameter within phase 28's AdamW bound."""
+    for r in pipe_pairs[("float32", False)]:
+        np.testing.assert_allclose(r["losses"], r["ref_losses"], rtol=1e-4)
+        for name, p in r["params"].items():
+            assert p["max_abs_err"] <= 2.5e-4, (name, p)
+            assert p["beyond_1e-5"] < 1e-3 * p["elements"], (name, p)
+
+
+@pytest.mark.gpu
+def test_pipeline_pp2_bf16_on_one_card_matches_one_rank(pipe_pairs):
+    """The same in bf16 with f32 master weights on both sides: losses
+    within phase 29's 0.02 nats of the one-rank run, the first step's
+    gradients the f32 sum of its two chunks' over 2, bit for bit, and
+    under 1% of each parameter's master weight more than lr / 2 from the
+    one-rank run's (``pipeline_ranks.pair_faults``)."""
+    from paddle_tpu_torch.testing import pipeline_ranks
+
+    for r in pipe_pairs[("bfloat16", False)]:
+        assert r["compared"] == "master_weight"
+        assert pipeline_ranks.pair_faults(r) == []
+
+
+@pytest.mark.gpu
+def test_tied_pipe_copies_bitwise_equal_after_a_step(pipe_pairs):
+    """The tied Pipe: after the steps the table rank 0's embedding and
+    rank 1's head gather is the same bits on both ranks, and the run
+    matches the one-rank tied model."""
+    a, b = pipe_pairs[("float32", True)]
+    np.testing.assert_array_equal(a["tied_table"], b["tied_table"])
+    for r in (a, b):
+        np.testing.assert_allclose(r["losses"], r["ref_losses"], rtol=1e-4)

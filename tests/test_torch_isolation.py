@@ -108,6 +108,12 @@ _MODULES = [
     "paddle_tpu_torch.distributed.fleet.utils.hybrid_parallel_util",
     "paddle_tpu_torch.testing.hybrid_ranks",
     "paddle_tpu_torch.tools.gpt_1b_hybrid_train",
+    "paddle_tpu_torch.distributed.fleet.pipeline_parallel",
+    "paddle_tpu_torch.distributed.fleet.pp_engine",
+    "paddle_tpu_torch.distributed.api",
+    "paddle_tpu_torch.testing.pipeline_ranks",
+    "paddle_tpu_torch.testing.semi_auto_ranks",
+    "paddle_tpu_torch.tools.gpt_1b_pipe_train",
 ]
 
 

@@ -63,6 +63,16 @@ def _cases():
              opt_kw=dict(learning_rate=0.01), loss="mse_sum", seed=5,
              mesh=[2], dims=["dp"],
              batches=_mlp_batches(np.random.default_rng(1), 3)),
+        # a mean over the labels not ignored: rank 0's share holds 1 of
+        # them, rank 1's 3, so the batch's loss is not the ranks' mean
+        dict(name="ce_ignore", model="seq_mlp", opt="sgd",
+             opt_kw=dict(learning_rate=0.1), loss="ce", seed=6,
+             mesh=[2], dims=["dp"],
+             batches=[(x, np.where(np.isin(np.arange(8), [0, 1, 2, 7]),
+                                   -100, rs(8).randint(0, 16, 8))
+                       .astype(np.int64))
+                      for x, _ in _mlp_batches(np.random.default_rng(4),
+                                               3)]),
         dict(name="batchnorm", model="bn", opt="sgd",
              opt_kw=dict(learning_rate=0.1), loss="mse", seed=9,
              mesh=[2], dims=["dp"],
@@ -86,7 +96,7 @@ def runs():
 
 @pytest.mark.parametrize("name", [
     "llama_dp2", "llama_mp2", "llama_dp2_mp2", "llama_sp", "llama_scaler",
-    "llama_clip", "tp_mlp", "tinylm", "mse_sum", "batchnorm",
+    "llama_clip", "tp_mlp", "tinylm", "mse_sum", "ce_ignore", "batchnorm",
     "syncbatchnorm", "dropout"])
 def test_matches_the_jax_parallel_step(runs, name):
     cases, refs, results = runs

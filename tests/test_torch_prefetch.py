@@ -3,7 +3,10 @@ scenarios of ``tests/test_device_prefetch.py`` on the CPU
 (``device="cpu"``; the card's pinned copies on a side stream are held in
 ``tests/test_torch_card.py``). The same batches go through both; the
 values that come out are equal exactly. The port keeps int64 as int64
-(the JAX package canonicalises it to int32) and refuses ``mesh=``."""
+(the JAX package canonicalises it to int32). The mesh scenarios run on
+4 gloo ranks (``paddle_tpu_torch.testing.semi_auto_ranks.prefetch_mesh``)
+against the JAX package's on a 4-device mesh of conftest's devices: each
+rank lands its block as a DistTensor."""
 import numpy as np
 import pytest
 import torch
@@ -159,12 +162,122 @@ def test_bf16_numpy_leaf_lands_as_bf16():
                                   x.view(np.int16))
 
 
-def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="slice D"):
-        DevicePrefetcher(_batches(1), mesh=object(), placements=[0],
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="slice D"):
-        DataLoader(_NumpyDataset(), prefetch_mesh=object(), places="cpu")
+# ---------------------------------------------------------------------------
+# mesh placement: 4 ranks against the JAX package on 4 devices
+# ---------------------------------------------------------------------------
+def _mesh_cases():
+    rng = np.random.default_rng(2)
+    return {
+        "placements": ([(np.ones((8, 3), np.float32),
+                         np.ones((8,), np.int64))], ["dp"], [("shard", 0)]),
+        "tail": ([(np.ones((8, 3), np.float32), np.ones((8,), np.int64)),
+                  (np.ones((3, 3), np.float32), np.ones((3,), np.int64))],
+                 ["dp"], [("shard", 0)]),
+        "coalesce": ([(rng.normal(size=(4, 8)).astype(np.float32),
+                       rng.normal(size=(4,)).astype(np.float32),
+                       rng.normal(size=(6,)).astype(np.float32))],
+                     ["mp"], [("shard", 1)]),
+        "scalar": ([{"x": np.ones((8, 3), np.float32),
+                     "scale": np.int16(7)}], ["dp"], [("shard", 0)]),
+    }
+
+
+def _jax_mesh_case(batches, dims, pls):
+    """Each leaf's placements (read from its sharding) and shard shape
+    in the JAX package on a 4-device mesh."""
+    from paddle_tpu.distributed.mesh import ProcessMesh, Replicate, Shard
+
+    mesh = ProcessMesh(np.arange(4), dims)
+    out = []
+    for b in jprefetch(batches, depth=1, mesh=mesh, placements=[
+            Shard(p[1]) if p[0] == "shard" else Replicate() for p in pls]):
+        leaves = [b[k] for k in sorted(b)] if isinstance(b, dict) \
+            else list(b)
+        row = []
+        for t in leaves:
+            spec = tuple(t._data.sharding.spec)
+            d = next((i for i, e in enumerate(spec) if e is not None), None)
+            row.append({"placements": ["Replicate()" if d is None else
+                                       f"Shard(dim={d})"],
+                        "shard": tuple(t._data.addressable_shards[0]
+                                       .data.shape),
+                        "value": np.asarray(t._data)})
+        out.append(row)
+    return out
+
+
+@pytest.fixture(scope="module")
+def mesh_runs():
+    from paddle_tpu_torch.testing import gloo_ranks, semi_auto_ranks
+
+    cases = _mesh_cases()
+    rng = np.random.RandomState(3)
+    state = {"0.weight": rng.randn(4, 8).astype(np.float32) * 0.3,
+             "0.bias": np.zeros(8, np.float32),
+             "2.weight": rng.randn(8, 2).astype(np.float32) * 0.3,
+             "2.bias": np.zeros(2, np.float32)}
+    xy = (rng.randn(16, 4).astype(np.float32),
+          rng.randn(16, 2).astype(np.float32))
+    world = gloo_ranks.start(semi_auto_ranks.prefetch_mesh, 4, cases,
+                             state, xy, timeout_s=180)
+    ref = {n: _jax_mesh_case(*c) for n, c in cases.items()}
+    return cases, ref, world.results()
+
+
+@pytest.mark.parametrize("name", ["placements", "tail", "coalesce",
+                                  "scalar"])
+def test_mesh_placed_leaves_match_the_jax_package(mesh_runs, name):
+    """Every leaf lands as a DistTensor on the mesh with the JAX
+    package's placements; each rank's block has the JAX shard's shape and
+    is its slice of the batch; the global view is the batch."""
+    cases, ref, res = mesh_runs
+    for r in range(4):
+        got = res[r][name]["batches"]
+        assert len(got) == len(ref[name])
+        for gb, jb in zip(got, ref[name]):
+            for g, j in zip(gb, jb):
+                assert g["mesh_is"]
+                assert g["placements"] == j["placements"]
+                assert g["local"].shape == j["shard"]
+                np.testing.assert_array_equal(g["global"], j["value"])
+                if j["placements"] != ["Replicate()"]:
+                    d = int(j["placements"][0][len("Shard(dim="):-1])
+                    want = np.split(j["value"], 4, axis=d)[r]
+                    np.testing.assert_array_equal(g["local"], want)
+
+
+def test_mesh_tail_batch_degrades_to_replicated(mesh_runs):
+    """The tail batch of a drop_last=False epoch (3 rows over 4 ranks)
+    lands whole on every rank, replicated."""
+    _, _, res = mesh_runs
+    for r in range(4):
+        tail = res[r]["tail"]["batches"][1]
+        assert tail[0]["placements"] == ["Replicate()"]
+        np.testing.assert_array_equal(tail[0]["local"],
+                                      np.ones((3, 3), np.float32))
+
+
+def test_mesh_replicated_leaves_still_coalesce(mesh_runs):
+    """Sharded and replicated leaves of one dtype go over in one copy a
+    batch."""
+    _, _, res = mesh_runs
+    for r in range(4):
+        assert res[r]["coalesce"]["transfers"] == 1
+        assert res[r]["placements"]["transfers"] == 2   # f32, int64
+
+
+def test_mesh_placed_batch_is_the_steps_share(mesh_runs):
+    """A DataLoader(prefetch_mesh=) batch feeds ParallelTrainStep as the
+    rank's share, not split again: the same losses and parameters as
+    the step fed the global batch."""
+    _, _, res = mesh_runs
+    for r in range(4):
+        t = res[r]["train"]
+        assert len(t["placed"]) == 2
+        np.testing.assert_allclose(t["placed"], t["global"], rtol=1e-6)
+        for k, v in t["global_params"].items():
+            np.testing.assert_allclose(t["placed_params"][k], v,
+                                       rtol=1e-6, atol=1e-7)
 
 
 class _NumpyDataset(Dataset):
