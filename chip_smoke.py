@@ -431,6 +431,46 @@ non-zero (nothing is caught and passed over):
                gloo. K2-K4 at a pp rank's microbatch (B 1, S 2048, H 16,
                D 128, bf16) against their plain versions
                (``flash_check``), timed, with bounds.
+30. cp_train  — context-parallel training over torch.distributed
+               (``tools/gpt_1b_cp_train.py``): one world of 4 ranks on
+               this card through the testing hook (gloo through the
+               host), shared with phase 31, the Llama with
+               ``context_parallel=True``: each rank of sp holds its chunk
+               of the sequence through the whole stack, the attention is
+               the ring (K2 a chunk, merged by lse; K3 and K4 given the
+               merged lse and delta; k/v and the f32 dK/dV passed around
+               the ring by batched isend/irecv). First, on this process:
+               K2-K4 at a ring chunk (B 2, 1024 x 1024, H 16, D 128,
+               bf16), the diagonal (causal) and an earlier (whole) chunk,
+               against their plain versions (``flash_check``), timed, with
+               bounds and SDPA's times; the ring's chunked path for a
+               ring of 2 at that chunk: f32 against the reference's plain
+               recurrence and its autograd (``flash_check.TOL``), bf16
+               chunk by chunk (``flash_check``'s forward and backward
+               halves, given the merged lse). (a) f32 at bench_gpt_1b
+               widths with 2 of its 16 layers, batch 4 x 2048, three
+               AdamW steps per case: dp 2 x sp 2, sp 4 (``cp_batch_axis=
+               None``), dp 2 x sp 2 with ZeRO 1, each against a one-rank
+               TrainStep of the dense model at phase 28's bounds, slots
+               the reckoned bytes. (b) bf16 at full width and depth, dp 2
+               x sp 2, ZeRO 1 over dp: one warm-up and three timed steps;
+               losses within 0.02 nats of phase 7's, falling; K2-K4
+               launched (r + 1) x 16 x 3 times on the rank at sp index r
+               (its diagonal chunk and the r earlier ones a layer); the
+               step p50, the ring's P2P and the collectives' host ms and
+               bytes a step, peaks per rank. Not a speed figure.
+31. moe_train — ``tests/test_moe.py``'s MoEModel at the 1B Llama's
+               widths (d 2048, 8 experts of 2048 -> 5632 -> 2048, gate
+               gshard with its capacity factors: C 1229 at 8192 tokens;
+               ``tools/moe_train.py``), MSE + 0.01 aux on 4 x 2048 tokens,
+               in phase 30's world. (a) f32, three AdamW steps at ep 4
+               (batch replicated over ep), ep 4 (batch sharded over ep:
+               the all-to-all) and dp 2 x ep 2, each against a one-rank
+               TrainStep at phase 28's bounds; (b) bf16 ep 4 sharded, one
+               warm-up and three steps, within 0.02 of the one-rank bf16
+               losses. Per step: choices dropped per rank, aux, the
+               all-to-all and collective bytes and host ms; step times,
+               peaks.
 
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
@@ -441,13 +481,15 @@ tensor_api (phase 20), layer_api (phase 21), layer_trainstep (phase
 22) and long_tail (phase 24's packed flash wrapper) for K2-K4, and tiers (phase 23's tiered engines), tp (phase 25's
 two ranks, summed), fleet (phase 26 (b)'s two replicas) and tp_disagg,
 tp_tiers, tp_spec (phase 27 (b)'s paths, every rank) for K1, tp_spec
-for K2, hybrid_train (phase 28 (b)'s four ranks, summed) and
-pipeline_train (phase 29 (b)'s four ranks, summed) for K2-K4; on the
+for K2, hybrid_train (phase 28 (b)'s four ranks, summed),
+pipeline_train (phase 29 (b)'s four ranks, summed) and cp_train (phase
+30 (b)'s four ranks, summed) for K2-K4; on the
 paths that replay graphs they are the launches the card ran, the eager
 warm-ups plus captured x replays — error, times, bound, library time;
 ``spec_shapes``, ``generate_shapes``, ``tiers_shapes``, ``tp_shapes``,
 ``fleet_shapes``, ``tp_tiers_shapes``, ``tp_spec_shapes``,
-``hybrid_rank_shapes`` and ``pipeline_rank_shapes`` repeat them at
+``hybrid_rank_shapes``, ``pipeline_rank_shapes`` and
+``cp_ring_chunk_shapes`` (diagonal and earlier chunk) repeat them at
 those paths' shapes),
 nvidia-smi's line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -1127,8 +1169,8 @@ def _flash_train_times(q, k, v, do, o, lse, delta, scale, causal, flush):
     dot = do.transpose(1, 2).contiguous()
     with torch.no_grad():
         ms["sdpa_fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 10, flush)
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            qt, kt, vt, is_causal=causal), 10, flush)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     ms["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), 10, flush)
     pairs = _visible_pairs(sq, sk, causal) * b * h
@@ -3613,6 +3655,191 @@ def phase_pipeline_train(dev, train):
     return res
 
 
+CP_NATS = 0.02         # phase 30 (b)'s losses against phase 7's
+# the ring's chunk shapes at phase 30 (b): B 4 / dp 2, S 2048 / sp 2
+CP_CHUNK = (2, 1024, 16, 128)
+
+
+def _ring_chunk_kernels(dev):
+    """K2-K4 at a ring chunk of phase 30 (b) (B 2, 1024 queries and keys,
+    H 16, D 128, bf16): the diagonal chunk (causal) and an earlier one
+    (whole), each against its plain version (``flash_check``), timed,
+    with bounds and SDPA's times."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.testing import flash_check
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    b, s, h, d = CP_CHUNK
+    scale = d ** -0.5
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev).zero_
+    out = {}
+    for name, causal in (("diagonal", True), ("earlier", False)):
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = fa._flash_fwd_cuda(q, k, v, scale, causal)
+        delta = fa._delta(o, do)
+        dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
+        dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale,
+                                        causal)
+        torch.cuda.synchronize()
+        rep = flash_check.check(q, k, v, do, {"o": o, "lse": lse, "dq": dq,
+                                              "dk": dk, "dv": dv},
+                                scale, causal)
+        out[name] = {"shape": [b, s, s, h, d], "causal": causal,
+                     "dtype": "bfloat16", "max_abs_err": rep["max_abs_err"],
+                     "tolerance": str(rep["tolerance"]),
+                     **_flash_train_times(q, k, v, do, o, lse, delta, scale,
+                                          causal, flush)}
+        del q, k, v, do, o, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cp_moe(dev, train):
+    """Phases 30 (``cp_train``) and 31 (``moe_train``) in one world of 4
+    ranks (see the module docstring). ``train`` is phase 7's result (its
+    losses)."""
+    from paddle_tpu_torch.testing import cp_ranks
+    from paddle_tpu_torch.tools import gpt_1b_cp_train as C
+    from paddle_tpu_torch.tools import moe_train as M
+
+    t0 = time.perf_counter()
+
+    kern = _ring_chunk_kernels(dev)
+    path = cp_ranks.ring_path_check(dev, CP_CHUNK)
+    checks_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out = C.run(parts=("a", "b", "moe"), timeout_s=540.0)
+    world_s = time.perf_counter() - t1
+    ranks = out["ranks"]
+    assert out["alive_after"] == [], out["alive_after"]
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0", r
+    names = [c[0] for c in C.CASES]
+    cases = {}
+    for name in names:
+        per_rank = [r["cases"][name] for r in ranks]
+        cases[name] = {
+            "losses": per_rank[0]["losses"],
+            "losses_ok": all(c["losses_ok"] for c in per_rank),
+            "params_per_rank": [
+                {k: v for k, v in c["params"].items() if k != "per_param"}
+                for c in per_rank],
+            "per_param": _per_param([c["params"] for c in per_rank]),
+            "step_s_per_rank": [c["step_s"] for c in per_rank],
+            "slot_bytes_per_rank": [c["slot_bytes"] for c in per_rank],
+            "max_memory_allocated_per_rank": [
+                c["max_memory_allocated"] for c in per_rank]}
+    full = [r["full"] for r in ranks]
+    layers = train["layers"]
+    want = [C.reckoned_launches(f["sp_index"], layers, C.TIMED_STEPS)
+            for f in full]
+    ref = train["losses"][:1 + C.TIMED_STEPS]
+    cp = {"phase": "cp_train", "world": C.WORLD,
+          "placement": "all ranks on cuda:0 through the testing hook "
+                       "paddle_tpu_torch.testing.tp_hooks."
+                       "ranks_share_one_device (gloo through the host)",
+          "seconds": checks_s + world_s, "kernel_checks_s": checks_s,
+          "world_s": world_s, "f32_layers": C.F32_LAYERS,
+          "reference_losses_f32": ranks[0]["reference_losses"],
+          "f32_cases": cases,
+          "bf16_full": {
+              "model": "gpt_1b (bench.py bench_gpt_1b), 16 layers, "
+                       "context_parallel",
+              "mesh": "dp 2 x sp 2", "sharding_stage": 1,
+              "losses": full[0]["losses"], "phase7_losses": ref,
+              "max_loss_diff_nats": max(abs(a - b_) for a, b_ in zip(
+                  full[0]["losses"], ref)),
+              "step_ms_per_rank": [f["step_ms"] for f in full],
+              "step_ms_p50": max(f["step_ms_p50"] for f in full),
+              "p2p_host_ms_per_step": [f["p2p_host_ms_per_step"]
+                                       for f in full],
+              "p2p_calls_per_step": [f["p2p_calls_per_step"] for f in full],
+              "p2p_bytes_per_step": [f["p2p_bytes_per_step"] for f in full],
+              "collective_host_ms_per_step": [
+                  f["collective_host_ms_per_step"] for f in full],
+              "collective_calls_per_step": [
+                  f["collective_calls_per_step"] for f in full],
+              "collective_bytes_per_step": [
+                  f["collective_bytes_per_step"] for f in full],
+              "max_memory_allocated_per_rank": [
+                  f["max_memory_allocated"] for f in full],
+              "local_params_per_rank": [f["local_params"] for f in full],
+              "slot_bytes_per_rank": [f["slot_bytes"] for f in full],
+              "setup_s": max(f["setup_s"] for f in full),
+              "sp_index_per_rank": [f["sp_index"] for f in full],
+              "kernel_launches_per_rank": [f["kernel_launches"]
+                                           for f in full],
+              "reckoned_launches_per_rank": want},
+          "k2_k4_ring_chunks": kern, "ring_path": path,
+          "note": "four ranks share one card over gloo through the host: "
+                  "no parallel speed is measured"}
+    emit(cp)
+    moe = [r["moe"] for r in ranks]
+    m0 = moe[0]
+    mo = {"phase": "moe_train", "world": C.WORLD, "sizes": m0["sizes"],
+          "model": "tests/test_moe.py MoEModel at the 1B Llama's widths "
+                   "(d 2048, 8 experts of 2048 -> 5632 -> 2048, gshard)",
+          "reference_f32": m0["reference_f32"],
+          "f32": {name: {
+              "losses": m0["f32"][name]["losses"],
+              "losses_ok": all(m["f32"][name]["losses_ok"] for m in moe),
+              "params_per_rank": [
+                  {k: v for k, v in m["f32"][name]["params"].items()
+                   if k != "per_param"} for m in moe],
+              "dropped_per_rank": [m["f32"][name]["dropped"] for m in moe],
+              "aux": m0["f32"][name]["aux"],
+              "step_ms_per_rank": [m["f32"][name]["step_ms"] for m in moe],
+              "collective_bytes_per_step": [
+                  m["f32"][name]["collective_bytes_per_step"] for m in moe],
+              "collective_host_ms_per_step": [
+                  m["f32"][name]["collective_host_ms_per_step"]
+                  for m in moe],
+              "local_params_per_rank": [m["f32"][name]["local_params"]
+                                        for m in moe],
+              "max_memory_allocated_per_rank": [
+                  m["f32"][name]["max_memory_allocated"] for m in moe]}
+              for name in m0["f32"]},
+          "bf16_ep4_sharded": {
+              "losses": m0["bf16"]["losses"],
+              "reference_losses": m0["bf16"]["reference_losses"],
+              "max_loss_diff": max(m["bf16"]["max_loss_diff"] for m in moe),
+              "aux": m0["bf16"]["aux"],
+              "dropped_per_rank": [m["bf16"]["dropped"] for m in moe],
+              "step_ms_per_rank": [m["bf16"]["step_ms"] for m in moe],
+              "step_ms_p50": max(m["bf16"]["step_ms_p50"] for m in moe),
+              "all_to_all_and_collective_bytes_per_step": [
+                  m["bf16"]["collective_bytes_per_step"] for m in moe],
+              "collective_host_ms_per_step": [
+                  m["bf16"]["collective_host_ms_per_step"] for m in moe],
+              "max_memory_allocated_per_rank": [
+                  m["bf16"]["max_memory_allocated"] for m in moe]},
+          "seconds": max(m["seconds"] for m in moe),
+          "note": "the same world as phase 30 (its world_s holds both)"}
+    emit(mo)
+    # the checks, after the numbers are out
+    for name in names:
+        for c in [r["cases"][name] for r in ranks]:
+            assert c["losses_ok"] and c["params"]["within_adam_bound"], (
+                name, c["losses"], {k: v for k, v in c["params"].items()
+                                    if k != "per_param"})
+            assert c["slot_bytes"] == c["reckoned_slot_bytes"], (name, c)
+    for f, w in zip(full, want):
+        assert f["losses"] == full[0]["losses"], [x["losses"] for x in full]
+        diffs = [abs(a - b_) for a, b_ in zip(f["losses"], ref)]
+        assert max(diffs) <= CP_NATS, (f["losses"], ref)
+        assert f["losses"][-1] < f["losses"][0], f["losses"]
+        assert f["kernel_launches"] == w, (f["kernel_launches"], w)
+    for m in moe:
+        for name, c in m["f32"].items():
+            assert c["losses_ok"] and c["params"]["within_adam_bound"], (
+                name, c["losses"], m["reference_f32"]["losses"],
+                {k: v for k, v in c["params"].items() if k != "per_param"})
+        assert m["bf16"]["max_loss_diff"] <= M.BF16_LOSS_ATOL, m["bf16"]
+        assert all(np.isfinite(m["bf16"]["losses"])), m["bf16"]
+    return cp, mo
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -3658,6 +3885,7 @@ def main():
     del serve_rows
     hyb = phase_hybrid_train(dev, tr)
     ppl = phase_pipeline_train(dev, tr)
+    cp, _ = phase_cp_moe(dev, tr)
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
     dr = fl["fwd_only"]["draft_shapes"]
@@ -3704,6 +3932,8 @@ def main():
             n[name] for n in hyb["bf16_full"]["kernel_launches_per_rank"])
         by_path[name]["pipeline_train"] = sum(
             n[name] for n in ppl["bf16_full"]["kernel_launches_per_rank"])
+        by_path[name]["cp_train"] = sum(
+            n[name] for n in cp["bf16_full"]["kernel_launches_per_rank"])
     spec_shapes = {
         "ragged_paged_attention": {
             "max_abs_err": kv["max_abs_err"], "ms": kv["ms"],
@@ -3806,6 +4036,24 @@ def main():
             "launches_by_rank": [
                 n[row["name"]] for n in
                 ppl["bf16_full"]["kernel_launches_per_rank"]]}
+    # K2-K4 at a ring chunk of phase 30 (b) (B 2, 1024 x 1024, H 16):
+    # the diagonal (causal) and an earlier (whole) chunk
+    for row, key, errk in ((rows[1], "fwd", ("o",)), (rows[2], "dq", ("dq",)),
+                           (rows[3], "dkv", ("dk", "dv"))):
+        row["cp_ring_chunk_shapes"] = {
+            chunk: {"shape": c["shape"], "causal": c["causal"],
+                    "max_abs_err": max(c["max_abs_err"][e] for e in errk),
+                    "ms": c["ms"][key],
+                    "plain_ms": c["ms"]["plain_fwd" if key == "fwd"
+                                       else "plain_bwd"],
+                    "bound_ms": c["bounds"][key]["bound_ms"],
+                    "bound_by": c["bounds"][key]["bound_by"],
+                    "library_ms": c["ms"]["sdpa_fwd" if key == "fwd"
+                                          else "sdpa_bwd"]}
+            for chunk, c in cp["k2_k4_ring_chunks"].items()}
+        row["cp_ring_chunk_shapes"]["launches_by_rank"] = [
+            n[row["name"]] for n in
+            cp["bf16_full"]["kernel_launches_per_rank"]]
     # K1 at phase 26's decode replica's first step after an import
     rows[0]["fleet_shapes"] = flt["disagg_bf16"]["k1_first_after_import"]
     # K1 at a TP rank's heads (phase 27: 16 query, 4 kv) with the host

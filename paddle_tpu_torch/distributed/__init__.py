@@ -5,8 +5,11 @@ One process per rank: :func:`init_parallel_env` joins the world (NCCL
 with a card per rank, gloo on the CPU or when the ranks share a card), a
 :class:`ProcessMesh` names the ranks' grid, and
 :class:`ParallelTrainStep` trains a model at dp x mp with ZeRO stages
-1-3, sequence parallelism and recompute; ``fleet.pp_engine.
-PipelineTrainStep`` adds the pipeline (``fleet.pipeline_parallel``).
+1-3, sequence parallelism and recompute, context parallelism (a model
+that declares its sequence axis, the Llama's ``context_parallel`` over
+``ops.ring_attention``) and expert parallelism (``incubate.moe``);
+``fleet.pp_engine.PipelineTrainStep`` adds the pipeline
+(``fleet.pipeline_parallel``).
 The collectives, the topology, the fleet facade, ``DataParallel``, the
 stores, the checkpoints, the layout algebra (``redistribute``) and the
 semi-auto API (``api.py``: ``shard_tensor``, ``reshard``,

@@ -204,8 +204,9 @@ _GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast", "all_gather",
 
 # host-side accounting of the collectives this process ran: calls, wall
 # seconds inside them (waiting for the other ranks included) and the
-# bytes of this rank's input; the pipeline's batched point-to-point
-# exchanges apart, under ``p2p_``
+# bytes of this rank's input; the batched point-to-point exchanges (the
+# pipeline's ticks, the ring attention's hops, ``shift``) apart, under
+# ``p2p_``
 _ZERO = {"calls": 0, "seconds": 0.0, "bytes": 0, "p2p_calls": 0,
          "p2p_seconds": 0.0, "p2p_bytes": 0}
 _stats = dict(_ZERO)
@@ -213,8 +214,8 @@ _stats = dict(_ZERO)
 
 def stats(reset: bool = False) -> dict:
     """This process's collective calls, the host seconds spent in them and
-    their input bytes since the last reset, and the same of its
-    pipeline point-to-point exchanges (``p2p_calls``, ``p2p_seconds``,
+    their input bytes since the last reset, and the same of its batched
+    point-to-point exchanges (``p2p_calls``, ``p2p_seconds``,
     ``p2p_bytes``: the bytes it sent)."""
     out = dict(_stats)
     if reset:
@@ -617,21 +618,76 @@ def shift(x, group: Group, offset: int = 1):
     """Rotate values around the group's ring by ``offset``: member i's
     value goes to member (i + offset) mod n. Returns this member's new
     value (a torch tensor)."""
-    data = _data(x)
+    return shift_many([_data(x)], group, offset)[0]
+
+
+def shift_many(xs: Sequence[torch.Tensor], group: Group, offset: int = 1
+               ) -> List[torch.Tensor]:
+    """:func:`shift` of several tensors (on one device) in one
+    :func:`exchange`. Returns the received tensors."""
     g = _group(group)
     n = g.nranks
     if n == 1 or g._pg is None:
-        return data.clone()
-    dist = _dist()
+        return [x.clone() for x in xs]
     i = g.rank()
     to, frm = g.ranks[(i + offset) % n], g.ranks[(i - offset) % n]
-    w = _wire(g, data.detach(), "shift")
-    buf = torch.empty_like(w)
-    ops = [dist.P2POp(dist.isend, w, to, group=g._pg),
-           dist.P2POp(dist.irecv, buf, frm, group=g._pg)]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return buf.to(data.device)
+    return exchange(g, [(x, to) for x in xs],
+                    [(x.shape, x.dtype, frm) for x in xs], xs[0].device)
+
+
+@torch.no_grad()
+def exchange(group: Group, sends, recvs, device) -> List[torch.Tensor]:
+    """One batched isend/irecv over ``group``: ``sends`` [(tensor, global
+    dst)], ``recvs`` [(shape, dtype, global src)]; a CUDA tensor goes
+    through the host under gloo. Counted with the point-to-point
+    exchanges (``stats()``'s ``p2p_*``: the bytes sent). Returns the
+    received tensors on ``device``, in order."""
+    if not sends and not recvs:
+        return []
+    g = _group(group)
+    dist = _dist()
+    device = torch.device(device)
+    host = device.type == "cuda" and g.backend == "gloo"
+    nbytes = sum(t.numel() * t.element_size() for t, _ in sends)
+    with _timed_p2p(nbytes):
+        ops, bufs = [], []
+        for t, dst in sends:
+            ops.append(dist.P2POp(dist.isend, _wire(g, t.detach(), "send"),
+                                  dst, group=g._pg))
+        for shape, dtype, src in recvs:
+            b = torch.empty(shape, dtype=dtype,
+                            device="cpu" if host else device)
+            bufs.append(b)
+            ops.append(dist.P2POp(dist.irecv, b, src, group=g._pg))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [b.to(device) for b in bufs]
+
+
+@torch.no_grad()
+def all_to_all_rows(x: torch.Tensor, send_counts: Sequence[int],
+                    recv_counts: Sequence[int], group) -> torch.Tensor:
+    """Rows of ``x`` to the members of ``group``: the first
+    ``send_counts[0]`` rows to member 0, the next ``send_counts[1]`` to
+    member 1, ... (the group's order); returns the rows received,
+    member 0's first, ``recv_counts[j]`` from member j. A CUDA tensor
+    goes through the host under gloo."""
+    g = _group(group)
+    if g.nranks == 1 or g._pg is None:
+        return x.clone()
+    w = _wire(g, x, "all_to_all")
+    ins = list(w.split([int(c) for c in send_counts]))
+    order = g._torch_order()
+    sends = [int(send_counts[j]) for j in order]
+    recvs = [int(recv_counts[j]) for j in order]
+    out = torch.empty((sum(recvs),) + tuple(x.shape[1:]), dtype=w.dtype,
+                      device=w.device)
+    with _timed(w.numel() * w.element_size()):
+        _dist().all_to_all_single(out, torch.cat([ins[j] for j in order]),
+                                  recvs, sends, group=g._pg)
+    # back to the group's order of the senders
+    got = dict(zip(order, out.split(recvs)))
+    return torch.cat([got[j] for j in range(g.nranks)]).to(x.device)
 
 
 class stream:

@@ -22,11 +22,23 @@ program on its own share, and the collectives are written out:
   ``_pspec_from_hints``; a parameter stored transposed from the JAX
   model's names its dims in the JAX order in ``_dim_order``). It binds every module with a ``_bind_mp``
   method (the tensor-parallel layers, the Llama's modules) to the mesh's
-  ``"mp"`` group, which then compute the Megatron pairs;
+  ``"mp"`` group, which then compute the Megatron pairs, and gives every
+  module with a ``_bind_mesh`` method the mesh and the batch axes (the
+  context-parallel Llama, ``incubate.moe.MoELayer``);
+* **context parallelism.** A model that runs sequence-sharded declares
+  its sequence axis: a module bound by :func:`shard_model_parameters`
+  (``_bind_mesh``) sets ``_seq_axis`` (the context-parallel Llama,
+  ``cp_axis``). The step then also keeps the rank's chunk of the
+  sequence (the dim after the batch dim) over that axis, for the inputs
+  and the labels, and the loss and the gradients are averaged over it
+  with the batch axes (the parameters are replicated there);
 * **the gradients.** After the backward, the gradients of parameters in
   a sequence-parallel region (``param.sequence_parallel``) are summed
-  over ``"mp"``; then every gradient is averaged over the batch axes: an
-  all-reduce, or at stage 2 a reduce-scatter onto the ZeRO slice. A loss
+  over ``"mp"``; then every gradient is averaged over the batch axes
+  (and the sequence axis): an all-reduce, or at stage 2 a reduce-scatter
+  onto the ZeRO slice. A gradient is not summed over an axis its
+  parameter is sharded on (a ZeRO-3 slice, an expert stacked over
+  ``"ep"``: the collectives' backwards have gathered it). A loss
   layer with ``reduction="sum"`` is summed over the batch axes instead
   of averaged (the JAX step's loss of the global batch is then the sum
   of the ranks' losses); any other loss is taken as a mean over equal
@@ -74,7 +86,7 @@ from paddle_tpu_torch.distributed.mesh import ProcessMesh, Shard
 from paddle_tpu_torch.jit.train import TrainStep
 
 __all__ = ["current_mesh", "set_current_mesh", "shard_model_parameters",
-           "ParallelTrainStep", "ParallelConfig", "mp_group"]
+           "ParallelTrainStep", "ParallelConfig", "mp_group", "batch_axes"]
 
 _current_mesh: Optional[ProcessMesh] = None
 
@@ -206,14 +218,25 @@ def _cut(data: torch.Tensor, plan: _Plan, mesh: ProcessMesh, coord
     return out
 
 
+def batch_axes(mesh: ProcessMesh, config: ParallelConfig) -> Tuple[str, ...]:
+    """The mesh axes the batch is split over: ``config.dp_axes`` the
+    mesh has, and the sharding axis at ZeRO stage >= 1."""
+    axes = [a for a in config.dp_axes if a in mesh.dim_names]
+    if config.sharding_stage >= 1 and config.sharding_axis in \
+            mesh.dim_names and config.sharding_axis not in axes:
+        axes.append(config.sharding_axis)
+    return tuple(axes)
+
+
 @torch.no_grad()
 def shard_model_parameters(model, mesh: ProcessMesh,
                            config: Optional[ParallelConfig] = None):
     """Cut every parameter to this rank's slice per its hints (and, at
     ZeRO stage 3, the ZeRO dim) IN PLACE, bind the modules that have a
-    ``_bind_mp`` method to the mesh's ``"mp"`` group, and at stage 3
-    make each module gather its parameters for use. A model already
-    sharded the same way is left as it is."""
+    ``_bind_mp`` method to the mesh's ``"mp"`` group, give the modules
+    that have a ``_bind_mesh`` method the mesh and the batch axes, and at
+    stage 3 make each module gather its parameters for use. A model
+    already sharded the same way is left as it is."""
     from paddle_tpu_torch.distributed.env import get_rank
 
     config = config or ParallelConfig()
@@ -242,9 +265,12 @@ def shard_model_parameters(model, mesh: ProcessMesh,
         p._dist_plan = plan
         p._process_mesh = mesh
     mp = mesh.group("mp") if mesh.dim_size("mp") > 1 else None
+    axes = batch_axes(mesh, config)
     for m in _modules(model):
         if mp is not None and hasattr(m, "_bind_mp"):
             m._bind_mp(mp)
+        if hasattr(m, "_bind_mesh"):
+            m._bind_mesh(mesh, axes)
     if int(config.sharding_stage) >= 3:
         _Zero3.install(model, mesh)
     return model
@@ -471,16 +497,23 @@ class ParallelTrainStep(TrainStep):
         self._n_inputs = n_model_inputs
         shard_model_parameters(model, mesh, cfg)
         me = get_rank()
-        axes = [a for a in cfg.dp_axes if a in mesh.dim_names]
-        if cfg.sharding_stage >= 1 and cfg.sharding_axis in mesh.dim_names \
-                and cfg.sharding_axis not in axes:
-            axes.append(cfg.sharding_axis)
-        self._batch_axes = tuple(axes)
+        axes = batch_axes(mesh, cfg)
+        self._batch_axes = axes
         self._batch_n = 1
         for a in axes:
             self._batch_n *= mesh.get_dim_size(a)
         self._batch_index = mesh.axis_index(axes, me)
         self._bgroup = mesh.group(axes)
+        # the sequence axis a context-parallel model declares
+        seq = next((m._seq_axis for m in _modules(model)
+                    if getattr(m, "_seq_axis", None)), None)
+        self._cp_n = mesh.dim_size(seq) if seq else 1
+        self._cp_index = mesh.axis_index((seq,), me) if seq else 0
+        # the loss and the gradients are averaged over these
+        self._mean_axes = axes + ((seq,) if seq and seq not in axes
+                                  else ())
+        self._mean_n = self._batch_n * self._cp_n
+        self._lgroup = mesh.group(self._mean_axes)
         self._world = mesh.group(tuple(mesh.dim_names))
         self._stage = int(cfg.sharding_stage)
         self._zgroup = mesh.group(cfg.sharding_axis) \
@@ -509,7 +542,10 @@ class ParallelTrainStep(TrainStep):
         for i, pl in enumerate(self._plan_list):
             done = pl.zero_axis if (self._stage >= 2 and
                                     pl.zero_dim is not None) else None
-            key = tuple(a for a in self._batch_axes if a != done)
+            # an axis the parameter is sharded on: its collectives'
+            # backwards summed the gradient there already
+            key = tuple(a for a in self._mean_axes
+                        if a != done and a not in pl.dims.values())
             by_axes.setdefault(key, []).append(i)
         self._ar = [(mesh.group(k) if k else None, idx)
                     for k, idx in by_axes.items()]
@@ -558,6 +594,13 @@ class ParallelTrainStep(TrainStep):
                         f"over the {self._batch_n} ranks of "
                         f"{self._batch_axes}")
                 x = x.chunk(self._batch_n, dim=d)[self._batch_index]
+            if self._cp_n > 1 and x.dim() > d + 1:
+                if x.shape[d + 1] % self._cp_n:
+                    raise ValueError(
+                        f"sequence dim of size {x.shape[d + 1]} does not "
+                        f"split over the {self._cp_n} context-parallel "
+                        f"ranks")
+                x = x.chunk(self._cp_n, dim=d + 1)[self._cp_index]
             out.append(x.to(self._device, non_blocking=True))
         return out
 
@@ -591,9 +634,9 @@ class ParallelTrainStep(TrainStep):
 
     def _loss(self, datas, n_inputs: int):
         loss = super()._loss(datas, n_inputs)
-        w = _count_weight(self._loss_fn, datas[n_inputs], self._bgroup,
-                          self._batch_n) \
-            if self._batch_n > 1 and len(datas) > n_inputs else None
+        w = _count_weight(self._loss_fn, datas[n_inputs], self._lgroup,
+                          self._mean_n) \
+            if self._mean_n > 1 and len(datas) > n_inputs else None
         return loss if w is None else loss * w
 
     def _forward(self, *inputs):
@@ -604,7 +647,7 @@ class ParallelTrainStep(TrainStep):
         return self._model(*inputs)
 
     def _sync(self, grads, loss):
-        g = self._bgroup
+        g = self._lgroup
         if g is not None and g.nranks > 1:
             loss = loss.float().clone()
             comm.all_reduce_(loss, comm.ReduceOp.SUM, g)
@@ -621,8 +664,8 @@ class ParallelTrainStep(TrainStep):
                 self._zgroup)
             for i, s in zip(self._rs_idx, sl):
                 grads[i] = s.to(grads[i].dtype)
-        scale = None if self._sums or self._batch_n == 1 \
-            else 1.0 / self._batch_n
+        scale = None if self._sums or self._mean_n == 1 \
+            else 1.0 / self._mean_n
         for group, idx in self._ar:
             comm.all_reduce_into([grads[i] for i in idx], group, scale)
         return grads, loss

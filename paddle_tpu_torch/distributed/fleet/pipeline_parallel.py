@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.tensor import Tensor
+from paddle_tpu_torch.distributed import communication as comm
 from paddle_tpu_torch.nn.layer import Layer, LayerDict, LayerList
 
 __all__ = ["LayerDesc", "SharedLayerDesc", "PipelineLayer",
@@ -542,35 +543,6 @@ def _ticks(M: int, S: int, V: int, vpp: bool = True):
 # ---------------------------------------------------------------------------
 # the per-rank rotation
 # ---------------------------------------------------------------------------
-def _exchange(group, sends, recvs, like: torch.Tensor):
-    """One tick's P2P: ``sends`` [(tensor, global dst)], ``recvs``
-    [(global src)] (each a tensor shaped and typed as ``like``), in one
-    batched isend/irecv; a CUDA tensor goes through the host under gloo.
-    Returns the received tensors on ``like``'s device, in order."""
-    from paddle_tpu_torch.distributed import communication as comm
-
-    if not sends and not recvs:
-        return []
-    dist = torch.distributed
-    staged = like.is_cuda and group.backend == "gloo"
-    nbytes = sum(t.numel() * t.element_size() for t, _ in sends)
-    with comm._timed_p2p(nbytes):
-        ops, bufs = [], []
-        for t, dst in sends:
-            w = t.detach()
-            w = w.cpu() if staged else w.contiguous()
-            ops.append(dist.P2POp(dist.isend, w.contiguous(), dst,
-                                  group=group._pg))
-        for src in recvs:
-            b = torch.empty(like.shape, dtype=like.dtype,
-                            device="cpu" if staged else like.device)
-            bufs.append(b)
-            ops.append(dist.P2POp(dist.irecv, b, src, group=group._pg))
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    return [b.to(like.device) for b in bufs]
-
-
 class _Rotation:
     """One pass of microbatches through the pp ring on this rank, and
     its backward. ``apply(chunk, m, h)`` applies this rank's
@@ -615,8 +587,10 @@ class _Rotation:
             want = []
             if prev is not None and prev[1] != self.R - 1:
                 want.append((prev[0], prev[1] + 1))
-            got = _exchange(self.g, sends, [self._peer(me - 1)] * len(want),
-                            like) if S > 1 else []
+            got = comm.exchange(
+                self.g, sends,
+                [(like.shape, like.dtype, self._peer(me - 1))] * len(want),
+                like.device) if S > 1 else []
             for key, t in zip(want, got):
                 inbox[key] = t
         return done
@@ -645,8 +619,10 @@ class _Rotation:
             want = []
             if nxt is not None and nxt[1] > 0:
                 want.append((nxt[0], nxt[1] - 1))
-            got = _exchange(self.g, sends, [self._peer(me + 1)] * len(want),
-                            like) if S > 1 else []
+            got = comm.exchange(
+                self.g, sends,
+                [(like.shape, like.dtype, self._peer(me + 1))] * len(want),
+                like.device) if S > 1 else []
             for key, t in zip(want, got):
                 gbox[key] = t
         return first
@@ -656,8 +632,6 @@ def _replicate_outputs(done: dict, M: int, group, src_index: int,
                        like: torch.Tensor) -> torch.Tensor:
     """[M, ...] of the last stage's outputs on every rank of ``group``
     (the JAX ``psum`` of the last stage's rows)."""
-    from paddle_tpu_torch.distributed import communication as comm
-
     if done:
         outs = torch.stack([done[m] for m in range(M)])
     else:

@@ -10,7 +10,8 @@ import torch
 
 __all__ = ["llama_state_from_jax", "llama_pipe_state_from_jax",
            "llama_pipe_state_from_causal_lm", "optimizer_slots_from_jax",
-           "optimizer_state_from_jax", "layer_state_from_jax"]
+           "optimizer_state_from_jax", "layer_state_from_jax",
+           "moe_state_from_jax"]
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -173,4 +174,25 @@ def llama_pipe_state_from_causal_lm(state: Mapping[str, torch.Tensor],
                 out["post_layers.0.lm_head.weight"] = t
         else:
             raise KeyError(f"no Pipe parameter for {name!r}")
+    return out
+
+
+def moe_state_from_jax(np_state: Mapping[str, np.ndarray], ep_rank: int = 0,
+                       ep_size: int = 1) -> Dict[str, torch.Tensor]:
+    """A JAX model's state dict holding ``MoELayer``s (values as numpy) ->
+    what the port's ``Layer.set_state_dict`` takes: the same names
+    (``<layer>.expert_leaf_<i>``, the stacked [E, ...] expert leaves, and
+    ``<layer>.gate.weight``; both layer APIs keep a ``Linear`` weight
+    [in, out]), each expert leaf cut to ep rank ``ep_rank``'s E/ep_size
+    experts when ``ep_size`` > 1 (the slice ``shard_model_parameters``
+    leaves on that rank)."""
+    out = {}
+    for name, value in np_state.items():
+        arr = np.asarray(value)
+        if ep_size > 1 and name.rsplit(".", 1)[-1].startswith("expert_leaf_"):
+            if arr.shape[0] % ep_size:
+                raise ValueError(f"{name}: {arr.shape[0]} experts do not "
+                                 f"split over {ep_size} ep ranks")
+            arr = np.split(arr, ep_size)[ep_rank]
+        out[name] = _to_tensor(arr)
     return out

@@ -24,8 +24,14 @@ vocab-parallel cross entropy. With ``sequence_parallel`` the activations
 between the blocks are split along the sequence over mp (all-gathered
 entering a block, reduce-scattered leaving it) and the norms' weights
 are tagged for the gradient sum over mp. ``recompute`` recomputes each
-decoder layer in the backward. Context parallelism is refused (slice
-D3). ``tp_degree`` only groups the bucketed path's GQA packing per TP
+decoder layer in the backward. With ``context_parallel`` the model runs
+sequence-sharded through the whole stack over ``cp_axis`` (bound by
+``shard_model_parameters``, ``_bind_mesh``): each rank embeds,
+normalises, projects, runs the MLP and takes the loss for its S/P tokens,
+rope at the chunk's global positions, and the attention is the ring
+(:func:`~paddle_tpu_torch.ops.ring_attention.ring_attention_inner`, the
+compact kv chunks travelling); ``ParallelTrainStep`` cuts each rank's
+chunk of the sequence. ``tp_degree`` only groups the bucketed path's GQA packing per TP
 shard (exact at any value, as in the reference), and the
 tensor-parallel serving engine shards the modules itself
 (:mod:`paddle_tpu_torch.serving.tp`), with the embedding and the head
@@ -43,6 +49,7 @@ JAX versions returned new caches) and return the same tensors.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F_t
@@ -56,6 +63,7 @@ from paddle_tpu_torch.incubate.nn import functional as F
 from paddle_tpu_torch.ops.nn_ops import (flash_attention, rms_norm,
                                          scaled_dot_product_attention,
                                          softmax_with_cross_entropy)
+from paddle_tpu_torch.ops.ring_attention import ring_attention_inner
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP",
@@ -138,7 +146,12 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     sequence_parallel: bool = False
     use_flash_attention: bool = True
+    # ring-attention context parallelism: the sequence sharded over the
+    # mesh axis cp_axis (the batch over cp_batch_axis, which the mesh
+    # must then have)
     context_parallel: bool = False
+    cp_axis: str = "sp"
+    cp_batch_axis: Optional[str] = "dp"
     recompute: bool = False
     tie_word_embeddings: bool = False
     dtype: str = "float32"
@@ -172,18 +185,27 @@ def _rope_tables(seq_len, head_dim, theta, device=None):
     return emb.cos(), emb.sin()
 
 
-# what the port refuses, and the slice of the port that brings it
-_NOT_YET = (
-    ("context_parallel", "slice D3 (ops/ring_attention.py)"),
-)
+def _cp_group(config: LlamaConfig, mesh):
+    """The group of ``config.cp_axis`` over ``mesh`` when the model is
+    context-parallel, else None; raises ValueError naming an axis the
+    mesh lacks (``cp_axis``, or a ``cp_batch_axis`` that is set), as the
+    reference's ring does."""
+    if not config.context_parallel:
+        return None
+    for what in ("cp_axis", "cp_batch_axis"):
+        axis = getattr(config, what)
+        if axis is not None and axis not in mesh.dim_names:
+            raise ValueError(
+                f"context_parallel: LlamaConfig.{what} {axis!r} is not an "
+                f"axis of the mesh {mesh.dim_names}")
+    return mesh.group(config.cp_axis)
 
 
-def _check_config(config: LlamaConfig):
-    for field, later in _NOT_YET:
-        if getattr(config, field):
-            raise NotImplementedError(
-                f"LlamaConfig.{field}=True is not ported yet; it comes with "
-                f"{later}")
+def _unbound_cp():
+    return RuntimeError(
+        "context_parallel runs the Llama sequence-sharded over a mesh with "
+        "the config's cp_axis: train it with distributed.ParallelTrainStep "
+        "(or bind it with distributed.shard_model_parameters)")
 
 
 def rope_apply(q, k, cos, sin):
@@ -232,6 +254,12 @@ class LlamaAttention(nn.Module):
             _hint(lin.weight, 0, linear=True)
         _hint(self.o_proj.weight, 1, linear=True)
         self._mp = None
+        self._cp = None
+
+    def _bind_mesh(self, mesh, batch_axes):
+        """Under ``context_parallel``: attend over the ring of
+        ``cp_axis``."""
+        self._cp = _cp_group(self.config, mesh)
 
     def _bind_mp(self, group):
         """Run on this rank's share of the heads of ``group``'s k ranks
@@ -260,6 +288,18 @@ class LlamaAttention(nn.Module):
         k = self.k_proj(x).view(b, s, self.n_kv, self.head_dim)
         v = self.v_proj(x).view(b, s, self.n_kv, self.head_dim)
         q, k = rope_apply(q, k, cos, sin)
+        if self.config.context_parallel:
+            # the ring takes the compact kv chunks (GQA inside)
+            if self._cp is None:
+                raise _unbound_cp()
+            if attn_mask is not None:
+                raise NotImplementedError(
+                    "context_parallel with an attn_mask is not ported: the "
+                    "ring attends causally over the whole sequence and "
+                    "takes no mask")
+            out = ring_attention_inner(q, k, v, self._cp, causal=True)
+            out = self.o_proj(out.reshape(b, s, self.n_heads * self.head_dim))
+            return _tp_exit(out, self._mp, sp)
         if self.n_kv != self.n_heads:
             rep = self.n_heads // self.n_kv
             k = k.repeat_interleave(rep, dim=2)
@@ -410,7 +450,6 @@ class LlamaDecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
         super().__init__()
-        _check_config(config)
         self.config = config
         kw = dict(device=device, dtype=dtype)
         self.embed_tokens = _VocabEmbedding(config.vocab_size,
@@ -423,6 +462,7 @@ class LlamaModel(nn.Module):
         if config.sequence_parallel:
             self.norm.weight.sequence_parallel = True
         self._mp = None
+        self._cp = None
         head_dim = config.hidden_size // config.num_attention_heads
         cos, sin = _rope_tables(config.max_position_embeddings, head_dim,
                                 config.rope_theta, device=device)
@@ -431,12 +471,20 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_sin", sin, persistent=False)
 
     def forward(self, input_ids, attn_mask=None):
-        """(b, s) token ids -> (b, s, hidden) final-norm activations."""
+        """(b, s) token ids -> (b, s, hidden) final-norm activations.
+        Bound to a context-parallel group of P ranks, the ids are rank
+        r's chunk of P s tokens, at global positions r s ... r s + s - 1."""
         s = input_ids.shape[1]
-        if s > self.rope_cos.shape[0]:
-            raise ValueError(f"sequence length {s} > max_position_embeddings "
+        if self.config.context_parallel and self._cp is None:
+            raise _unbound_cp()
+        off, whole = 0, s
+        if self._cp is not None:
+            off, whole = self._cp.rank() * s, self._cp.nranks * s
+        if whole > self.rope_cos.shape[0]:
+            raise ValueError(f"sequence length {whole} > "
+                             f"max_position_embeddings "
                              f"{self.rope_cos.shape[0]}")
-        cos, sin = self.rope_cos[:s], self.rope_sin[:s]
+        cos, sin = self.rope_cos[off:off + s], self.rope_sin[off:off + s]
         x = self.embed_tokens(input_ids.long())
         if self._mp is not None and self.config.sequence_parallel:
             x = comm.split_along(x, self._mp, 1)
@@ -451,6 +499,14 @@ class LlamaModel(nn.Module):
             else:
                 x = layer(x, cos, sin, attn_mask)
         return self.norm(x)
+
+    def _bind_mesh(self, mesh, batch_axes):
+        """Under ``context_parallel``: run on this rank's chunk of the
+        sequence over ``cp_axis``, which the step then cuts
+        (``_seq_axis``)."""
+        self._cp = _cp_group(self.config, mesh)
+        self._seq_axis = self.config.cp_axis if self._cp is not None \
+            else None
 
     def _bind_mp(self, group):
         """The embedding's vocabulary is sharded over ``group``; under
@@ -886,7 +942,13 @@ def LlamaForCausalLMPipe(config: LlamaConfig, num_stages: int, device=None,
     from paddle_tpu_torch.distributed.fleet.pipeline_parallel import (
         LayerDesc, PipelineLayer, SharedLayerDesc)
 
-    _check_config(config)
+    if config.context_parallel:
+        raise NotImplementedError(
+            "LlamaConfig.context_parallel=True is not ported for "
+            "LlamaForCausalLMPipe: the pipeline step neither cuts the "
+            "sequence over cp_axis nor offsets the chunk's rope; train a "
+            "context-parallel Llama with LlamaForCausalLM and "
+            "distributed.ParallelTrainStep")
     kw = dict(device=resolve_device(device), dtype=to_torch(config.dtype))
     body = [LayerDesc(_PipeDecoderLayer, config, **kw)
             for _ in range(config.num_hidden_layers)]

@@ -218,16 +218,21 @@ def backward_flips(q, k, v, do, o, lse, scale, causal):
             "ds_other": torch.where(vis, other, ds)}
 
 
-def allowances(q, k, v, do, o, lse, scale, causal):
+def allowances(q, k, v, do, o, lse, scale, causal, parts=("fwd", "bwd")):
     """Extra allowances for one batch element (inputs [1, S, H, D]; the
     kernel's own ``o`` and ``lse`` [H, Sq]): a dict of [H, S, D] tensors
-    for ``o``, ``dq``, ``dk`` and ``dv``, and the counts of near-boundary
-    P entries (forward and backward) and dS entries."""
+    for ``o`` (with "fwd" in ``parts``), ``dq``, ``dk`` and ``dv`` (with
+    "bwd"), and the counts of near-boundary P entries (forward and
+    backward) and dS entries."""
     qh, kh, vh, doh = (_heads(x) for x in (q, k, v, do))
-    flip, w = forward_flips(q, k, scale, causal)
-    out = {"o": torch.matmul(flip * w, vh.abs())}
-    counts = {"p_fwd": int((flip > 0).sum())}
-    del flip, w
+    out, counts = {}, {"p_fwd": 0, "p_bwd": 0, "ds": 0}
+    if "fwd" in parts:
+        flip, w = forward_flips(q, k, scale, causal)
+        out["o"] = torch.matmul(flip * w, vh.abs())
+        counts["p_fwd"] = int((flip > 0).sum())
+        del flip, w
+    if "bwd" not in parts:
+        return out, counts
     b = backward_flips(q, k, v, do, o, lse, scale, causal)
     out["dv"] = torch.matmul(b["flip_p"].transpose(-1, -2), doh.abs())
     out["dk"] = scale * torch.matmul(b["flip_ds"].transpose(-1, -2),
@@ -248,17 +253,22 @@ def _refs(q, k, v, do, o, lse, scale, causal, round_to):
     return {"o": o_ref, "dq": dq, "dk": dk, "dv": dv}, lse_ref
 
 
-def check(q, k, v, do, got, scale, causal) -> dict:
+def check(q, k, v, do, got, scale, causal, parts=("fwd", "bwd")) -> dict:
     """Hold ``got`` (the kernels' ``o``, ``lse``, ``dq``, ``dk``, ``dv``
     for ``q, k, v, do`` [B, S, H, D]) against the plain versions; raise
     ``AssertionError`` on any element out of bounds, else return the
     report. Works one batch element at a time to bound the memory of
-    its [H, Sq, Sk] matrices."""
+    its [H, Sq, Sk] matrices. ``parts`` ("fwd", "bwd") picks what is
+    held: with "bwd" alone ``got``'s ``o`` and ``lse`` are inputs of the
+    backward (a ring chunk's: the merged output and logsumexp) and only
+    dq, dk and dv are held."""
     dtype = q.dtype
     tol = TOL[dtype]
     bf16 = dtype == torch.bfloat16
     b, sq, h, _ = q.shape
-    names = ("o", "dq", "dk", "dv")
+    fwd = "fwd" in parts
+    names = (("o",) if fwd else ()) + (
+        ("dq", "dk", "dv") if "bwd" in parts else ())
     rep = {"dtype": str(dtype).split(".")[-1], "tolerance": dict(tol),
            "max_abs_err": {n: 0.0 for n in names},
            "max_extra": {n: 0.0 for n in names},
@@ -274,8 +284,10 @@ def check(q, k, v, do, got, scale, causal) -> dict:
         o_i, lse_i = got["o"][sl], lse_all[i]
         refs, lse_ref = _refs(*xs, o_i, lse_i, scale, causal,
                               torch.bfloat16 if bf16 else None)
-        torch.testing.assert_close(lse_i, lse_ref.view(h, sq), **LSE_TOL)
-        extra = (allowances(*xs, o_i, lse_i, scale, causal)
+        if fwd:
+            torch.testing.assert_close(lse_i, lse_ref.view(h, sq),
+                                       **LSE_TOL)
+        extra = (allowances(*xs, o_i, lse_i, scale, causal, parts)
                  if bf16 else (None, None))
         if bf16:
             for key, n in extra[1].items():

@@ -183,15 +183,15 @@ def _reference(dev, x, y, layers: int = F32_LAYERS):
     return losses, params
 
 
-def _compare(model, layouts, index, ref_params):
-    """Each parameter shard against the same slice of the one-rank
-    parameters. ``per_param``: for each parameter its largest |diff|,
+def _compare(named, layouts, index, ref_params):
+    """Each parameter shard (``named``: (name, torch tensor) pairs)
+    against the same slice of the one-rank parameters. ``per_param``: for each parameter its largest |diff|,
     its elements beyond ADAM_NOISE and outside rtol / atol, and its
     element count; ``within_adam_bound`` holds when every shard is within
     the AdamW bound on its own; the totals and the worst element's
     parameter, |diff| and one-rank value beside them."""
     per_param, outside, worst, where, ok = {}, 0, 0.0, None, True
-    for name, p in model.named_parameters():
+    for name, p in named:
         want = ref_params[name]
         if layouts is not None:
             want = want[layouts[name].shard_slices(tuple(want.shape), index)]
@@ -239,8 +239,8 @@ def _case(dev, rank, case, first, x, y, ref):
         t0 = time.perf_counter()
         losses.append(float(step(x, y)))
         step_s.append(time.perf_counter() - t0)
-    cmp = _compare(model, step.layouts(), mesh.process_ids.index(rank),
-                   ref[1])
+    cmp = _compare(model.named_parameters(), step.layouts(),
+                   mesh.process_ids.index(rank), ref[1])
     # at stages 1 and 2 the slots cover 1/dp of each (mp-cut) parameter;
     # at stage 3 the parameter at rest is already that slice
     dp = mesh.dim_size("dp") if cfg.get("sharding_stage", 0) in (1, 2) \
@@ -282,14 +282,17 @@ def _data_parallel(dev, rank, ranks, x, y, ref):
         step_s.append(time.perf_counter() - t0)
     out = {"losses": losses,
            "losses_ok": bool(np.allclose(losses, ref[0], rtol=LOSS_RTOL)),
-           "params": _compare(model, None, rank, ref[1]), "step_s": step_s}
+           "params": _compare(model.named_parameters(), None, rank,
+                              ref[1]), "step_s": step_s}
     del model, dp, opt
     _free(dev)
     return out
 
 
-def _full(dev, rank):
-    """Part (b): the bf16 full model at dp 2 x mp 2, ZeRO 1, SP."""
+def _full(dev, rank, full=FULL, phases: bool = True):
+    """Part (b): the bf16 full model at dp 2 x mp 2, ZeRO 1, SP (or the
+    mesh shape, dims, ParallelConfig and LlamaConfig kwargs ``full``);
+    with ``phases``, rank 0's device phases of one more step."""
     from paddle_tpu_torch import profiler
     from paddle_tpu_torch.distributed import (ParallelConfig,
                                               ParallelTrainStep,
@@ -298,7 +301,7 @@ def _full(dev, rank):
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.optimizer import AdamW
 
-    shape, dims, cfg, model_kw = FULL
+    shape, dims, cfg, model_kw = full
     mesh = ProcessMesh(np.arange(int(np.prod(shape))).reshape(shape), dims)
     x, y = _batch(dev)
     _reset_peak(dev)
@@ -326,12 +329,12 @@ def _full(dev, rank):
     launches = dict(fa.launches)          # the main path ends here
     coll = comm.stats()
     peak = _peak(dev)
-    if rank == 0 and _cuda(dev):
-        phases = profiler.device_phases(lambda: step(x, y), steps=1,
-                                        warmup=0)
-    else:
+    breakdown = None
+    if phases and rank == 0 and _cuda(dev):
+        breakdown = profiler.device_phases(lambda: step(x, y), steps=1,
+                                           warmup=0)
+    elif phases:
         step(x, y)
-        phases = None
     out = {"losses": losses, "step_ms": step_ms,
            "step_ms_p50": float(np.percentile(step_ms, 50)),
            "kernel_launches": launches,
@@ -339,7 +342,10 @@ def _full(dev, rank):
            / TIMED_STEPS,
            "collective_calls_per_step": coll["calls"] / TIMED_STEPS,
            "collective_bytes_per_step": coll["bytes"] / TIMED_STEPS,
-           "device_phases_one_step": phases,
+           "p2p_host_ms_per_step": coll["p2p_seconds"] * 1e3 / TIMED_STEPS,
+           "p2p_calls_per_step": coll["p2p_calls"] / TIMED_STEPS,
+           "p2p_bytes_per_step": coll["p2p_bytes"] / TIMED_STEPS,
+           "device_phases_one_step": breakdown,
            "max_memory_allocated": peak, "setup_s": setup_s,
            "local_params": params, "slot_bytes": step.slot_bytes()}
     del model, step
@@ -395,32 +401,31 @@ def _rank_main(out_q, parts, shrink):
         raise
 
 
-def run(parts=("a", "b"), timeout_s: float = 600.0,
-        shrink: dict = None) -> dict:
-    """Start the world on the card, run ``parts`` and return each rank's
-    results; raises with a rank's traceback if one failed or after
-    ``timeout_s``; leaves no process behind. ``shrink`` (LlamaConfig
-    fields, and ``batch``: (batch, seq)) makes the model smaller for a
-    dry run on the CPU."""
+def run_world(rank_main, args: tuple, timeout_s: float, what: str,
+              world: int = WORLD) -> dict:
+    """Spawn ``world`` ranks on the card (``rank_main(out_q, *args)``,
+    each putting (rank, error, result) on ``out_q``) and return each
+    rank's result; raises with a rank's traceback if one failed or after
+    ``timeout_s``; leaves no process behind."""
     import paddle_tpu_torch.distributed as dist
     from paddle_tpu_torch.testing import tp_hooks
 
     ctx = mp.get_context("spawn")
     out_q = ctx.Queue()
     with tp_hooks.ranks_share_one_device():
-        procs = dist.spawn(_rank_main, args=(out_q, tuple(parts), shrink),
-                           nprocs=WORLD, join=False, daemon=True)
+        procs = dist.spawn(rank_main, args=(out_q,) + tuple(args),
+                           nprocs=world, join=False, daemon=True)
     got = {}
     try:
-        while len(got) < WORLD:
+        while len(got) < world:
             try:
                 rank, err, res = out_q.get(timeout=timeout_s)
             except queue.Empty:
-                raise TimeoutError(f"hybrid_train ranks {sorted(got)} of "
-                                   f"{WORLD} answered in {timeout_s} s") \
+                raise TimeoutError(f"{what} ranks {sorted(got)} of "
+                                   f"{world} answered in {timeout_s} s") \
                     from None
             if err is not None:
-                raise RuntimeError(f"hybrid_train rank {rank} failed:\n{err}")
+                raise RuntimeError(f"{what} rank {rank} failed:\n{err}")
             got[rank] = res
     finally:
         for p in procs:
@@ -428,8 +433,19 @@ def run(parts=("a", "b"), timeout_s: float = 600.0,
             if p.exitcode is None:
                 p.kill()
                 p.join(10.0)
-    return {"ranks": [got[r] for r in range(WORLD)],
+    return {"ranks": [got[r] for r in range(world)],
             "alive_after": [p.pid for p in procs if p.is_alive()]}
+
+
+def run(parts=("a", "b"), timeout_s: float = 600.0,
+        shrink: dict = None) -> dict:
+    """Start the world on the card, run ``parts`` and return each rank's
+    results; raises with a rank's traceback if one failed or after
+    ``timeout_s``; leaves no process behind. ``shrink`` (LlamaConfig
+    fields, and ``batch``: (batch, seq)) makes the model smaller for a
+    dry run on the CPU."""
+    return run_world(_rank_main, (tuple(parts), shrink), timeout_s,
+                     "hybrid_train")
 
 
 if __name__ == "__main__":

@@ -39,7 +39,10 @@ ops at a reduced published size, give the CPU's values and gradients on
 the card; ``flash_attn_qkvpacked`` is ``F.flash_attention`` on the
 slices bit for bit through K2-K4, the varlen wrapper is
 ``flash_attn_unpadded``, and the DeepSpeech2-widths GRU + CTC model
-gives the CPU's loss and gradients."""
+gives the CPU's loss and gradients. Slice D3: the ring attention's
+chunked K2-K4 path holds the plain recurrence (f32) and ``flash_check``
+chunk by chunk (bf16), four context-parallel ranks and an
+expert-parallel pair on the card match one rank."""
 import numpy as np
 import pytest
 import torch
@@ -1847,3 +1850,92 @@ def test_tied_pipe_copies_bitwise_equal_after_a_step(pipe_pairs):
     np.testing.assert_array_equal(a["tied_table"], b["tied_table"])
     for r in (a, b):
         np.testing.assert_allclose(r["losses"], r["ref_losses"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# context parallelism and the mixture of experts (slice D3)
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_chunked_kernel_path_matches_the_plain_recurrence(card, dtype):
+    """Every rank's body of a causal ring of 2 at phase 30's chunk
+    (B 2, S 1024, H 16, D 128): f32 against the reference's plain
+    recurrence and its autograd at ``flash_check.TOL``; bf16 chunk by
+    chunk, K2 and K3/K4 (given the merged lse and delta) by
+    ``flash_check``. Rank 0 runs one chunk, rank 1 two: 3 launches of
+    each kernel."""
+    from paddle_tpu_torch.testing import cp_ranks
+
+    before = dict(fa.launches)
+    res = cp_ranks.ring_path_check(card, (2, 1024, 16, 128),
+                                   dtypes=(dtype,))
+    assert dtype in res
+    assert all(fa.launches[n] == before[n] + 3 for n in fa.launches)
+
+
+@pytest.fixture(scope="module")
+def cp_run():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.tools import gpt_1b_cp_train as C
+
+    return C.run(parts=("a", "b"), timeout_s=300.0, shrink=HYBRID_TINY)
+
+
+@pytest.mark.gpu
+def test_context_parallel_steps_on_one_card_match_one_rank(cp_run):
+    """Four gloo ranks on the card, the Llama sequence-sharded over sp
+    (dp 2 x sp 2, sp 4, dp 2 x sp 2 ZeRO 1): each case's losses and
+    parameter shards match a one-rank TrainStep of the dense model
+    (phase 28's bounds); the bf16 run launches K2-K4 (r + 1) x layers x
+    steps times on the rank at sp index r; no rank outlives the run."""
+    from paddle_tpu_torch.tools import gpt_1b_cp_train as C
+
+    assert cp_run["alive_after"] == []
+    for r in cp_run["ranks"]:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        for name, c in r["cases"].items():
+            assert c["losses_ok"], (name, c["losses"])
+            assert c["params"]["within_adam_bound"], (name, c["params"])
+            assert c["slot_bytes"] == c["reckoned_slot_bytes"], name
+        f = r["full"]
+        assert f["losses"] == cp_run["ranks"][0]["full"]["losses"]
+        assert np.isfinite(f["losses"]).all()
+        assert f["kernel_launches"] == C.reckoned_launches(
+            f["sp_index"], HYBRID_TINY["num_hidden_layers"], C.TIMED_STEPS)
+        assert f["p2p_bytes_per_step"] > 0
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.testing import gloo_ranks, moe_ranks, tp_hooks
+
+    with tp_hooks.ranks_share_one_device():
+        return gloo_ranks.run(moe_ranks.card_pair, 2, "cuda",
+                              timeout_s=300)
+
+
+@pytest.mark.gpu
+def test_moe_ep2_pair_on_one_card_matches_one_rank(moe_pair):
+    """An ep 2 pair on the card (``moe_ranks.CARD_PAIR``): with the batch
+    replicated over ep and sharded over it (the all-to-all), three f32
+    AdamW steps give the one-rank TrainStep's losses (rtol 1e-4) and
+    parameters (phase 28's AdamW bound); the sharded ranks' dropped
+    choices add up to the one-rank run's, step by step; bf16 sharded
+    within 0.02 of the one-rank bf16 losses."""
+    from paddle_tpu_torch.tools import moe_train
+
+    one = moe_pair[0]["reference_f32"]["dropped"]
+    for r in moe_pair:
+        for name, c in r["f32"].items():
+            assert c["losses_ok"], (name, c["losses"],
+                                    r["reference_f32"]["losses"])
+            assert c["params"]["within_adam_bound"], (name, c["params"])
+        assert r["f32"]["ep2_replicated"]["dropped"] == one
+        assert r["bf16"]["max_loss_diff"] <= moe_train.BF16_LOSS_ATOL
+        assert np.isfinite(r["bf16"]["losses"]).all()
+    assert [a + b for a, b in zip(
+        moe_pair[0]["f32"]["ep2_sharded"]["dropped"],
+        moe_pair[1]["f32"]["ep2_sharded"]["dropped"])] == one

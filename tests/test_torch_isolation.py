@@ -114,6 +114,14 @@ _MODULES = [
     "paddle_tpu_torch.testing.pipeline_ranks",
     "paddle_tpu_torch.testing.semi_auto_ranks",
     "paddle_tpu_torch.tools.gpt_1b_pipe_train",
+    "paddle_tpu_torch.ops.ring_attention", "paddle_tpu_torch.incubate",
+    "paddle_tpu_torch.incubate.moe",
+    "paddle_tpu_torch.incubate.moe.moe_layer",
+    "paddle_tpu_torch.incubate.moe.grad_clip",
+    "paddle_tpu_torch.testing.cp_ranks",
+    "paddle_tpu_torch.testing.moe_ranks",
+    "paddle_tpu_torch.tools.gpt_1b_cp_train",
+    "paddle_tpu_torch.tools.moe_train",
 ]
 
 

@@ -366,15 +366,6 @@ def test_attn_mask_branch_matches_jax():
     np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
 
 
-# --------------------------------------------------------------------------
-# what this slice refuses
-# --------------------------------------------------------------------------
-@pytest.mark.parametrize("field,value", [("context_parallel", True)])
-def test_config_refuses_later_slices(field, value):
-    with pytest.raises(NotImplementedError, match="comes with"):
-        LlamaForCausalLM(LlamaConfig.tiny(**{field: value}), device="cpu")
-
-
 def test_tp_degree_changes_no_number_in_one_process():
     """``LlamaConfig(tp_degree=2)`` in one process trains as
     ``tp_degree=1`` does: the same loss and the same gradient of every
