@@ -396,7 +396,7 @@ non-zero (nothing is caught and passed over):
                2.5e-4); each rank's
                optimizer state is the reckoned share;
                peaks per rank. (b) bf16 at full width and depth, dp 2 x
-               mp 2, ZeRO 1, SP: one warm-up and three timed steps; each
+               mp 2, ZeRO 1, SP: one warm-up and one timed step; each
                step's loss within 0.02 nats of phase 7's at that step,
                falling; K2-K4 launched 16 times a step on each rank; the
                step p50, the collectives' host ms a step, rank 0's
@@ -421,7 +421,7 @@ non-zero (nothing is caught and passed over):
                pre/post parameters hold 1/S of their elements, the slots
                the reckoned bytes; peaks per rank. (b) bf16 at full
                width and depth, pp 4, "1f1b", M 4, pre/post sliced over
-               pp, remat: one warm-up and three timed steps; each step's
+               pp, remat: one warm-up and one timed step; each step's
                loss within 0.02 nats of phase 7's at that step, falling;
                K2 launched 32 times a step on each rank (4 layers x 4
                microbatches, and again in the recompute), K3 and K4 16;
@@ -453,9 +453,9 @@ non-zero (nothing is caught and passed over):
                None``), dp 2 x sp 2 with ZeRO 1, each against a one-rank
                TrainStep of the dense model at phase 28's bounds, slots
                the reckoned bytes. (b) bf16 at full width and depth, dp 2
-               x sp 2, ZeRO 1 over dp: one warm-up and three timed steps;
+               x sp 2, ZeRO 1 over dp: one warm-up and one timed step;
                losses within 0.02 nats of phase 7's, falling; K2-K4
-               launched (r + 1) x 16 x 3 times on the rank at sp index r
+               launched (r + 1) x 16 times on the rank at sp index r
                (its diagonal chunk and the r earlier ones a layer); the
                step p50, the ring's P2P and the collectives' host ms and
                bytes a step, peaks per rank. Not a speed figure.
@@ -472,6 +472,36 @@ non-zero (nothing is caught and passed over):
                all-to-all and collective bytes and host ms; step times,
                peaks.
 
+32. gang      — the gang (slice D4): every job is started by
+               ``python -m paddle_tpu_torch.distributed.launch
+               --nproc_per_node 4`` with PADDLE_TORCH_RANKS_SHARE_DEVICE=1
+               (four ranks on this card over gloo, each reporting cuda:0
+               and gloo), running ``tools/gpt_1b_gang_train.py``:
+               bench_gpt_1b's widths at 2 of its 16 layers, bf16 with f32
+               master weights, dp 2 x mp 2, ZeRO 1, SP, async checkpoints
+               every step (the last two kept); one gang at a time, three
+               launches, four gang start-ups. (a) 4 steps unbroken. (b)
+               rank 1 hangs in step 3 (PADDLE_STEP_TIMEOUT 20 s, poll
+               1 s; the tool's hang switch lets rank 1's step-2 save
+               land, then arms its collective's tag at a quarter of the
+               timeout): it exits 6 naming
+               all_reduce@ranks[0, 1, 2, 3], ranks 0, 2, 3 exit 7 naming
+               rank 1, the last at most 2 poll intervals plus the abort
+               linger (a poll and two monitor periods) after the hang's
+               deadline; the launcher (--max_restart 2) relaunches once,
+               attempt 1 restores the agreed step 2 and runs step 3. (c)
+               SIGTERM to that launcher once every rank of attempt 1 has
+               restored, so after step 2 is committed: every rank takes
+               its final blocking save at step 3, the launcher exits 0
+               without another relaunch, and a new launch resumes there
+               and finishes step 4. (b) and (c) bit-identical to (a):
+               the losses of steps 3 and 4, and every parameter shard's
+               and slot's sha256 after step 4. Seconds per launch, each
+               rank's start-up and restore seconds, bytes saved per rank,
+               snapshot ms and write s per save, the abort latency, K2-K4
+               launches and peaks per rank. The checkpoint directory goes
+               at the end.
+
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
 (both modes), drain, the watched run and cached generate for the ragged
@@ -482,15 +512,17 @@ tensor_api (phase 20), layer_api (phase 21), layer_trainstep (phase
 two ranks, summed), fleet (phase 26 (b)'s two replicas) and tp_disagg,
 tp_tiers, tp_spec (phase 27 (b)'s paths, every rank) for K1, tp_spec
 for K2, hybrid_train (phase 28 (b)'s four ranks, summed),
-pipeline_train (phase 29 (b)'s four ranks, summed) and cp_train (phase
-30 (b)'s four ranks, summed) for K2-K4; on the
+pipeline_train (phase 29 (b)'s four ranks, summed), cp_train (phase
+30 (b)'s four ranks, summed) and gang_train (phase 32 (a)'s four
+ranks, summed) for K2-K4; on the
 paths that replay graphs they are the launches the card ran, the eager
 warm-ups plus captured x replays — error, times, bound, library time;
 ``spec_shapes``, ``generate_shapes``, ``tiers_shapes``, ``tp_shapes``,
 ``fleet_shapes``, ``tp_tiers_shapes``, ``tp_spec_shapes``,
 ``hybrid_rank_shapes``, ``pipeline_rank_shapes`` and
 ``cp_ring_chunk_shapes`` (diagonal and earlier chunk) repeat them at
-those paths' shapes),
+those paths' shapes; ``gang_rank_shapes`` gives phase 32's launches by
+rank at the hybrid rank's shape),
 nvidia-smi's line, and last ``{"ok": true, "device": {...}}``.
 """
 import gc
@@ -3840,6 +3872,249 @@ def phase_cp_moe(dev, train):
     return cp, mo
 
 
+GANG_TIMEOUT_S = 20.0  # phase 32's PADDLE_STEP_TIMEOUT: a step is 1.4-3 s
+# phase 32's PADDLE_ABORT_POLL: the library's default. The abort bound
+# is two polls plus the linger (a poll and two monitor periods); the
+# ranks' exits, as the launcher sees them, also hold the card's context
+# teardown (about 0.1 s a rank, one after another on a shared card)
+GANG_POLL_S = 1.0
+GANG_HANG = (1, 3)     # phase 32 (b): rank 1 hangs in step 3
+GANG_STEPS = 4
+_EXIT_RE = re.compile(r"\[launch\] rank (\d+) exited rc=(-?\d+) at ([\d.]+)")
+
+
+def _gang_run(tag, root, ckpt, extra_env=(), launch_args=(), on_start=None):
+    """One launch of the gang tool on four ranks sharing the card: the
+    launcher's exit code, seconds and stderr, and the ranks' result
+    files by attempt and rank."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, tag)
+    os.makedirs(out)
+    env = dict(os.environ, PADDLE_TORCH_RANKS_SHARE_DEVICE="1",
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    env.update(dict(extra_env))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "4", "--log_dir", os.path.join(out, "logs"),
+           *launch_args,
+           os.path.join(here, "paddle_tpu_torch/tools/gpt_1b_gang_train.py"),
+           "--ckpt", ckpt, "--out", out, "--steps", str(GANG_STEPS)]
+    t0, t0_epoch = time.perf_counter(), time.time()
+    with open(os.path.join(out, "launcher.err"), "w") as err:
+        p = subprocess.Popen(cmd, env=env, cwd=here,
+                             stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            if on_start is not None:
+                on_start(p, out)
+            rc = p.wait(timeout=600)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds, end_epoch = time.perf_counter() - t0, time.time()
+    with open(os.path.join(out, "launcher.err")) as f:
+        stderr = f.read()
+    results = {}
+    for name in os.listdir(out):
+        m = re.match(r"result\.attempt(\d+)\.rank(\d+)\.json$", name)
+        if m:
+            with open(os.path.join(out, name)) as f:
+                results[(int(m.group(1)), int(m.group(2)))] = json.load(f)
+    logs = {}
+    for r in range(4):
+        with open(os.path.join(out, "logs", f"workerlog.{r}")) as f:
+            logs[r] = f.read()
+    return {"rc": rc, "seconds": seconds, "stderr": stderr,
+            "results": results, "logs": logs, "t0": t0_epoch,
+            "end": end_epoch}
+
+
+def _gang_overhead(run, attempt):
+    """Seconds of a launch outside its last attempt's ranks: from the
+    launcher's start to that attempt's first rank process (the launcher's
+    own start-up, for attempt 0), and from the last rank's hashes to the
+    launcher's exit (the ranks' teardown and the launcher's)."""
+    ranks = _gang_ranks(run, attempt)
+    return {"to_first_rank_s": min(r["started_at"] for r in ranks)
+            - run["t0"],
+            "after_last_rank_s": run["end"] - max(
+                r["started_at"] + r["marks_s"]["hashed"] for r in ranks)}
+
+
+def _gang_ranks(run, attempt):
+    return [run["results"][(attempt, r)] for r in range(4)]
+
+
+def _gang_summary(ranks):
+    return {
+        "resumed_from": [r["resumed_from"] for r in ranks],
+        "final_step": [r["final_step"] for r in ranks],
+        "losses": ranks[0]["losses"],
+        "startup_s_per_rank": [r["startup_s"] for r in ranks],
+        "startup_marks_s_per_rank": [r["marks_s"] for r in ranks],
+        "restore_s_per_rank": [r["restore_s"] for r in ranks],
+        "step_s_per_rank": [r["step_s"] for r in ranks],
+        "write_wait_ms_per_rank": [r["wait_ms"] for r in ranks],
+        "snapshot_ms_per_rank": [r["snapshot_ms"] for r in ranks],
+        "write_s_per_rank": [[s["write_s"] for s in r["saves"]]
+                             for r in ranks],
+        "bytes_saved_per_rank": [r["bytes_saved_last"] for r in ranks],
+        "slot_bytes_per_rank": [r["slot_bytes"] for r in ranks],
+        "kernel_launches_per_rank": [r["kernel_launches"] for r in ranks],
+        "max_memory_allocated_per_rank": [r["max_memory_allocated"]
+                                          for r in ranks],
+        "device": sorted({r["device"] for r in ranks}),
+        "backend": sorted({r["backend"] for r in ranks})}
+
+
+def _preempt_once_restored(p, out):
+    """Phase 32 (c)'s notice: SIGTERM to the launcher once every rank of
+    the gang's attempt 1 has restored (its progress file says so), which
+    is after step 2 was committed and before step 3 ends."""
+    import signal
+
+    files = [os.path.join(out, f"progress.rank{r}.json") for r in range(4)]
+
+    def attempt(path):
+        try:
+            with open(path) as f:
+                return json.load(f)["attempt"]
+        except (OSError, ValueError, KeyError):
+            return None
+
+    deadline = time.time() + 300
+    while not all(attempt(f) == 1 for f in files):
+        assert p.poll() is None and time.time() < deadline, \
+            "phase 32 (c): attempt 1 never restored"
+        time.sleep(0.05)
+    p.send_signal(signal.SIGTERM)
+
+
+def phase_gang():
+    """Phase 32 (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.tools import gpt_1b_gang_train as G
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gang-")
+    hang_env = {"GANG_HANG": "%d:%d" % GANG_HANG,
+                "PADDLE_STEP_TIMEOUT": str(GANG_TIMEOUT_S),
+                "PADDLE_ABORT_POLL": str(GANG_POLL_S)}
+    ckpt = os.path.join(root, "ckpt_bc")
+    try:
+        # one gang at a time: (a) unbroken; (b) rank 1 hangs in step 3,
+        # the gang restarts once and attempt 1, SIGTERMed once it has
+        # restored, takes its final save at step 3 ((c)'s preemption);
+        # (c) a new launch resumes there and finishes
+        a = _gang_run("a", root, os.path.join(root, "ckpt_a"))
+        b = _gang_run("b", root, ckpt, hang_env,
+                      ("--max_restart", "2", "--restart_interval", "0.2"),
+                      on_start=_preempt_once_restored)
+        c = _gang_run("c", root, ckpt)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+
+    ra = _gang_ranks(a, 0)
+    # attempt 0's exits: the launcher's lines before its restart
+    exits = [(int(r), int(x), float(t)) for r, x, t in
+             _EXIT_RE.findall(b["stderr"].split("restarting")[0])]
+    hang_line = re.search(r"GANG_HANG rank=\d+ armed=([\d.]+) "
+                          r"deadline=([\d.]+)", b["logs"][GANG_HANG[0]])
+    armed, deadline = (float(hang_line.group(1)),
+                       float(hang_line.group(2))) if hang_line else (None,
+                                                                     None)
+    rb, rc = _gang_ranks(b, 1), _gang_ranks(c, 0)
+    last_exit = max((t for _, _, t in exits), default=None)
+    latency = (last_exit - deadline if last_exit and deadline else None)
+    # the watchdog's own bound: a peer reads the record within a poll,
+    # and every rank leaves a poll and two monitor periods after it was
+    # posted (watchdog.StepWatchdog._leave); allowed: two polls + that
+    period = min(0.2, max(0.01, GANG_TIMEOUT_S / 10))
+    latency_limit = 2 * GANG_POLL_S + (GANG_POLL_S + 2 * period)
+    res = {"phase": "gang", "world": 4, "steps": GANG_STEPS,
+           "model": "gpt_1b (bench.py bench_gpt_1b) widths, %d of 16 layers, "
+                    "bf16 with f32 master weights" % G.LAYERS,
+           "mesh": "dp 2 x mp 2", "sharding_stage": 1,
+           "sequence_parallel": True,
+           "placement": "python -m paddle_tpu_torch.distributed.launch "
+                        "--nproc_per_node 4 with "
+                        "PADDLE_TORCH_RANKS_SHARE_DEVICE=1 (gloo through "
+                        "the host), one gang at a time",
+           "seconds": seconds,
+           "launch_s": {"a": a["seconds"], "b_hang_then_preempted":
+                        b["seconds"], "c_resumed": c["seconds"]},
+           "launch_overhead_s": {"a": _gang_overhead(a, 0),
+                                 "b_attempt1": _gang_overhead(b, 1),
+                                 "c_resumed": _gang_overhead(c, 0)},
+           "a_unbroken": _gang_summary(ra),
+           "b_hang": {"rc": b["rc"], "exits_attempt0": exits,
+                      "hang_armed": armed, "hang_deadline": deadline,
+                      "step_timeout_s": GANG_TIMEOUT_S,
+                      "abort_poll_s": GANG_POLL_S,
+                      "abort_latency_s": latency,
+                      "abort_latency_limit_s": latency_limit,
+                      "restarts": b["stderr"].count("restarting"),
+                      "attempt1": _gang_summary(rb)},
+           "c_preempt": {"rc": b["rc"],
+                         "preempted_at": [r["preempted_at"] for r in rb],
+                         "resumed": _gang_summary(rc)},
+           "note": "four ranks share one card over gloo through the host: "
+                   "no parallel speed is measured"}
+    emit(res)
+    # the checks, after the numbers are out
+    assert a["rc"] == 0, a["stderr"][-4000:]
+    for r in ra + rb + rc:
+        assert r["device"] == "cuda:0" and r["backend"] == "gloo", r
+    losses = ra[0]["losses"]
+    assert sorted(losses) == [str(i) for i in range(1, GANG_STEPS + 1)]
+    assert all(np.isfinite(list(losses.values())))
+    for r in ra:
+        assert r["losses"] == losses, [x["losses"] for x in ra]
+        want = G.LAYERS * GANG_STEPS
+        assert all(n == want for n in r["kernel_launches"].values()), (
+            r["kernel_launches"], want)
+    # (b): the hung rank exits 6 naming its collective, its peers 7
+    # naming it, the last within the watchdog's bound after the hang's
+    # deadline; one relaunch, whose attempt restores the agreed step 2
+    # and runs step 3 bit-identically to (a)
+    hung, step = GANG_HANG
+    tag = "all_reduce@ranks[0, 1, 2, 3]"
+    assert b["rc"] == 0 and b["stderr"].count("restarting") == 1, \
+        b["stderr"][-4000:]
+    codes = {r: x for r, x, _ in exits}
+    assert len(exits) == 4 and \
+        codes == {r: 6 if r == hung else 7 for r in range(4)}, exits
+    assert f"[watchdog] rank {hung}: step(s) [{tag}]" in b["logs"][hung]
+    for r in range(4):
+        if r != hung:
+            assert f"[watchdog] rank {hung} aborted on [{tag}]" in \
+                b["logs"][r], b["logs"][r][-2000:]
+    assert latency is not None and latency <= latency_limit, (
+        latency, latency_limit, exits, deadline)
+    # (c): SIGTERM reached attempt 1 after its restore: every rank's
+    # final save at one step before the last, exit 0 with no further
+    # relaunch; the new launch resumes there, bit-identical to (a)
+    at = {r["preempted_at"] for r in rb}
+    assert len(at) == 1 and None not in at, (at, b["stderr"][-4000:])
+    p = at.pop()
+    assert step <= p < GANG_STEPS, p
+    for r, x in zip(rb, ra):
+        assert r["resumed_from"] == step - 1, r["resumed_from"]
+        assert r["losses"] == {k: v for k, v in x["losses"].items()
+                               if step <= int(k) <= p}, (r["losses"],
+                                                         x["losses"])
+    assert c["rc"] == 0, c["stderr"][-4000:]
+    for r, x in zip(rc, ra):
+        assert r["resumed_from"] == p and r["final_step"] == GANG_STEPS
+        assert r["losses"] == {k: v for k, v in x["losses"].items()
+                               if int(k) > p}, (r["losses"], x["losses"])
+        assert r["sha256"] == x["sha256"], r["rank"]
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -3886,6 +4161,7 @@ def main():
     hyb = phase_hybrid_train(dev, tr)
     ppl = phase_pipeline_train(dev, tr)
     cp, _ = phase_cp_moe(dev, tr)
+    gang = phase_gang()
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
     dr = fl["fwd_only"]["draft_shapes"]
@@ -3934,6 +4210,8 @@ def main():
             n[name] for n in ppl["bf16_full"]["kernel_launches_per_rank"])
         by_path[name]["cp_train"] = sum(
             n[name] for n in cp["bf16_full"]["kernel_launches_per_rank"])
+        by_path[name]["gang_train"] = sum(
+            n[name] for n in gang["a_unbroken"]["kernel_launches_per_rank"])
     spec_shapes = {
         "ragged_paged_attention": {
             "max_abs_err": kv["max_abs_err"], "ms": kv["ms"],
@@ -4054,6 +4332,14 @@ def main():
         row["cp_ring_chunk_shapes"]["launches_by_rank"] = [
             n[row["name"]] for n in
             cp["bf16_full"]["kernel_launches_per_rank"]]
+    # K2-K4 on phase 32 (a)'s ranks: a gang rank's shape is a hybrid
+    # rank's (B 2, H 8), held above
+    for row in rows[1:]:
+        row["gang_rank_shapes"] = {
+            "shape": hk["shape"], "same_as": "hybrid_rank_shapes",
+            "launches_by_rank": [
+                n[row["name"]] for n in
+                gang["a_unbroken"]["kernel_launches_per_rank"]]}
     # K1 at phase 26's decode replica's first step after an import
     rows[0]["fleet_shapes"] = flt["disagg_bf16"]["k1_first_after_import"]
     # K1 at a TP rank's heads (phase 27: 16 query, 4 kv) with the host

@@ -15,8 +15,11 @@ stores, the checkpoints, the layout algebra (``redistribute``) and the
 semi-auto API (``api.py``: ``shard_tensor``, ``reshard``,
 ``shard_optimizer``, ``DistModel``, ...) are here too.
 
-Not ported yet, each raising with the part of the port that brings it:
-the launcher ``launch`` and ``io`` (slice D4).
+The launcher (``python -m paddle_tpu_torch.distributed.launch``, with
+elastic ``--nnodes min:max``), the gang watchdog
+(``distributed.watchdog``) and the auto-tuner (``auto_tuner``) are here
+too. Not ported yet, raising with the part of the port that brings it:
+``io`` (slice E3: it saves the persistables of a static Program).
 """
 from paddle_tpu_torch.distributed.env import (  # noqa: F401
     ParallelEnv, get_rank, get_world_size, init_parallel_env, is_initialized,
@@ -89,6 +92,8 @@ class _Waiting:
         _waits(f"{self._name}.{attr}", self._part)()
 
 
-# the launcher and distributed io come with slice D4
-launch = _Waiting("launch", "D4 (launch/, with elastic)")
-io = _Waiting("io", "D4 (distributed/io.py)")
+from paddle_tpu_torch.distributed import launch  # noqa: F401,E402
+
+# distributed io saves a static Program's persistables: it comes with
+# static/ (slice E3)
+io = _Waiting("io", "E3 (static/, then distributed/io.py)")

@@ -1,12 +1,11 @@
 """CheckpointManager: atomic, async, auto-resuming step checkpoints
-(port of the JAX package's ``distributed/checkpoint/manager.py``, one
-process: its barriers are no-ops here, and the gang's barriers, agreed
-restore step and broadcast preemption come with slice D4). A restore's
-``target_layout`` lands each named tensor as this rank's shard.
+(port of the JAX package's ``distributed/checkpoint/manager.py``). A
+restore's ``target_layout`` lands each named tensor as this rank's
+shard.
 
 Commit protocol (per step N, under ``root/``)::
 
-    step_N.tmp/          stage: data_0.npz + metadata.json, each fsynced
+    step_N.tmp/          stage: data_*.npz + metadata.json, each fsynced
     step_N/              os.replace(step_N.tmp, step_N)   (atomic rename)
     step_N/COMMITTED     marker written LAST (fsynced, atomic rename)
 
@@ -18,9 +17,21 @@ Async saves block the train loop only for the device->host snapshot
 (:func:`_collect`); serialization and IO run on a writer thread with
 retry + exponential backoff on filesystem errors. One save is in flight
 at a time; a background failure is re-raised on the next ``save``/
-``wait`` so it cannot pass silently. ``dedupe_chunks=True`` writes each
-chunk once into a content-addressed store and hard-links it into every
-step that holds it.
+``wait`` so it cannot pass silently. ``dedupe_chunks=True`` (one
+process only) writes each chunk once into a content-addressed store and
+hard-links it into every step that holds it.
+
+In a world of several ranks every rank stages its own shards, behind
+the world's store barriers (a fresh namespace per save, so async saves
+run there too; a gloo collective cannot run on the writer thread), and
+rank 0 alone commits, recovers and collects garbage. A save gets one
+attempt there (a lone retrying rank would wait in barriers its peers
+never reach), and a rank whose part fails posts it, so every rank's
+save raises instead of waiting out the barrier. A restore takes rank
+0's newest committed step on every rank (``_agreed_latest_step``), and
+:meth:`CheckpointManager.reached_preemption` broadcasts rank 0's notice
+at the save boundaries, so every rank takes its final save at the same
+step. The manager assumes ONE writer per process.
 """
 from __future__ import annotations
 
@@ -34,9 +45,27 @@ import time
 import weakref
 from typing import Dict, List, Optional
 
+# the package imports this module last, once these are defined
+from paddle_tpu_torch.distributed.checkpoint import (
+    _namespace, _world, post_failure, store_barrier,
+)
 from paddle_tpu_torch.testing import faults as _faults
 
 __all__ = ["CheckpointManager"]
+
+
+def _broadcast_int(value: int) -> int:
+    """Rank 0's ``value`` on every rank of the world (a collective on the
+    default group, on this rank's device: the main thread only)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import communication as comm
+    from paddle_tpu_torch.distributed.env import current_device
+
+    t = torch.tensor([int(value)], dtype=torch.int64,
+                     device=current_device())
+    comm.broadcast_(t, src=0)
+    return int(t.item())
 
 COMMITTED = "COMMITTED"
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -128,11 +157,28 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def _agreed_latest_step(self) -> Optional[int]:
+        """A restore must use ONE step on every rank, and the ranks' own
+        listings can disagree (rank 0's recovery renames race the peers'
+        listdir; a shared filesystem can show a new commit to some ranks
+        first), so rank 0's view, the view of the rank that recovers and
+        collects garbage, is broadcast and wins. Peers also wait here
+        until rank 0 has finished its recovery."""
+        step = self.latest_step()
+        if _world()[1] == 1:
+            return step
+        got = _broadcast_int(-1 if step is None else int(step))
+        return None if got < 0 else got
+
     # -- save ------------------------------------------------------------
     def should_save(self, step: int) -> bool:
         if int(step) % self._interval == 0:
             return True
-        return self.preemption_requested
+        # one process only: saves are collective, and the local notice
+        # can differ across ranks for a poll interval; a lone rank saving
+        # off the schedule would wait alone in the barriers. A gang's
+        # preemption save goes through reached_preemption()
+        return _world()[1] == 1 and self.preemption_requested
 
     def save(self, step: int, state_dict: Dict, block: bool = False,
              force: bool = False) -> bool:
@@ -146,16 +192,20 @@ class CheckpointManager:
         self.wait()  # one in flight; re-raises a prior background error
         from paddle_tpu_torch.distributed.checkpoint import _collect
 
-        arrays, tensors_meta, data_file, objects = _collect(state_dict)
+        arrays, tensors_meta, data_file, objects, replicas = \
+            _collect(state_dict)
+        # a fresh store-barrier namespace for this save (counted alike on
+        # every rank: saves are collective)
+        ns = _namespace()
         if block or not self._async:
             self._write_and_commit(step, arrays, tensors_meta, data_file,
-                                   objects)
+                                   objects, replicas, ns)
             return True
 
         def runner():
             try:
                 self._write_and_commit(step, arrays, tensors_meta,
-                                       data_file, objects)
+                                       data_file, objects, replicas, ns)
             except BaseException as e:  # surfaced on next save()/wait()
                 # readers go through wait(), whose Thread.join() is the
                 # happens-before edge for this write
@@ -179,20 +229,35 @@ class CheckpointManager:
     close = wait
 
     def _write_and_commit(self, step, arrays, tensors_meta, data_file,
-                          objects):
+                          objects, replicas, ns):
         final = self._step_path(step)
         tmp = final + ".tmp"
         delay = self._backoff_base
-        retries = self._max_retries
+        world = _world()[1]
+        # retries are per-process decisions: in a gang a lone retrying
+        # rank would wait in barriers its peers never reach, so a
+        # multi-rank save gets one attempt
+        retries = self._max_retries if world == 1 else 0
+        fail = f"ckpt_{ns}_failed"
+
+        def barrier(tag):
+            store_barrier(f"ckpt_{ns}_{tag}", fail)
+
         for attempt in range(retries + 1):
             try:
                 self._attempt(step, final, tmp, arrays, tensors_meta,
-                              data_file, objects)
+                              data_file, objects, replicas, barrier,
+                              attempt)
                 return
-            except OSError as e:
+            except BaseException as e:
+                if world > 1:
+                    post_failure(fail, e)
+                if not isinstance(e, OSError):
+                    raise
                 # filesystem errors (full disk, flaky NFS) are retried
                 # with exponential backoff; anything else propagates
-                shutil.rmtree(tmp, ignore_errors=True)
+                if _world()[0] == 0:
+                    shutil.rmtree(tmp, ignore_errors=True)
                 if attempt >= retries:
                     raise OSError(
                         f"checkpoint step {step}: write failed after "
@@ -201,18 +266,34 @@ class CheckpointManager:
                 delay *= 2
 
     def _attempt(self, step, final, tmp, arrays, tensors_meta, data_file,
-                 objects):
-        from paddle_tpu_torch.distributed.checkpoint import (
-            _fsync_path, _write_data,
-        )
+                 objects, replicas, barrier, attempt):
+        from paddle_tpu_torch.distributed.checkpoint import _write_data
 
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp, exist_ok=True)
-        if self._dedupe:
+        rank, world = _world()
+
+        def tagged(tag):
+            barrier(f"{tag}:a{attempt}")
+
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp, exist_ok=True)
+        if world > 1:
+            tagged(f"{step}_stage")
+        if self._dedupe and world == 1:
             self._write_data_cas(tmp, arrays, tensors_meta, objects)
         else:
             _write_data(tmp, arrays, tensors_meta, data_file,
-                        objects=objects)
+                        barrier=tagged, objects=objects, replicas=replicas)
+        if rank == 0:
+            self._commit(step, final, tmp, world)
+        if world > 1:
+            tagged(f"{step}_done")
+        self._gc(keep_step=step)
+
+    def _commit(self, step, final, tmp, world):
+        """Rank 0: move the staged step into place and mark it."""
+        from paddle_tpu_torch.distributed.checkpoint import _fsync_path
+
         _faults.fire(_faults.CKPT_BEFORE_COMMIT)
         aside = final + ".old"
         if os.path.isdir(final):
@@ -236,7 +317,7 @@ class CheckpointManager:
         marker_tmp = marker + ".tmp"
         with open(marker_tmp, "w") as f:
             json.dump({"step": int(step), "time": time.time(),
-                       "world": 1}, f)
+                       "world": int(world)}, f)
             f.flush()
             os.fsync(f.fileno())
         os.replace(marker_tmp, marker)
@@ -244,7 +325,6 @@ class CheckpointManager:
         _fsync_path(self._root)
         shutil.rmtree(aside, ignore_errors=True)
         _faults.fire(_faults.CKPT_COMMITTED)
-        self._gc(keep_step=step)
 
     def _write_data_cas(self, path, arrays, tensors_meta, objects):
         """Single-process content-addressed write: each chunk lands in
@@ -331,7 +411,10 @@ class CheckpointManager:
         """A crash between a same-step rewrite and its marker leaves the
         committed copy parked at ``step_N.old`` and a torn ``step_N``:
         put the committed bytes back before anything treats ``.old`` as
-        garbage (runs at manager init and before every GC pass)."""
+        garbage (runs at manager init and before every GC pass; rank 0
+        only)."""
+        if _world()[0] != 0:
+            return
         try:
             names = os.listdir(self._root)
         except FileNotFoundError:
@@ -353,8 +436,10 @@ class CheckpointManager:
 
     # -- retention -------------------------------------------------------
     def _gc(self, keep_step: Optional[int] = None):
-        """Remove stale staging dirs, torn/uncommitted step dirs, and
-        committed steps beyond ``keep_last_n``."""
+        """Remove (rank 0 only): stale staging dirs, torn/uncommitted
+        step dirs, and committed steps beyond ``keep_last_n``."""
+        if _world()[0] != 0:
+            return
         self._recover_parked()
         committed = self.all_steps()
         for name in os.listdir(self._root):
@@ -406,7 +491,7 @@ class CheckpointManager:
         from paddle_tpu_torch.distributed.checkpoint import load_state_dict
 
         if step is None:
-            step = self.latest_step()
+            step = self._agreed_latest_step()
             if step is None:
                 raise FileNotFoundError(
                     f"no committed checkpoint under {self._root!r}")
@@ -463,8 +548,9 @@ class CheckpointManager:
         return its step, or return None (leaving ``state_dict``
         untouched) when none exists. Torn/uncommitted directories are
         skipped, never read. ``target_layout`` and ``rank`` shard the
-        restore as in :meth:`restore`."""
-        step = self.latest_step()
+        restore as in :meth:`restore`. In a gang every rank restores rank
+        0's newest committed step."""
+        step = self._agreed_latest_step()
         if step is None:
             return None
         return self.restore(state_dict, step, target_layout=target_layout,
@@ -473,8 +559,9 @@ class CheckpointManager:
     # -- preemption ------------------------------------------------------
     def install_preemption_handler(self, signals=None):
         """Capture SIGTERM (the cloud preemption notice): sets a flag the
-        train loop polls via :meth:`reached_preemption`, then takes its
-        final synchronous save and exits."""
+        train loop polls via :meth:`reached_preemption` and broadcasts
+        the notice through the gang store, so that every rank takes its
+        final synchronous save and exits together."""
         from paddle_tpu_torch.distributed.watchdog import preemption_monitor
 
         self._preempt = preemption_monitor()
@@ -488,7 +575,20 @@ class CheckpointManager:
         return self._preempt.requested()
 
     def reached_preemption(self, step: int) -> bool:
-        """Poll between steps; True once a preemption notice arrived.
-        The caller then does ``save(step, state, block=True,
-        force=True)`` and exits 0, as the class docstring's loop does."""
-        return self.preemption_requested
+        """Poll between steps; True once a preemption notice (a local
+        SIGTERM or a peer's store broadcast) has arrived. The caller then
+        does ``save(step, state, block=True, force=True)`` and exits 0,
+        as the class docstring's loop does.
+
+        In a gang every rank must act at the SAME step boundary, or the
+        final save waits on unmatched barriers: rank 0's view is
+        broadcast (a collective on the world group) at every
+        ``save_interval_steps`` boundary, where a save already pays a
+        device->host snapshot. A notice on any rank reaches rank 0
+        through the store within a poll interval, so the final save comes
+        at most one interval later: budget ``--stop_timeout`` for it."""
+        if _world()[1] == 1:
+            return self.preemption_requested
+        if int(step) % self._interval != 0:
+            return False
+        return bool(_broadcast_int(1 if self.preemption_requested else 0))

@@ -29,6 +29,10 @@ operation, never by a caught error:
 
 :func:`stats` counts the collectives this process ran, the host seconds
 spent in them (waiting for the other ranks included) and their bytes.
+While one runs, the default watchdog holds an entry tagged
+``<kind>@ranks[...]`` (``all_reduce@ranks[0, 1, 2, 3]``), so that a
+hung collective names itself well before the group's own timeout (a
+no-op without ``PADDLE_STEP_TIMEOUT``).
 
 The differentiable collectives at the end (:func:`copy_to_group`,
 :func:`reduce_from_group`, :func:`split_along`, :func:`gather_along`,
@@ -223,22 +227,44 @@ def stats(reset: bool = False) -> dict:
     return out
 
 
-class _timed:
-    def __init__(self, nbytes: int, prefix: str = ""):
+class _watched:
+    """While a collective runs, the default watchdog holds an entry tagged
+    ``<kind>@ranks[...]``, so that a hung collective names itself (the
+    reference's per-collective record; a no-op without a step
+    timeout)."""
+
+    def __init__(self, kind: str, g: "Group"):
+        self._tag = f"{kind}@ranks{list(g.ranks)}"
+
+    def __enter__(self):
+        from paddle_tpu_torch.distributed.watchdog import default_watchdog
+
+        self._wd = default_watchdog()
+        self._eid = self._wd.arm(self._tag)
+
+    def __exit__(self, *exc):
+        if self._eid:
+            self._wd.disarm(self._eid)
+
+
+class _timed(_watched):
+    """A watched collective, counted into :func:`stats`."""
+
+    def __init__(self, nbytes: int, kind: str, g: "Group",
+                 prefix: str = ""):
+        super().__init__(kind, g)
         self._n = nbytes
         self._p = prefix
 
     def __enter__(self):
+        super().__enter__()
         self._t0 = time.perf_counter()
 
     def __exit__(self, *exc):
         _stats[self._p + "calls"] += 1
         _stats[self._p + "seconds"] += time.perf_counter() - self._t0
         _stats[self._p + "bytes"] += self._n
-
-
-def _timed_p2p(nbytes: int) -> _timed:
-    return _timed(nbytes, "p2p_")
+        super().__exit__(*exc)
 
 
 def _staged(g: Group, t: torch.Tensor, op: str) -> bool:
@@ -277,7 +303,7 @@ def all_reduce_(t: torch.Tensor, op=ReduceOp.SUM, group=None
     if g.nranks == 1 or g._pg is None:
         return t
     w = _wire(g, t, "all_reduce", widen=_sums(op))
-    with _timed(w.numel() * w.element_size()):
+    with _timed(w.numel() * w.element_size(), "all_reduce", g):
         _dist().all_reduce(w, op=_torch_op(op), group=g._pg)
     if op == ReduceOp.AVG:
         w.div_(g.nranks)
@@ -344,7 +370,7 @@ def all_gather_list(t: torch.Tensor, group=None) -> List[torch.Tensor]:
         return [t.clone()]
     w = _wire(g, t, "all_gather")
     outs = [torch.empty_like(w) for _ in range(g.nranks)]
-    with _timed(w.numel() * w.element_size()):
+    with _timed(w.numel() * w.element_size(), "all_gather", g):
         _dist().all_gather(outs, w, group=g._pg)
     order = g._torch_order()
     got = [None] * g.nranks
@@ -372,7 +398,8 @@ def reduce_scatter_list(chunks: Sequence[torch.Tensor], op=ReduceOp.SUM,
     wires = [_wire(g, c, "reduce_scatter", widen=_sums(op)) for c in chunks]
     order = g._torch_order()
     out = torch.empty_like(wires[0])
-    with _timed(sum(w.numel() * w.element_size() for w in wires)):
+    with _timed(sum(w.numel() * w.element_size() for w in wires),
+                "reduce_scatter", g):
         _dist().reduce_scatter(out, [wires[i] for i in order],
                                op=_torch_op(op), group=g._pg)
     if op == ReduceOp.AVG:
@@ -390,7 +417,7 @@ def broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     if g.nranks == 1 or g._pg is None:
         return t
     w = _wire(g, t, "broadcast")
-    with _timed(w.numel() * w.element_size()):
+    with _timed(w.numel() * w.element_size(), "broadcast", g):
         _dist().broadcast(w, src=src, group=g._pg)
     if w is not t:
         t.copy_(w)
@@ -408,7 +435,8 @@ def all_to_all_list(ins: Sequence[torch.Tensor], group=None
     wires = [_wire(g, x, "all_to_all") for x in ins]
     order = g._torch_order()
     outs = [torch.empty_like(wires[i]) for i in order]
-    with _timed(sum(w.numel() * w.element_size() for w in wires)):
+    with _timed(sum(w.numel() * w.element_size() for w in wires),
+                "all_to_all", g):
         _dist().all_to_all(outs, [wires[i] for i in order], group=g._pg)
     got = [None] * g.nranks
     for j, i in enumerate(order):
@@ -434,7 +462,8 @@ def scatter_(t: torch.Tensor, parts: Optional[Sequence[torch.Tensor]],
     if g.rank() == g.ranks.index(src):
         wires = [_wire(g, p, "scatter") for p in parts]
         lst = [wires[i] for i in g._torch_order()]
-    _dist().scatter(w, lst, src=src, group=g._pg)
+    with _watched("scatter", g):
+        _dist().scatter(w, lst, src=src, group=g._pg)
     if w is not t:
         t.copy_(w)
     return t
@@ -611,7 +640,8 @@ def irecv(tensor, src=0, group=None):
 def barrier(group=None):
     g = _group(group)
     if g.nranks > 1 and g._pg is not None:
-        _dist().barrier(group=g._pg)
+        with _watched("barrier", g):
+            _dist().barrier(group=g._pg)
 
 
 def shift(x, group: Group, offset: int = 1):
@@ -649,7 +679,7 @@ def exchange(group: Group, sends, recvs, device) -> List[torch.Tensor]:
     device = torch.device(device)
     host = device.type == "cuda" and g.backend == "gloo"
     nbytes = sum(t.numel() * t.element_size() for t, _ in sends)
-    with _timed_p2p(nbytes):
+    with _timed(nbytes, "shift", g, "p2p_"):
         ops, bufs = [], []
         for t, dst in sends:
             ops.append(dist.P2POp(dist.isend, _wire(g, t.detach(), "send"),
@@ -682,7 +712,7 @@ def all_to_all_rows(x: torch.Tensor, send_counts: Sequence[int],
     recvs = [int(recv_counts[j]) for j in order]
     out = torch.empty((sum(recvs),) + tuple(x.shape[1:]), dtype=w.dtype,
                       device=w.device)
-    with _timed(w.numel() * w.element_size()):
+    with _timed(w.numel() * w.element_size(), "all_to_all", g):
         _dist().all_to_all_single(out, torch.cat([ins[j] for j in order]),
                                   recvs, sends, group=g._pg)
     # back to the group's order of the senders

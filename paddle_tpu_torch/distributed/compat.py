@@ -107,6 +107,11 @@ def destroy_process_group(group=None):
         return
     comm._reset()
     if comm._world_up():
+        from paddle_tpu_torch.distributed import store, watchdog
+
+        # the gang record's readers stop before the world's store goes
+        watchdog.release_store()
+        store._store = None
         dist.destroy_process_group()
 
 

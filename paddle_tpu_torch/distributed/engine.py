@@ -525,6 +525,9 @@ class ParallelTrainStep(TrainStep):
                          skip_nonfinite=skip_nonfinite)
         self._plan_list = [self._plans[id(p)] for p in self._params]
         self._build_sync_plan()
+        from paddle_tpu_torch.distributed.checkpoint import register_layouts
+
+        register_layouts(self)
 
     # -- the plan of the collectives -------------------------------------
     def _sliced(self, plan: _Plan) -> bool:
@@ -738,6 +741,9 @@ class ParallelTrainStep(TrainStep):
                                [self._plan_list[i].zero_dim
                                 for i in sliced], self._zgroup)
 
+    def _wd_tag(self) -> str:
+        return f"ParallelTrainStep#{self._opt._step_count + 1}"
+
     def __call__(self, *batch, n_model_inputs: Optional[int] = None):
         return super().__call__(
             *batch, n_model_inputs=self._n_inputs if n_model_inputs is None
@@ -756,6 +762,35 @@ class ParallelTrainStep(TrainStep):
         of the layout when the mesh's ids are 0..n-1 in C order."""
         return {n: p._dist_plan.layout(self._mesh)
                 for n, p in _named_params(self._model)}
+
+    def shard_layouts(self):
+        """``(tensor, Layout, global shape, shard index, mesh ids)`` for
+        each parameter shard and optimizer slot this rank holds: what a
+        multi-rank checkpoint writes and loads (``checkpoint.
+        register_layouts``). A slot takes its parameter's layout, plus
+        the ZeRO axis on its slice at stages 1 and 2; a slot of another
+        shape (a scalar) is left out, as replicated."""
+        from paddle_tpu_torch.distributed.env import get_rank
+        from paddle_tpu_torch.distributed.redistribute import Layout
+
+        ids = self._mesh.process_ids
+        me = get_rank()
+        if me not in ids:
+            return
+        index = ids.index(me)
+        axes = list(zip(self._mesh.dim_names, self._mesh.shape))
+        for p, plan in zip(self._params, self._plan_list):
+            lay = plan.layout(self._mesh)
+            yield p, lay, plan.global_shape, index, ids
+            slot_lay = lay
+            if self._sliced(plan):
+                dims = list(lay.dim_placements)
+                dims[plan.zero_dim] = plan.zero_axis
+                slot_lay = Layout(axes, dims)
+            want = slot_lay.local_shape(plan.global_shape)
+            for v in self._opt._slots.get(id(p), {}).values():
+                if isinstance(v, torch.Tensor) and tuple(v.shape) == want:
+                    yield v, slot_lay, plan.global_shape, index, ids
 
     def slot_bytes(self) -> int:
         """Bytes of this rank's optimizer slots (master weights

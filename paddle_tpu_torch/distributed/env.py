@@ -19,7 +19,12 @@ caught error.
 
 Without a world in the environment, :func:`init_parallel_env` starts a
 one-rank gloo world on an in-memory store, so that the default group,
-its store and the collectives exist at degree 1.
+its store and the collectives exist at degree 1. Once joined, it starts
+the default watchdog's abort watch (a no-op without a step timeout).
+
+``python -m paddle_tpu_torch.distributed.launch`` sets the protocol,
+and ``PADDLE_LOCAL_SIZE`` (its ``--nproc_per_node``), which places rank
+r of a node on ``cuda:<local rank>``.
 """
 from __future__ import annotations
 
@@ -161,6 +166,11 @@ def init_parallel_env():
         dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                                 world_size=1, timeout=timeout)
     _state["device"] = dev
+    # cross-rank abort watch: an idle rank must still exit promptly when
+    # a peer's watchdog fires (a no-op unless PADDLE_STEP_TIMEOUT is set)
+    from paddle_tpu_torch.distributed.watchdog import default_watchdog
+
+    default_watchdog().start_abort_watch()
     return ParallelEnv()
 
 

@@ -45,9 +45,16 @@ class Store:
         return f"{self._prefix}/{key}"
 
     def _wait(self, keys, timeout: float):
-        from datetime import timedelta
-
-        self._c.wait([self._k(k) for k in keys], timedelta(seconds=timeout))
+        # polled, not c10d's blocking wait: a client serialises its
+        # calls, and a long wait on one thread (a checkpoint writer's
+        # barrier) would hold the watchdog's abort poll on another
+        full = [self._k(k) for k in keys]
+        deadline = time.monotonic() + timeout
+        while not self._c.check(full):
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"store keys {list(keys)!r} not set within {timeout}s")
+            time.sleep(0.01)
 
     def set(self, key: str, value) -> None:
         if isinstance(value, str):
@@ -58,11 +65,7 @@ class Store:
         self._c.set(self._k(key), value)
 
     def get(self, key: str, timeout: float = 300.0) -> bytes:
-        try:
-            self._wait([key], timeout)
-        except Exception as e:   # c10d raises its own error on timeout
-            raise TimeoutError(
-                f"store key {key!r} not set within {timeout}s") from e
+        self._wait([key], timeout)
         return bytes(self._c.get(self._k(key)))
 
     def try_get(self, key: str) -> Optional[bytes]:

@@ -67,9 +67,15 @@ this step's body through the hooks ``_place``, ``_forward``, ``_sync``,
 ``_agree``, ``_clip``, ``_update`` and ``_new_slots``).
 The JAX step's SOT graph-break path has nothing to port: eager PyTorch
 runs data-dependent Python as it is.
+
+Each call and each ``run_steps`` dispatch arms the default step watchdog
+(``TrainStep#<step>``; a step of new batch shapes with the
+COMPILE_ALLOWANCE deadline) and attaches a CUDA event recorded after it,
+as the JAX step does (a no-op without ``PADDLE_STEP_TIMEOUT``).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 import weakref
@@ -340,15 +346,41 @@ class TrainStep:
         if self._scaler_state is not None:
             _amp.scaler_sync_from_state(self._scaler, self._scaler_state)
 
+    # -- the step watchdog (a no-op without PADDLE_STEP_TIMEOUT) -----------
+    def _wd_tag(self) -> str:
+        return f"TrainStep#{self._opt._step_count}"
+
+    @contextlib.contextmanager
+    def _watched(self, datas):
+        """Arm the default watchdog around the step run inside (a step of
+        new batch shapes, the first, which warms up or captures, with the
+        COMPILE_ALLOWANCE deadline); attach a CUDA event recorded after
+        it; disarm on a failed dispatch."""
+        from paddle_tpu_torch.distributed.watchdog import (
+            arm_step, attach_step, default_watchdog, step_done)
+
+        shapes = tuple((tuple(d.shape), str(d.dtype)) for d in datas)
+        warm = self.__dict__.setdefault("_wd_warm", set())
+        eid = arm_step(self._wd_tag(), cold=shapes not in warm)
+        warm.add(shapes)
+        try:
+            yield
+        except BaseException:
+            default_watchdog().disarm(eid)
+            raise
+        if eid:
+            attach_step(eid, step_done(self._device))
+
     def __call__(self, *batch, n_model_inputs: Optional[int] = None):
         n_inputs = 1 if n_model_inputs is None else n_model_inputs
         datas = self._place(batch)
         self._adopt()
         self._sync_step_carry()
-        self._opt._step_count += 1
-        self._host_step_mirror = self._opt._step_count
-        self._sync_lr()
-        loss = self._body(datas, n_inputs, inplace=self._donate)
+        with self._watched(datas):
+            self._opt._step_count += 1
+            self._host_step_mirror = self._opt._step_count
+            self._sync_lr()
+            loss = self._body(datas, n_inputs, inplace=self._donate)
         self._sync_scaler()
         return loss
 
@@ -384,12 +416,13 @@ class TrainStep:
         def micro(i):
             return [d[i] for d in datas] if stacked else datas
 
-        if self._captures():
-            losses = self._replay(k, micro, n_inputs, stacked)
-        else:
-            losses = torch.stack([self._body(micro(i), n_inputs,
-                                             inplace=self._donate)
-                                  for i in range(k)])
+        with self._watched(micro(0)):
+            if self._captures():
+                losses = self._replay(k, micro, n_inputs, stacked)
+            else:
+                losses = torch.stack([self._body(micro(i), n_inputs,
+                                                 inplace=self._donate)
+                                      for i in range(k)])
         self._opt._step_count += k
         self._host_step_mirror = self._opt._step_count
         self._sync_scaler()

@@ -42,7 +42,9 @@ slices bit for bit through K2-K4, the varlen wrapper is
 gives the CPU's loss and gradients. Slice D3: the ring attention's
 chunked K2-K4 path holds the plain recurrence (f32) and ``flash_check``
 chunk by chunk (bf16), four context-parallel ranks and an
-expert-parallel pair on the card match one rank."""
+expert-parallel pair on the card match one rank. Slice D4: two ranks
+started by the port's launcher on the card hang, restart as a gang and
+resume bit-identically to an unbroken run."""
 import numpy as np
 import pytest
 import torch
@@ -1939,3 +1941,64 @@ def test_moe_ep2_pair_on_one_card_matches_one_rank(moe_pair):
     assert [a + b for a, b in zip(
         moe_pair[0]["f32"]["ep2_sharded"]["dropped"],
         moe_pair[1]["f32"]["ep2_sharded"]["dropped"])] == one
+
+
+# ---------------------------------------------------------------------------
+# the gang (slice D4): the launcher, the gang watchdog, multi-rank
+# checkpoints
+# ---------------------------------------------------------------------------
+def _gang_launch(tmp_path, tag, extra=(), env=()):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / tag
+    out.mkdir()
+    e = dict(os.environ, PADDLE_TORCH_RANKS_SHARE_DEVICE="1",
+             PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    e.update(dict(env))
+    r = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--log_dir", str(out / "logs"), *extra,
+         os.path.join(repo, "paddle_tpu_torch/tools/gpt_1b_gang_train.py"),
+         "--ckpt", str(tmp_path / f"ckpt_{tag}"), "--out", str(out),
+         "--tiny", "--dp", "2", "--mp", "1"],
+        env=e, capture_output=True, text=True, timeout=300)
+    res = {p.name: json.loads(p.read_text())
+           for p in out.glob("result.*.json")}
+    logs = [(out / "logs" / f"workerlog.{i}").read_text() for i in (0, 1)]
+    return r, res, logs
+
+
+@pytest.mark.gpu
+def test_gang_pair_hangs_restarts_and_resumes_bit_identically(card,
+                                                              tmp_path):
+    """Two ranks share the card (the port's launcher, gloo): rank 1 hangs
+    in step 3 and exits 6 naming its collective, rank 0 exits 7 naming
+    rank 1, the launcher relaunches the gang, and attempt 1 resumes at
+    step 2: steps 3-4's losses and every parameter's and slot's sha256
+    bit-identical to an unbroken run's (the tiny Llama, f32, dp 2)."""
+    r, base, _ = _gang_launch(tmp_path, "unbroken")
+    assert r.returncode == 0, r.stderr[-4000:]
+    r, hung, logs = _gang_launch(
+        tmp_path, "hang", ("--max_restart", "1"),
+        {"GANG_HANG": "1:3", "PADDLE_STEP_TIMEOUT": "6",
+         "PADDLE_ABORT_POLL": "0.5"})
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert "[launch] rank 1 exited rc=6" in r.stderr
+    assert "[launch] rank 0 exited rc=7" in r.stderr
+    assert r.stderr.count("restarting") == 1
+    assert "[watchdog] rank 1: step(s) [all_reduce@ranks[0, 1]]" in logs[1]
+    assert "[watchdog] rank 1 aborted on [all_reduce@ranks[0, 1]]" in \
+        logs[0]
+    for rank in (0, 1):
+        a = base[f"result.attempt0.rank{rank}.json"]
+        b = hung[f"result.attempt1.rank{rank}.json"]
+        assert a["device"] == b["device"] == "cuda:0"
+        assert b["resumed_from"] == 2
+        assert b["losses"] == {k: v for k, v in a["losses"].items()
+                               if int(k) >= 3}
+        assert b["sha256"] == a["sha256"]
+        assert all(n == 2 * 2 for n in b["kernel_launches"].values())

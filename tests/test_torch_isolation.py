@@ -122,6 +122,17 @@ _MODULES = [
     "paddle_tpu_torch.testing.moe_ranks",
     "paddle_tpu_torch.tools.gpt_1b_cp_train",
     "paddle_tpu_torch.tools.moe_train",
+    # slice D4: the gang
+    "paddle_tpu_torch.distributed.launch",
+    "paddle_tpu_torch.distributed.launch.elastic",
+    "paddle_tpu_torch.distributed.auto_tuner",
+    "paddle_tpu_torch.distributed.store",
+    "paddle_tpu_torch.distributed.env",
+    "paddle_tpu_torch.distributed.communication",
+    "paddle_tpu_torch.distributed.engine",
+    "paddle_tpu_torch.testing.gang_ranks",
+    "paddle_tpu_torch.testing.launch_workers",
+    "paddle_tpu_torch.tools.gpt_1b_gang_train",
 ]
 
 

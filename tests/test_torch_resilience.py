@@ -797,15 +797,22 @@ def test_block_multihead_attention_bf16_padding_rows_are_zero():
 @pytest.mark.parametrize("call", ["broadcast_abort", "on_remote_abort",
                                   "default_watchdog", "watch_step"])
 def test_watchdog_gang_parts_are_refused(call):
-    with pytest.raises(NotImplementedError, match="slice D"):
-        if call == "broadcast_abort":
-            twatchdog.StepWatchdog(timeout=1.0, broadcast_abort=True)
-        elif call == "on_remote_abort":
-            twatchdog.StepWatchdog(timeout=1.0, on_remote_abort=print)
-        elif call == "default_watchdog":
-            twatchdog.default_watchdog()
-        else:
-            twatchdog.watch_step(None, "step")
+    """The gang half was refused until slice D4 ported it: each call now
+    builds what the reference's builds (``tests/test_torch_gang_
+    watchdog.py`` runs them across ranks)."""
+    if call == "broadcast_abort":
+        wd = twatchdog.StepWatchdog(timeout=1.0, broadcast_abort=True)
+        assert wd.broadcast_abort and wd.enabled
+    elif call == "on_remote_abort":
+        wd = twatchdog.StepWatchdog(timeout=1.0, on_remote_abort=print)
+        assert wd.broadcast_abort and wd._on_remote_abort is print
+    elif call == "default_watchdog":
+        wd = twatchdog.default_watchdog()
+        assert wd is twatchdog.default_watchdog() and wd.broadcast_abort
+    else:
+        # no timeout set: the hook is a no-op, as the reference's
+        twatchdog.watch_step(None, "step")
+        assert not twatchdog.default_watchdog()._entries
 
 
 def test_step_watchdog_fires_only_past_the_deadline():

@@ -357,10 +357,15 @@ def test_flags_check_nan_inf(cpu):
         finally:
             P.set_flags({"check_nan_inf": False})
         assert P.log(P.to_tensor([-1.0])).numpy().size == 1
-    # the core flags (the JAX package's other modules define more)
+    # the core flags and the step watchdog's, once both packages'
+    # watchdogs are imported (the JAX package's other modules define more)
+    import paddle_tpu.distributed.watchdog  # noqa: F401
+    import paddle_tpu_torch.distributed.watchdog  # noqa: F401
+
     assert set(P_port.get_flags()) == {
         "check_nan_inf", "eager_vjp", "use_bfloat16_default",
-        "allocator_strategy", "log_level"} <= set(P_ref.get_flags())
+        "allocator_strategy", "log_level", "step_timeout_s"} \
+        <= set(P_ref.get_flags())
 
 
 def test_registry_rules(cpu):
