@@ -344,7 +344,15 @@ non-zero (nothing is caught and passed over):
                4 of the 32 layers in f32, the KV shipped worker to worker
                over loopback TCP, the decode worker SIGKILLed mid-run:
                8 of 8 token-identical to one engine, every request
-               finished once; worker start-up s and peer ship MB/s.
+               finished once; worker start-up s and peer ship MB/s. (d)
+               Beside (c), on a thread that only drives its worker, one
+               worker process whose spec sets ``tp_degree=2`` (2 of
+               the 32 layers in f32, its two ranks on this card through
+               ``PADDLE_TORCH_RANKS_SHARE_DEVICE``): 8 of 8
+               token-identical to (a)'s engine, K1 launched on both
+               ranks alike, start-up s; then a SIGKILL of the worker, and
+               no rank process left within 10 s (each rank watches its
+               parent).
 27. tp_serving_features — what the fleet, the tiers and speculative
                decoding bring at ``tp_degree=2`` (``tools/llama3_8b_tp.
                py``), both ranks on this card through the testing hook as
@@ -361,9 +369,9 @@ non-zero (nothing is caught and passed over):
                phase 4's prompts with 16 new tokens (cut for the run's
                time) through a tp 2 spec engine whose draft is its
                target (4 drafts a row) against tp 1, with equal draft
-               counters. (b) bf16 at 8 of the 32 layers (widths not
-               cut; ``TP_FEATURES_LAYERS``, cut for the run's time
-               beside phase 28), each 8B engine built after the last
+               counters. (b) bf16 at 2 of the 32 layers (widths not
+               cut; ``TP_FEATURES_LAYERS``, cut for the run's time),
+               each 8B engine built after the last
                one is dropped: phase 26 (b)'s prefill/decode
                pair with the decode replica at tp 2 (ships, bytes,
                export / import / gather / scatter ms, client TTFT and
@@ -382,7 +390,8 @@ non-zero (nothing is caught and passed over):
                (``tools/gpt_1b_hybrid_train.py``): one world of 4 ranks
                started by ``distributed.spawn``, all on this card through
                the testing hook (gloo through the host), kept up for
-               every case. (a) f32 at bench_gpt_1b widths with 2 of its
+               every case and shared with phases 29-31 (their parts run
+               one after another in it, ``run_jobs``: one start-up). (a) f32 at bench_gpt_1b widths with 2 of its
                16 layers, batch 4 x 2048, three AdamW steps per case: dp
                2, mp 2, dp 2 x mp 2, with SP, ZeRO 1, 2 and 3 at dp 2,
                eager DataParallel at dp 2, dp 2 x mp 2 with ZeRO 1 and
@@ -400,16 +409,17 @@ non-zero (nothing is caught and passed over):
                step's loss within 0.02 nats of phase 7's at that step,
                falling; K2-K4 launched 16 times a step on each rank; the
                step p50, the collectives' host ms a step, rank 0's
-               device-phase breakdown of one more step, peaks per rank.
+               device-phase breakdown of its timed step, peaks per rank.
                Not a speed figure: four ranks share one card over gloo.
                K2-K4 at a rank's shape (B 2, S 2048, H 8, D 128, bf16)
                against their plain versions (``flash_check``), timed,
                with bounds.
 
 29. pipeline_train — pipeline-parallel training over torch.distributed
-               (``tools/gpt_1b_pipe_train.py``): one world of 4 ranks, all
-               on this card through the testing hook (gloo through the
-               host), kept up for every case, each rank building only
+               (``tools/gpt_1b_pipe_train.py``): phase 28's world of 4
+               ranks, all on this card through the testing hook (gloo
+               through the host), kept up for every case, each rank
+               building only
                its stage of LlamaForCausalLMPipe from the seed-0 model.
                (a) f32 at bench_gpt_1b widths with 8 of its 16 layers,
                batch 4 x 2048, three AdamW steps per case: pp 4 "1f1b"
@@ -419,22 +429,38 @@ non-zero (nothing is caught and passed over):
                with the same weights and batch (losses rtol 1e-4; each
                rank's parameter shards at phase 28's AdamW bound); the
                pre/post parameters hold 1/S of their elements, the slots
-               the reckoned bytes; peaks per rank. (b) bf16 at full
+               the reckoned bytes; peaks per rank. Three more cases:
+               pp4_1f1b saves a multi-rank checkpoint after step 2,
+               rebuilds its stages and steps, restores and reruns step 3,
+               whose loss, parameters and slots are bit-identical to the
+               unbroken step 3's (save and restore s, bytes a rank);
+               pp2_lamb, pp 2 "1f1b" M 4 with Lamb (one trust ratio per
+               parameter) against a one-rank TrainStep with Lamb, each
+               parameter moved and its update within
+               gpt_1b_pipe_train.LAMB_UPDATE_REL of the one-rank update;
+               pp2_sp2_cp, the context-parallel Pipe at pp 2 x sp 2 (each
+               microbatch's sequence cut over sp, the body's attention
+               the ring; largest |diff| within
+               gpt_1b_pipe_train.CP_PARAM_MAX_ABS), K2-K4 launched as
+               reckoned (r + 1 chunks a layer and microbatch at sp index
+               r, K2 again in the recompute). The worst element of each
+               case carries the one-rank run's first gradient there.
+               (b) bf16 at full
                width and depth, pp 4, "1f1b", M 4, pre/post sliced over
                pp, remat: one warm-up and one timed step; each step's
                loss within 0.02 nats of phase 7's at that step, falling;
                K2 launched 32 times a step on each rank (4 layers x 4
                microbatches, and again in the recompute), K3 and K4 16;
                the step p50, the P2P and collective host ms a step, rank
-               0's device-phase breakdown of one more step, peaks per
+               0's device-phase breakdown of its timed step, peaks per
                rank. Not a speed figure: four ranks share one card over
                gloo. K2-K4 at a pp rank's microbatch (B 1, S 2048, H 16,
                D 128, bf16) against their plain versions
                (``flash_check``), timed, with bounds.
 30. cp_train  — context-parallel training over torch.distributed
-               (``tools/gpt_1b_cp_train.py``): one world of 4 ranks on
-               this card through the testing hook (gloo through the
-               host), shared with phase 31, the Llama with
+               (``tools/gpt_1b_cp_train.py``): phase 28's world of 4
+               ranks on this card through the testing hook (gloo through
+               the host), one job with phase 31, the Llama with
                ``context_parallel=True``: each rank of sp holds its chunk
                of the sequence through the whole stack, the attention is
                the ring (K2 a chunk, merged by lse; K3 and K4 given the
@@ -452,7 +478,14 @@ non-zero (nothing is caught and passed over):
                AdamW steps per case: dp 2 x sp 2, sp 4 (``cp_batch_axis=
                None``), dp 2 x sp 2 with ZeRO 1, each against a one-rank
                TrainStep of the dense model at phase 28's bounds, slots
-               the reckoned bytes. (b) bf16 at full width and depth, dp 2
+               the reckoned bytes; then cp_dp2_sp2_masked: 2 layers, a
+               padding mask keeping 2048, 1701, 1250 and 731 keys of the
+               four sequences, one forward and backward (each rank its
+               query rows, K and V all-gathered over sp, dense attention
+               with the mask, not causal: the reference's masked branch)
+               against the one-rank dense model's, every reading's
+               largest |diff| within 1e-4 of its largest value. (b) bf16
+               at full width and depth, dp 2
                x sp 2, ZeRO 1 over dp: one warm-up and one timed step;
                losses within 0.02 nats of phase 7's, falling; K2-K4
                launched (r + 1) x 16 times on the rank at sp index r
@@ -480,7 +513,10 @@ non-zero (nothing is caught and passed over):
                bench_gpt_1b's widths at 2 of its 16 layers, bf16 with f32
                master weights, dp 2 x mp 2, ZeRO 1, SP, async checkpoints
                every step (the last two kept); one gang at a time, three
-               launches, four gang start-ups. (a) 4 steps unbroken. (b)
+               launches, four gang start-ups. The launches run on a
+               thread beside phases 26 (c)-(d) and 27 (a), which time no
+               kernel (27 (b) waits for them); this line comes at its
+               turn. (a) 4 steps unbroken. (b)
                rank 1 hangs in step 3 (PADDLE_STEP_TIMEOUT 20 s, poll
                1 s; the tool's hang switch lets rank 1's step-2 save
                land, then arms its collective's tag at a quarter of the
@@ -509,10 +545,12 @@ kernel, train, spec and naive generate for the flash forward, and
 eager_train and trainstep_scaler (phase 15), fed_train (phase 18),
 tensor_api (phase 20), layer_api (phase 21), layer_trainstep (phase
 22) and long_tail (phase 24's packed flash wrapper) for K2-K4, and tiers (phase 23's tiered engines), tp (phase 25's
-two ranks, summed), fleet (phase 26 (b)'s two replicas) and tp_disagg,
+two ranks, summed), fleet (phase 26 (b)'s two replicas), tp_worker
+(phase 26 (d)'s two ranks, summed) and tp_disagg,
 tp_tiers, tp_spec (phase 27 (b)'s paths, every rank) for K1, tp_spec
 for K2, hybrid_train (phase 28 (b)'s four ranks, summed),
-pipeline_train (phase 29 (b)'s four ranks, summed), cp_train (phase
+pipeline_train (phase 29 (b)'s four ranks, summed), pipeline_train_cp
+(phase 29 (a)'s pp2_sp2_cp, four ranks, summed), cp_train (phase
 30 (b)'s four ranks, summed) and gang_train (phase 32 (a)'s four
 ranks, summed) for K2-K4; on the
 paths that replay graphs they are the launches the card ran, the eager
@@ -531,6 +569,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import weakref
 
@@ -545,8 +584,41 @@ GENERATE_NEW = 16              # and its new tokens
 H100_BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 
 
+_CLOCK = [time.perf_counter()] * 2   # the run's start, the last line's
+
+
 def emit(obj):
+    """One JSON line on stdout; on stderr, the seconds since the last
+    line (the phase's, for a phase's line) and since the start."""
     print(json.dumps(obj), flush=True)
+    now = time.perf_counter()
+    print("chip_smoke: %s %.1f s, %.1f s in all" % (
+        obj.get("phase", "line"), now - _CLOCK[1], now - _CLOCK[0]),
+        file=sys.stderr, flush=True)
+    _CLOCK[1] = now
+
+
+class _Beside(threading.Thread):
+    """``fn(*args)`` on a thread beside the phases that follow;
+    :meth:`result` waits for it and returns its value, or raises its
+    error on the caller's thread."""
+
+    def __init__(self, fn, *args):
+        super().__init__(name=fn.__name__, daemon=True)
+        self._call, self._out, self._err = (fn, args), None, None
+
+    def run(self):
+        fn, args = self._call
+        try:
+            self._out = fn(*args)
+        except BaseException as e:      # raised by result()
+            self._err = e
+
+    def result(self):
+        self.join()
+        if self._err is not None:
+            raise self._err
+        return self._out
 
 
 def cuda_ms(fn, iters, flush=None):
@@ -3044,9 +3116,11 @@ def phase_tp(dev, serve, serve_rows):
     return res
 
 
-def phase_fleet(dev, serve):
+def phase_fleet(dev, serve, beside=None):
     """Phase 26 (see the module docstring). ``serve`` is phase 4's result
-    (its tokens and times)."""
+    (its tokens and times); ``beside`` is called once (b) has timed its
+    kernel, before the worker processes start (phase 32's launches start
+    there)."""
     import gc
 
     from paddle_tpu_torch.tools import llama3_8b_fleet as FL
@@ -3057,8 +3131,10 @@ def phase_fleet(dev, serve):
     torch.cuda.empty_cache()
     # (a) f32, 2 of 32 layers: three fleets against one engine
     t0 = time.perf_counter()
+    one_engine = {}
     with _PlainCalls() as plain:
-        ident = FL.f32_identity(FL.model(dev, "float32", FL.PARITY_LAYERS))
+        ident = FL.f32_identity(FL.model(dev, "float32", FL.PARITY_LAYERS),
+                                one_engine)
     for name, r in ident.items():
         assert r["tokens_identical"] == r["requests"] == 8, (name, r)
         assert r["finished_once"] and r["finish"] == {"length": 8}, r
@@ -3108,22 +3184,48 @@ def phase_fleet(dev, serve):
     assert not any(g() for g in gone), "the 8B fleet outlived its refs"
     torch.cuda.empty_cache()
 
-    # (c) two worker processes over 4 of 32 layers in f32
+    # (c) two worker processes over 4 of 32 layers in f32, and beside
+    # them (d) one worker at tp_degree=2, f32, 2 of 32 layers, then a
+    # SIGKILL: (d) runs on a thread of this process that only drives its
+    # worker (no work on the card here), so that the start-ups overlap
+    if beside is not None:
+        beside()
+
+    def tp_worker():
+        t = time.perf_counter()
+        out = FL.tp_worker(one_engine, dev)
+        out["seconds"] = time.perf_counter() - t
+        return out
+
+    tp = _Beside(tp_worker)
+    tp.start()
     t0 = time.perf_counter()
-    wk = FL.workers(FL.model(dev, "float32", FL.WORKER_LAYERS))
+    try:
+        wk = FL.workers(FL.model(dev, "float32", FL.WORKER_LAYERS))
+        wk["seconds"] = time.perf_counter() - t0
+    finally:
+        tw = tp.result()
     assert wk["tokens_identical"] == wk["requests"] == 8, wk
     assert wk["finished_once"] and wk["finish"] == {"length": 8}, wk
     assert wk["victim_sigkilled"] and wk["replicas_dead"] == 1, wk
     assert wk["workers_exited"], wk
     assert wk["peer"]["ships"] >= 1 and wk["peer"]["relay_bytes"] == 0, wk
     assert wk["tickets_issued"] == sum(wk["ticket_outcomes"].values()), wk
-    wk["seconds"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     res = {"phase": "fleet", "model": "llama3_8b", "engine": FL.ENGINE,
            "f32_identity": ident, "disagg_bf16": r, "workers": wk,
+           "tp_worker": tw,
            "kernel_launches": sum(r["k1_launches"].values()),
            "seconds": time.perf_counter() - t_phase}
     emit(res)
+    # (d)'s checks, after the numbers are out
+    assert tw["tokens_identical"] == tw["requests"] == 8, tw
+    assert tw["finished_once"], tw
+    k1 = tw["k1_launches_per_rank"]
+    assert len(k1) == 2 and k1[0] == k1[1] > 0, tw
+    assert all(tw["ranks_alive_before_kill"]) and tw["worker_sigkilled"], tw
+    assert tw["ranks_alive_after"] == [] and \
+        tw["ranks_gone_s"] <= FL.RANK_EXIT_S, tw
     return res
 
 
@@ -3220,17 +3322,18 @@ def _rank_counts(eng, window, reports) -> dict:
 
 
 # phase 27 (b)'s depth: its bf16 8B engines run this many of the 32
-# layers (widths not cut), so that chip_smoke.py keeps its time with
-# phase 28 beside it
-TP_FEATURES_LAYERS = 8
+# layers (widths not cut), so that chip_smoke.py keeps inside its time
+# limit
+TP_FEATURES_LAYERS = 2
 
 
-def phase_tp_features(dev, serve, serve_rows, fleet, spec9):
+def phase_tp_features(dev, serve, serve_rows, fleet, spec9, after_f32=None):
     """Phase 27 (see the module docstring). ``serve`` is phase 4's result
     (its tokens and times) and ``serve_rows`` its greedy logit rows;
     ``fleet`` and ``spec9`` are phases 26 and 9's, beside which the tp 2
     numbers are reported (None: not reported, when the phase runs
-    alone)."""
+    alone); ``after_f32`` is called once (a) is done, before (b) times
+    any kernel (it waits for phase 32's launches)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.tools import llama3_8b_fleet as FL
@@ -3242,6 +3345,8 @@ def phase_tp_features(dev, serve, serve_rows, fleet, spec9):
     gc.collect()
     torch.cuda.empty_cache()
     f32 = _tp_f32_cases(dev)
+    if after_f32 is not None:
+        after_f32()
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev).zero_
     greedy = [f"r{i}" for i in range(llama3_8b_serve.NUM_REQUESTS - 1)]
     peaks = {}
@@ -3453,13 +3558,52 @@ def _per_param(params_per_rank) -> dict:
     return out
 
 
-def phase_hybrid_train(dev, train):
+def phase_train_world():
+    """Phases 28-31's one world of 4 ranks on this card (see the module
+    docstring): the three tools' parts, one after another, so that the
+    world's start-up is paid once. Each job's results by rank, and the
+    world's seconds outside the jobs (its start-up and teardown)."""
+    from paddle_tpu_torch.tools import gpt_1b_cp_train as C
+    from paddle_tpu_torch.tools import gpt_1b_hybrid_train as H
+    from paddle_tpu_torch.tools import gpt_1b_pipe_train as P
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = H.run_jobs([(H.__name__, {}), (P.__name__, {}),
+                      (C.__name__, {"parts": ("a", "b", "moe")})],
+                     timeout_s=1000.0, what="train_world")
+    seconds = time.perf_counter() - t0
+    assert out["alive_after"] == [], out["alive_after"]
+    hyb, ppl, cp = out["jobs"]
+    jobs_s = sum(max(r["seconds"] for r in job) for job in out["jobs"])
+    return {"hybrid": hyb, "pipeline": ppl, "cp": cp, "seconds": seconds,
+            "outside_jobs_s": seconds - jobs_s}
+
+
+def _job_ranks(ranks, run, **kw):
+    """A phase's job results by rank: ``ranks`` from
+    :func:`phase_train_world`, or (None, the phase run alone) those of
+    ``run(**kw)`` in a world of its own; each rank on this card over
+    gloo."""
+    if ranks is None:
+        out = run(timeout_s=600.0, **kw)
+        assert out["alive_after"] == [], out["alive_after"]
+        ranks = out["ranks"]
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0", r
+    return ranks
+
+
+def phase_hybrid_train(dev, train, ranks=None, world_s=None):
     """Phase 28 (see the module docstring). ``train`` is phase 7's result
-    (its losses)."""
+    (its losses), ``ranks`` the world's results of this phase's job by
+    rank (:func:`phase_train_world`; None: run alone) and ``world_s``
+    that world's seconds outside its jobs."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.testing import flash_check
     from paddle_tpu_torch.tools import gpt_1b_hybrid_train as H
 
+    t_phase = time.perf_counter()
     # K2-K4 at a rank's heads: B 4 / dp 2, H 16 / mp 2
     gen = torch.Generator(device=dev).manual_seed(28)
     b, s, h, d = 2, 2048, 8, 128
@@ -3482,13 +3626,10 @@ def phase_hybrid_train(dev, train):
     del q, k, v, do, o, lse, delta, dq, dk, dv, flush
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    out = H.run(timeout_s=540.0)
-    seconds = time.perf_counter() - t0
-    ranks = out["ranks"]
-    assert out["alive_after"] == [], out["alive_after"]
-    for r in ranks:
-        assert r["backend"] == "gloo" and r["device"] == "cuda:0", r
+    checks_s = time.perf_counter() - t_phase
+    ranks = _job_ranks(ranks, H.run)
+    # its kernel checks here and its job on the ranks
+    seconds = checks_s + max(r["seconds"] for r in ranks)
     names = [c[0] for c in H.CASES]
     cases = {}
     for name in names:
@@ -3511,8 +3652,9 @@ def phase_hybrid_train(dev, train):
            "placement": "all ranks on cuda:0 through the testing hook "
                         "paddle_tpu_torch.testing.tp_hooks."
                         "ranks_share_one_device (gloo through the host)",
-           "seconds": seconds, "reference_losses_f32":
-               ranks[0]["reference_losses"], "f32_cases": cases,
+           "seconds": seconds, "world_outside_jobs_s": world_s,
+           "reference_losses_f32": ranks[0]["reference_losses"],
+           "f32_cases": cases,
            "bf16_full": {
                "model": "gpt_1b (bench.py bench_gpt_1b), 16 layers",
                "mesh": "dp 2 x mp 2", "sharding_stage": 1,
@@ -3562,13 +3704,15 @@ def phase_hybrid_train(dev, train):
 PIPE_NATS = 0.02       # phase 29 (b)'s losses against phase 7's
 
 
-def phase_pipeline_train(dev, train):
+def phase_pipeline_train(dev, train, ranks=None):
     """Phase 29 (see the module docstring). ``train`` is phase 7's result
-    (its losses)."""
+    (its losses), ``ranks`` the world's results of this phase's job by
+    rank (:func:`phase_train_world`; None: run alone)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.testing import flash_check
     from paddle_tpu_torch.tools import gpt_1b_pipe_train as P
 
+    t_phase = time.perf_counter()
     # K2-K4 at a pp rank's microbatch: B 4 / M 4, all 16 heads
     gen = torch.Generator(device=dev).manual_seed(29)
     b, s, h, d = 1, 2048, 16, 128
@@ -3591,13 +3735,10 @@ def phase_pipeline_train(dev, train):
     del q, k, v, do, o, lse, delta, dq, dk, dv, flush
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    out = P.run(timeout_s=540.0)
-    seconds = time.perf_counter() - t0
-    ranks = out["ranks"]
-    assert out["alive_after"] == [], out["alive_after"]
-    for r in ranks:
-        assert r["backend"] == "gloo" and r["device"] == "cuda:0", r
+    checks_s = time.perf_counter() - t_phase
+    ranks = _job_ranks(ranks, P.run)
+    # its kernel checks here and its job on the ranks
+    seconds = checks_s + max(r["seconds"] for r in ranks)
     names = [c[0] for c in P.CASES]
     cases = {}
     for name in names:
@@ -3618,7 +3759,12 @@ def phase_pipeline_train(dev, train):
             "bubble_fraction": per_rank[0]["bubble_fraction"],
             "step_s_per_rank": [c["step_s"] for c in per_rank],
             "max_memory_allocated_per_rank": [
-                c["max_memory_allocated"] for c in per_rank]}
+                c["max_memory_allocated"] for c in per_rank],
+            "optimizer": per_rank[0]["optimizer"]}
+        for key in ("round_trip", "lamb_update", "kernel_launches",
+                    "reckoned_launches"):
+            if key in per_rank[0]:
+                cases[name][key + "_per_rank"] = [c[key] for c in per_rank]
     full = [r["full"] for r in ranks]
     ref = train["losses"][:1 + P.TIMED_STEPS]
     want = {"flash_attention_fwd": 2 * 4 * 4 * P.TIMED_STEPS,
@@ -3678,6 +3824,20 @@ def phase_pipeline_train(dev, train):
             assert c["pre_post_one_over_s"], (name, c["pre_post_shares"])
             assert c["slot_bytes"] == c["reckoned_slot_bytes"], (
                 name, c["slot_bytes"], c["reckoned_slot_bytes"])
+            trip = c.get("round_trip")
+            if trip is not None:
+                assert trip["loss_bit_identical"] and \
+                    trip["bit_identical_tensors"] == trip["tensors"] and \
+                    trip["slots"] > 0, (name, trip)
+            if "lamb_update" in c:
+                assert c["lamb_update"]["within_lamb_bound"], (
+                    name, {k: v for k, v in c["lamb_update"].items()
+                           if k != "per_param"})
+            if "reckoned_launches" in c:
+                assert c["kernel_launches"] == c["reckoned_launches"], (
+                    name, c["kernel_launches"], c["reckoned_launches"])
+    assert any("round_trip" in r["cases"].get("pp4_1f1b", {})
+               for r in ranks)
     for f in full:
         assert f["losses"] == full[0]["losses"], [x["losses"] for x in full]
         diffs = [abs(a - b_) for a, b_ in zip(f["losses"], ref)]
@@ -3727,10 +3887,11 @@ def _ring_chunk_kernels(dev):
     return out
 
 
-def phase_cp_moe(dev, train):
-    """Phases 30 (``cp_train``) and 31 (``moe_train``) in one world of 4
-    ranks (see the module docstring). ``train`` is phase 7's result (its
-    losses)."""
+def phase_cp_moe(dev, train, ranks=None):
+    """Phases 30 (``cp_train``) and 31 (``moe_train``), one job of the
+    world of 4 ranks (see the module docstring). ``train`` is phase 7's
+    result (its losses), ``ranks`` the world's results of this job by
+    rank (:func:`phase_train_world`; None: run alone)."""
     from paddle_tpu_torch.testing import cp_ranks
     from paddle_tpu_torch.tools import gpt_1b_cp_train as C
     from paddle_tpu_torch.tools import moe_train as M
@@ -3740,13 +3901,8 @@ def phase_cp_moe(dev, train):
     kern = _ring_chunk_kernels(dev)
     path = cp_ranks.ring_path_check(dev, CP_CHUNK)
     checks_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    out = C.run(parts=("a", "b", "moe"), timeout_s=540.0)
-    world_s = time.perf_counter() - t1
-    ranks = out["ranks"]
-    assert out["alive_after"] == [], out["alive_after"]
-    for r in ranks:
-        assert r["backend"] == "gloo" and r["device"] == "cuda:0", r
+    ranks = _job_ranks(ranks, C.run, parts=("a", "b", "moe"))
+    job_s = max(r["seconds"] for r in ranks)
     names = [c[0] for c in C.CASES]
     cases = {}
     for name in names:
@@ -3771,8 +3927,8 @@ def phase_cp_moe(dev, train):
           "placement": "all ranks on cuda:0 through the testing hook "
                        "paddle_tpu_torch.testing.tp_hooks."
                        "ranks_share_one_device (gloo through the host)",
-          "seconds": checks_s + world_s, "kernel_checks_s": checks_s,
-          "world_s": world_s, "f32_layers": C.F32_LAYERS,
+          "seconds": checks_s + job_s, "kernel_checks_s": checks_s,
+          "job_s": job_s, "f32_layers": C.F32_LAYERS,
           "reference_losses_f32": ranks[0]["reference_losses"],
           "f32_cases": cases,
           "bf16_full": {
@@ -3804,6 +3960,18 @@ def phase_cp_moe(dev, train):
                                            for f in full],
               "reckoned_launches_per_rank": want},
           "k2_k4_ring_chunks": kern, "ring_path": path,
+          "masked": {
+              "case": "cp_dp2_sp2_masked", "layers": C.MASKED_LAYERS,
+              "dtype": "float32", "lens": ranks[0]["masked"]["lens"],
+              "bound_rel": C.MASKED_REL,
+              "max_rel_err_per_rank": [r["masked"]["max_rel_err"]
+                                       for r in ranks],
+              "worst_per_rank": [r["masked"]["worst"] for r in ranks],
+              "logits_rel_err_per_rank": [r["masked"]["logits_rel_err"]
+                                          for r in ranks],
+              "seconds_per_rank": [r["masked"]["seconds"] for r in ranks],
+              "max_memory_allocated_per_rank": [
+                  r["masked"]["max_memory_allocated"] for r in ranks]},
           "note": "four ranks share one card over gloo through the host: "
                   "no parallel speed is measured"}
     emit(cp)
@@ -3847,7 +4015,8 @@ def phase_cp_moe(dev, train):
               "max_memory_allocated_per_rank": [
                   m["bf16"]["max_memory_allocated"] for m in moe]},
           "seconds": max(m["seconds"] for m in moe),
-          "note": "the same world as phase 30 (its world_s holds both)"}
+          "note": "the same job of the world as phase 30 (its job_s "
+                  "holds both)"}
     emit(mo)
     # the checks, after the numbers are out
     for name in names:
@@ -3856,6 +4025,8 @@ def phase_cp_moe(dev, train):
                 name, c["losses"], {k: v for k, v in c["params"].items()
                                     if k != "per_param"})
             assert c["slot_bytes"] == c["reckoned_slot_bytes"], (name, c)
+    for r in ranks:
+        assert r["masked"]["within"], r["masked"]
     for f, w in zip(full, want):
         assert f["losses"] == full[0]["losses"], [x["losses"] for x in full]
         diffs = [abs(a - b_) for a, b_ in zip(f["losses"], ref)]
@@ -3883,16 +4054,18 @@ GANG_STEPS = 4
 _EXIT_RE = re.compile(r"\[launch\] rank (\d+) exited rc=(-?\d+) at ([\d.]+)")
 
 
-def _gang_run(tag, root, ckpt, extra_env=(), launch_args=(), on_start=None):
-    """One launch of the gang tool on four ranks sharing the card: the
+def _gang_run(tag, root, ckpt, base_env, extra_env=(), launch_args=(),
+              on_start=None):
+    """One launch of the gang tool on four ranks sharing the card (the
+    launcher's environment ``base_env`` and ``extra_env``): the
     launcher's exit code, seconds and stderr, and the ranks' result
     files by attempt and rank."""
     here = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(root, tag)
     os.makedirs(out)
-    env = dict(os.environ, PADDLE_TORCH_RANKS_SHARE_DEVICE="1",
-               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH",
-                                                             ""))
+    env = dict(base_env, PADDLE_TORCH_RANKS_SHARE_DEVICE="1",
+               PYTHONPATH=here + os.pathsep + base_env.get("PYTHONPATH",
+                                                           ""))
     env.update(dict(extra_env))
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            "--nproc_per_node", "4", "--log_dir", os.path.join(out, "logs"),
@@ -3990,12 +4163,13 @@ def _preempt_once_restored(p, out):
     p.send_signal(signal.SIGTERM)
 
 
-def phase_gang():
-    """Phase 32 (see the module docstring)."""
+def gang_launches(base_env):
+    """Phase 32's three launches, one gang at a time (the launcher's
+    environment ``base_env``): each launch's results and their seconds.
+    It starts no work on the card in this process, so ``chip_smoke.py``
+    runs it beside phases 26 (c)-(d) and 27 (a), which time no kernel."""
     import shutil
     import tempfile
-
-    from paddle_tpu_torch.tools import gpt_1b_gang_train as G
 
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="gang-")
@@ -4008,14 +4182,22 @@ def phase_gang():
         # the gang restarts once and attempt 1, SIGTERMed once it has
         # restored, takes its final save at step 3 ((c)'s preemption);
         # (c) a new launch resumes there and finishes
-        a = _gang_run("a", root, os.path.join(root, "ckpt_a"))
-        b = _gang_run("b", root, ckpt, hang_env,
+        a = _gang_run("a", root, os.path.join(root, "ckpt_a"), base_env)
+        b = _gang_run("b", root, ckpt, base_env, hang_env,
                       ("--max_restart", "2", "--restart_interval", "0.2"),
                       on_start=_preempt_once_restored)
-        c = _gang_run("c", root, ckpt)
+        c = _gang_run("c", root, ckpt, base_env)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    seconds = time.perf_counter() - t0
+    return a, b, c, time.perf_counter() - t0
+
+
+def phase_gang(launches=None):
+    """Phase 32 (see the module docstring): ``launches`` are
+    :func:`gang_launches`' results (None: run them now)."""
+    from paddle_tpu_torch.tools import gpt_1b_gang_train as G
+
+    a, b, c, seconds = launches or gang_launches(dict(os.environ))
 
     ra = _gang_ranks(a, 0)
     # attempt 0's exits: the launcher's lines before its restart
@@ -4155,13 +4337,24 @@ def main():
     ti = phase_tiers(dev)
     lg = phase_long_tail(dev)
     tpr = phase_tp(dev, s, serve_rows)
-    flt = phase_fleet(dev, s)
-    tpf = phase_tp_features(dev, s, serve_rows, flt, sp)
+    # phase 32's launches (subprocesses only) run beside phases 26 (c)-(d)
+    # and 27 (a), which time no kernel; its line comes at its turn
+    gang = _Beside(gang_launches, dict(os.environ))
+    try:
+        flt = phase_fleet(dev, s, beside=gang.start)
+        tpf = phase_tp_features(dev, s, serve_rows, flt, sp,
+                                after_f32=gang.result)
+    finally:
+        if gang.is_alive():     # a phase failed beside it: let it end
+            gang.join()
     del serve_rows
-    hyb = phase_hybrid_train(dev, tr)
-    ppl = phase_pipeline_train(dev, tr)
-    cp, _ = phase_cp_moe(dev, tr)
-    gang = phase_gang()
+    world = phase_train_world()
+    hyb = phase_hybrid_train(dev, tr, world["hybrid"],
+                             world["outside_jobs_s"])
+    ppl = phase_pipeline_train(dev, tr, world["pipeline"])
+    cp, _ = phase_cp_moe(dev, tr, world["cp"])
+    del world
+    gang = phase_gang(gang.result())
     errs = fl["cases"]["train_shapes"]["max_abs_err"]
     derr = fl["cases"]["draft_shapes"]["max_abs_err"]["o"]
     dr = fl["fwd_only"]["draft_shapes"]
@@ -4180,6 +4373,7 @@ def main():
             "tiers": ti["kernel_launches"],
             "tp": sum(tpr["kernel_launches"].values()),
             "fleet": flt["kernel_launches"],
+            "tp_worker": sum(flt["tp_worker"]["k1_launches_per_rank"]),
             **{f"tp_{name}": _launch_sum(counts, "k1")
                for name, counts in tpf["kernel_launches"].items()}},
         "flash_attention_fwd": {
@@ -4208,6 +4402,9 @@ def main():
             n[name] for n in hyb["bf16_full"]["kernel_launches_per_rank"])
         by_path[name]["pipeline_train"] = sum(
             n[name] for n in ppl["bf16_full"]["kernel_launches_per_rank"])
+        by_path[name]["pipeline_train_cp"] = sum(
+            n[name] for n in ppl["f32_cases"]["pp2_sp2_cp"][
+                "kernel_launches_per_rank"])
         by_path[name]["cp_train"] = sum(
             n[name] for n in cp["bf16_full"]["kernel_launches_per_rank"])
         by_path[name]["gang_train"] = sum(

@@ -26,8 +26,10 @@ world's store barriers, never a gloo collective: an async save writes
 from a thread that is not the main one.
 
 Where a leaf's layout comes from: a :class:`~paddle_tpu_torch.
-distributed.ParallelTrainStep` registers its model's parameters and its
-optimizer's slots (:func:`register_layouts`), and a leaf that shares a
+distributed.ParallelTrainStep` or a ``PipelineTrainStep`` registers its
+model's parameters and its optimizer's slots (:func:`register_layouts`;
+a pipeline stage's body layers over the ranks of their stage only), and
+a leaf that shares a
 registered tensor's storage (``model.state_dict()`` and
 ``opt.state_dict()`` give detached views of them) carries that tensor's
 :class:`~paddle_tpu_torch.distributed.redistribute.Layout` and this
@@ -427,7 +429,7 @@ def _write_data(path: str, arrays: Dict, tensors_meta: Dict,
                 f"state_dict's own tensors, or register the layout "
                 f"(checkpoint.register_layouts)")
         # a leaf no rank wrote: held by some ranks only, with no layout
-        # registered for it (a pipeline stage's layers)
+        # registered for it
         lost = sorted(n for n, tm in merged.items() if not tm.chunks)
         if lost:
             raise ValueError(

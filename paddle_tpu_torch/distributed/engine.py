@@ -228,6 +228,22 @@ def batch_axes(mesh: ProcessMesh, config: ParallelConfig) -> Tuple[str, ...]:
     return tuple(axes)
 
 
+def sequence_axis(mesh: ProcessMesh, modules, axes: Tuple[str, ...],
+                  me: int):
+    """A step's context parallelism: the sequence axis that one of
+    ``modules`` declares (``_seq_axis``, set by a context-parallel
+    model's ``_bind_mesh``) or None, its size, this rank's index on it,
+    and the axes the loss and the gradients are averaged over: the batch
+    axes ``axes`` and the sequence axis (each rank's mean weighted by
+    its count of labels, ``_count_weight``)."""
+    seq = next((m._seq_axis for m in modules
+                if getattr(m, "_seq_axis", None)), None)
+    if seq is None:
+        return None, 1, 0, tuple(axes)
+    return (seq, mesh.dim_size(seq), mesh.axis_index((seq,), me),
+            tuple(axes) + (() if seq in axes else (seq,)))
+
+
 @torch.no_grad()
 def shard_model_parameters(model, mesh: ProcessMesh,
                            config: Optional[ParallelConfig] = None):
@@ -504,14 +520,8 @@ class ParallelTrainStep(TrainStep):
             self._batch_n *= mesh.get_dim_size(a)
         self._batch_index = mesh.axis_index(axes, me)
         self._bgroup = mesh.group(axes)
-        # the sequence axis a context-parallel model declares
-        seq = next((m._seq_axis for m in _modules(model)
-                    if getattr(m, "_seq_axis", None)), None)
-        self._cp_n = mesh.dim_size(seq) if seq else 1
-        self._cp_index = mesh.axis_index((seq,), me) if seq else 0
-        # the loss and the gradients are averaged over these
-        self._mean_axes = axes + ((seq,) if seq and seq not in axes
-                                  else ())
+        _, self._cp_n, self._cp_index, self._mean_axes = sequence_axis(
+            mesh, _modules(model), axes, me)
         self._mean_n = self._batch_n * self._cp_n
         self._lgroup = mesh.group(self._mean_axes)
         self._world = mesh.group(tuple(mesh.dim_names))

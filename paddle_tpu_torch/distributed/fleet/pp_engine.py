@@ -52,7 +52,21 @@ process per rank over ``torch.distributed``:
   ``_rotated_forward`` hands ``k2`` to each layer), and a dp rank draws
   its rows of the whole batch's masks;
 * **remat_body** recomputes each body layer in the backward
-  (:func:`~paddle_tpu_torch.distributed.fleet.recompute.recompute`).
+  (:func:`~paddle_tpu_torch.distributed.fleet.recompute.recompute`);
+* **context parallelism**: where the body declares a sequence axis (the
+  context-parallel ``LlamaForCausalLMPipe``), each microbatch's sequence
+  is cut over it, the body attends over the ring, and the loss and the
+  gradients are averaged over it with dp (a mean over labels not
+  ignored weighted by each rank's count), as in ``ParallelTrainStep``;
+* **Lamb** takes one trust ratio per parameter, as the JAX package's
+  ``TrainStep`` and PaddlePaddle do: a parameter's squared norms are
+  summed over the ranks that split it (mp, and pp for a pre/post slice).
+  The JAX pipeline step takes one per stacked body leaf, every layer's
+  copy of a weight at once; that quirk is not copied;
+* **checkpoints**: the step registers where each of its tensors lies
+  (:meth:`PipelineTrainStep.shard_layouts`), so a multi-rank checkpoint
+  of :meth:`PipelineTrainStep.state_dict` writes each chunk once, a body
+  layer's by a rank of its stage, and restores at any pp degree.
 
 A failure on one rank fails the step on every rank: the others stop in
 their next exchange or collective with the group's error. There is no
@@ -71,8 +85,8 @@ from paddle_tpu_torch.core.tensor import Tensor
 from paddle_tpu_torch.distributed import communication as comm
 from paddle_tpu_torch.distributed.engine import (
     ParallelConfig, _all_gather_slices, _count_weight, _is_share, _plan_for,
-    _reduce_scatter_slices, _tensor, current_mesh, set_current_mesh,
-    shard_model_parameters)
+    _reduce_scatter_slices, _tensor, current_mesh, sequence_axis,
+    set_current_mesh, shard_model_parameters)
 from paddle_tpu_torch.distributed.fleet.pipeline_parallel import (
     _Rotation, _call, _ticks, _vpp_schedule, layer_perm)
 from paddle_tpu_torch.distributed.mesh import ProcessMesh
@@ -155,7 +169,6 @@ class PipelineTrainStep:
         ``optimizer=None`` makes a forward-only pipeline
         (:meth:`predict`)."""
         from paddle_tpu_torch.distributed.env import get_rank
-        from paddle_tpu_torch.optimizer.optimizer import Lamb
 
         self._pipe = pipe_layer
         self._loss_fn = loss_fn
@@ -187,11 +200,6 @@ class PipelineTrainStep:
         self._scaler = scaler if scaler is not None and scaler.is_enable() \
             else None
         self._skip_nonfinite = bool(skip_nonfinite)
-        if isinstance(optimizer, Lamb):
-            raise NotImplementedError(
-                "PipelineTrainStep with Lamb: the JAX step takes the trust "
-                "ratio over each stacked body leaf (every layer's copy of "
-                "a weight at once); per-layer trust ratios would differ")
         S, V = self.S, self.V
         L = pipe_layer.n_body_layers
         if V > 1 and S > 1 and L % (S * V):
@@ -274,6 +282,16 @@ class PipelineTrainStep:
                 self._pp_dim[id(p)] = d
         if optimizer is not None:
             optimizer._follow_wrappers()
+        # the sequence axis a context-parallel body declares (bound by
+        # shard_model_parameters): each microbatch's sequence is cut over
+        # it, and the loss and the gradients are averaged over it with
+        # the batch axes, as in ParallelTrainStep
+        seq, self._cp_n, self._cp_index, mean_axes = sequence_axis(
+            mesh, _walk(pipe_layer.body_layers), self._batch_axes, me)
+        self._cp_group = mesh.group(seq) if self._cp_n > 1 else None
+        self._mean_n = self._dp_n * self._cp_n
+        self._mean_group = mesh.group(mean_axes) if self._mean_n > 1 \
+            else None
 
         # the trainable parameters: pre, body, post (a tied one once)
         self._objs, self._params, self._kinds, self._names = [], [], [], []
@@ -308,6 +326,21 @@ class PipelineTrainStep:
             self._axes.append(ax)
         self._sp_idx = [i for i, o in enumerate(self._objs)
                         if o._dist_plan.sp]
+        # Lamb's trust ratio is per parameter (not per stacked body leaf,
+        # as the JAX step takes it): a squared norm is summed over the
+        # ranks that split the parameter itself, mp for an mp shard and
+        # pp for a pre/post slice
+        self._norm_reduce = []
+        for o in self._objs:
+            ax = set(o._dist_plan.dims.values())
+            if id(o) in self._pp_dim:
+                ax.add(pp_axis)
+            g = mesh.group(tuple(sorted(ax, key=mesh.dim_names.index))) \
+                if ax else None
+            self._norm_reduce.append(
+                None if g is None or g.nranks == 1 else
+                (lambda s, g_=g: comm.all_reduce_(s, comm.ReduceOp.SUM,
+                                                  g_)))
         # where each pre/post parameter sits in its modules (a tied one
         # in both sections)
         self._holders: Dict[int, list] = {}
@@ -345,6 +378,9 @@ class PipelineTrainStep:
 
             install_nonfinite_observability(self, optimizer)
         self._act_meta: Dict[tuple, tuple] = {}
+        from paddle_tpu_torch.distributed.checkpoint import register_layouts
+
+        register_layouts(self)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -418,6 +454,18 @@ class PipelineTrainStep:
         t = t[:, self._dp_index * k:(self._dp_index + 1) * k]
         return t.reshape((chunks * k,) + tuple(t.shape[2:]))
 
+    def _seq_chunk(self, t: torch.Tensor, what: str) -> torch.Tensor:
+        """This rank's chunk of dim 1 (the sequence) over the
+        context-parallel axis."""
+        n = self._cp_n
+        if n == 1:
+            return t
+        if t.dim() < 2 or t.shape[1] % n:
+            raise ValueError(f"{what}: a sequence of {tuple(t.shape)[1:2]} "
+                             f"does not split over the {n} context-parallel "
+                             f"ranks")
+        return t.chunk(n, dim=1)[self._cp_index]
+
     # -- the sections ------------------------------------------------------
     def _seq(self, layers, x):
         for layer in layers:
@@ -435,7 +483,7 @@ class PipelineTrainStep:
         ld = ld.mean() if ld.dim() > 0 else ld
         # a mean over the labels it does not ignore: weighted so that the
         # dp mean is the chunk's loss over all its rows, as in the JAX step
-        w = _count_weight(self._loss_fn, y, self._dp_group, self._dp_n)
+        w = _count_weight(self._loss_fn, y, self._mean_group, self._mean_n)
         return ld if w is None else ld * w
 
     @contextlib.contextmanager
@@ -608,8 +656,10 @@ class PipelineTrainStep:
                 f"{self.schedule}); pad the batch or adjust "
                 f"accumulate_steps")
         C = self.n_chunks
-        xs = self._share(x, C, "the batch").chunk(C)
-        ys = self._share(y, C, "the labels").chunk(C)
+        xs = self._seq_chunk(self._share(x, C, "the batch"),
+                             "the batch").chunk(C)
+        ys = self._seq_chunk(self._share(y, C, "the labels"),
+                             "the labels").chunk(C)
         self._sync_step_carry()
         self._opt._step_count += 1
         self._host_step_mirror = self._opt._step_count
@@ -690,12 +740,12 @@ class PipelineTrainStep:
                             self._pp_group)
         comm.all_reduce_into([grads[i] for i in self._sp_idx],
                              self._mp_group)
-        if self._dp_group is not None:
-            comm.all_reduce_(loss, comm.ReduceOp.SUM, self._dp_group)
+        if self._mean_group is not None:
+            comm.all_reduce_(loss, comm.ReduceOp.SUM, self._mean_group)
             if not self._sums:
-                loss = loss / self._dp_n
-            comm.all_reduce_into(grads, self._dp_group,
-                                 None if self._sums else 1.0 / self._dp_n)
+                loss = loss / self._mean_n
+            comm.all_reduce_into(grads, self._mean_group,
+                                 None if self._sums else 1.0 / self._mean_n)
         return grads, loss
 
     def _agree(self, flag: torch.Tensor) -> torch.Tensor:
@@ -764,7 +814,8 @@ class PipelineTrainStep:
         if nonfinite is not None:
             skip = nonfinite if skip is None else skip | nonfinite
         self._opt._apply(self._params, grads, self._lr, step, skip=skip,
-                         cast_grads=False, inplace=True)
+                         cast_grads=False, inplace=True,
+                         norm_reduce=self._norm_reduce)
         if nonfinite is not None:
             self._nskip.add_(nonfinite.float())
             step = torch.where(nonfinite, step - 1, step)
@@ -794,7 +845,8 @@ class PipelineTrainStep:
         the training rotation's microbatches, no loss, no update. Every
         rank gets the whole batch's outputs."""
         CM = self._chunk_mb
-        share = self._share(x, 1, "the predict batch")
+        share = self._seq_chunk(self._share(x, 1, "the predict batch"),
+                                "the predict batch")
         if share.shape[0] % CM:
             raise ValueError(
                 f"predict batch size {share.shape[0]} must be a multiple "
@@ -826,6 +878,8 @@ class PipelineTrainStep:
                 out = torch.empty(shape, dtype=dtype, device=self._device)
             comm.broadcast_(out, self._pp_group.ranks[S - 1],
                             self._pp_group)
+        if self._cp_group is not None:
+            out = comm.all_gather_cat(out.contiguous(), 1, self._cp_group)
         if self._dp_group is not None:
             out = comm.all_gather_cat(out.contiguous(), 0, self._dp_group)
         return Tensor._from_data(out) if self._wrap else out
@@ -855,6 +909,82 @@ class PipelineTrainStep:
                                [dims.get(d) for d in
                                 range(len(plan.global_shape))])
         return out
+
+    def shard_layouts(self):
+        """``(tensor, Layout, global shape, shard index, mesh ids)`` for
+        each parameter and optimizer slot this rank holds: what a
+        multi-rank checkpoint writes and loads (``checkpoint.
+        register_layouts``). A pre/post parameter's layout is over the
+        whole mesh (its pp slice, its mp cut); a body layer's is over its
+        stage's ranks only (the mesh without pp), so that one rank of the
+        owning stage writes each chunk. A slot takes its parameter's
+        layout; a slot of another shape (a scalar) is left out, as
+        replicated."""
+        from paddle_tpu_torch.distributed.env import get_rank
+        from paddle_tpu_torch.distributed.redistribute import Layout
+
+        mesh, me = self._mesh, get_rank()
+        if mesh.coord(me) is None:
+            return
+        whole = (list(zip(mesh.dim_names, mesh.shape)), mesh.process_ids)
+        sub = tuple(n for n in mesh.dim_names if n != self._pp_axis)
+        stage = ([(n, mesh.get_dim_size(n)) for n in sub]
+                 or [(self._pp_axis, 1)],
+                 mesh.group_ranks(sub, me) if sub else [me])
+        slots = {} if self._opt is None else self._opt._slots
+        for name, p in self._pipe.named_parameters():
+            plan, t = p._dist_plan, _tensor(p)
+            dims = dict(plan.dims)
+            if id(p) in self._pp_dim:
+                dims[self._pp_dim[id(p)]] = self._pp_axis
+            axes, ids = stage if name.startswith("body_layers.") else whole
+            lay = Layout(axes, [dims.get(d)
+                                for d in range(len(plan.global_shape))])
+            index = ids.index(me)
+            yield t, lay, plan.global_shape, index, ids
+            want = lay.local_shape(plan.global_shape)
+            for v in slots.get(id(t), {}).values():
+                if isinstance(v, torch.Tensor) and tuple(v.shape) == want:
+                    yield v, lay, plan.global_shape, index, ids
+
+    def state_dict(self) -> dict:
+        """This rank's training state under the pipeline's global names:
+        ``{"model": {parameter name: tensor}, "opt": {"step": n,
+        "<parameter name>.<slot>": slot}}``, the live tensors detached.
+        Each carries its layout (:meth:`shard_layouts`), so
+        ``checkpoint.save_state_dict`` writes every chunk once over the
+        ranks and ``load_state_dict`` fills this rank's shards at any pp
+        degree. The slots are keyed by name: a position in a stage's
+        parameter list (``Optimizer.state_dict``'s ``param_<i>``) names
+        a different parameter on each stage."""
+        opt_sd = self._opt.state_dict()
+        opt = {k: opt_sd[k] for k in ("step", "LR_Scheduler") if k in opt_sd}
+        model = {}
+        for name, p in self._pipe.named_parameters():
+            t = _tensor(p)
+            model[name] = t.detach()
+            for k, v in self._opt._slots.get(id(t), {}).items():
+                opt[f"{name}.{k}"] = v.detach()
+        return {"model": model, "opt": opt}
+
+    @torch.no_grad()
+    def set_state_dict(self, state: dict):
+        """Take :meth:`state_dict`'s keys back: the step count (and the
+        scheduler's state), and each tensor that ``load_state_dict`` did
+        not fill in place already. A state without slots (the JAX
+        package's pipeline checkpoint: parameters and ``{"step": n}``)
+        leaves the slots as they are."""
+        opt = state.get("opt", {})
+        self._opt._step_count = int(opt.get("step", 0))
+        if self._opt._lr_scheduler is not None and "LR_Scheduler" in opt:
+            self._opt._lr_scheduler.set_state_dict(opt["LR_Scheduler"])
+        live = self.state_dict()
+        for sec in ("model", "opt"):
+            for k, v in state.get(sec, {}).items():
+                t = live[sec].get(k)
+                if isinstance(t, torch.Tensor) and isinstance(
+                        v, torch.Tensor) and v.data_ptr() != t.data_ptr():
+                    t.copy_(v.to(device=t.device, dtype=t.dtype))
 
     def slot_bytes(self) -> int:
         """Bytes of this rank's optimizer slots (master weights

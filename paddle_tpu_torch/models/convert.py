@@ -9,7 +9,8 @@ import numpy as np
 import torch
 
 __all__ = ["llama_state_from_jax", "llama_pipe_state_from_jax",
-           "llama_pipe_state_from_causal_lm", "optimizer_slots_from_jax",
+           "llama_pipe_state_from_causal_lm", "llama_pipe_state_to_jax",
+           "optimizer_slots_from_jax",
            "optimizer_state_from_jax", "layer_state_from_jax",
            "moe_state_from_jax"]
 
@@ -175,6 +176,20 @@ def llama_pipe_state_from_causal_lm(state: Mapping[str, torch.Tensor],
         else:
             raise KeyError(f"no Pipe parameter for {name!r}")
     return out
+
+
+def llama_pipe_state_to_jax(state: Mapping[str, torch.Tensor]
+                            ) -> Dict[str, torch.Tensor]:
+    """A port ``LlamaForCausalLMPipe`` stage's parameters (its
+    ``state_dict()``, or ``PipelineTrainStep.state_dict()["model"]``)
+    under the JAX Pipe's keys and layout: the same names, each Linear
+    weight as an ``[in, out]`` view of the same tensor. A view shares its
+    tensor's storage, so a multi-rank checkpoint finds the tensor's
+    layout (transposed) for it, and a load through it fills the tensor
+    in place."""
+    return {n: (t.t() if n.endswith("_proj.weight")
+                or n.endswith("lm_head.weight") else t)
+            for n, t in state.items()}
 
 
 def moe_state_from_jax(np_state: Mapping[str, np.ndarray], ep_rank: int = 0,

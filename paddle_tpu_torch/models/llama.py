@@ -30,9 +30,13 @@ sequence-sharded through the whole stack over ``cp_axis`` (bound by
 normalises, projects, runs the MLP and takes the loss for its S/P tokens,
 rope at the chunk's global positions, and the attention is the ring
 (:func:`~paddle_tpu_torch.ops.ring_attention.ring_attention_inner`, the
-compact kv chunks travelling); ``ParallelTrainStep`` cuts each rank's
-chunk of the sequence. ``tp_degree`` only groups the bucketed path's GQA packing per TP
-shard (exact at any value, as in the reference), and the
+compact kv chunks travelling); ``ParallelTrainStep`` (and, for
+``LlamaForCausalLMPipe``, ``PipelineTrainStep``) cuts each rank's chunk
+of the sequence. Given an ``attn_mask``, a context-parallel call takes
+the reference's dense branch: masked attention over the whole sequence,
+not causal, K and V all-gathered over ``cp_axis``. ``tp_degree`` only
+groups the bucketed path's GQA packing per TP shard (exact at any
+value, as in the reference), and the
 tensor-parallel serving engine shards the modules itself
 (:mod:`paddle_tpu_torch.serving.tp`), with the embedding and the head
 replicated. ``forward_ragged_multi`` is the
@@ -255,11 +259,20 @@ class LlamaAttention(nn.Module):
         _hint(self.o_proj.weight, 1, linear=True)
         self._mp = None
         self._cp = None
+        self._rows = (0, 1)
 
     def _bind_mesh(self, mesh, batch_axes):
         """Under ``context_parallel``: attend over the ring of
-        ``cp_axis``."""
+        ``cp_axis``; a masked call takes this rank's share of the batch
+        axes' rows of the mask."""
+        from paddle_tpu_torch.distributed.env import get_rank
+
         self._cp = _cp_group(self.config, mesh)
+        n = 1
+        for a in batch_axes:
+            n *= mesh.dim_size(a)
+        self._rows = (mesh.axis_index(batch_axes, get_rank()), n) \
+            if n > 1 else (0, 1)
 
     def _bind_mp(self, group):
         """Run on this rank's share of the heads of ``group``'s k ranks
@@ -293,11 +306,9 @@ class LlamaAttention(nn.Module):
             if self._cp is None:
                 raise _unbound_cp()
             if attn_mask is not None:
-                raise NotImplementedError(
-                    "context_parallel with an attn_mask is not ported: the "
-                    "ring attends causally over the whole sequence and "
-                    "takes no mask")
-            out = ring_attention_inner(q, k, v, self._cp, causal=True)
+                out = self._masked_cp(q, k, v, attn_mask)
+            else:
+                out = ring_attention_inner(q, k, v, self._cp, causal=True)
             out = self.o_proj(out.reshape(b, s, self.n_heads * self.head_dim))
             return _tp_exit(out, self._mp, sp)
         if self.n_kv != self.n_heads:
@@ -311,6 +322,42 @@ class LlamaAttention(nn.Module):
                 q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None)
         out = self.o_proj(out.reshape(b, s, self.n_heads * self.head_dim))
         return _tp_exit(out, self._mp, sp)
+
+    def _masked_cp(self, q, k, v, mask):
+        """A context-parallel call given ``attn_mask`` takes the
+        reference's branch: dense attention over the whole sequence with
+        the mask, not causal (a bool mask selects, any other is added),
+        GQA heads repeated. The rank keeps its S/P query rows; K and V
+        are all-gathered over the ring's axis (the gather's backward is a
+        reduce-scatter). ``mask`` is the global one, as every rank passes
+        the global batch: its last two dims [S, S], and a 4-D mask's
+        leading dim the whole batch (or 1); the rank takes its query rows
+        and its share of the batch's rows."""
+        cp = self._cp
+        b, s = q.shape[:2]
+        k = comm.all_gather_along(k.contiguous(), cp, 1)
+        v = comm.all_gather_along(v.contiguous(), cp, 1)
+        whole = k.shape[1]
+        if tuple(mask.shape[-2:]) != (whole, whole):
+            raise ValueError(
+                f"a context-parallel attn_mask covers the whole sequence: "
+                f"its last dims must be ({whole}, {whole}), got "
+                f"{tuple(mask.shape)}")
+        off = cp.rank() * s
+        mask = mask.to(q.device)[..., off:off + s, :]
+        i, n = self._rows
+        if mask.dim() == 4 and mask.shape[0] not in (1, b):
+            if mask.shape[0] != b * n:
+                raise ValueError(
+                    f"attn_mask's batch dim {mask.shape[0]} is neither 1, "
+                    f"this rank's {b} rows nor the batch's {b * n}")
+            mask = mask[i * b:(i + 1) * b]
+        if self.n_kv != self.n_heads:
+            rep = self.n_heads // self.n_kv
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        return scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                            is_causal=False)
 
     def forward_ragged(self, x, cos, sin, key_cache, value_cache,
                        block_tables, cu_seqlens, context_lens, num_seqs,
@@ -847,13 +894,27 @@ class _PipeDecoderLayer(LlamaDecoderLayer):
             config.max_position_embeddings, head_dim, config.rope_theta,
             device=device)
 
+    def _bind_mesh(self, mesh, batch_axes):
+        """Under ``context_parallel`` the layer runs on this rank's chunk
+        of the sequence over ``cp_axis``, which the pipeline step cuts
+        (``_seq_axis``)."""
+        self._seq_axis = self.config.cp_axis \
+            if _cp_group(self.config, mesh) is not None else None
+
     def forward(self, x, attn_mask=None):
-        # under SP x holds this rank's slice of the sequence
+        # under SP x holds this rank's slice of the sequence; under CP
+        # rank r's chunk, at global positions r s ... r s + s - 1
         s = x.shape[1] * (self.self_attn._mp.nranks
                           if self.self_attn._mp is not None
                           and self.config.sequence_parallel else 1)
-        return super().forward(x, self.rope_cos[:s], self.rope_sin[:s],
-                               attn_mask)
+        cp = self.self_attn._cp
+        off = 0 if cp is None else cp.rank() * s
+        if off + s > self.rope_cos.shape[0]:
+            raise ValueError(f"sequence length {off + s} > "
+                             f"max_position_embeddings "
+                             f"{self.rope_cos.shape[0]}")
+        return super().forward(x, self.rope_cos[off:off + s],
+                               self.rope_sin[off:off + s], attn_mask)
 
 
 class _PipeEmbed(nn.Module):
@@ -938,17 +999,13 @@ def LlamaForCausalLMPipe(config: LlamaConfig, num_stages: int, device=None,
     weights of a JAX Pipe load through
     :func:`paddle_tpu_torch.models.convert.llama_pipe_state_from_jax`.
     ``pipeline_kw`` go to ``PipelineLayer`` (``stage_id``,
-    ``topology``, ``num_virtual_pipeline_stages``)."""
+    ``topology``, ``num_virtual_pipeline_stages``). With
+    ``context_parallel`` each body layer runs on its rank's chunk of the
+    sequence over ``cp_axis`` (rope at the chunk's global positions,
+    attention over the ring), which ``PipelineTrainStep`` cuts."""
     from paddle_tpu_torch.distributed.fleet.pipeline_parallel import (
         LayerDesc, PipelineLayer, SharedLayerDesc)
 
-    if config.context_parallel:
-        raise NotImplementedError(
-            "LlamaConfig.context_parallel=True is not ported for "
-            "LlamaForCausalLMPipe: the pipeline step neither cuts the "
-            "sequence over cp_axis nor offsets the chunk's rope; train a "
-            "context-parallel Llama with LlamaForCausalLM and "
-            "distributed.ParallelTrainStep")
     kw = dict(device=resolve_device(device), dtype=to_torch(config.dtype))
     body = [LayerDesc(_PipeDecoderLayer, config, **kw)
             for _ in range(config.num_hidden_layers)]

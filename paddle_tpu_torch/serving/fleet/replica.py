@@ -534,3 +534,25 @@ class InProcessReplica(ReplicaHandle):
 
     def snapshot(self) -> Dict[str, float]:
         return self.engine.metrics.snapshot()
+
+    def tp_report(self) -> Optional[dict]:
+        """At ``tp_degree`` k > 1: the worker ranks' pids and each rank's
+        K1 and K2 launches so far (rank 0's counted in this process) and
+        peak device memory. None at k = 1."""
+        tp = getattr(self.engine, "_tp", None)
+        if tp is None:
+            return None
+        import torch
+
+        from paddle_tpu_torch.ops import flash_attention as fa
+        from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+
+        dev = self.engine.device
+        peak = 0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            peak = int(torch.cuda.max_memory_allocated(dev))
+        ranks = [{"rank": 0, "k1_launches": int(rpa.launches),
+                  "k2_launches": int(fa.launches["flash_attention_fwd"]),
+                  "max_memory_allocated": peak}] + tp.report()
+        return {"pids": [p.pid for p in tp._procs], "ranks": ranks}

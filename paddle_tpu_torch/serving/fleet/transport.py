@@ -437,6 +437,7 @@ IDEMPOTENT_METHODS = frozenset({
     "ping", "admission_verdict", "estimated_ttft_ms", "load",
     "is_draining", "drained", "has_unfinished", "rng_state", "snapshot",
     "export_kv", "prefix_digest", "export_prefix", "tier_stats",
+    "tp_report",
     # re-asserting a lease generation is a no-op (max-register update)
     "fence_request",
 })
@@ -932,6 +933,9 @@ class ReplicaServicer:
         if method == "prefix_digest":
             dig = getattr(r, "prefix_digest", None)
             return dig() if callable(dig) else None
+        if method == "tp_report":
+            rep = getattr(r, "tp_report", None)
+            return rep() if callable(rep) else None
         if method == "export_prefix":
             exp = getattr(r, "export_prefix", None)
             res = exp(p["chain_hash"]) if callable(exp) else None
@@ -1335,6 +1339,12 @@ class SubprocessReplica(ReplicaHandle):
     # -- fleet prefix cache ------------------------------------------------
     def prefix_digest(self) -> Optional[dict]:
         return self._query("prefix_digest")
+
+    def tp_report(self) -> Optional[dict]:
+        """The worker's tensor-parallel ranks (``InProcessReplica.
+        tp_report``): their pids and launch counts so far; None at k = 1
+        or when the worker is unreachable."""
+        return self._query("tp_report")
 
     def export_prefix(self, chain_hash: str):
         if not self.alive:

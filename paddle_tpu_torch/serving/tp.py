@@ -227,7 +227,7 @@ class TPGroup:
                     target=_worker_main, name=f"paddle-tp-rank{r}",
                     args=(r, k, self._dir, str(devices[r]), self.backend,
                           dataclasses.asdict(model_config), geometry,
-                          self.timeout_s),
+                          self.timeout_s, os.getpid()),
                     daemon=True)
                 p.start()
                 self._procs.append(p)
@@ -617,11 +617,34 @@ class _Worker:
                 raise RuntimeError(f"unknown tensor-parallel opcode {op}")
 
 
+# seconds between two looks of a worker rank at its parent
+PARENT_POLL_S = 0.5
+
+
+def _watch_parent(parent: int) -> None:
+    """End this process at once when ``parent`` (rank 0's process) is
+    gone: a rank blocked in a collective would otherwise hold its card
+    until the group's timeout (``GROUP_TIMEOUT_S``) fails it. A daemon
+    thread compares ``os.getppid()`` with ``parent`` every
+    :data:`PARENT_POLL_S`; an orphan is re-parented, so the two differ
+    once rank 0's process has exited, however it died."""
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(PARENT_POLL_S)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True,
+                     name="paddle-tp-parent-watch").start()
+
+
 def _worker_main(rank: int, k: int, store_dir: str, device: str,
                  backend: str, cfg_dict: dict, geo: dict,
-                 timeout_s: float):
+                 timeout_s: float, parent: int):
     """A worker process's entry point: join the groups, take the weights,
-    run commands until shutdown or until rank 0's sockets close."""
+    run commands until shutdown or until rank 0's sockets close; exit
+    within :data:`PARENT_POLL_S` of rank 0's process (``parent``)."""
+    _watch_parent(parent)
     code = 0
     try:
         dev = torch.device(device)

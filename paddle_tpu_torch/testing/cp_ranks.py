@@ -20,7 +20,9 @@ from typing import List
 import numpy as np
 import torch
 
-__all__ = ["ring_inputs", "ring_cases", "tensor_op", "ring_path_check"]
+__all__ = ["ring_inputs", "ring_cases", "tensor_op", "ring_path_check",
+           "masked_inputs", "masked_call", "masked_reference",
+           "masked_errors", "masked_calls", "cp_world"]
 
 
 def ring_inputs(case: dict):
@@ -33,6 +35,143 @@ def ring_inputs(case: dict):
     v = rng.randn(b, s, hkv, d).astype(np.float32)
     w = rng.randn(b, s, h, d).astype(np.float32)
     return q, k, v, w
+
+
+def masked_inputs(case: dict):
+    """(ids [B, S], the global mask, t [B, S], u [V]) of ``case`` as
+    numpy: a padding mask over the keys, ``case["lens"][b]`` valid keys
+    in row b, bool ([B, 1, S, S]) or, with ``case["float_mask"]``, 0 where
+    valid and -1e4 elsewhere plus a small seeded bias. The loss is
+    ``sum(logits * w)`` with the cotangent ``w[b, s, v] = t[b, s] u[v]``
+    (an outer product: no [B, S, V] array is made)."""
+    b, s = case["batch"]
+    v = case["spec"]["vocab_size"]
+    rng = np.random.RandomState(case["seed"])
+    ids = rng.randint(0, v, (b, s)).astype(np.int64)
+    valid = np.arange(s)[None, :] < np.asarray(case["lens"])[:, None]
+    mask = np.broadcast_to(valid[:, None, None, :], (b, 1, s, s)).copy()
+    if case.get("float_mask"):
+        bias = 0.1 * rng.randn(b, 1, s, s).astype(np.float32)
+        mask = np.where(mask, bias, np.float32(-1e4)).astype(np.float32)
+    t = rng.randn(b, s).astype(np.float32)
+    u = rng.randn(v).astype(np.float32)
+    return ids, mask, t, u
+
+
+def _masked_model(case, dev, context_parallel: bool):
+    from dataclasses import replace
+
+    from paddle_tpu_torch.models.convert import llama_state_from_jax
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = replace(LlamaConfig(**case["spec"]),
+                  context_parallel=context_parallel)
+    model = LlamaForCausalLM(cfg, device=dev)
+    if case.get("state") is not None:
+        model.load_state_dict(llama_state_from_jax(case["state"]))
+    else:
+        model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    return model
+
+
+def _masked_loss(logits, t, u):
+    return ((logits * u).sum(-1) * t).sum()
+
+
+def masked_call(rank: int, case: dict, device="cpu") -> dict:
+    """One masked forward and backward of the context-parallel Llama of
+    ``case`` (the JAX model's weights in ``case["state"]``, else seed-0
+    weights) bound to its mesh: this rank's rows and sequence chunk of
+    the ids, the GLOBAL mask, the loss ``sum(logits * w)`` over the
+    rank's share. Returns the rank's logits, its dp and cp indices, and
+    the gradients summed over the world (the global loss's), as torch
+    tensors on ``device``."""
+    from paddle_tpu_torch.distributed import ProcessMesh
+    from paddle_tpu_torch.distributed import communication as comm
+    from paddle_tpu_torch.distributed.engine import shard_model_parameters
+
+    dev = torch.device(device)
+    model = _masked_model(case, dev, True)
+    cp_axis = model.config.cp_axis
+    shape, dims = case["mesh"], case["dims"]
+    mesh = ProcessMesh(np.arange(int(np.prod(shape))).reshape(shape), dims)
+    shard_model_parameters(model, mesh)
+    ids, mask, t, u = masked_inputs(case)
+    dp = mesh.dim_size("dp")
+    di = mesh.axis_index(("dp",), rank) if dp > 1 else 0
+    cp = mesh.dim_size(cp_axis)
+    ci = mesh.axis_index((cp_axis,), rank)
+    b, s = ids.shape[0] // dp, ids.shape[1] // cp
+    rows, cols = slice(di * b, (di + 1) * b), slice(ci * s, (ci + 1) * s)
+    logits = model(torch.from_numpy(ids[rows, cols]).to(dev),
+                   attn_mask=torch.from_numpy(mask).to(dev))
+    _masked_loss(logits, torch.from_numpy(t[rows, cols]).to(dev),
+                 torch.from_numpy(u).to(dev)).backward()
+    names = [n for n, _ in model.named_parameters()]
+    grads = [p.grad.detach().contiguous() for _, p in
+             model.named_parameters()]
+    comm.all_reduce_into(grads, mesh.group(tuple(dims)))
+    return {"logits": logits.detach(), "dp": di, "cp": ci,
+            "rows": rows, "cols": cols, "grads": dict(zip(names, grads))}
+
+
+def masked_reference(case: dict, device="cpu") -> dict:
+    """The one-rank dense model's masked forward and backward on the
+    global view (the reference's branch: attention with the mask, not
+    causal): logits and gradients as torch tensors on ``device``."""
+    dev = torch.device(device)
+    model = _masked_model(case, dev, False)
+    ids, mask, t, u = masked_inputs(case)
+    logits = model(torch.from_numpy(ids).to(dev),
+                   attn_mask=torch.from_numpy(mask).to(dev))
+    _masked_loss(logits, torch.from_numpy(t).to(dev),
+                 torch.from_numpy(u).to(dev)).backward()
+    return {"logits": logits.detach(),
+            "grads": {n: p.grad.detach() for n, p in
+                      model.named_parameters()}}
+
+
+def masked_errors(got: dict, ref: dict) -> dict:
+    """A rank's :func:`masked_call` against :func:`masked_reference`:
+    each reading's largest |diff| over the reference's largest |value|
+    (the rank's logits against its rows and chunk; each gradient)."""
+    want = ref["logits"][got["rows"], got["cols"]]
+    out = {"logits": float((got["logits"] - want).abs().max()
+                           / want.abs().max())}
+    for n, g in got["grads"].items():
+        w = ref["grads"][n]
+        out[n] = float((g - w).abs().max() / w.abs().max())
+    return out
+
+
+def masked_calls(rank: int, world: int, cases: List[dict]) -> dict:
+    """:func:`masked_call` of each case, by name."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("cpu")
+    torch.set_num_threads(1)
+    out = {}
+    for c in cases:
+        got = masked_call(rank, c)
+        out[c["name"]] = {
+            "logits": got["logits"].numpy(), "dp": got["dp"],
+            "cp": got["cp"],
+            "grads": {n: g.numpy() for n, g in got["grads"].items()}}
+    return out
+
+
+def cp_world(rank: int, world: int, train_cases, pipe_cases,
+             masked) -> dict:
+    """The context-parallel tests' one world: the ``ParallelTrainStep``
+    cases (``hybrid_ranks.train_cases``), the context-parallel Pipe's
+    (``pipeline_ranks.pipeline_cases``) and the masked calls, their
+    results by case name."""
+    from paddle_tpu_torch.testing import hybrid_ranks, pipeline_ranks
+
+    out = hybrid_ranks.train_cases(rank, world, train_cases)
+    out.update(pipeline_ranks.pipeline_cases(rank, world, pipe_cases))
+    out.update(masked_calls(rank, world, masked))
+    return out
 
 
 def ring_cases(rank: int, world: int, cases: List[dict]) -> dict:

@@ -12,6 +12,8 @@ shapes and what else a case asks for.
 """
 from __future__ import annotations
 
+import os
+import signal
 import time
 import traceback
 from typing import Dict, List
@@ -21,7 +23,8 @@ import torch
 
 __all__ = ["Block", "DropBlock", "Other", "TiedEmbed", "head_forward",
            "build_pipe", "pipeline_cases", "rotations", "fleet_pipeline",
-           "card_pair", "card_pairs", "pair_faults", "several"]
+           "card_pair", "card_pairs", "pair_faults", "several",
+           "pipe_checkpoints", "card_slice_d"]
 
 
 def _paddle():
@@ -162,8 +165,8 @@ def _optimizer(case, params):
     kw = dict(case.get("opt_kw", {}))
     if case.get("clip") is not None:
         kw["grad_clip"] = ClipGradByGlobalNorm(case["clip"])
-    cls = {"adamw": opt.AdamW, "adam": opt.Adam, "sgd": opt.SGD}[
-        case.get("opt", "adamw")]
+    cls = {"adamw": opt.AdamW, "adam": opt.Adam, "sgd": opt.SGD,
+           "lamb": opt.Lamb}[case.get("opt", "adamw")]
     return cls(parameters=params, **kw)
 
 
@@ -184,6 +187,132 @@ def _load(pipe, case):
 
 def _tensor(p) -> torch.Tensor:
     return p if isinstance(p, torch.Tensor) else p._data
+
+
+def _step_of(rank: int, case: dict, shape=None, dims=None):
+    """``case``'s pipeline (its JAX weights) and a ``PipelineTrainStep``
+    over it on mesh ``shape`` x ``dims`` (the case's by default):
+    (pipe, optimizer, step)."""
+    paddle = _paddle()
+    from paddle_tpu_torch.distributed import ProcessMesh
+    from paddle_tpu_torch.distributed.fleet.pp_engine import (
+        PipelineTrainStep)
+
+    paddle.seed(case.get("seed", 0))
+    shape, dims = shape or case["mesh"], dims or case["dims"]
+    mesh = ProcessMesh(np.arange(int(np.prod(shape))).reshape(shape), dims)
+    stage = mesh.coord(rank)[dims.index("pp")] if "pp" in dims else 0
+    pipe = build_pipe(case["spec"], mesh.dim_size("pp"), stage)
+    _load(pipe, case)
+    optim = _optimizer(case, pipe.parameters())
+    step = PipelineTrainStep(pipe, _loss_fn(case, pipe), optim, mesh,
+                             n_microbatches=case.get("M"))
+    return pipe, optim, step
+
+
+def _train(step, batches) -> list:
+    return [float(step(torch.from_numpy(np.asarray(x)),
+                       torch.from_numpy(np.asarray(y))))
+            for x, y in batches]
+
+
+def _held(step) -> dict:
+    """This rank's parameters and slots (numpy, keyed ``model/<name>``
+    and ``opt/<name>.<slot>`` after the step's state) with their layouts
+    (``Layout.to_meta``) and mesh ids, from ``step.shard_layouts()``."""
+    by_ptr = {}
+    for sec, d in step.state_dict().items():
+        for k, v in d.items():
+            if isinstance(v, torch.Tensor):
+                by_ptr[(v.data_ptr(), tuple(v.shape))] = f"{sec}/{k}"
+    out = {}
+    for t, lay, _, index, ids in step.shard_layouts():
+        k = by_ptr[(t.data_ptr(), tuple(t.shape))]
+        out[k] = {"value": _np(t).copy(), "layout": lay.to_meta(),
+                  "ids": list(ids)}
+    return out
+
+
+def pipe_checkpoints(rank: int, world: int, block: dict, llama: dict,
+                     paths: dict) -> dict:
+    """The port's side of the pipeline checkpoint tests:
+
+    * ``block`` (a dp 2 x pp 2 case): resume the JAX package's step-2
+      checkpoint (its parameters and ``{"step": 2}``) and run the last two
+      batches; then train the first two and save the same for the JAX
+      package;
+    * ``llama`` (the Llama Pipe at pp 4): train two steps, save the
+      port's own state (slots by name) and the JAX package's keys (the
+      Linear weights as [in, out] views), then restore the own save at
+      pp 2 x mp 2;
+    * ``CheckpointManager`` over the pp 4 Llama: a SIGTERM to rank 1 in
+      step 2 of a loop; every rank meets it at one save boundary and
+      takes its final save there, which a rebuilt step restores."""
+    from paddle_tpu_torch.distributed.checkpoint import (CheckpointManager,
+                                                         load_state_dict,
+                                                         save_state_dict)
+    from paddle_tpu_torch.models.convert import llama_pipe_state_to_jax
+
+    torch.set_num_threads(1)
+    out = {}
+    # the JAX package's checkpoint: parameters and the step count; the
+    # slots start from zero, as they do when the JAX package resumes
+    pipe, opt, step = _step_of(rank, block)
+    state = {"model": step.state_dict()["model"], "opt": {"step": 0}}
+    load_state_dict(state, paths["jax"])
+    step.set_state_dict(state)
+    out["resumed_losses"] = _train(step, block["batches"][2:])
+    out["resumed"] = _held(step)
+    pipe, opt, step = _step_of(rank, block)
+    out["first_losses"] = _train(step, block["batches"][:2])
+    save_state_dict({"model": step.state_dict()["model"],
+                     "opt": {"step": opt.state_dict()["step"]}},
+                    paths["port"])
+    # the Llama Pipe: the own save (with slots) and the JAX keys
+    pipe, opt, step = _step_of(rank, llama)
+    out["llama_losses"] = _train(step, llama["batches"][:2])
+    own = step.state_dict()
+    save_state_dict(own, paths["native"])
+    save_state_dict({"model": llama_pipe_state_to_jax(own["model"]),
+                     "opt": {"step": own["opt"]["step"]}},
+                    paths["llama_jax"])
+    out["saved"] = _held(step)
+    pipe, opt, step = _step_of(rank, llama, [2, 2], ["pp", "mp"])
+    state = step.state_dict()
+    load_state_dict(state, paths["native"])
+    step.set_state_dict(state)
+    out["pp2"] = _held(step)
+    out["pp2_step"] = opt._step_count
+    # a preemption notice on one rank: one final save at one step
+    pipe, opt, step = _step_of(rank, llama)
+    mgr = CheckpointManager(paths["managed"], async_save=True)
+    mon = mgr.install_preemption_handler()
+    preempted = None
+    try:
+        for s in range(1, 40):
+            if rank == 1 and s == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+            _train(step, llama["batches"][s % 2:s % 2 + 1])
+            mgr.save(s, step.state_dict())
+            # the notice reaches rank 0 through the store within a poll
+            time.sleep(0.1)
+            if mgr.reached_preemption(s):
+                mgr.save(s, step.state_dict(), block=True, force=True)
+                preempted = s
+                break
+        mgr.wait()
+    finally:
+        mon.uninstall()
+    final = _held(step)
+    pipe, opt, step = _step_of(rank, llama)
+    state = step.state_dict()
+    restored = mgr.restore_or_initialize(state)
+    step.set_state_dict(state)
+    out["preempt"] = {
+        "at": preempted, "committed": mgr.all_steps(), "restored": restored,
+        "equal": all(np.array_equal(v["value"], final[k]["value"])
+                     for k, v in _held(step).items())}
+    return out
 
 
 def _run_case(rank: int, case: dict) -> dict:
@@ -517,6 +646,118 @@ def card_pair(rank: int, world: int, spec: dict, dtype: str,
         d = pstep._pp_dim[id(w)]
         out["tied_table"] = comm.all_gather_cat(
             w.detach().contiguous(), d, pstep._pp_group).float().cpu().numpy()
+    return out
+
+
+def card_slice_d(rank: int, world: int, path: str) -> dict:
+    """Two ranks on the card (gloo through the host), :data:`CARD_PAIR`'s
+    Llama in f32:
+
+    * ``round_trip``: the Pipe at pp 2 trains two AdamW steps, saves its
+      state (``PipelineTrainStep.state_dict``) under ``path``, runs step
+      3; a rebuilt stage and step restore and rerun step 3: the loss,
+      the parameters and the slots bit for bit;
+    * ``lamb``: the Pipe at pp 2 with ``Lamb`` for two steps against the
+      one-rank ``TrainStep`` with ``Lamb``: the losses, this stage's
+      parameters' largest |diff| and each one's update against the
+      one-rank update (``gpt_1b_pipe_train._update_errors``);
+    * ``masked``: the context-parallel model at sp 2 given a padding mask
+      (``cp_ranks.masked_call``) against the one-rank dense model
+      (``cp_ranks.masked_errors``)."""
+    from dataclasses import asdict, replace
+
+    from paddle_tpu_torch.distributed import ProcessMesh
+    from paddle_tpu_torch.distributed.checkpoint import (load_state_dict,
+                                                         save_state_dict)
+    from paddle_tpu_torch.distributed.fleet.pp_engine import (
+        PipelineTrainStep)
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.convert import (
+        llama_pipe_state_from_causal_lm)
+    from paddle_tpu_torch.models.llama import (LlamaConfig,
+                                               LlamaForCausalLM,
+                                               LlamaForCausalLMPipe)
+    from paddle_tpu_torch.optimizer import AdamW, Lamb
+    from paddle_tpu_torch.testing import cp_ranks
+    from paddle_tpu_torch.tools.gpt_1b_pipe_train import (
+        _pipe_to_model_name, _state, _update_errors)
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(**CARD_PAIR["config"])
+    rng = np.random.RandomState(0)
+    b, s = CARD_PAIR["batch"]
+    x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(dev)
+    y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(dev)
+    mesh = ProcessMesh(np.arange(world), ["pp"])
+
+    def model():
+        m = LlamaForCausalLM(cfg, device=dev)
+        return m.init_weights(torch.Generator(device=dev).manual_seed(0))
+
+    init = {n: t.detach().clone() for n, t in model().state_dict().items()}
+
+    def pipe_step(cls):
+        pipe = LlamaForCausalLMPipe(cfg, world, device=dev, stage_id=rank)
+        pipe.set_state_dict(llama_pipe_state_from_causal_lm(init,
+                                                            pipe._owned))
+        opt = cls(learning_rate=CARD_LR, parameters=pipe.parameters())
+        return pipe, PipelineTrainStep(pipe, pipe.get_loss_fn(), opt, mesh,
+                                       n_microbatches=2 * world)
+
+    out = {}
+    pipe, step = pipe_step(AdamW)
+    losses = [float(step(x, y)) for _ in range(2)]
+    save_state_dict(step.state_dict(), path)
+    loss = float(step(x, y))
+    want = _state(step)
+    del pipe, step
+    pipe, step = pipe_step(AdamW)
+    state = step.state_dict()
+    load_state_dict(state, path)
+    step.set_state_dict(state)
+    got_loss = float(step(x, y))
+    got = _state(step)
+    out["round_trip"] = {
+        "losses": losses + [loss], "restored_loss": got_loss,
+        "tensors": len(want), "slots": sum(k.startswith("opt/")
+                                           for k in want),
+        "bit_identical": got_loss == loss and sorted(got) == sorted(want)
+        and all(torch.equal(got[k], want[k]) for k in want)}
+    del pipe, step
+    # Lamb at pp 2 against one rank
+    ref = model()
+    ref_step = TrainStep(ref, ref.criterion(cfg),
+                         Lamb(learning_rate=CARD_LR,
+                              parameters=ref.parameters()))
+    ref_losses = [float(ref_step(x, y)) for _ in range(2)]
+    pipe, step = pipe_step(Lamb)
+    p0 = {n: p.detach().clone() for n, p in pipe.named_parameters()}
+    lamb_losses = [float(step(x, y)) for _ in range(2)]
+    named = dict(ref.named_parameters())
+    layouts = step.layouts()
+    worst = 0.0
+    for name, p in pipe.named_parameters():
+        w = named[_pipe_to_model_name(name)].detach()
+        w = w[layouts[name].shard_slices(tuple(w.shape), rank)]
+        worst = max(worst, float((p.detach() - w).abs().max()))
+    out["lamb"] = {"losses": lamb_losses, "ref_losses": ref_losses,
+                   "max_abs_err": worst,
+                   "update": _update_errors(
+                       pipe, step, rank,
+                       {"params": {n: p.detach() for n, p in named.items()}},
+                       p0)}
+    del pipe, step, ref, ref_step
+    # a masked context-parallel call at sp 2
+    case = {"spec": asdict(replace(cfg, context_parallel=True,
+                                   cp_batch_axis=None)),
+            "mesh": [world], "dims": ["sp"], "batch": (b, s),
+            "lens": [s - 37 * i for i in range(b)], "seed": 5}
+    got = cp_ranks.masked_call(rank, case, device=str(dev))
+    errs = cp_ranks.masked_errors(got, cp_ranks.masked_reference(
+        case, device=str(dev)))
+    out["masked"] = {"max_rel_err": max(errs.values()),
+                     "logits_rel_err": errs["logits"]}
     return out
 
 

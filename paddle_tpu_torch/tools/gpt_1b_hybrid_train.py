@@ -28,8 +28,8 @@ every case, so the CUDA start-up is paid once. Two parts:
     to hold against the one-rank ``TrainStep`` of phase 7), the flash
     kernels' launches on each rank (16 a step), the step times, the
     collectives' host seconds (``communication.stats``), rank 0's
-    device-phase breakdown of one more step (``profiler.device_phases``)
-    and each rank's peak memory.
+    device-phase breakdown of its timed step (``profiler.device_phases``,
+    which traces that step) and each rank's peak memory.
 
 Four ranks share one card over gloo through the host: this checks the
 path's numbers and its kernel launches, not parallel speed.
@@ -52,7 +52,8 @@ import torch
 
 from paddle_tpu_torch.tools import gpt_1b_train
 
-__all__ = ["WORLD", "F32_LAYERS", "TIMED_STEPS", "CASES", "run"]
+__all__ = ["WORLD", "F32_LAYERS", "TIMED_STEPS", "CASES", "rank_parts",
+           "run_jobs", "run"]
 
 WORLD = 4
 F32_LAYERS = 2
@@ -294,7 +295,7 @@ def _data_parallel(dev, rank, ranks, x, y, ref):
 def _full(dev, rank, full=FULL, phases: bool = True):
     """Part (b): the bf16 full model at dp 2 x mp 2, ZeRO 1, SP (or the
     mesh shape, dims, ParallelConfig and LlamaConfig kwargs ``full``);
-    with ``phases``, rank 0's device phases of one more step."""
+    with ``phases``, rank 0's device phases of its last timed step."""
     from paddle_tpu_torch import profiler
     from paddle_tpu_torch.distributed import (ParallelConfig,
                                               ParallelTrainStep,
@@ -322,21 +323,24 @@ def _full(dev, rank, full=FULL, phases: bool = True):
         fa.launches[name] = 0
     comm.stats(reset=True)
     step_ms = []
-    for _ in range(TIMED_STEPS):
+
+    def timed():
         t1 = time.perf_counter()
         loss = step(x, y)
         _sync(dev)
         step_ms.append((time.perf_counter() - t1) * 1e3)
         losses.append(float(loss))
+
+    breakdown = None
+    for i in range(TIMED_STEPS):
+        # rank 0 traces its last timed step (its ms include the trace)
+        if phases and rank == 0 and _cuda(dev) and i == TIMED_STEPS - 1:
+            breakdown = profiler.device_phases(timed, steps=1, warmup=0)
+        else:
+            timed()
     launches = dict(fa.launches)          # the main path ends here
     coll = comm.stats()
     peak = _peak(dev)
-    breakdown = None
-    if phases and rank == 0 and _cuda(dev):
-        breakdown = profiler.device_phases(lambda: step(x, y), steps=1,
-                                           warmup=0)
-    elif phases:
-        step(x, y)
     out = {"losses": losses, "step_ms": step_ms,
            "step_ms_p50": float(np.percentile(step_ms, 50)),
            "kernel_launches": launches,
@@ -355,10 +359,38 @@ def _full(dev, rank, full=FULL, phases: bool = True):
     return out
 
 
-def _rank_main(out_q, parts, shrink):
-    """A rank: join the world, run the parts, put (rank, error, result)."""
-    rank = None
+def rank_parts(dev, rank, warm, parts=("a", "b"), shrink=None) -> dict:
+    """This tool's ``parts`` on a rank of a joined world (a job of
+    :func:`run_jobs`); ``warm`` is the thread importing torch._dynamo,
+    joined once the reference has run."""
+    import paddle_tpu_torch.distributed as dist
+
+    _shrink.clear()
     _shrink.update(shrink or {})
+    res = {"backend": dist.get_backend(), "device": str(dev), "cases": {}}
+    if "a" in parts:
+        x, y = _batch(dev)
+        ref = _reference(dev, x, y)
+        res["reference_losses"] = ref[0]
+        warm.join()
+        for cases in _rounds():
+            for case, first in cases:
+                if first <= rank < first + int(np.prod(case[1])):
+                    res["cases"][case[0]] = _case(dev, rank, case, first,
+                                                  x, y, ref)
+            dist.barrier()
+        del ref, x, y
+        _free(dev)
+    if "b" in parts:
+        res["full"] = _full(dev, rank)
+    return res
+
+
+def _world_main(out_q, jobs):
+    """A rank: join the world, run each job (a tool's module name and the
+    kwargs of its ``rank_parts``) in order, put (rank, error, [a result
+    a job, with its seconds on this rank])."""
+    rank = None
     # the ranks share the host's cores: one intra-op pool each would
     # oversubscribe them (the host runs gloo's copies and reductions)
     torch.set_num_threads(max(1, (os.cpu_count() or WORLD) // WORLD))
@@ -370,32 +402,22 @@ def _rank_main(out_q, parts, shrink):
     warm.start()
     try:
         import paddle_tpu_torch.distributed as dist
+        from paddle_tpu_torch.distributed.env import current_device
 
         dist.init_parallel_env()
         rank = dist.get_rank()
-        from paddle_tpu_torch.distributed.env import current_device
-
         dev = current_device()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        res = {"backend": dist.get_backend(), "device": str(dev),
-               "cases": {}}
-        if "a" in parts:
-            x, y = _batch(dev)
-            ref = _reference(dev, x, y)
-            res["reference_losses"] = ref[0]
-            warm.join()
-            for cases in _rounds():
-                for case, first in cases:
-                    if first <= rank < first + int(np.prod(case[1])):
-                        res["cases"][case[0]] = _case(dev, rank, case,
-                                                      first, x, y, ref)
-                dist.barrier()
-            del ref, x, y
-            _free(dev)
-        if "b" in parts:
-            res["full"] = _full(dev, rank)
-        out_q.put((rank, None, res))
+        results = []
+        for module, kw in jobs:
+            t0 = time.perf_counter()
+            res = importlib.import_module(module).rank_parts(dev, rank, warm,
+                                                             **kw)
+            dist.barrier()
+            res["seconds"] = time.perf_counter() - t0
+            results.append(res)
+        out_q.put((rank, None, results))
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
@@ -439,6 +461,17 @@ def run_world(rank_main, args: tuple, timeout_s: float, what: str,
             "alive_after": [p.pid for p in procs if p.is_alive()]}
 
 
+def run_jobs(jobs, timeout_s: float, what: str) -> dict:
+    """One world for several tools: ``jobs`` is a list of (module name,
+    kwargs of its ``rank_parts``), run in order on every rank, so that
+    the world's start-up is paid once. Returns ``{"jobs": [each job's
+    results by rank], "alive_after": [...]}`` (see :func:`run_world`;
+    ``timeout_s`` bounds the whole list)."""
+    out = run_world(_world_main, (list(jobs),), timeout_s, what)
+    return {"jobs": [[r[i] for r in out["ranks"]] for i in range(len(jobs))],
+            "alive_after": out["alive_after"]}
+
+
 def run(parts=("a", "b"), timeout_s: float = 600.0,
         shrink: dict = None) -> dict:
     """Start the world on the card, run ``parts`` and return each rank's
@@ -446,8 +479,10 @@ def run(parts=("a", "b"), timeout_s: float = 600.0,
     ``timeout_s``; leaves no process behind. ``shrink`` (LlamaConfig
     fields, and ``batch``: (batch, seq)) makes the model smaller for a
     dry run on the CPU."""
-    return run_world(_rank_main, (tuple(parts), shrink), timeout_s,
-                     "hybrid_train")
+    out = run_jobs([("paddle_tpu_torch.tools.gpt_1b_hybrid_train",
+                     {"parts": tuple(parts), "shrink": shrink})],
+                   timeout_s, "hybrid_train")
+    return {"ranks": out["jobs"][0], "alive_after": out["alive_after"]}
 
 
 if __name__ == "__main__":

@@ -24,6 +24,11 @@ phase 4's workload (:func:`llama3_8b_serve.workload`: 8 prompts of
   worker to worker over loopback TCP; the decode worker is SIGKILLed
   mid-run and the prefill worker finishes by recompute: tokens against
   one engine in this process.
+* :func:`tp_worker` — one worker process whose spec sets
+  ``tp_degree=2`` (``PARITY_LAYERS`` layers in f32; on one card its two
+  ranks share it, ``PADDLE_TORCH_RANKS_SHARE_DEVICE``): its tokens
+  against one engine, K1's launches on each rank, its start-up seconds,
+  and, after a SIGKILL of the worker, how long its rank outlives it.
 
 A ship on the wire is one frame of at most ``transport.MAX_FRAME`` (64
 MiB); at full depth in bf16 one token's KV is 2 x 32 x 8 x 128 x 2 B =
@@ -59,13 +64,16 @@ from paddle_tpu_torch.serving.fleet import (
 from paddle_tpu_torch.serving.fleet.transport import MAX_FRAME
 from paddle_tpu_torch.tools import llama3_8b_serve
 
-__all__ = ["ENGINE", "PARITY_LAYERS", "WORKER_LAYERS", "model",
-           "worker_model", "frame_cap_tokens", "ShipTimes",
-           "FirstAfterImport", "f32_identity", "disagg", "workers"]
+__all__ = ["ENGINE", "PARITY_LAYERS", "WORKER_LAYERS", "RANK_EXIT_S",
+           "model", "worker_model", "parity_worker_model",
+           "frame_cap_tokens", "ShipTimes", "FirstAfterImport",
+           "f32_identity", "disagg", "workers", "tp_worker"]
 
 ENGINE = dict(llama3_8b_serve.ENGINE, drain_grace_s=0.0)
 PARITY_LAYERS = 2
 WORKER_LAYERS = 4
+# seconds within which a SIGKILLed tp worker's ranks must be gone
+RANK_EXIT_S = 10.0
 
 
 def model(device, dtype: str = "bfloat16",
@@ -86,6 +94,16 @@ def worker_model(spec: dict) -> LlamaForCausalLM:
     unless it says ``"cpu"``)."""
     device = spec.get("device") or "cuda"
     m = model(torch.device(device), "float32", WORKER_LAYERS)
+    m.eval()
+    return m
+
+
+def parity_worker_model(spec: dict) -> LlamaForCausalLM:
+    """The worker factory of :func:`tp_worker`: the f32 model of
+    ``PARITY_LAYERS`` layers on the spec's device (the card unless it
+    says ``"cpu"``)."""
+    device = spec.get("device") or "cuda"
+    m = model(torch.device(device), "float32", PARITY_LAYERS)
     m.eval()
     return m
 
@@ -155,9 +173,11 @@ def _latencies(clock: dict) -> dict:
             "tpot_ms_p50": float(np.percentile(tpot, 50) * 1e3)}
 
 
-def f32_identity(m: LlamaForCausalLM) -> dict:
+def f32_identity(m: LlamaForCausalLM, tokens: Optional[dict] = None
+                 ) -> dict:
     """The token identity of the three fleets over ``m`` (phase 26: f32,
-    ``PARITY_LAYERS`` of the 32 layers) against one engine."""
+    ``PARITY_LAYERS`` of the 32 layers) against one engine, whose tokens
+    go into ``tokens`` when given."""
     from paddle_tpu_torch.testing import faults
 
     work = llama3_8b_serve.workload(m.config.vocab_size)
@@ -167,6 +187,8 @@ def f32_identity(m: LlamaForCausalLM) -> dict:
         eng.add_request(rid, prompt, sp)
     eng.run()
     want = {rid: list(eng.get_request(rid).generated) for rid in rids}
+    if tokens is not None:
+        tokens.update(want)
     del eng
     res = {}
     for name, roles, drain in (
@@ -422,6 +444,76 @@ def workers(m: LlamaForCausalLM,
         shutil.rmtree(store_dir, ignore_errors=True)
     procs = [h.proc for h in handles]
     res["workers_exited"] = all(p.poll() is not None for p in procs)
+    return res
+
+
+def _running(pid: int) -> bool:
+    """Whether process ``pid`` runs (a zombie no one reaps counts as
+    gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def tp_worker(want: Dict[str, List[int]], device) -> dict:
+    """One worker process serving phase 4's workload at ``tp_degree=2``
+    (:func:`parity_worker_model`; on the card both ranks on ``device``
+    through ``PADDLE_TORCH_RANKS_SHARE_DEVICE``): its tokens against
+    ``want`` (one engine's, :func:`f32_identity`), the K1 launches each
+    rank made serving them, its start-up seconds; then a SIGKILL of the
+    worker and the seconds until its rank is gone (at most
+    :data:`RANK_EXIT_S`)."""
+    from paddle_tpu_torch.testing import tp_hooks
+
+    device = torch.device(device)
+    work = llama3_8b_serve.workload(LlamaConfig.llama3_8b().vocab_size)
+    rids = [rid for rid, _, _ in work]
+    store_dir = tempfile.mkdtemp(prefix="fleet_store_")
+    sup = ReplicaSupervisor(
+        WorkerSpec(model="paddle_tpu_torch.tools.llama3_8b_fleet:"
+                         "parity_worker_model", device=device.type,
+                   engine=dict(ENGINE, tp_degree=2), peer=False),
+        SupervisorConfig(store_dir=store_dir, spawn_timeout_s=300.0,
+                         env={tp_hooks.ENV: "1"} if device.type == "cuda"
+                         else {}))
+    try:
+        t0 = time.perf_counter()
+        h = sup.spawn()
+        boot_s = time.perf_counter() - t0
+        before = h.tp_report()
+        router = FleetRouter([h], FleetConfig(), registry=sup.registry)
+        t0 = time.perf_counter()
+        outs = _drive(router, work)
+        serve_s = time.perf_counter() - t0
+        got = _tokens_of(router, rids)
+        after = h.tp_report()
+        pids = after["pids"]
+        alive_before = [_running(p) for p in pids]
+        os.kill(h.proc.pid, signal.SIGKILL)
+        t0 = time.perf_counter()
+        while any(_running(p) for p in pids) and \
+                time.perf_counter() - t0 < 3 * RANK_EXIT_S:
+            time.sleep(0.05)
+        gone_s = time.perf_counter() - t0
+        res = {"layers": PARITY_LAYERS, "dtype": "float32", "tp_degree": 2,
+               "boot_s": boot_s, "serve_s": serve_s,
+               "tokens_identical": sum(got[r] == want[r] for r in rids),
+               "requests": len(rids), "finished_once": _once(outs, rids),
+               "k1_launches_per_rank": [
+                   a["k1_launches"] - b["k1_launches"]
+                   for a, b in zip(after["ranks"], before["ranks"])],
+               "max_memory_allocated_per_rank": [
+                   a["max_memory_allocated"] for a in after["ranks"]],
+               "rank_pids": pids, "ranks_alive_before_kill": alive_before,
+               "worker_sigkilled": h.proc.wait(timeout=60)
+               == -signal.SIGKILL,
+               "ranks_gone_s": gone_s,
+               "ranks_alive_after": [p for p in pids if _running(p)]}
+    finally:
+        sup.shutdown()
+        shutil.rmtree(store_dir, ignore_errors=True)
     return res
 
 

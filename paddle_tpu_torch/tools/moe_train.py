@@ -40,7 +40,7 @@ import torch
 from paddle_tpu_torch.tools import gpt_1b_hybrid_train as H
 
 __all__ = ["D_MODEL", "HIDDEN", "EXPERTS", "BATCH", "PLACEMENTS",
-           "TIMED_STEPS", "rank_part", "run"]
+           "TIMED_STEPS", "rank_part", "rank_parts", "run"]
 
 D_MODEL, HIDDEN, EXPERTS = 2048, 5632, 8
 BATCH = (4, 2048)           # sequences x tokens, each of D_MODEL features
@@ -192,33 +192,21 @@ def rank_part(dev, rank, shrink: dict = None, placements=PLACEMENTS,
     return res
 
 
-def _rank_main(out_q, shrink):
-    import traceback
+def rank_parts(dev, rank, warm, shrink=None) -> dict:
+    """:func:`rank_part` on a rank of a joined world (a job of
+    ``gpt_1b_hybrid_train.run_jobs``)."""
+    import paddle_tpu_torch.distributed as dist
 
-    rank = None
-    try:
-        import paddle_tpu_torch.distributed as dist
-        from paddle_tpu_torch.distributed.env import current_device
-
-        dist.init_parallel_env()
-        rank = dist.get_rank()
-        dev = current_device()
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        res = {"backend": dist.get_backend(), "device": str(dev),
-               "moe": rank_part(dev, rank, shrink)}
-        out_q.put((rank, None, res))
-        dist.barrier()
-        dist.destroy_process_group()
-    except BaseException:
-        out_q.put((rank, traceback.format_exc(), None))
-        raise
+    return {"backend": dist.get_backend(), "device": str(dev),
+            "moe": rank_part(dev, rank, shrink)}
 
 
 def run(timeout_s: float = 600.0, shrink: dict = None) -> dict:
     """Start a world of 4 ranks on the card, run :func:`rank_part` on
-    each and return their results (``gpt_1b_hybrid_train.run_world``)."""
-    return H.run_world(_rank_main, (shrink,), timeout_s, "moe_train")
+    each and return their results (``gpt_1b_hybrid_train.run_jobs``)."""
+    out = H.run_jobs([("paddle_tpu_torch.tools.moe_train",
+                       {"shrink": shrink})], timeout_s, "moe_train")
+    return {"ranks": out["jobs"][0], "alive_after": out["alive_after"]}
 
 
 if __name__ == "__main__":

@@ -110,7 +110,8 @@ def _optimizer(case, params):
     if case.get("clip") is not None:
         kw["grad_clip"] = nn.ClipGradByGlobalNorm(case["clip"])
     cls = {"adamw": optimizer.AdamW, "adam": optimizer.Adam,
-           "sgd": optimizer.SGD}[case.get("opt", "adamw")]
+           "sgd": optimizer.SGD, "lamb": optimizer.Lamb}[
+        case.get("opt", "adamw")]
     return cls(parameters=params, **kw)
 
 
@@ -142,6 +143,10 @@ def prepare(case):
                        dim_names=dims)
     scaler = paddle.amp.GradScaler(**case["scaler"]) \
         if case.get("scaler") else None
+    if case.get("jax_step") == "train":
+        # the one-rank TrainStep over the whole pipeline (S = 1): the
+        # oracle where the JAX pipeline step differs by design (Lamb)
+        return _train_step_run(case, pipe, opt)
     # the step takes its rng chain from the generator here, right after
     # the build, as the port's ranks do
     step = PipelineTrainStep(
@@ -175,6 +180,22 @@ def prepare(case):
             sh.shard_shape(p._data.shape)
             for sh, p in zip(step._pre_sh, step._pre_params)]
         return out
+
+    return run
+
+
+def _train_step_run(case, pipe, opt):
+    from paddle_tpu.jit import TrainStep
+
+    step = TrainStep(pipe, _loss(case, pipe), opt)
+
+    def run():
+        losses = [float(step(paddle.to_tensor(x),
+                             paddle.to_tensor(y)).item())
+                  for x, y in case.get("batches", [])]
+        return {"losses": losses,
+                "final": {k: np.asarray(v.numpy())
+                          for k, v in pipe.state_dict().items()}}
 
     return run
 

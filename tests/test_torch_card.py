@@ -44,7 +44,10 @@ chunked K2-K4 path holds the plain recurrence (f32) and ``flash_check``
 chunk by chunk (bf16), four context-parallel ranks and an
 expert-parallel pair on the card match one rank. Slice D4: two ranks
 started by the port's launcher on the card hang, restart as a gang and
-resume bit-identically to an unbroken run."""
+resume bit-identically to an unbroken run. The rest of slice D: a pp 2
+pipeline checkpoint round trip is bit-identical, the pp 2 pipeline with
+Lamb matches one rank, and a masked context-parallel call at sp 2
+matches the one-rank dense model."""
 import numpy as np
 import pytest
 import torch
@@ -2002,3 +2005,57 @@ def test_gang_pair_hangs_restarts_and_resumes_bit_identically(card,
                                if int(k) >= 3}
         assert b["sha256"] == a["sha256"]
         assert all(n == 2 * 2 for n in b["kernel_launches"].values())
+
+
+# ---------------------------------------------------------------------------
+# the rest of slice D: a pipeline checkpoint, Lamb in the pipeline, a
+# masked context-parallel call (two ranks sharing the card)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def slice_d(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.testing import gloo_ranks, pipeline_ranks, tp_hooks
+
+    path = str(tmp_path_factory.mktemp("pipe_ckpt") / "ckpt")
+    with tp_hooks.ranks_share_one_device():
+        return gloo_ranks.run(pipeline_ranks.card_slice_d, 2, path,
+                              timeout_s=300)
+
+
+@pytest.mark.gpu
+def test_pipeline_checkpoint_round_trip_on_one_card(slice_d):
+    """pp 2 on the card: a save after step 2, a rebuilt stage and step
+    restore it, and step 3's loss, parameters and slots are bit-identical
+    to the unbroken run's."""
+    for r in slice_d:
+        t = r["round_trip"]
+        assert t["bit_identical"] and t["slots"] > 0, t
+
+
+@pytest.mark.gpu
+def test_pipeline_lamb_on_one_card_matches_one_rank(slice_d):
+    """pp 2 with Lamb (one trust ratio per parameter) against the one-rank
+    TrainStep with Lamb: losses rtol 1e-4, each parameter within phase
+    28's 2.5e-4, moved from its start, and its update within phase 29's
+    Lamb bound of the one-rank update (a trust ratio off by k reads
+    |k - 1|)."""
+    from paddle_tpu_torch.tools.gpt_1b_pipe_train import LAMB_UPDATE_REL
+
+    for r in slice_d:
+        lamb = r["lamb"]
+        np.testing.assert_allclose(lamb["losses"], lamb["ref_losses"],
+                                   rtol=1e-4)
+        assert lamb["max_abs_err"] <= 2.5e-4, lamb
+        assert lamb["update"]["unmoved"] == [], lamb["update"]
+        assert lamb["update"]["max_rel_err"] <= LAMB_UPDATE_REL, \
+            lamb["update"]
+
+
+@pytest.mark.gpu
+def test_masked_context_parallel_call_on_one_card(slice_d):
+    """sp 2 given a padding mask: each rank's logits and the gradients
+    summed over the ranks within 1e-4 of the one-rank dense model's
+    largest values."""
+    for r in slice_d:
+        assert r["masked"]["max_rel_err"] <= 1e-4, r["masked"]

@@ -16,11 +16,29 @@ The tiny Llama of ``tests/_hybrid_jax.py`` (2 layers, hidden 64, 4 heads,
 2 kv heads: GQA chunks travel the ring) at dp 2 x sp 2 (ZeRO 0, 1 and 3
 with recompute), at sp 4 with ``cp_batch_axis=None``, and a cross entropy
 over labels not ignored whose ignored labels fall unevenly over the
-chunks (each rank's loss weighted by its share of the count)."""
+chunks (each rank's loss weighted by its share of the count).
+
+In the same world:
+
+* the context-parallel ``LlamaForCausalLMPipe`` at pp 2 x sp 2
+  (``pipeline_ranks``: each microbatch's sequence cut over sp, rope at
+  the chunk's global positions, the body's attention over the ring)
+  against the JAX Pipe's ``PipelineTrainStep`` at pp 1 x sp 2 (the JAX
+  Pipe fails its step at pp >= 2 on this jax), within the pipeline tests'
+  bounds (``tests/_pipeline_jax.py``);
+* a masked call of the bound model at dp 2 x sp 2 (``cp_ranks.
+  masked_calls``): every rank passes the global mask, takes its query
+  rows and attends densely over the all-gathered K and V, not causal, as
+  the reference does whenever a mask is given; its logits and the
+  gradients summed over the ranks against the JAX model's forward and
+  backward on the global view with the same mask (logits rtol 1e-4 /
+  atol 1e-5; gradients, sums over ranks in another order, rtol 1e-4 /
+  atol 1e-6 of each one's largest entry)."""
 import numpy as np
 import pytest
 
 import _hybrid_jax as hj
+import _pipeline_jax as pj
 
 DPSP = ([2, 2], ["dp", "sp"])
 CP = dict(context_parallel=True)
@@ -41,6 +59,38 @@ def _ignore_batches():
     return out
 
 
+def _pipe_cases():
+    """The context-parallel Pipe at pp 2 x sp 2; the JAX Pipe at pp 1 x
+    sp 2 (``cp_batch_axis=None``: neither mesh has a
+    dp axis)."""
+    base = dict(spec=dict(model="llama", config=dict(
+        pj.LLAMA, context_parallel=True, cp_batch_axis=None)), M=4,
+        opt="adamw", opt_kw=dict(learning_rate=1e-3), seed=42,
+        mesh=[2, 2], dims=["pp", "sp"], jax_mesh=([1, 2], ["pp", "sp"]))
+    ignored = []
+    for x, y in pj.llama_batches():
+        y = y.astype(np.int64)
+        # chunks of 8 keep 8, 5, 7, 2 ... of their labels
+        y[0, 8:11] = -100
+        y[1, 0:1] = -100
+        y[2, 10:16] = -100
+        y[3, 2:4] = -100
+        ignored.append((x.astype(np.int64), y))
+    return [dict(base, name="cp_pp2_sp2", batches=pj.llama_batches()),
+            # one chunk of all four microbatches ("gpipe") on both sides:
+            # a chunk's loss is a mean over its labels not ignored, so the
+            # chunking must match where the counts differ
+            dict(base, name="cp_pp2_sp2_ce_ignore", loss="ce",
+                 schedule="gpipe", batches=ignored)]
+
+
+def _masked_cases():
+    base = dict(spec=dict(hj.LLAMA, **CP), mesh=[2, 2], dims=["dp", "sp"],
+                batch=(4, 32), lens=[32, 27, 20, 13], seed=3)
+    return [dict(base, name="masked_bool"),
+            dict(base, name="masked_float", float_mask=True, seed=4)]
+
+
 def _cases():
     return [
         hj.llama_case("cp_dp2_sp2", *DPSP, spec=CP),
@@ -58,9 +108,57 @@ def _cases():
     ]
 
 
+def _jax_masked(case):
+    """The JAX model's logits and the gradients of ``sum(logits * w)``
+    on the global view, the Linear weights' in the port's [out, in]."""
+    import paddle_tpu as paddle
+    from paddle_tpu.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.convert import _torch_layout
+    from paddle_tpu_torch.testing.cp_ranks import masked_inputs
+
+    paddle.seed(case["seed"])
+    m = LlamaForCausalLM(LlamaConfig(**case["spec"]))
+    case["state"] = {k: np.asarray(v.numpy()).copy()
+                     for k, v in m.state_dict().items()}
+
+    def run():
+        ids, mask, t, u = masked_inputs(case)
+        logits = m(paddle.to_tensor(ids), attn_mask=paddle.to_tensor(mask))
+        w = paddle.to_tensor(t[:, :, None] * u[None, None, :])
+        (logits * w).sum().backward()
+        dense = LlamaForCausalLM(LlamaConfig(**dict(
+            case["spec"], context_parallel=False)))
+        dense.set_state_dict(m.state_dict())
+        causal = dense(paddle.to_tensor(ids))
+        return {"logits": np.asarray(logits.numpy()),
+                "causal_logits": np.asarray(causal.numpy()),
+                "grads": {n: _torch_layout(n, np.asarray(p.grad.numpy()))
+                          for n, p in m.named_parameters()}}
+
+    return run
+
+
 @pytest.fixture(scope="module")
-def runs():
-    return hj.parity_runs(_cases())
+def world_runs():
+    """Every case of this file in one world of 4 gloo ranks."""
+    from paddle_tpu_torch.testing import cp_ranks, gloo_ranks
+
+    train, pipes, masked = _cases(), _pipe_cases(), _masked_cases()
+    finish = [hj.prepare(c) for c in train]
+    pipe_finish = [pj.prepare(c) for c in pipes]
+    masked_finish = [_jax_masked(c) for c in masked]
+    world = gloo_ranks.start(cp_ranks.cp_world, 4, train, pipes, masked,
+                             timeout_s=300)
+    refs = {c["name"]: f() for c, f in
+            zip(train + pipes + masked,
+                finish + pipe_finish + masked_finish)}
+    cases = {c["name"]: c for c in train + pipes + masked}
+    return cases, refs, world.results()
+
+
+@pytest.fixture(scope="module")
+def runs(world_runs):
+    return world_runs
 
 
 @pytest.mark.parametrize("name", [
@@ -134,33 +232,52 @@ def test_unbound_context_parallel_model_raises():
         m(torch.zeros((1, 8), dtype=torch.long))
 
 
-def test_a_masked_call_of_a_bound_model_is_refused():
-    """Bound to its ring, the model takes no ``attn_mask``: the ring
-    attends causally over the whole sequence, so a mask (shaped for the
-    chunk or for the whole sequence) raises instead of dropping keys."""
-    import torch
-
-    from paddle_tpu_torch.distributed import ProcessMesh
-    from paddle_tpu_torch.distributed.engine import shard_model_parameters
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-
-    m = LlamaForCausalLM(LlamaConfig(**hj.LLAMA, **CP, cp_batch_axis=None),
-                         device="cpu")
-    shard_model_parameters(m, ProcessMesh(np.arange(1), ["sp"]))
-    ids = torch.zeros((1, 8), dtype=torch.long)
-    assert m(ids).shape[:2] == (1, 8)
-    mask = torch.ones((8, 8), dtype=torch.bool).tril()
-    with pytest.raises(NotImplementedError, match="attn_mask"):
-        m(ids, mask)
+@pytest.mark.parametrize("name", ["cp_pp2_sp2", "cp_pp2_sp2_ce_ignore"])
+def test_the_context_parallel_pipe_matches_the_jax_pipe(runs, name):
+    cases, refs, results = runs
+    pj.check_case(results, cases[name], refs[name])
 
 
-def test_the_pipeline_llama_refuses_context_parallel():
-    """``LlamaForCausalLMPipe`` with ``context_parallel`` is not ported
-    (its step does not cut the sequence over the ring's axis): it raises
-    at construction, before a pp x sp mesh could bind its attention to
-    the ring."""
-    from paddle_tpu_torch.models.llama import (LlamaConfig,
-                                               LlamaForCausalLMPipe)
+def test_the_pipe_ranks_hold_their_stage_on_both_sp_ranks(runs):
+    """pp 2 x sp 2: ranks 0 and 1 (sp 0 and 1) hold stage 0's two
+    layers, ranks 2 and 3 stage 1's; the sp ranks of a stage hold the
+    same layers whole."""
+    cases, refs, results = runs
+    for r in range(4):
+        res = results[r]["cp_pp2_sp2"]
+        assert res["stage"] == r // 2
+        assert res["owned"] == [2 * (r // 2), 2 * (r // 2) + 1]
 
-    with pytest.raises(NotImplementedError, match="LlamaForCausalLMPipe"):
-        LlamaForCausalLMPipe(LlamaConfig(**hj.LLAMA, **CP), 2, device="cpu")
+
+@pytest.mark.parametrize("name", ["masked_bool", "masked_float"])
+def test_a_masked_call_of_a_bound_model_matches_the_jax_model(runs, name):
+    """The reference's masked branch on the ranks: dense over the whole
+    sequence with the mask, not causal; the chunks and the gradients
+    summed over the ranks give the JAX model's global forward and
+    backward."""
+    cases, refs, results = runs
+    ref = refs[name]
+    b, s = cases[name]["batch"]
+    for r in range(4):
+        got = results[r][name]
+        rows = slice(got["dp"] * b // 2, (got["dp"] + 1) * b // 2)
+        cols = slice(got["cp"] * s // 2, (got["cp"] + 1) * s // 2)
+        np.testing.assert_allclose(got["logits"], ref["logits"][rows, cols],
+                                   rtol=1e-4, atol=1e-5, err_msg=str(r))
+    grads = results[0][name]["grads"]
+    assert set(grads) == set(ref["grads"])
+    for n, want in ref["grads"].items():
+        np.testing.assert_allclose(grads[n], want, rtol=1e-4,
+                                   atol=1e-6 * float(np.abs(want).max()),
+                                   err_msg=n)
+
+
+def test_the_mask_changes_the_answer(runs):
+    """The mask is not causal and cuts a different number of keys in each
+    row, so the masked logits are far from the causal ones on the same
+    ids: a mask dropped on the way to the ring would fail the parity
+    above."""
+    cases, refs, results = runs
+    ref = refs["masked_bool"]
+    assert len(set(cases["masked_bool"]["lens"])) == 4
+    assert float(np.abs(ref["logits"] - ref["causal_logits"]).max()) > 1e-2

@@ -8,11 +8,14 @@ to an ``.npz`` and each worker loads it through
 ``paddle_tpu_torch.testing.fleet_models:npz_llama``
 (``llama_state_from_jax``).
 
-In tier-1 (three worker starts): a prefill and a decode worker serve
-sampled requests with the KV shipped worker to worker over the peer data
-plane, token-identical to the JAX package's single engine; the decode
+In tier-1 (five worker starts, one of them the reference's): a prefill
+and a decode worker serve sampled requests with the KV shipped worker to
+worker over the peer data plane, token-identical to the JAX package's single engine; the decode
 worker is SIGKILLed mid-run, the prefill worker finishes its requests by
 recompute with the same tokens, and the supervisor restarts the slot.
+Then a worker whose spec sets ``tp_degree=2`` serves the tokens of the
+reference's worker with the same spec, and no rank of it is left 10 s
+after its SIGKILL.
 
 ``tests/test_fleet_subprocess.py``'s four scenarios (supervised restart
 after SIGKILL, SIGTERM drain, a SIGSTOPped worker found by its heartbeat
@@ -23,6 +26,7 @@ package: they start 2-5 workers each.
 import os
 import signal
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -39,6 +43,7 @@ from paddle_tpu_torch.serving.fleet import (
     WorkerSpec,
 )
 from paddle_tpu_torch.testing import fleet_models
+from paddle_tpu_torch.tools.llama3_8b_fleet import _running
 from test_torch_fleet import (  # noqa: F401
     PortTinyLlama, _jax_tiny_state, _one_torch_thread, ported,
 )
@@ -194,3 +199,89 @@ def test_worker_pair_peer_ship_sigkill_and_restart(weights, tmp_path):
         assert boot_s < 60.0, boot_s
     finally:
         sup.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# tier-1: a tensor-parallel worker (tp_degree=2) against the reference's
+# ---------------------------------------------------------------------------
+def _serve_all(handle, registry, prompts, ids, sampling):
+    from paddle_tpu.serving.fleet import FleetConfig as JFleetConfig
+    from paddle_tpu.serving.fleet import FleetRouter as JFleetRouter
+
+    port = type(handle).__module__.startswith("paddle_tpu_torch")
+    router = (FleetRouter if port else JFleetRouter)(
+        [handle], (FleetConfig if port else JFleetConfig)(),
+        registry=registry)
+    for rid, p, sp in zip(ids, prompts, sampling):
+        router.add_request(rid, p, sampling=sp)
+    outs = _drain(router, [])
+    return {o.request_id: list(o.generated) for o in outs if o.finished}
+
+
+def test_tp2_worker_serves_the_reference_workers_tokens(weights, tmp_path):
+    """A worker whose spec sets ``tp_degree=2`` serves through its two
+    ranks (gloo processes on the CPU) the tokens of the reference's
+    worker with the same spec (two host devices through its env), on
+    greedy and sampled requests; after a SIGKILL of the worker no rank is
+    alive 10 s later (each rank watches its parent; the group's own
+    timeout is 120 s)."""
+    from paddle_tpu.serving.fleet import ReplicaSupervisor as JSupervisor
+    from paddle_tpu.serving.fleet import SupervisorConfig as JSupConfig
+    from paddle_tpu.serving.fleet import WorkerSpec as JWorkerSpec
+    from paddle_tpu.serving import SamplingParams as JSP
+
+    engine = dict(_ENGINE, tp_degree=2)
+    rng = np.random.default_rng(41)
+    prompts = [[int(t) for t in rng.integers(0, 256, size=4 + 5 * i)]
+               for i in range(4)]
+    ids = [f"t{i}" for i in range(4)]
+    kw = [dict(max_new_tokens=8, temperature=0.0),
+          dict(max_new_tokens=8, temperature=0.8, top_p=0.9)] * 2
+    jsup = JSupervisor(
+        JWorkerSpec(model="tiny_llama", seed=0, engine=engine, peer=False),
+        JSupConfig(store_dir=str(tmp_path / "jstore"), env={
+            # two host devices, one thread each (the suite's other
+            # workers share the cores)
+            "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1",
+            "XLA_FLAGS": "--xla_force_host_platform_device_count=2 "
+                         "--xla_cpu_multi_thread_eigen=false"}))
+    sup = ReplicaSupervisor(
+        _spec(engine=engine, peer=False),
+        _sup_config(weights)(store_dir=str(tmp_path / "store")))
+    try:
+        # both workers boot at once (the reference's spends most of its
+        # start in jax's imports)
+        booted = []
+        th = threading.Thread(target=lambda: booted.append(jsup.spawn()))
+        th.start()
+        t0 = time.monotonic()
+        h = sup.spawn()
+        boot_s = time.monotonic() - t0
+        th.join(300.0)
+        jh, = booted
+        rep = h.tp_report()
+        assert rep is not None and len(rep["pids"]) == 1, rep
+        assert all(_running(p) for p in rep["pids"])
+        got = _serve_all(h, sup.registry, prompts, ids,
+                         [SamplingParams(**k) for k in kw])
+        want = _serve_all(jh, jsup.registry, prompts, ids,
+                          [JSP(**k) for k in kw])
+        assert got == want
+        assert all(len(v) == 8 for v in got.values())
+        # both ranks report (K1 counts only its launches on the card)
+        rep = h.tp_report()
+        assert [r["rank"] for r in rep["ranks"]] == [0, 1]
+        assert rep["ranks"][0]["k1_launches"] == \
+            rep["ranks"][1]["k1_launches"]
+        os.kill(h.proc.pid, signal.SIGKILL)
+        t_kill = time.monotonic()
+        deadline = t_kill + 10.0
+        while any(_running(p) for p in rep["pids"]) and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+        gone_s = time.monotonic() - t_kill
+        assert not any(_running(p) for p in rep["pids"]), gone_s
+        assert boot_s < 120.0, boot_s
+    finally:
+        sup.shutdown()
+        jsup.shutdown()
