@@ -538,13 +538,42 @@ non-zero (nothing is caught and passed over):
                launches and peaks per rank. The checkpoint directory goes
                at the end.
 
+33. bert      — slice E2a and the high-level API: BERT-base (the
+               published uncased_L-12_H-768_A-12 config; random weights
+               from the seed, synthetic token ids;
+               ``tools/bert_base_train.py``), run after phase 24. (a) f32,
+               TF32 off, full widths at 2 of 12 layers: three
+               ``Model.fit`` batches of 8 x 128 (dropout on) on the card
+               and on the CPU from one set of weights and generator
+               state, losses within rtol 1e-4, ``evaluate``'s accuracy
+               equal, ``predict``'s logits within 1e-4 of their largest.
+               (b) fine-tuning, bf16 autocast ("O1"), 12 layers:
+               ``Model.fit`` over 12 batches of 32 x 128 with
+               ModelCheckpoint (flat) and EarlyStopping, each batch after
+               the first a replay of the captured step; ``evaluate``,
+               ``predict``; a Model loaded from the epoch's checkpoint
+               predicts the same logits bit for bit. Step p50 over the
+               replayed batches, tokens/s, MFU (6 * N_gemm + 12 * L * S *
+               h a token, N_gemm 84,934,656 at S 128, over
+               ``profiler.device_peak_flops``), peak memory, finite
+               losses. (c) masked-LM pre-training, bf16 autocast, 12
+               layers, 16 x 512, 15% labelled, through ``jit.TrainStep``:
+               the warm-up, the capture and 4 replays, losses and every
+               parameter bit-identical to 5 ``__call__`` steps of a twin;
+               step p50 over the replays, tokens/s, MFU (N_gemm with the
+               tied decoder's 23,440,896), the dropout masks' share of
+               the step (the step's 37 masks drawn alone, CUDA events),
+               peak memory. (d) K1-K4 launched 0 times over (a)-(c), and
+               no plain version of theirs called.
+
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
 (both modes), drain, the watched run and cached generate for the ragged
 kernel, train, spec and naive generate for the flash forward, and
 eager_train and trainstep_scaler (phase 15), fed_train (phase 18),
 tensor_api (phase 20), layer_api (phase 21), layer_trainstep (phase
-22) and long_tail (phase 24's packed flash wrapper) for K2-K4, and tiers (phase 23's tiered engines), tp (phase 25's
+22), long_tail (phase 24's packed flash wrapper) and bert (phase 33, 0
+by design) for K2-K4, bert also for K1, and tiers (phase 23's tiered engines), tp (phase 25's
 two ranks, summed), fleet (phase 26 (b)'s two replicas), tp_worker
 (phase 26 (d)'s two ranks, summed) and tp_disagg,
 tp_tiers, tp_spec (phase 27 (b)'s paths, every rank) for K1, tp_spec
@@ -3019,6 +3048,101 @@ def phase_long_tail(dev):
 
 
 # ---------------------------------------------------------------------------
+# slice E2a and the high-level API: BERT-base through hapi.Model
+# ---------------------------------------------------------------------------
+BERT_CPU_RTOL = 1e-4   # phase 33 (a): the card against the CPU, f32
+
+
+def phase_bert(dev):
+    """Phase 33: BERT-base through ``Model.fit`` / ``evaluate`` /
+    ``predict`` and ``jit.TrainStep``; no K1-K4 launch on its path."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.profiler import device_peak_flops
+    from paddle_tpu_torch.tools import bert_base_train as B
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync = torch.cuda.synchronize
+    peak = device_peak_flops()
+    res = {"phase": "bert", "peak_flops": peak}
+    before = ops.kernel_launches()
+    with _PlainCalls() as plain:
+        t0 = time.perf_counter()
+        cc = B.card_against_cpu(paddle)
+        res["a_card_against_cpu"] = {**cc, "seconds": time.perf_counter()
+                                     - t0}
+        paddle.set_device("gpu")
+        # (b) fine-tuning through Model.fit, bf16 autocast, full depth
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory(prefix="bert_ft_") as d:
+            ft = B.finetune(paddle, save_dir=d, sync=sync)
+        ft["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        ft.pop("logits")
+        ft_stats = ft.pop("model")._train_step.graph_stats()
+        p50 = float(np.percentile(ft["step_ms"][1:], 50))
+        tps = B.BATCH * B.SEQ / (p50 / 1e3)
+        res["b_finetune"] = {
+            **ft, "graph_stats": ft_stats, "step_ms_p50": p50,
+            "tokens_per_s": tps, "n_gemm": B.N_GEMM,
+            "flops_per_token_formula": "6 * N_gemm + 12 * L * S * h",
+            "mfu": ft["flops_per_token"] * tps / peak,
+            "seconds": time.perf_counter() - t0}
+        # (c) masked-LM pre-training through jit.TrainStep, 16 x 512
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mlm = B.mlm_replay(paddle, sync=sync)
+        mlm["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        del mlm["model"], mlm["step"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        mp50 = float(np.percentile(mlm["replay_step_ms"], 50))
+        mtps = B.MLM_BATCH * B.MLM_SEQ / (mp50 / 1e3)
+        masks = B.mask_ms()
+        res["c_mlm"] = {
+            **mlm, "step_ms_p50": mp50, "tokens_per_s": mtps,
+            "n_gemm": B.N_GEMM + B.N_DECODER,
+            "mfu": mlm["flops_per_token"] * mtps / peak,
+            "dropout_masks": {**masks, "share_of_step": masks["ms"] / mp50},
+            "seconds": time.perf_counter() - t0}
+    after = ops.kernel_launches()
+    launches = {k: after.get(k, 0) - before.get(k, 0)
+                for k in ("ragged_paged_attention", "flash_attention_fwd",
+                          "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv")}
+    res["kernel_launches"] = launches
+    res["plain_calls"] = plain.calls
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    cc, ft, mlm = res["a_card_against_cpu"], res["b_finetune"], res["c_mlm"]
+    assert cc["loss_rel_err_max"] <= BERT_CPU_RTOL, cc
+    assert cc["acc_card"] == cc["acc_cpu"], cc
+    assert cc["logits_rel_err_max"] <= BERT_CPU_RTOL, cc
+    assert all(np.isfinite(ft["losses"])) and \
+        np.isfinite(ft["evaluate"]["loss"]), ft
+    assert ft["reload_bit_identical"], ft
+    assert ft["files"] == ["0.pdopt", "0.pdparams", "final.pdopt",
+                           "final.pdparams"], ft["files"]
+    assert ft["graph_stats"]["captures"] == 1 and \
+        sum(ft["graph_stats"]["replays"].values()) == \
+        B.FINETUNE_BATCHES - 1, ft["graph_stats"]
+    assert all(np.isfinite(mlm["call_losses"])), mlm
+    assert mlm["losses_bit_identical"] and mlm["params_bit_identical"], mlm
+    assert mlm["graph_stats"]["captures"] == 1, mlm["graph_stats"]
+    assert not any(launches.values()), launches
+    assert not any(plain.calls.values()), plain.calls
+    return res
+
+
+# ---------------------------------------------------------------------------
 # tensor-parallel serving, both ranks on this card
 # ---------------------------------------------------------------------------
 def phase_tp(dev, serve, serve_rows):
@@ -4336,6 +4460,7 @@ def main():
     lt = phase_layer_trainstep(dev, fe)
     ti = phase_tiers(dev)
     lg = phase_long_tail(dev)
+    bt = phase_bert(dev)
     tpr = phase_tp(dev, s, serve_rows)
     # phase 32's launches (subprocesses only) run beside phases 26 (c)-(d)
     # and 27 (a), which time no kernel; its line comes at its turn
@@ -4372,6 +4497,7 @@ def main():
                 "ragged_paged_attention"],
             "tiers": ti["kernel_launches"],
             "tp": sum(tpr["kernel_launches"].values()),
+            "bert": bt["kernel_launches"]["ragged_paged_attention"],
             "fleet": flt["kernel_launches"],
             "tp_worker": sum(flt["tp_worker"]["k1_launches_per_rank"]),
             **{f"tp_{name}": _launch_sum(counts, "k1")
@@ -4398,6 +4524,7 @@ def main():
             la["bf16_full_depth"]["kernel_launches"][name]
         by_path[name]["layer_trainstep"] = lt["kernel_launches"][name]
         by_path[name]["long_tail"] = lg["kernel_launches"][name]
+        by_path[name]["bert"] = bt["kernel_launches"][name]
         by_path[name]["hybrid_train"] = sum(
             n[name] for n in hyb["bf16_full"]["kernel_launches_per_rank"])
         by_path[name]["pipeline_train"] = sum(

@@ -17,7 +17,9 @@ attention kernel written by hand in CUDA for Hopper,
 ``jit.TrainStep`` or an eager loop with the optimizers, LR schedulers,
 AMP and checkpoints (the flash attention kernels,
 ``csrc/flash_attention.cu``, which the Tensor API's ``flash_attention``
-runs too).
+runs too); the high-level API (``Model``, ``metric``, ``summary``,
+``flops``), the fused ops and layers of ``incubate`` and the BERT family
+(``models.bert``).
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``, ``set_device("cpu")``, ``place=CPUPlace()``); with no
@@ -61,6 +63,10 @@ from paddle_tpu_torch import jit  # noqa: F401,E402
 from paddle_tpu_torch import framework  # noqa: F401,E402
 from paddle_tpu_torch.framework.io_utils import load, save  # noqa: F401,E402
 from paddle_tpu_torch.framework.param_attr import ParamAttr  # noqa: F401,E402
+from paddle_tpu_torch import metric  # noqa: F401,E402
+from paddle_tpu_torch import hapi  # noqa: F401,E402
+from paddle_tpu_torch.hapi import Model, flops, summary  # noqa: F401,E402
+from paddle_tpu_torch import incubate  # noqa: F401,E402
 
 # the fft MODULE shadows the registry's 1-D fft op at the top level
 # (paddle.fft is a namespace; paddle.fft.fft the op), as in the JAX package

@@ -70,15 +70,17 @@ from paddle_tpu_torch.distributed.api import (  # noqa: F401
 def _waits(name: str, part: str):
     def refused(*args, **kwargs):
         raise NotImplementedError(
-            f"paddle_tpu_torch.distributed.{name} is not ported yet; it "
-            f"comes with slice {part}")
+            f"paddle_tpu_torch.{name} is not ported yet; it comes with "
+            f"slice {part}")
 
-    refused.__name__ = name
+    refused.__name__ = name.rsplit(".", 1)[-1]
     return refused
 
 
 class _Waiting:
-    """A name whose class waits for a later part of the port."""
+    """A name (``<namespace>.<name>`` under the package) whose class or
+    module waits for a later part of the port: any use of it raises
+    ``NotImplementedError`` naming the part."""
 
     def __init__(self, name: str, part: str):
         self._name, self._part = name, part
@@ -96,4 +98,4 @@ from paddle_tpu_torch.distributed import launch  # noqa: F401,E402
 
 # distributed io saves a static Program's persistables: it comes with
 # static/ (slice E3)
-io = _Waiting("io", "E3 (static/, then distributed/io.py)")
+io = _Waiting("distributed.io", "E3 (static/, then distributed/io.py)")

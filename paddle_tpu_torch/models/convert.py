@@ -1,6 +1,6 @@
 """Weights and state across frameworks: the JAX Llama's state dict,
-AdamW slots and optimizer ``state_dict``, and a JAX ``nn.Layer``'s
-state dict with the generator's state -> the port's."""
+AdamW slots and optimizer ``state_dict``, a JAX ``nn.Layer``'s state
+dict with the generator's state, and the JAX BERT's -> the port's."""
 from __future__ import annotations
 
 from typing import Dict, Mapping, Tuple
@@ -12,7 +12,7 @@ __all__ = ["llama_state_from_jax", "llama_pipe_state_from_jax",
            "llama_pipe_state_from_causal_lm", "llama_pipe_state_to_jax",
            "optimizer_slots_from_jax",
            "optimizer_state_from_jax", "layer_state_from_jax",
-           "moe_state_from_jax"]
+           "bert_state_from_jax", "moe_state_from_jax"]
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -126,6 +126,34 @@ def layer_state_from_jax(np_state: Mapping[str, np.ndarray], rng_state
     weights and draw the same next keys."""
     state = {name: _to_tensor(value) for name, value in np_state.items()}
     return state, (int(rng_state[0]), int(rng_state[1]))
+
+
+def bert_state_from_jax(np_state: Mapping[str, np.ndarray], rng_state,
+                        model=None
+                        ) -> Tuple[Dict[str, torch.Tensor], Tuple[int, int]]:
+    """The JAX BERT's ``state_dict()`` (numpy) and generator ``(seed,
+    counter)`` -> the port's, as :func:`layer_state_from_jax` gives them
+    (the layouts agree). With ``model`` (a port BERT of the same config)
+    the state must name exactly the model's keys (a key left over or
+    missing raises ``KeyError``) and is loaded into it; for a
+    ``BertForMaskedLM`` the decoder must then still be the word
+    embedding, one tensor (``ValueError`` otherwise)."""
+    state, rng = layer_state_from_jax(np_state, rng_state)
+    if model is None:
+        return state, rng
+    own = model.state_dict()
+    extra = sorted(set(state) - set(own))
+    missing = sorted(set(own) - set(state))
+    if extra or missing:
+        raise KeyError(f"bert_state_from_jax: keys left over {extra[:8]}, "
+                       f"missing {missing[:8]}")
+    model.set_state_dict(state)
+    if hasattr(model, "decoder_weight"):
+        emb = model.bert.embeddings.word_embeddings.weight
+        if model.decoder_weight._data is not emb._data:
+            raise ValueError("bert_state_from_jax: the masked-LM decoder "
+                             "is no longer the word embedding")
+    return state, rng
 
 
 def llama_pipe_state_from_jax(np_state: Mapping[str, np.ndarray],

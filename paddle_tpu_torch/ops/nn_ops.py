@@ -840,7 +840,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     k = key.transpose(1, 2)
     v = value.transpose(1, 2)
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    neg = torch.tensor(-1e9, dtype=scores.dtype, device=scores.device)
+    neg = _scalar(-1e9, scores)    # a fill: capture-safe
     if is_causal:
         sq, sk = scores.shape[-2:]
         causal = torch.ones((sq, sk), dtype=torch.bool,

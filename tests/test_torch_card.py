@@ -47,7 +47,11 @@ started by the port's launcher on the card hang, restart as a gang and
 resume bit-identically to an unbroken run. The rest of slice D: a pp 2
 pipeline checkpoint round trip is bit-identical, the pp 2 pipeline with
 Lamb matches one rank, and a masked context-parallel call at sp 2
-matches the one-rank dense model."""
+matches the one-rank dense model. Slice E2a and the high-level API: the
+small BERT's forward and one ``Model.fit`` batch, and
+``masked_multihead_attention`` / ``fused_multi_head_attention``, give
+the CPU's numbers on the card, and the masked-LM decoder stays the word
+embedding across ``Model.save`` / ``Model.load``."""
 import numpy as np
 import pytest
 import torch
@@ -2059,3 +2063,128 @@ def test_masked_context_parallel_call_on_one_card(slice_d):
     largest values."""
     for r in slice_d:
         assert r["masked"]["max_rel_err"] <= 1e-4, r["masked"]
+
+
+# -- slice E2a and the high-level API ----------------------------------------
+def _small_bert(paddle, cls, seed=0):
+    from paddle_tpu_torch.models import bert
+
+    paddle.seed(seed)
+    cfg = bert.BertConfig(vocab_size=128, hidden_size=32,
+                          num_hidden_layers=2, num_attention_heads=4,
+                          intermediate_size=64, max_position_embeddings=64)
+    return cfg, getattr(bert, cls)(cfg)
+
+
+def _bert_fit_once(paddle, device, state, rng, ids, types, y):
+    """One ``Model.fit`` batch of the small BERT classifier on
+    ``device`` (dropout on), then an eval forward: (loss, logits)."""
+    paddle.set_device(device)
+    _, net = _small_bert(paddle, "BertForSequenceClassification")
+    if state is not None:
+        net.set_state_dict(state)
+    paddle.set_rng_state(rng)
+    m = paddle.Model(net, inputs=[None, None])
+    m.prepare(paddle.optimizer.AdamW(1e-3, parameters=net.parameters()),
+              paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    n = len(y)
+    hist = m.fit([(ids[i], types[i], y[i]) for i in range(n)], batch_size=n,
+                 epochs=1, verbose=0, shuffle=False)
+    logits = m.predict([(ids[i], types[i]) for i in range(n)],
+                       batch_size=n)[0][0]
+    return hist[0]["loss"], logits, net
+
+
+@pytest.mark.gpu
+def test_small_bert_forward_and_fit_batch_card_against_cpu(card_place):
+    """The small BERT classifier (2 layers, hidden 32), f32, TF32 off:
+    its forward, and one ``Model.fit`` batch with dropout on (the same
+    masks on both devices), then ``predict``, within rtol 1e-4 of the
+    CPU's."""
+    import paddle_tpu_torch as paddle
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, 128, (4, 16)).astype("int64")
+    ids[0, 12:] = 0
+    types = (np.arange(16)[None] >= 8).astype("int64").repeat(4, 0)
+    y = np.asarray([0, 1, 1, 0], "int64")
+    paddle.set_device("cpu")
+    _, net = _small_bert(paddle, "BertForSequenceClassification")
+    state = {k: v.numpy() for k, v in net.state_dict().items()}
+    net.eval()
+    fwd_cpu = net(paddle.to_tensor(ids), paddle.to_tensor(types)).numpy()
+    gen = paddle.get_rng_state()
+    loss_cpu, logits_cpu, _ = _bert_fit_once(paddle, "cpu", state, gen,
+                                             ids, types, y)
+    paddle.set_device("gpu")
+    _, card_net = _small_bert(paddle, "BertForSequenceClassification")
+    card_net.set_state_dict(state)
+    card_net.eval()
+    fwd = card_net(paddle.to_tensor(ids), paddle.to_tensor(types))
+    assert fwd._data.is_cuda
+    np.testing.assert_allclose(fwd.numpy(), fwd_cpu, rtol=1e-4, atol=1e-5)
+    loss, logits, _ = _bert_fit_once(paddle, "gpu", state, gen, ids, types,
+                                     y)
+    np.testing.assert_allclose(loss, loss_cpu, rtol=1e-4)
+    np.testing.assert_allclose(logits, logits_cpu, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_fused_attention_functions_card_against_cpu(card_place):
+    """``masked_multihead_attention`` (with its returned cache) and
+    ``fused_multi_head_attention`` (pre- and post-norm) on the card
+    against the CPU, f32."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    b, h, d, smax, e = 2, 2, 4, 6, 8
+    cache = np.zeros((2, b, h, smax, d), "float32")
+    cache[:, :, :, :3] = rng.standard_normal((2, b, h, 3, d))
+    x = rng.standard_normal((b, 3 * h * d)).astype("float32")
+    lens = np.array([3, 2], "int32")
+    xe = rng.standard_normal((2, 3, e)).astype("float32")
+    qkvw = rng.standard_normal((3, h, e // h, e)).astype("float32")
+    lw = rng.standard_normal((e, e)).astype("float32")
+    out = {}
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        t = paddle.to_tensor
+        o, c = IF.masked_multihead_attention(t(x), t(cache),
+                                             sequence_lengths=t(lens))
+        mha = [IF.fused_multi_head_attention(
+            t(xe), t(qkvw), t(lw), pre_layer_norm=pre, dropout_rate=0.0,
+            attn_dropout_rate=0.0, training=False).numpy()
+            for pre in (True, False)]
+        out[dev] = [o.numpy(), c.numpy()] + mha
+    for a, g in zip(out["cpu"], out["gpu"]):
+        np.testing.assert_allclose(g, a, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_tied_decoder_after_model_load_on_the_card(card_place, tmp_path):
+    """The masked-LM decoder is the word embedding after a
+    ``Model.save`` / ``Model.load`` round trip on the card, and the
+    loaded model predicts the saved one's logits bit for bit."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import bert
+
+    cfg, net = _small_bert(paddle, "BertForMaskedLM")
+    ids = np.random.default_rng(2).integers(1, 128, (2, 8)).astype("int64")
+    labels = np.where(ids % 3 == 0, ids, -100).astype("int64")
+    m = paddle.Model(net)
+    m.prepare(paddle.optimizer.AdamW(1e-3, parameters=net.parameters()),
+              bert.BertPretrainingCriterion(cfg))
+    m.train_batch([ids], [labels])
+    m.save(str(tmp_path / "ck"))
+    _, net2 = _small_bert(paddle, "BertForMaskedLM", seed=1)
+    m2 = paddle.Model(net2)
+    m2.prepare(paddle.optimizer.AdamW(1e-3, parameters=net2.parameters()),
+               bert.BertPretrainingCriterion(cfg))
+    m2.load(str(tmp_path / "ck"))
+    emb = net2.bert.embeddings.word_embeddings.weight
+    assert net2.decoder_weight is emb and emb._data.is_cuda
+    np.testing.assert_array_equal(m2.predict_batch([ids])[0],
+                                  m.predict_batch([ids])[0])

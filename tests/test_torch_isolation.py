@@ -133,6 +133,16 @@ _MODULES = [
     "paddle_tpu_torch.testing.gang_ranks",
     "paddle_tpu_torch.testing.launch_workers",
     "paddle_tpu_torch.tools.gpt_1b_gang_train",
+    # slice E2a and the high-level API
+    "paddle_tpu_torch.incubate.nn",
+    "paddle_tpu_torch.incubate.nn.functional.fused_ops",
+    "paddle_tpu_torch.incubate.nn.layer",
+    "paddle_tpu_torch.incubate.compat",
+    "paddle_tpu_torch.models", "paddle_tpu_torch.models.bert",
+    "paddle_tpu_torch.metric", "paddle_tpu_torch.hapi",
+    "paddle_tpu_torch.hapi.callbacks", "paddle_tpu_torch.hapi.model",
+    "paddle_tpu_torch.hapi.model_summary",
+    "paddle_tpu_torch.tools.bert_base_train",
 ]
 
 
