@@ -565,6 +565,44 @@ non-zero (nothing is caught and passed over):
                the step (the step's 37 masks drawn alone, CUDA events),
                peak memory. (d) K1-K4 launched 0 times over (a)-(c), and
                no plain version of theirs called.
+34. vision    — slice E2b: ResNet-50 (v1.5, 1000 classes, random weights
+               from the seed; ``tools/resnet50_train.py``) trained from an
+               ``ImageFolder`` of synthetic HWC uint8 ``.npy`` images
+               (sides 256-500, 1000 class folders, written once), the
+               ResNet paper's recipe (Momentum 0.9, lr 0.1 piecewise,
+               weight decay 1e-4), run after phase 33. (a) float64 (f32
+               gradients of this network at batch 4 lie about 2% from
+               the exact ones on either device), TF32 off: three
+               ``Model.fit`` batches of 4 x 3 x 224 x 224 (lr scaled to
+               the batch) on the card and on the CPU from the same
+               weights, folder and numpy seed, losses within rtol 1e-9,
+               ``evaluate``'s accuracies equal, ``predict``'s logits
+               within 1e-9 of their largest.
+               (b) bf16 autocast ("O1"), batch 256: ``Model.fit`` over
+               1,024 images, two epochs (one capture, seven replays), 8
+               seeded loader workers, ModelCheckpoint (epoch 2 and final),
+               EarlyStopping, the LRScheduler callback; ``evaluate`` and
+               ``predict`` on 256 held-out images; a Model loaded from the
+               final checkpoint predicts the same logits bit for bit and
+               holds the same running statistics. Step p50 over the
+               replays, images/s, MFU (3 x 2 x the multiply-adds of the
+               convolutions and the linear layer a 224 x 224 image, over
+               ``profiler.device_peak_flops``; beside it the port's
+               ``flops()``), the loader's host wait a batch, peak memory,
+               finite losses. (c) bf16 at batch 64 under deterministic
+               kernels: the warm-up, the capture and 3 replays, losses,
+               every parameter and every running statistic bit-identical
+               to 4 ``__call__`` steps of a twin. (d) the detection ops on
+               the card against the CPU: ``generate_proposals`` at
+               py-faster-rcnn's test setting (600 x 1000, 21,546 anchors,
+               6000 / 300, NMS 0.7, min size 16), ``yolo_box`` on YOLOv3's
+               three heads at 608 x 608 (batch 8, 80 classes),
+               ``matrix_nms`` over those 22,743 boxes an image (keep 100,
+               no background class), ``roi_align`` of the 300 proposals
+               (1024 channels, 14 x 14): counts and kept indices
+               identical, values within 1e-5 of their largest; the card's
+               ms of each. (e) K1-K4 launched 0 times over (a)-(d), and no
+               plain version of theirs called.
 
 Then one line with the kernel table (name, route, source, launches on
 the main paths — ``launches_by_path`` splits them: serve, spec, swap
@@ -572,8 +610,9 @@ the main paths — ``launches_by_path`` splits them: serve, spec, swap
 kernel, train, spec and naive generate for the flash forward, and
 eager_train and trainstep_scaler (phase 15), fed_train (phase 18),
 tensor_api (phase 20), layer_api (phase 21), layer_trainstep (phase
-22), long_tail (phase 24's packed flash wrapper) and bert (phase 33, 0
-by design) for K2-K4, bert also for K1, and tiers (phase 23's tiered engines), tp (phase 25's
+22), long_tail (phase 24's packed flash wrapper), bert (phase 33) and
+vision (phase 34; both 0 by design) for K2-K4, bert and vision also for
+K1, and tiers (phase 23's tiered engines), tp (phase 25's
 two ranks, summed), fleet (phase 26 (b)'s two replicas), tp_worker
 (phase 26 (d)'s two ranks, summed) and tp_disagg,
 tp_tiers, tp_spec (phase 27 (b)'s paths, every rank) for K1, tp_spec
@@ -3142,6 +3181,138 @@ def phase_bert(dev):
     return res
 
 
+VISION_CPU_RTOL = 1e-9    # phase 34 (a): the card against the CPU, f64
+VISION_DET_RTOL = 1e-5    # phase 34 (d): over each output's largest value
+
+
+def phase_vision(dev):
+    """Phase 34: ResNet-50 through ``Model.fit`` / ``evaluate`` /
+    ``predict`` from an image folder, ``jit.TrainStep`` replays, and the
+    detection ops at published sizes; no K1-K4 launch on its path."""
+    import contextlib
+    import io
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.profiler import device_peak_flops
+    from paddle_tpu_torch.tools import resnet50_train as R
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync = torch.cuda.synchronize
+    peak = device_peak_flops()
+    paddle.set_device("gpu")
+    res = {"phase": "vision", "model": "resnet50 (v1.5, 1000 classes)",
+           "peak_flops": peak}
+    before = ops.kernel_launches()
+    with _PlainCalls() as plain, \
+            tempfile.TemporaryDirectory(prefix="vision_") as d:
+        # the image folders are written on a thread beside (c), which
+        # needs none of them
+        def write():
+            t0 = time.perf_counter()
+            folders = (R.write_image_folder(os.path.join(d, "train"),
+                                            R.N_TRAIN, 0),
+                       R.write_image_folder(os.path.join(d, "val"),
+                                            R.N_EVAL, 1))
+            return folders, time.perf_counter() - t0
+
+        writer = _Beside(write)
+        writer.start()
+        try:
+            # (c) replays against __call__, bf16, deterministic kernels
+            t0 = time.perf_counter()
+            rp = R.replay_check(paddle, sync=sync)
+            res["c_replay"] = {**rp, "beside_image_writing": True,
+                               "seconds": time.perf_counter() - t0}
+        finally:
+            (tr, ev), res["write_images_s"] = writer.result()
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (a) the card against the CPU, float64, TF32 off
+        t0 = time.perf_counter()
+        cc = R.card_against_cpu(paddle, tr, ev)
+        res["a_card_against_cpu"] = {**cc, "seconds": time.perf_counter()
+                                     - t0}
+        # (b) training through Model.fit, bf16 autocast, batch 256
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ft = R.train(paddle, tr, ev, os.path.join(d, "ckpt"), sync=sync)
+        ft["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        del ft["model"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        paddle.seed(0)
+        net = paddle.vision.models.resnet50(num_classes=R.CLASSES)
+        net.eval()
+        n_macs = R.macs(paddle, net)
+        with contextlib.redirect_stdout(io.StringIO()):   # its table
+            fwd_flops = paddle.flops(net, input_size=(1, 3, 224, 224))
+        del net
+        p50 = float(np.percentile(ft["step_ms"][1:], 50))
+        ips = R.BATCH / (p50 / 1e3)
+        res["b_train"] = {
+            **ft, "step_ms_p50": p50, "images_per_s": ips,
+            "loader_wait_ms_p50": float(np.percentile(ft["loader_wait_ms"],
+                                                      50)),
+            "macs_per_image": n_macs,
+            "train_flops_per_image": 6 * n_macs,
+            "train_flops_formula": "3 x 2 x MACs (conv + linear shapes)",
+            "port_flops_forward": fwd_flops,
+            "mfu": 6 * n_macs * ips / peak,
+            "seconds": time.perf_counter() - t0}
+        # (d) the detection ops at published sizes
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        det = R.detection(paddle, sync=sync)
+        res["d_detection"] = {**det, "seconds": time.perf_counter() - t0}
+    after = ops.kernel_launches()
+    launches = {k: after.get(k, 0) - before.get(k, 0)
+                for k in ("ragged_paged_attention", "flash_attention_fwd",
+                          "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv")}
+    res["kernel_launches"] = launches
+    res["plain_calls"] = plain.calls
+    res["seconds"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(res)
+    cc, ft, rp, det = (res["a_card_against_cpu"], res["b_train"],
+                       res["c_replay"], res["d_detection"])
+    assert cc["devices"] == ["cpu", "cuda:0"], cc["devices"]
+    assert cc["loss_rel_err_max"] <= VISION_CPU_RTOL, cc
+    assert cc["acc_card"] == cc["acc_cpu"], cc
+    assert cc["logits_err_over_largest"] <= VISION_CPU_RTOL, cc
+    assert ft["batches"] == R.EPOCHS * R.N_TRAIN // R.BATCH, ft["batches"]
+    assert all(np.isfinite(ft["losses"])) and \
+        np.isfinite(ft["evaluate"]["loss"]) and ft["logits_finite"], ft
+    assert ft["logits_shape"] == [R.N_EVAL, R.CLASSES], ft["logits_shape"]
+    assert ft["reload_bit_identical"] and ft["reload_buffers_equal"], ft
+    assert ft["files"] == ["1.pdopt", "1.pdparams", "final.pdopt",
+                           "final.pdparams"], ft["files"]
+    assert ft["graph_stats"]["captures"] == 1 and \
+        sum(ft["graph_stats"]["replays"].values()) == ft["batches"] - 1, \
+        ft["graph_stats"]
+    assert rp["losses_bit_identical"] and rp["params_bit_identical"] and \
+        rp["buffers_bit_identical"], rp
+    assert rp["n_buffers"] == 106 and rp["graph_stats"]["captures"] == 1, rp
+    assert det["on_card"] and det["proposals_identical"] and \
+        det["roi_scores_identical"] and det["matrix_nms_index_identical"], \
+        det
+    for key in ("rois_err", "yolo_boxes_err", "yolo_scores_err",
+                "matrix_nms_err", "roi_align_err"):
+        assert det[key] is not None and det[key] <= VISION_DET_RTOL, \
+            (key, det[key])
+    assert not any(launches.values()), launches
+    assert not any(plain.calls.values()), plain.calls
+    return res
+
+
 # ---------------------------------------------------------------------------
 # tensor-parallel serving, both ranks on this card
 # ---------------------------------------------------------------------------
@@ -4461,6 +4632,7 @@ def main():
     ti = phase_tiers(dev)
     lg = phase_long_tail(dev)
     bt = phase_bert(dev)
+    vz = phase_vision(dev)
     tpr = phase_tp(dev, s, serve_rows)
     # phase 32's launches (subprocesses only) run beside phases 26 (c)-(d)
     # and 27 (a), which time no kernel; its line comes at its turn
@@ -4498,6 +4670,7 @@ def main():
             "tiers": ti["kernel_launches"],
             "tp": sum(tpr["kernel_launches"].values()),
             "bert": bt["kernel_launches"]["ragged_paged_attention"],
+            "vision": vz["kernel_launches"]["ragged_paged_attention"],
             "fleet": flt["kernel_launches"],
             "tp_worker": sum(flt["tp_worker"]["k1_launches_per_rank"]),
             **{f"tp_{name}": _launch_sum(counts, "k1")
@@ -4525,6 +4698,7 @@ def main():
         by_path[name]["layer_trainstep"] = lt["kernel_launches"][name]
         by_path[name]["long_tail"] = lg["kernel_launches"][name]
         by_path[name]["bert"] = bt["kernel_launches"][name]
+        by_path[name]["vision"] = vz["kernel_launches"][name]
         by_path[name]["hybrid_train"] = sum(
             n[name] for n in hyb["bf16_full"]["kernel_launches_per_rank"])
         by_path[name]["pipeline_train"] = sum(

@@ -18,8 +18,9 @@ attention kernel written by hand in CUDA for Hopper,
 AMP and checkpoints (the flash attention kernels,
 ``csrc/flash_attention.cu``, which the Tensor API's ``flash_attention``
 runs too); the high-level API (``Model``, ``metric``, ``summary``,
-``flops``), the fused ops and layers of ``incubate`` and the BERT family
-(``models.bert``).
+``flops``), the fused ops and layers of ``incubate``, the BERT family
+(``models.bert``) and ``vision`` (transforms, datasets, the detection ops
+and the model zoo).
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``, ``set_device("cpu")``, ``place=CPUPlace()``); with no
@@ -67,6 +68,7 @@ from paddle_tpu_torch import metric  # noqa: F401,E402
 from paddle_tpu_torch import hapi  # noqa: F401,E402
 from paddle_tpu_torch.hapi import Model, flops, summary  # noqa: F401,E402
 from paddle_tpu_torch import incubate  # noqa: F401,E402
+from paddle_tpu_torch import vision  # noqa: F401,E402
 
 # the fft MODULE shadows the registry's 1-D fft op at the top level
 # (paddle.fft is a namespace; paddle.fft.fft the op), as in the JAX package

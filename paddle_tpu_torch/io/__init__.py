@@ -450,6 +450,9 @@ class DataLoader:
         self.prefetch_mesh = prefetch_mesh
         self.prefetch_placements = prefetch_placements
         self.worker_init_fn = worker_init_fn
+        # the shared-memory ring's size (the JAX package's: 64 MiB); a
+        # batch larger than it needs a larger ring, set before iterating
+        self.shm_capacity_bytes = 64 << 20
         self.transport = None
         self.prefetcher = None
         self._iterable_mode = isinstance(dataset, IterableDataset)
@@ -589,7 +592,7 @@ class DataLoader:
             try:
                 from paddle_tpu_torch.io.shm_queue import ShmQueue
 
-                result_q = ShmQueue()
+                result_q = ShmQueue(self.shm_capacity_bytes)
                 self.transport = "ShmQueue"
             except Exception:
                 result_q = None

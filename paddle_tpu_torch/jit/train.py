@@ -482,21 +482,21 @@ class TrainStep:
         key = (tuple((tuple(d.shape), d.dtype) for d in first), n_inputs)
         name = "/".join("x".join(map(str, s)) or "scalar"
                         for s, _ in key[0]) + f":n{n_inputs}"
-        losses = torch.empty((k,), dtype=torch.float32, device=self._device)
+        losses = []    # in the loss's own dtype, as the eager path gives
         self._bind_state()
         try:
             g = self._graphs.get(key)
             start = 0
             if g is None:
                 g, warm_loss = self._capture(key, name, first, n_inputs)
-                losses[0].copy_(warm_loss)
+                losses.append(warm_loss)
                 start = 1
             for i in range(start, k):
                 if stacked or i == start:
                     for buf, d in zip(g.inputs, micro(i)):
                         buf.copy_(d)
                 g.graph.replay()
-                losses[i].copy_(g.loss)
+                losses.append(g.loss.clone())
             n = k - start
             self._replays[name] = self._replays.get(name, 0) + n
             for counter, m in self._captured[name].items():
@@ -504,7 +504,7 @@ class TrainStep:
                     + m * n
         finally:
             self._release_state()
-        return losses
+        return torch.stack(losses)
 
     def _capture(self, key, name, first, n_inputs):
         """Warm-up (the dispatch's first step, eager on a side stream),

@@ -1,6 +1,7 @@
 """Weights and state across frameworks: the JAX Llama's state dict,
 AdamW slots and optimizer ``state_dict``, a JAX ``nn.Layer``'s state
-dict with the generator's state, and the JAX BERT's -> the port's."""
+dict with the generator's state, and the JAX BERT's and vision models'
+-> the port's."""
 from __future__ import annotations
 
 from typing import Dict, Mapping, Tuple
@@ -12,7 +13,8 @@ __all__ = ["llama_state_from_jax", "llama_pipe_state_from_jax",
            "llama_pipe_state_from_causal_lm", "llama_pipe_state_to_jax",
            "optimizer_slots_from_jax",
            "optimizer_state_from_jax", "layer_state_from_jax",
-           "bert_state_from_jax", "moe_state_from_jax"]
+           "bert_state_from_jax", "vision_state_from_jax",
+           "moe_state_from_jax"]
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -128,6 +130,18 @@ def layer_state_from_jax(np_state: Mapping[str, np.ndarray], rng_state
     return state, (int(rng_state[0]), int(rng_state[1]))
 
 
+def _load_exactly(fn: str, state, model) -> None:
+    """Load ``state`` into ``model`` once it names exactly the model's
+    state keys, parameters and buffers (``KeyError`` otherwise)."""
+    own = model.state_dict()
+    extra = sorted(set(state) - set(own))
+    missing = sorted(set(own) - set(state))
+    if extra or missing:
+        raise KeyError(f"{fn}: keys left over {extra[:8]}, "
+                       f"missing {missing[:8]}")
+    model.set_state_dict(state)
+
+
 def bert_state_from_jax(np_state: Mapping[str, np.ndarray], rng_state,
                         model=None
                         ) -> Tuple[Dict[str, torch.Tensor], Tuple[int, int]]:
@@ -141,18 +155,28 @@ def bert_state_from_jax(np_state: Mapping[str, np.ndarray], rng_state,
     state, rng = layer_state_from_jax(np_state, rng_state)
     if model is None:
         return state, rng
-    own = model.state_dict()
-    extra = sorted(set(state) - set(own))
-    missing = sorted(set(own) - set(state))
-    if extra or missing:
-        raise KeyError(f"bert_state_from_jax: keys left over {extra[:8]}, "
-                       f"missing {missing[:8]}")
-    model.set_state_dict(state)
+    _load_exactly("bert_state_from_jax", state, model)
     if hasattr(model, "decoder_weight"):
         emb = model.bert.embeddings.word_embeddings.weight
         if model.decoder_weight._data is not emb._data:
             raise ValueError("bert_state_from_jax: the masked-LM decoder "
                              "is no longer the word embedding")
+    return state, rng
+
+
+def vision_state_from_jax(np_state: Mapping[str, np.ndarray], rng_state,
+                          model
+                          ) -> Tuple[Dict[str, torch.Tensor], Tuple[int, int]]:
+    """A JAX ``vision.models`` network's ``state_dict()`` (numpy) and
+    generator ``(seed, counter)`` loaded into ``model``, the port's network
+    of the same family and config: the parameters and the batch norms'
+    running ``_mean`` / ``_variance`` buffers, which
+    :func:`layer_state_from_jax` carries as they are but no
+    ``set_state_dict`` checks. Every key of the model must be in the state
+    and no other (``KeyError``). Returns the state and the generator
+    pair."""
+    state, rng = layer_state_from_jax(np_state, rng_state)
+    _load_exactly("vision_state_from_jax", state, model)
     return state, rng
 
 

@@ -357,7 +357,13 @@ def avg_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
 
 @op
 def adaptive_avg_pool2d(x, output_size):
-    return F.adaptive_avg_pool2d(x, _pair(output_size))
+    size = _pair(output_size)
+    if size == (1, 1):
+        # the whole map's mean as one average-pooling window: CUDA's
+        # adaptive pooling backward has no deterministic kernel, and
+        # torch.use_deterministic_algorithms(True) refuses it
+        return F.avg_pool2d(x, tuple(x.shape[-2:]))
+    return F.adaptive_avg_pool2d(x, size)
 
 
 @op

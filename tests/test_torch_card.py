@@ -51,7 +51,11 @@ matches the one-rank dense model. Slice E2a and the high-level API: the
 small BERT's forward and one ``Model.fit`` batch, and
 ``masked_multihead_attention`` / ``fused_multi_head_attention``, give
 the CPU's numbers on the card, and the masked-LM decoder stays the word
-embedding across ``Model.save`` / ``Model.load``."""
+embedding across ``Model.save`` / ``Model.load``. Slice E2b: ResNet-18's
+forward and one ``Model.fit`` batch give the CPU's numbers on the card
+(TF32 off), its captured step's replays thread the batch norms' running
+statistics bit-identically to ``__call__``, and greedy NMS and
+``generate_proposals`` keep the CPU's boxes on the card."""
 import numpy as np
 import pytest
 import torch
@@ -2188,3 +2192,182 @@ def test_tied_decoder_after_model_load_on_the_card(card_place, tmp_path):
     assert net2.decoder_weight is emb and emb._data.is_cuda
     np.testing.assert_array_equal(m2.predict_batch([ids])[0],
                                   m.predict_batch([ids])[0])
+
+
+# -- slice E2b: vision -------------------------------------------------------
+def _resnet18_fit_once(paddle, device, state, x, y):
+    """One ``Model.fit`` batch of ResNet-18 (10 classes) on ``device``
+    from ``state``, then ``predict`` in eval mode: (loss, logits, net)."""
+    paddle.set_device(device)
+    paddle.seed(0)
+    net = paddle.vision.models.resnet18(num_classes=10)
+    net.set_state_dict(state)
+    m = paddle.Model(net)
+    m.prepare(paddle.optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                                        weight_decay=1e-4,
+                                        parameters=net.parameters()),
+              paddle.nn.CrossEntropyLoss())
+    n = len(y)
+    hist = m.fit([(x[i], y[i]) for i in range(n)], batch_size=n, epochs=1,
+                 verbose=0, shuffle=False)
+    logits = m.predict([(x[i],) for i in range(n)], batch_size=n)[0][0]
+    return hist[0]["loss"], logits, net
+
+
+@pytest.mark.gpu
+def test_resnet18_forward_and_fit_batch_card_against_cpu(card_place):
+    """ResNet-18, f32 with TF32 off: its eval forward, then one
+    ``Model.fit`` batch of 8 x 3 x 64 x 64 (train-mode batch norms over
+    at least 32 elements a channel), ``predict`` and the running
+    statistics, within rtol 1e-4 of the CPU's; ``predict``'s logits
+    within 1e-3 of the largest (an eval forward through running
+    statistics one step has moved: 3.6e-4 of the largest at lr 0.1 on
+    an H100 80GB HBM3 at 700 W)."""
+    import paddle_tpu_torch as paddle
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rng = np.random.RandomState(0)
+        x = rng.randn(8, 3, 64, 64).astype("float32")
+        y = rng.randint(0, 10, 8).astype("int64")
+        paddle.set_device("cpu")
+        paddle.seed(0)
+        net = paddle.vision.models.resnet18(num_classes=10)
+        state = {k: v.numpy() for k, v in net.state_dict().items()}
+        net.eval()
+        fwd_cpu = net(paddle.to_tensor(x)).numpy()
+        loss_cpu, logits_cpu, net_cpu = _resnet18_fit_once(
+            paddle, "cpu", state, x, y)
+        paddle.set_device("gpu")
+        card_net = paddle.vision.models.resnet18(num_classes=10)
+        card_net.set_state_dict(state)
+        card_net.eval()
+        fwd = card_net(paddle.to_tensor(x))
+        assert fwd._data.is_cuda
+        scale = float(np.abs(fwd_cpu).max())
+        np.testing.assert_allclose(fwd.numpy(), fwd_cpu, rtol=1e-4,
+                                   atol=1e-4 * scale)
+        loss, logits, net_card = _resnet18_fit_once(paddle, "gpu", state,
+                                                    x, y)
+        np.testing.assert_allclose(loss, loss_cpu, rtol=1e-4)
+        np.testing.assert_allclose(
+            logits, logits_cpu, rtol=1e-4,
+            atol=1e-3 * float(np.abs(logits_cpu).max()))
+        cpu_state = net_cpu.state_dict()
+        for k, v in net_card.state_dict().items():
+            if k.endswith(("_mean", "_variance")):
+                np.testing.assert_allclose(v.numpy(), cpu_state[k].numpy(),
+                                           rtol=1e-4, atol=1e-5, err_msg=k)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+
+
+@pytest.mark.gpu
+def test_resnet_trainstep_replays_thread_batch_norm_buffers(card_place):
+    """ResNet-18 under deterministic kernels: the captured step's replays
+    leave the losses, parameters and every batch norm's running mean and
+    variance bit-identical to ``TrainStep.__call__`` steps."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.tools.bert_base_train import _deterministic
+
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(16, 3, 64, 64).astype("float32")).cuda()
+    y = torch.from_numpy(rng.randint(0, 10, 16).astype("int64")).cuda()
+    out = {}
+    with _deterministic():
+        for how in ("call", "replay"):
+            paddle.seed(0)
+            net = paddle.vision.models.resnet18(num_classes=10)
+            opt = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                            parameters=net.parameters())
+            step = TrainStep(net, paddle.nn.CrossEntropyLoss(), opt)
+            losses = [float(step(x, y) if how == "call"
+                            else step.run_steps(1, x, y)[0])
+                      for _ in range(4)]
+            out[how] = (losses, {k: v._data.clone()
+                                 for k, v in net.state_dict().items()})
+            if how == "replay":
+                stats = step.graph_stats()
+                assert stats["captures"] == 1, stats
+                assert sum(stats["replays"].values()) == 3, stats
+    assert out["call"][0] == out["replay"][0]
+    bufs = [k for k in out["call"][1] if k.endswith(("_mean", "_variance"))]
+    assert len(bufs) == 40
+    for k, v in out["call"][1].items():
+        assert torch.equal(v, out["replay"][1][k]), k
+
+
+@pytest.mark.gpu
+def test_nms_and_generate_proposals_card_against_cpu(card_place):
+    """Greedy NMS (plain, by category, top_k) and ``generate_proposals``
+    on the card keep the CPU's indices and boxes (within 1e-5 of the
+    largest), on the card."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision import ops as vops
+
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(0, 200, (500, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(5, 60, (500, 2))],
+                           1).astype("float32")
+    scores = rng.uniform(size=500).astype("float32")
+    cats = rng.integers(0, 5, 500).astype("int64")
+    n, a, h, w = 2, 9, 20, 30
+    rpn = (rng.uniform(size=(n, a, h, w)).astype("float32"),
+           rng.normal(scale=0.2, size=(n, 4 * a, h, w)).astype("float32"),
+           np.asarray([[320, 480], [300, 400]], "float32"),
+           (lambda an: np.concatenate([an[..., :2], an[..., :2]
+                                       + rng.uniform(8, 120, (h, w, a, 2))],
+                                      -1))(rng.uniform(0, 450, (h, w, a, 2))
+                                           ).astype("float32"),
+           np.ones((h, w, a, 4), "float32"))
+    out = {}
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        T = paddle.to_tensor
+        b, s, c = T(boxes), T(scores), T(cats)
+        kept = [vops.nms(b, 0.5), vops.nms(b, 0.5, s),
+                vops.nms(b, 0.5, s, c, list(range(5))),
+                vops.nms(b, 0.3, s, top_k=20)]
+        rois, rs, num = vops.generate_proposals(
+            *map(T, rpn), pre_nms_top_n=2000, post_nms_top_n=200,
+            nms_thresh=0.7, min_size=16.0, return_rois_num=True)
+        assert (rois._data.is_cuda and kept[0]._data.is_cuda) == \
+            (dev == "gpu")
+        out[dev] = [k.numpy() for k in kept] + [rois.numpy(), rs.numpy(),
+                                                num.numpy()]
+    for i, (c, g) in enumerate(zip(out["cpu"], out["gpu"])):
+        assert c.shape == g.shape and c.dtype == g.dtype, i
+        if i in (4, 5):
+            np.testing.assert_allclose(g, c, rtol=0,
+                                       atol=1e-5 * np.abs(c).max())
+        else:
+            np.testing.assert_array_equal(g, c)
+
+
+@pytest.mark.gpu
+def test_captured_run_steps_returns_losses_in_the_loss_dtype(card_place):
+    """``TrainStep.run_steps`` on the card (the warm-up, the capture,
+    replays) returns the float64 losses of a float64 network as the
+    eager steps compute them, as the CPU path does."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+
+    paddle.seed(0)
+    net = paddle.nn.Sequential(paddle.nn.Linear(6, 8), paddle.nn.ReLU(),
+                               paddle.nn.Linear(8, 3))
+    net.to(dtype="float64")
+    opt = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                    parameters=net.parameters())
+    step = TrainStep(net, paddle.nn.CrossEntropyLoss(), opt)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(4, 6)).cuda()
+    y = torch.from_numpy(rng.randint(0, 3, 4).astype("int64")).cuda()
+    losses = step.run_steps(3, x, y)
+    assert losses.dtype == torch.float64 and losses.shape == (3,)
+    assert step.graph_stats()["captures"] == 1
+    assert bool(torch.isfinite(losses).all())

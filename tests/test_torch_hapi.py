@@ -327,6 +327,22 @@ def test_summary_and_flops_match_the_reference(capsys):
     assert out[tpaddle][1] == 2 * 4 * (8 * 16 + 16 * 2) + 2 * 4 * 16
 
 
+def test_summary_resnet(capsys):
+    """tests/test_hapi.py::test_summary_resnet on the port, held to the
+    reference's counts."""
+    from paddle_tpu.vision.models import resnet18 as jresnet18
+    from paddle_tpu_torch.vision.models import resnet18
+
+    res = tpaddle.summary(resnet18(num_classes=10),
+                          input_size=(1, 3, 32, 32))
+    assert res["total_params"] > 1e7 * 1.1  # ~11.2M
+    assert res["flops"] > 0
+    jpaddle.seed(0)
+    assert res == jpaddle.summary(jresnet18(num_classes=10),
+                                  input_size=(1, 3, 32, 32))
+    capsys.readouterr()
+
+
 def test_model_checkpoint_flat_and_load(tmp_path):
     x, y = _rand_cls(32)
     m = _mlp_model(tpaddle)
@@ -483,6 +499,7 @@ def test_save_for_inference_waits_for_e3(tmp_path):
 
 
 def test_top_level_names():
-    for name in ("hapi", "metric", "incubate", "Model", "summary", "flops"):
+    for name in ("hapi", "metric", "incubate", "Model", "summary", "flops",
+                 "vision"):
         assert hasattr(tpaddle, name), name
     assert tpaddle.Model is tpaddle.hapi.Model

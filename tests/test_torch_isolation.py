@@ -143,6 +143,23 @@ _MODULES = [
     "paddle_tpu_torch.hapi.callbacks", "paddle_tpu_torch.hapi.model",
     "paddle_tpu_torch.hapi.model_summary",
     "paddle_tpu_torch.tools.bert_base_train",
+    # slice E2b: vision
+    "paddle_tpu_torch.vision", "paddle_tpu_torch.vision.transforms",
+    "paddle_tpu_torch.vision.datasets", "paddle_tpu_torch.vision.ops",
+    "paddle_tpu_torch.vision.models",
+    "paddle_tpu_torch.vision.models.resnet",
+    "paddle_tpu_torch.vision.models.lenet",
+    "paddle_tpu_torch.vision.models.alexnet",
+    "paddle_tpu_torch.vision.models.vgg",
+    "paddle_tpu_torch.vision.models.mobilenetv1",
+    "paddle_tpu_torch.vision.models.mobilenetv2",
+    "paddle_tpu_torch.vision.models.mobilenetv3",
+    "paddle_tpu_torch.vision.models.squeezenet",
+    "paddle_tpu_torch.vision.models.shufflenetv2",
+    "paddle_tpu_torch.vision.models.densenet",
+    "paddle_tpu_torch.vision.models.googlenet",
+    "paddle_tpu_torch.vision.models.inceptionv3",
+    "paddle_tpu_torch.tools.resnet50_train",
 ]
 
 

@@ -550,6 +550,10 @@ add("adaptive_avg_pool2d", X(lambda r: [f(r, 2, 3, 7, 6), [3, 4]]))
 add("adaptive_max_pool2d", X(lambda r: [f(r, 2, 3, 7, 6), [3, 4]]))
 add("adaptive_avg_pool2d", X(lambda r: [f(r, 2, 3, 8, 6), 2]),
     name="adaptive_avg_pool2d_divisible")
+add("adaptive_avg_pool2d", X(lambda r: [f(r, 2, 3, 7, 5), [1, 1]]),
+    name="adaptive_avg_pool2d_global")
+add("adaptive_avg_pool2d", X(lambda r: [f(r, 2, 4, 1, 1), 1]),
+    name="adaptive_avg_pool2d_global_1x1")
 add("unfold", X(lambda r: [f(r, 2, 3, 6, 5), [2, 3]], strides=[2, 1],
                 paddings=1, dilations=[1, 2]))
 add("pixel_shuffle", X(lambda r: [f(r, 2, 8, 3, 3), 2]))
